@@ -1,10 +1,14 @@
 """Load the JAX package's Llama param tree into the port's model.
 
 The tree is given as nested dicts of arrays (numpy, or anything
-``np.asarray`` takes), dense (``kernel``) or int8 (``kernel_q`` +
+``np.asarray`` takes), dense (``kernel``), with LoRA adapters
+(``kernel`` + ``lora_a`` + ``lora_b``) or int8 (``kernel_q`` +
 ``kernel_scale``), exactly as ``Llama(cfg).init(...)["params"]`` and
 ``quantize_llama_params`` make it. The port keeps the JAX names and
-layouts, so the only renaming is ``layer_<i>`` → ``layers.<i>``.
+layouts, so the only renaming is ``layer_<i>`` → ``layers.<i>``. Each
+value is cast to its weight's dtype: the JAX init's fp32 base kernels
+become ``cfg.dtype`` (the value the JAX forward computes with, since it
+casts them per call), while adapters, norms and the head stay fp32.
 """
 
 import re

@@ -1,6 +1,8 @@
 """Port Llama vs the JAX Llama on the CPU: RoPE tables, RMSNorm,
-sampling, and the paged decode model's logits from the same weights
-(prefill, then single-token steps), dense and int8."""
+sampling, the paged decode model's logits from the same weights
+(prefill, then single-token steps), dense and int8, and the training
+forward with LoRA (the adapters, their mask and merge, logits and
+hidden states)."""
 
 import dataclasses
 
@@ -12,9 +14,12 @@ import torch
 
 from sparkdl_tpu.models import generate as jax_gen
 from sparkdl_tpu.models import llama as jax_llama
+from sparkdl_tpu.models import lora as jax_lora
 from sparkdl_tpu.models.quant import quantize_llama_params as jax_quantize
+from sparkdl_tpu.ops.attention import flash_attention as jax_flash_attention
 from sparkdl_tpu_torch.models import generate as pt_gen
 from sparkdl_tpu_torch.models import llama as pt_llama
+from sparkdl_tpu_torch.models import lora as pt_lora
 from sparkdl_tpu_torch.models.from_jax import (
     flatten_jax_tree,
     load_jax_params,
@@ -203,3 +208,195 @@ def test_llama3_8b_config_widths():
         assert getattr(cfg, f) == getattr(ref, f), f
     assert cfg.dtype == torch.bfloat16
     assert pt_llama.LlamaConfig.llama3_8b(n_layers=2).n_layers == 2
+
+
+# --- training forward and LoRA --------------------------------------------
+
+
+def _spread_lora(params, seed=1):
+    """A JAX LoRA tree with non-zero ``lora_b`` (the init zeros it), so
+    both adapters carry signal and gradients."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        if getattr(path[-1], "key", "") == "lora_b":
+            return jnp.asarray(
+                0.05 * rng.standard_normal(leaf.shape).astype(np.float32))
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
+@pytest.fixture(scope="module")
+def lora_params():
+    cfg = jax_llama.LlamaConfig.tiny(dtype=jnp.float32, lora_rank=4)
+    params = jax.jit(jax_llama.Llama(cfg).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    return _spread_lora(params)
+
+
+def test_lora_dense_forward_and_gradients_match_jax():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 5, 12)).astype(np.float32)
+    w = {"kernel": rng.standard_normal((12, 10)).astype(np.float32),
+         "lora_a": rng.standard_normal((12, 3)).astype(np.float32),
+         "lora_b": rng.standard_normal((3, 10)).astype(np.float32)}
+    g = rng.standard_normal((2, 5, 10)).astype(np.float32)
+    jm = jax_lora.LoRADense(features=10, rank=3, alpha=6.0,
+                            dtype=jnp.float32)
+
+    def jax_loss(p, x_):
+        return jnp.sum(jm.apply({"params": p}, x_) * g)
+
+    jp = {k: jnp.asarray(v) for k, v in w.items()}
+    ref = jm.apply({"params": jp}, jnp.asarray(x))
+    jgrads, jgx = jax.grad(jax_loss, argnums=(0, 1))(jp, jnp.asarray(x))
+
+    tm = pt_lora.LoRADense(12, 10, 3, 6.0, torch.float32, "cpu")
+    with torch.no_grad():
+        for k, v in w.items():
+            getattr(tm, k).copy_(torch.from_numpy(v))
+    assert not tm.kernel.requires_grad
+    assert tm.lora_a.requires_grad and tm.lora_b.dtype == torch.float32
+    tx = torch.from_numpy(x).requires_grad_()
+    out = tm(tx)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=1e-5,
+                               rtol=1e-5)
+    for k in ("lora_a", "lora_b"):
+        np.testing.assert_allclose(getattr(tm, k).grad.numpy(),
+                                   np.asarray(jgrads[k]), atol=1e-5,
+                                   rtol=1e-5, err_msg=k)
+    assert tm.kernel.grad is None
+
+
+@pytest.mark.parametrize("extra", [(), ("final_norm",), ("layer_1",)])
+def test_lora_mask_marks_the_jax_leaves(lora_params, extra):
+    cfg = pt_llama.LlamaConfig.tiny(dtype=torch.float32, lora_rank=4)
+    model = pt_llama.Llama(cfg, device="cpu")
+    ref = flatten_jax_tree(jax_lora.lora_mask(lora_params, extra))
+    mask = pt_lora.lora_mask(model, extra)
+    assert set(mask) == set(ref)
+    assert mask == {k: bool(v) for k, v in ref.items()}
+    assert sum(mask.values()) >= 8
+
+
+def test_merge_lora_with_matches_jax(lora_params):
+    cfg = pt_llama.LlamaConfig.tiny(dtype=torch.float32, lora_rank=4)
+    model = load_jax_params(pt_llama.Llama(cfg, device="cpu"),
+                            jax.tree.map(np.asarray, lora_params))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    merged = pt_lora.merge_lora_with(model, alpha=16.0, rank=4)
+    ref = flatten_jax_tree(jax.tree.map(
+        np.asarray, jax_lora.merge_lora_with(lora_params, 16.0, 4)))
+    assert set(merged) == set(ref)
+    for name, value in ref.items():
+        np.testing.assert_allclose(merged[name].numpy(), value, atol=1e-6,
+                                   err_msg=name)
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, before[name]), name
+
+
+def _jax_flash_fn(q, k, v):
+    return jax_flash_attention(q, k, v, causal=True, interpret=True)
+
+
+@pytest.mark.parametrize("jax_attention", ["flash", "reference"])
+def test_training_logits_and_hidden_match_jax(lora_params, jax_attention):
+    """The training forward (attention="flash", the plain versions on
+    the CPU) against the JAX model run through its flash kernel in
+    interpret mode, and through its dense attention."""
+    jcfg = jax_llama.LlamaConfig.tiny(dtype=jnp.float32, lora_rank=4)
+    jm = jax_llama.Llama(
+        jcfg, attention_fn=_jax_flash_fn if jax_attention == "flash"
+        else None)
+    tcfg = pt_llama.LlamaConfig.tiny(dtype=torch.float32, lora_rank=4,
+                                     attention="flash")
+    tm = load_jax_params(pt_llama.Llama(tcfg, device="cpu"),
+                         jax.tree.map(np.asarray, lora_params))
+    tokens = np.random.default_rng(5).integers(0, 256, (2, 40)).astype(
+        np.int32)
+    apply = jax.jit(jm.apply, static_argnames="return_hidden")
+    for hidden in (False, True):
+        ref = apply({"params": lora_params}, jnp.asarray(tokens),
+                    return_hidden=hidden)
+        with torch.no_grad():
+            out = tm(torch.from_numpy(tokens), return_hidden=hidden)
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
+
+
+def test_reference_attention_and_remat_give_the_same_logits(lora_params):
+    tree = jax.tree.map(np.asarray, lora_params)
+    tokens = torch.from_numpy(
+        np.random.default_rng(6).integers(0, 256, (2, 24)))
+    outs = []
+    for kw in ({"attention": "flash"}, {"attention": "reference"},
+               {"attention": "flash", "remat": True}):
+        cfg = pt_llama.LlamaConfig.tiny(dtype=torch.float32, lora_rank=4,
+                                        **kw)
+        model = load_jax_params(pt_llama.Llama(cfg, device="cpu"), tree)
+        outs.append(model(tokens))
+        outs[-1].sum().backward()
+        outs[-1] = (outs[-1].detach(),
+                    model.layers[0].attn.q_proj.lora_a.grad.clone())
+    # dense vs flash: fp32, another summation order (logits and the
+    # gradients of their sum up to ~40)
+    for logits, grad in outs[1:]:
+        np.testing.assert_allclose(logits.numpy(), outs[0][0].numpy(),
+                                   atol=1e-4, rtol=1e-5)
+        np.testing.assert_allclose(grad.numpy(), outs[0][1].numpy(),
+                                   atol=1e-4, rtol=1e-5)
+    # remat recomputes the same ops: the same values exactly
+    assert torch.equal(outs[2][0], outs[0][0])
+    assert torch.equal(outs[2][1], outs[0][1])
+
+
+def test_lora_targets_and_frozen_base():
+    cfg = pt_llama.LlamaConfig.tiny(lora_rank=4, lora_targets=("k_proj",
+                                                               "up_proj"))
+    model = pt_llama.Llama(cfg, device="cpu")
+    attn, mlp = model.layers[0].attn, model.layers[0].mlp
+    assert isinstance(attn.k_proj, pt_lora.LoRADense)
+    assert isinstance(mlp.up_proj, pt_lora.LoRADense)
+    assert not isinstance(attn.q_proj, pt_lora.LoRADense)
+    assert attn.k_proj.kernel.dtype == torch.bfloat16
+    assert attn.k_proj.lora_a.dtype == torch.float32
+    trained = {n for n, p in model.named_parameters() if p.requires_grad}
+    assert trained == {n for n, m in pt_lora.lora_mask(model).items() if m}
+
+
+def test_init_weights_follows_the_generator():
+    cfg = pt_llama.LlamaConfig.tiny(lora_rank=4, d_model=128)
+    models = [pt_llama.init_weights(pt_llama.Llama(cfg, device="cpu"),
+                                    torch.Generator().manual_seed(3))
+              for _ in range(2)]
+    for (name, a), b in zip(models[0].state_dict().items(),
+                            models[1].state_dict().values()):
+        assert torch.equal(a, b), name
+    layer = models[0].layers[0]
+    assert bool((layer.attn_norm.scale == 1).all())
+    assert bool((layer.attn.v_proj.lora_b == 0).all())
+    w = layer.mlp.up_proj.kernel.float()
+    assert abs(w.std().item() - 0.02) < 0.002 and abs(w.mean().item()) < 1e-3
+
+
+def test_unported_training_options_raise_by_name():
+    for name, value in (("flash_block", 64), ("multi_lora", 2),
+                        ("n_experts", 4)):
+        with pytest.raises(NotImplementedError, match=name):
+            pt_llama.LlamaConfig.tiny(**{name: value})
+    with pytest.raises(ValueError, match="lora_rank=0"):
+        pt_llama.LlamaConfig.tiny(quant="int8", lora_rank=4)
+    with pytest.raises(ValueError, match="attention"):
+        pt_llama.LlamaConfig.tiny(attention="ring")
+    cfg = pt_llama.LlamaConfig.tiny(n_layers=1)
+    for name in ("attention_fn", "paged_attention_fn"):
+        with pytest.raises(NotImplementedError, match=name):
+            pt_llama.Llama(cfg, device="cpu", **{name: _jax_flash_fn})
+    model = pt_llama.Llama(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="adapter_ids"):
+        model(torch.zeros(1, 4, dtype=torch.long),
+              adapter_ids=torch.zeros(1))

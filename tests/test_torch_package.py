@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from sparkdl_tpu_torch.models import llama as pt_llama
+from sparkdl_tpu_torch.models.lora import lora_mask
 from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
 from sparkdl_tpu_torch.ops import quantized_matmul as pt_qmm
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
+from sparkdl_tpu_torch.parallel import train as pt_train
 
 torch.set_num_threads(2)
 
@@ -58,10 +60,16 @@ def test_port_files_exist():
                  "sparkdl_tpu_torch/models/generate.py",
                  "sparkdl_tpu_torch/models/serving.py",
                  "sparkdl_tpu_torch/models/from_jax.py",
+                 "sparkdl_tpu_torch/models/lora.py",
+                 "sparkdl_tpu_torch/ops/flash_attention.py",
+                 "sparkdl_tpu_torch/ops/attention.py",
+                 "sparkdl_tpu_torch/parallel/train.py",
+                 "sparkdl_tpu_torch/parallel/ring_attention.py",
                  "chip_smoke.py"):
         assert want in names, want
     csrc = REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
-    for src in ("quantized_matmul.cu", "paged_attention.cu"):
+    for src in ("quantized_matmul.cu", "paged_attention.cu",
+                "flash_attention.cu"):
         text = (csrc / src).read_text()
         # each kernel names the TPU kernel it replaces
         assert "Replaces: sparkdl_tpu/ops/pallas/" in text, src
@@ -87,6 +95,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("xpu")
+
+
+def test_training_entry_points_default_to_cuda(no_cuda):
+    cfg = pt_llama.LlamaConfig.tiny(lora_rank=4, attention="flash")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt_llama.Llama(cfg)
+    model = pt_llama.init_weights(pt_llama.Llama(cfg, device="cpu"),
+                                  torch.Generator().manual_seed(0))
+    mask = lora_mask(model)
+    opt = torch.optim.AdamW(
+        [p for n, p in model.named_parameters() if mask[n]], lr=1e-4,
+        weight_decay=1e-4)
+    loss_fn = pt_train.make_lm_loss_fn(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt_train.make_train_step(loss_fn, opt, param_mask=mask)
+    step = pt_train.make_train_step(loss_fn, opt, param_mask=mask,
+                                    device="cpu")
+    batch = pt_train.global_batch(np.random.default_rng(0), 256, 1, 8)
+    assert torch.isfinite(step(batch)["loss"])
+
+
+def test_tpu_and_unported_training_options_raise():
+    with pytest.raises(NotImplementedError, match="flash_block"):
+        pt_llama.LlamaConfig.llama3_8b(attention="flash", flash_block=64)
+    with pytest.raises(NotImplementedError, match="attention_fn"):
+        pt_llama.Llama(pt_llama.LlamaConfig.tiny(), device="cpu",
+                       attention_fn=lambda q, k, v: q)
 
 
 def test_chip_smoke_exits_nonzero_without_cuda(no_cuda, capsys):
