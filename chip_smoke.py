@@ -2,9 +2,10 @@
 """Chip smoke of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version at the main paths' shapes, serve
 Llama-3-8B at full width (random int8 weights, paged KV cache) through
-``ContinuousBatchingEngine``, then LoRA-fine-tune it at full width
-through ``make_train_step``, and show both runs went through their
-kernels.
+``ContinuousBatchingEngine``, serve it again in int4 behind the HTTP
+``ServingFrontend`` (chunked prefill, then shared prefixes), then
+LoRA-fine-tune it at full width through ``make_train_step``, and show
+every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -20,6 +21,10 @@ and on any failed check. Phases:
    events (L2 flushed between runs, median of 25) beside the bound
    computed from bytes or operations, and ``torch._weight_int8pack_mm``
    timed beside the int8 matmul as its library yardstick;
+2c. the int4 matmul against its plain version at the same decode-step
+   shapes and a prefill chunk (M = 256), group 64, timed beside its
+   bound and ``torch._weight_int4pack_mm`` (checked against the plain
+   version first);
 3. serving at full width: 16 requests (prompts 64-1024 tokens, budgets
    32-128, greedy) through 8 slots, pages of 64; every request must end
    on its full budget, and the launch counters, zeroed just before the
@@ -28,6 +33,19 @@ and on any failed check. Phases:
 4. the kernel path against the plain path at model level: the same
    weights at depth 2 (full width), one prefill and 4 decode steps;
    then the serving model is freed;
+7. int4 serving at full width behind the HTTP ``ServingFrontend``
+   (random normal(0.02) weights quantized to int4, group 64, 8 slots,
+   pages of 64, chunk 16, ``prefill_chunk=256``): 16 concurrent HTTP
+   clients, half of them streamed, prompts of 64-1024 tokens, budgets
+   of 32-128; every response on its full budget, ``/metrics`` counting
+   16, and the launch counters, zeroed before the run, equal to what
+   the engine's step and prefill-segment counts predict (int8: 0);
+7b. prefix sharing: one 512-token prefix registered, 8 requests that
+   extend it; the prefix tokens not prefilled again and the pool's
+   pages counted; then, at depth 2, a prefix request's first-token
+   logits against the same prompt prefilled whole;
+8. the int4 kernel path against the plain path at model level (depth
+   2, as phase 4); then the int4 model is freed;
 2b. the three flash-attention kernels (forward, dq, dk/dv) against
    their plain versions at the training shape (B 2, S 2048, H 32,
    D 128, causal) and at a ragged S of 1000 (causal and not, D 128 and
@@ -85,6 +103,15 @@ QMM_SHAPES = [(8, 4096, 4096, "bf16", 2, True),
               (8, 14336, 4096, "bf16", 1, True),
               (8, 4096, 128256, "fp32", 1, False),
               (512, 4096, 14336, "bf16", 0, False)]
+
+# int4 (B6) shapes: the decode step's projections and head as above, at
+# group 64, then one prefill segment (prefill_chunk = 256 tokens)
+Q4_GROUP = 64
+PREFILL_CHUNK = 256
+Q4_SHAPES = QMM_SHAPES[:5] + [(PREFILL_CHUNK, 4096, 14336, "bf16", 0,
+                               False)]
+# phase 7b: one shared prefix, the requests that extend it
+PREFIX_LEN, N_PREFIX_REQUESTS = 512, 8
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
 # call; 32 a step), then ragged S (no tile divides 1000), both head dims
@@ -234,6 +261,102 @@ def check_quantized_matmul(torch, timer, gen):
     return rows
 
 
+def int4pack_ms(torch, timer, x, packed, scales, ref, mag):
+    """The library yardstick of the int4 matmul: one
+    ``torch._weight_int4pack_mm`` call on the same weights (x in bf16,
+    scales bf16 with zero offsets: the scales are drawn bf16-exact, so
+    ``(q + 8 - 8) * s`` is our weight), checked against the plain
+    version's ``ref`` (to 2^-7 of the sum of |terms| ``mag``, for its
+    bf16 arithmetic) and then timed; (None, reason) where the call is
+    missing, refuses the shape or disagrees. It is never on the port's
+    path."""
+    from sparkdl_tpu_torch.ops.quantized_matmul import unpack_int4
+
+    xb = x.bfloat16()
+    group = x.shape[1] // scales.shape[0]
+    # (N, K) unsigned nibbles q + 8, even k in the high nibble
+    q = (unpack_int4(packed).t().to(torch.int32) + 8).to(torch.uint8)
+    sz = torch.stack([scales, torch.zeros_like(scales)], 2).bfloat16() \
+        .contiguous()
+    try:
+        w = torch._convert_weight_to_int4pack(
+            ((q[:, 0::2] << 4) | q[:, 1::2]).contiguous(), 8)
+        del q
+        out = torch._weight_int4pack_mm(xb, w, group, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    err = (out.float() - ref.float()).abs()
+    tol = 2.0 ** -7 * mag + _bf16_ulp(torch, ref.float())
+    if bool((err > tol).any()):
+        return None, (f"disagrees with the plain version: max err "
+                      f"{err.max().item()}")
+    return timer.ms(lambda: torch._weight_int4pack_mm(xb, w, group, sz)), ""
+
+
+def check_quantized_matmul_int4(torch, timer, gen):
+    """Phase 2c: the int4 kernel against its plain version at Q4_SHAPES,
+    timed beside its bound, the plain version and the library call."""
+    from sparkdl_tpu_torch.ops import quantized_matmul as qmm
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    rows = []
+    for m, k, n, xname, calls, per_layer in Q4_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=DEVICE).to(
+            dtypes[xname])
+        # every nibble value -8..7; scales bf16-exact (see int4pack_ms)
+        packed = torch.randint(-128, 128, (k // 2, n), generator=gen,
+                               device=DEVICE, dtype=torch.int8)
+        scales = (torch.rand((k // Q4_GROUP, n), generator=gen,
+                             device=DEVICE) * 1e-2 + 1e-4).bfloat16().float()
+        out = qmm.quantized_matmul_int4(x, packed, scales, group=Q4_GROUP)
+        ref = qmm.quantized_matmul_int4_reference(x, packed, scales,
+                                                  Q4_GROUP)
+        torch.cuda.synchronize()
+        # tolerance: the int8 check's. Both multiply the same fp32
+        # dequantized weights into K fp32 products summed in another
+        # order (at most 1e-5 of the sum of |terms|), and a bf16 output
+        # may land one ulp apart
+        mag = x.float().abs() @ qmm._dequant_int4(packed, scales,
+                                                  Q4_GROUP).abs()
+        err = (out.float() - ref.float()).abs()
+        tol = 1e-5 * mag + (_bf16_ulp(torch, ref.float())
+                            if xname == "bf16" else 1e-6 * ref.abs())
+        bad = int((err > tol).sum())
+        _require(bad == 0 and bool(torch.isfinite(out).all()),
+                 f"quantized_matmul_int4 ({m}, {k}, {n}) {xname}: {bad} "
+                 f"elements beyond tolerance, max err {err.max().item()}")
+        xb = x.element_size()
+        nbytes = (k * n // 2 + 4 * n * (k // Q4_GROUP) + m * k * xb
+                  + m * n * xb)
+        flops = 2 * m * k * n
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[xname])
+        row = {
+            "shape": [m, k, n], "x": xname, "group": Q4_GROUP,
+            "calls_per_decode_step": calls, "per_layer": per_layer,
+            "max_abs_err": err.max().item(),
+            "worst_err_over_tol": (err / tol).max().item(),
+            "ms": timer.ms(lambda: qmm.quantized_matmul_int4(
+                x, packed, scales, group=Q4_GROUP)),
+            "plain_ms": timer.ms(lambda: qmm.quantized_matmul_int4_reference(
+                x, packed, scales, Q4_GROUP)),
+            "host_us": timer.host_us(lambda: qmm.quantized_matmul_int4(
+                x, packed, scales, group=Q4_GROUP)),
+            "bound_ms": bound * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / PEAK_FLOPS[xname] else "operations"),
+            # the library call takes bf16 x: the fp32 head's x is cast,
+            # as the int8 yardstick does
+            "library_x": "bf16",
+        }
+        row["library_ms"], row["library_missing"] = int4pack_ms(
+            torch, timer, x, packed, scales, ref, mag)
+        _log("q4mm " + json.dumps(row))
+        rows.append(row)
+        del x, packed, scales, out, ref, mag, err, tol
+    return rows
+
+
 def check_paged_attention(torch, timer, gen):
     from sparkdl_tpu_torch.ops import paged_attention as pa
 
@@ -293,11 +416,16 @@ def check_paged_attention(torch, timer, gen):
     return row
 
 
-def random_int8_llama(torch, cfg, gen):
+def random_quant_llama(torch, cfg, gen):
     """Llama at ``cfg`` with weights drawn on the card, normal with std
-    0.02, each projection quantized to int8 as it is drawn."""
+    0.02, each projection quantized to int8 (``cfg.quant="int8"``) or to
+    int4 at ``cfg.quant_group`` (``"int4"``) as it is drawn, one matrix
+    at a time."""
     from sparkdl_tpu_torch.models.llama import Llama
-    from sparkdl_tpu_torch.ops.quantized_matmul import quantize_int8
+    from sparkdl_tpu_torch.ops.quantized_matmul import (
+        quantize_int4,
+        quantize_int8,
+    )
 
     model = Llama(cfg, device=DEVICE)
     modules = dict(model.named_modules())
@@ -316,7 +444,14 @@ def random_int8_llama(torch, cfg, gen):
                 p.copy_(w_q)
                 modules[owner].kernel_scale.copy_(s)
                 del w, w_q, s
-            elif leaf != "kernel_scale":
+            elif leaf == "kernel_q4":
+                w = torch.randn((2 * p.shape[0], p.shape[1]),
+                                generator=gen, device=p.device) * 0.02
+                w_q, s = quantize_int4(w, group=cfg.quant_group)
+                p.copy_(w_q)
+                modules[owner].kernel_scale4.copy_(s)
+                del w, w_q, s
+            elif leaf not in ("kernel_scale", "kernel_scale4"):
                 raise CheckFailed(f"unexpected weight {name}")
     return model
 
@@ -336,34 +471,20 @@ def serve(torch, model):
     budgets = [int(n) for n in rng.integers(32, 129, N_REQUESTS)]
     rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
 
-    # host clocks around the engine's own prefill and decode-chunk calls;
-    # both end in a host copy of their tokens, so the device is done
-    spent = {"prefill": [], "decode": 0.0}
-    prefill_fn, decode_fn = engine._prefill_segment, engine._decode_chunk
-
-    def timed_prefill(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        prefill_fn(*a, **k)
-        spent["prefill"].append(time.perf_counter() - t)
-
-    def timed_decode(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = decode_fn(*a, **k)
-        spent["decode"] += time.perf_counter() - t
-        return out
-
-    engine._prefill_segment, engine._decode_chunk = timed_prefill, timed_decode
+    spent = _time_engine(torch, engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     qmm.quantized_matmul.launches = 0
+    qmm.quantized_matmul_int4.launches = 0
     pa.paged_attention_decode.launches = 0
     t0 = time.perf_counter()
     results = engine.run()
     wall = time.perf_counter() - t0
     launches = {"quantized_matmul": qmm.quantized_matmul.launches,
                 "paged_attention_decode": pa.paged_attention_decode.launches}
+    _require(qmm.quantized_matmul_int4.launches == 0,
+             f"the int8 run launched the int4 matmul "
+             f"{qmm.quantized_matmul_int4.launches} times")
 
     stats = dict(engine.stats)
     for rid, budget in zip(rids, budgets):
@@ -405,6 +526,17 @@ def serve(torch, model):
     return report
 
 
+def _depth2(model, **cfg_kw):
+    """The first 2 layers of ``model`` (the same tensors), its config
+    replaced by ``cfg_kw``."""
+    from sparkdl_tpu_torch.models.llama import Llama
+
+    cfg = dataclasses.replace(model.cfg, n_layers=2, **cfg_kw)
+    params = {k: v for k, v in model.state_dict().items()
+              if not k.startswith("layers.") or k.split(".")[1] in ("0", "1")}
+    return Llama.from_params(cfg, params, device=DEVICE)
+
+
 @contextlib.contextmanager
 def plain_ops():
     """Route the models' kernel calls to their plain versions (the
@@ -414,31 +546,29 @@ def plain_ops():
     from sparkdl_tpu_torch.ops import paged_attention as pa
     from sparkdl_tpu_torch.ops import quantized_matmul as qmm
 
-    saved = (pa.paged_attention_decode, qmm.quantized_matmul, fa.flash_fwd,
-             fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    saved = (pa.paged_attention_decode, qmm.quantized_matmul,
+             qmm.quantized_matmul_int4, fa.flash_fwd, fa.flash_bwd_dq,
+             fa.flash_bwd_dkv)
     pa.paged_attention_decode = pa.paged_attention_decode_reference
     qmm.quantized_matmul = qmm.quantized_matmul_reference
+    qmm.quantized_matmul_int4 = qmm.quantized_matmul_int4_reference
     fa.flash_fwd = fa.flash_attention_reference
     fa.flash_bwd_dq = fa.flash_bwd_dq_reference
     fa.flash_bwd_dkv = fa.flash_bwd_dkv_reference
     try:
         yield
     finally:
-        (pa.paged_attention_decode, qmm.quantized_matmul, fa.flash_fwd,
-         fa.flash_bwd_dq, fa.flash_bwd_dkv) = saved
+        (pa.paged_attention_decode, qmm.quantized_matmul,
+         qmm.quantized_matmul_int4, fa.flash_fwd, fa.flash_bwd_dq,
+         fa.flash_bwd_dkv) = saved
 
 
-def kernel_vs_plain_model(torch, model):
-    """Phase 4: depth 2 of the same weights, one prefill of 100 tokens
-    in two rows and 4 decode steps, through the kernels and through the
-    plain versions; logits compared."""
-    from sparkdl_tpu_torch.models.llama import Llama
-
-    cfg = dataclasses.replace(model.cfg, n_layers=2, decode=True,
-                              page_size=64, n_pages=8)
-    params = {k: v for k, v in model.state_dict().items()
-              if not k.startswith("layers.") or k.split(".")[1] in ("0", "1")}
-    small = Llama.from_params(cfg, params, device=DEVICE)
+def kernel_vs_plain_model(torch, model, name="model"):
+    """Phase 4 (int8) and 8 (int4): depth 2 of the same weights, one
+    prefill of 100 tokens in two rows and 4 decode steps, through the
+    kernels and through the plain versions; logits compared."""
+    small = _depth2(model, decode=True, page_size=64, n_pages=8)
+    cfg = small.cfg
     rng = np.random.default_rng(SEED + 1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 100)),
                              device=DEVICE)
@@ -476,9 +606,261 @@ def kernel_vs_plain_model(torch, model):
         _require(bool(torch.isfinite(g).all())
                  and row["max_abs_err"] <= 2.0 ** -4 * scale
                  and row["mean_abs_err"] <= 2.0 ** -8 * scale,
-                 f"model logits, kernels vs plain, {row}")
-    _log("model " + json.dumps(report))
+                 f"{name} logits, kernels vs plain, {row}")
+    _log(f"{name} " + json.dumps(report))
     return report
+
+
+def _engine(model, **kw):
+    """The int4 phases' engine: 8 slots, pages of 64, chunk 16,
+    ``prefill_chunk`` 256, over ``model``'s own (quantized) weights."""
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
+                                    chunk=16, page_size=64,
+                                    prefill_chunk=PREFILL_CHUNK,
+                                    device=DEVICE, **kw)
+
+
+def _time_engine(torch, engine):
+    """Host clocks around the engine's own prefill-segment and
+    decode-chunk calls (each ends in a host copy or a synchronize, so
+    the device is done); returns the dict they fill."""
+    spent = {"prefill": [], "decode": 0.0}
+    prefill_fn, decode_fn = engine._prefill_segment, engine._decode_chunk
+
+    def timed_prefill(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill_fn(*a, **k)
+        torch.cuda.synchronize()
+        spent["prefill"].append(time.perf_counter() - t)
+
+    def timed_decode(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode_fn(*a, **k)
+        spent["decode"] += time.perf_counter() - t
+        return out
+
+    engine._prefill_segment, engine._decode_chunk = timed_prefill, timed_decode
+    return spent
+
+
+def _http(fe, path, payload=None):
+    """One request to the frontend (600 s timeout): the parsed JSON body,
+    the SSE events with their arrival times, or the text."""
+    import urllib.request
+
+    url = f"http://{fe.address[0]}:{fe.address[1]}{path}"
+    data = None if payload is None else json.dumps(payload).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                timeout=600) as r:
+        if payload is None:
+            return r.read().decode()
+        if not payload.get("stream"):
+            return json.loads(r.read())
+        events = []
+        for line in r:
+            if line.startswith(b"data: "):
+                events.append((time.perf_counter(),
+                               json.loads(line[6:].strip())))
+        return events
+
+
+def serve_http(torch, model):
+    """Phase 7: int4 serving behind the HTTP frontend, 16 concurrent
+    clients (odd ones streamed), counters zeroed just before the run."""
+    import threading
+
+    from sparkdl_tpu_torch.models.server import ServingFrontend
+    from sparkdl_tpu_torch.ops import paged_attention as pa
+    from sparkdl_tpu_torch.ops import quantized_matmul as qmm
+
+    cfg = model.cfg
+    engine = _engine(model)
+    spent = _time_engine(torch, engine)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).tolist()
+               for n in rng.integers(64, 1025, N_REQUESTS)]
+    budgets = [int(n) for n in rng.integers(32, 129, N_REQUESTS)]
+    fe = ServingFrontend(engine).start()
+    replies = [None] * N_REQUESTS
+    errors = []
+
+    def client(i):
+        payload = {"tokens": prompts[i], "max_new_tokens": budgets[i],
+                   "stream": bool(i % 2)}
+        t = time.perf_counter()
+        try:
+            replies[i] = (t, _http(fe, "/generate", payload),
+                          time.perf_counter())
+        except Exception as e:  # reported below as a failed request
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qmm.quantized_matmul.launches = 0
+        qmm.quantized_matmul_int4.launches = 0
+        pa.paged_attention_decode.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(N_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = {
+            "quantized_matmul_int4": qmm.quantized_matmul_int4.launches,
+            "paged_attention_decode": pa.paged_attention_decode.launches,
+            "quantized_matmul": qmm.quantized_matmul.launches}
+        metrics = _http(fe, "/metrics")
+    finally:
+        fe.close()
+    _require(not errors and all(r is not None for r in replies),
+             f"HTTP requests failed: {errors}")
+    stats = dict(engine.stats)
+    ttft, latency = [], []
+    for i, (t_sent, reply, t_done) in enumerate(replies):
+        latency.append(t_done - t_sent)
+        if i % 2:
+            toks = [e["token"] for _, e in reply[:-1]]
+            _require(reply[-1][1] == {"done": "length"}
+                     and all("token" in e for _, e in reply[:-1]),
+                     f"streamed request {i} ended on {reply[-1][1]}")
+            ttft.append(reply[0][0] - t_sent)
+        else:
+            toks = reply["tokens"]
+            _require(reply["finish_reason"] == "length",
+                     f"request {i} finished on {reply['finish_reason']}")
+            _require(len(reply["logprobs"]) == budgets[i]
+                     and all(np.isfinite(reply["logprobs"])),
+                     f"request {i}: logprobs not finite")
+        _require(len(toks) == budgets[i],
+                 f"request {i} returned {len(toks)} tokens, budget "
+                 f"{budgets[i]}")
+        _require(all(0 <= t < cfg.vocab_size for t in toks),
+                 f"request {i}: token outside the vocabulary")
+    _require(f'server_requests_total{{code="200"}} {N_REQUESTS}' in metrics,
+             "/metrics does not count 16 answered requests")
+    want = {"quantized_matmul_int4": (7 * cfg.n_layers + 1)
+            * (stats["steps"] + stats["prefill_segments"]),
+            "paged_attention_decode": cfg.n_layers * stats["steps"]}
+    for name, n in want.items():
+        _require(n > 0 and launches[name] == n,
+                 f"{name}: {launches[name]} launches on the main path, "
+                 f"engine counts predict {n}")
+    _require(launches["quantized_matmul"] == 0,
+             f"the int4 run launched the int8 matmul "
+             f"{launches['quantized_matmul']} times")
+    decoded = sum(budgets) - N_REQUESTS
+    report = {
+        "requests": N_REQUESTS, "streamed": N_REQUESTS // 2, "n_slots": 8,
+        "page_size": 64, "chunk": 16, "prefill_chunk": PREFILL_CHUNK,
+        "quant": "int4", "group": cfg.quant_group, "n_layers": cfg.n_layers,
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "generated_tokens": int(sum(budgets)),
+        "wall_s": wall,
+        "decode_s": spent["decode"],
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "prefill_s": sum(spent["prefill"]),
+        "prefill_segment_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
+        "prefill_segment_ms_max": 1e3 * max(spent["prefill"]),
+        "ttft_streamed_s": {"min": min(ttft),
+                            "median": statistics.median(ttft),
+                            "max": max(ttft)},
+        "request_s": {"min": min(latency),
+                      "median": statistics.median(latency),
+                      "max": max(latency)},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "stats": stats, "launches": launches,
+    }
+    _log("http " + json.dumps(report))
+    return report
+
+
+def prefix_sharing(torch, model):
+    """Phase 7b: one PREFIX_LEN-token prefix registered, then
+    N_PREFIX_REQUESTS requests that extend it by 16-128 tokens."""
+    cfg = model.cfg
+    engine = _engine(model)
+    spent = _time_engine(torch, engine)
+    rng = np.random.default_rng(SEED + 4)
+    prefix = rng.integers(0, cfg.vocab_size, (PREFIX_LEN,))
+    t = time.perf_counter()
+    pid = engine.register_prefix(prefix)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t
+    free_before = len(engine._free_pages)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+               for n in rng.integers(16, 129, N_PREFIX_REQUESTS)]
+    budgets = [int(n) for n in rng.integers(16, 65, N_PREFIX_REQUESTS)]
+    rids = [engine.submit(p, b, prefix_id=pid)
+            for p, b in zip(prompts, budgets)]
+    t = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t
+    stats = dict(engine.stats)
+    for rid, budget in zip(rids, budgets):
+        toks = results.get(rid)
+        _require(toks is not None and len(toks) == budget
+                 and engine.finish_reasons[rid] == "length",
+                 f"prefix request {rid}: not on its budget {budget}")
+    _require(stats["prefill_tokens_saved"] == N_PREFIX_REQUESTS * PREFIX_LEN,
+             f"prefill_tokens_saved {stats['prefill_tokens_saved']}, want "
+             f"{N_PREFIX_REQUESTS * PREFIX_LEN}")
+    _require(len(engine._free_pages) == free_before,
+             f"{free_before - len(engine._free_pages)} pool pages not "
+             "returned")
+    report = {"prefix_len": PREFIX_LEN, "requests": N_PREFIX_REQUESTS,
+              "suffix_tokens": int(sum(len(p) for p in prompts))
+              - N_PREFIX_REQUESTS * PREFIX_LEN,
+              "register_s": register_s, "wall_s": wall,
+              "prefill_s": sum(spent["prefill"]),
+              "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+              "free_pages": free_before, "stats": stats}
+    _log("prefix " + json.dumps(report))
+    return report
+
+
+def prefix_logits(torch, model):
+    """Phase 7b at depth 2: the first-token logits of a request that
+    extends a registered prefix against the same prompt prefilled whole
+    (in prefill_chunk segments). The prefix is 500 tokens, so its
+    boundary page (52 of 64 rows) is copied into the slot's own page."""
+    small = _depth2(model)
+    rng = np.random.default_rng(SEED + 5)
+    prompt = rng.integers(0, small.cfg.vocab_size, (612,))
+    got = []
+    for use_prefix in (True, False):
+        engine = _engine(small)
+        sample = engine._sample
+        engine._sample = lambda logits: (got.append(logits.float().clone()),
+                                         sample(logits))[1]
+        pid = engine.register_prefix(prompt[:500]) if use_prefix else None
+        engine.submit(prompt, 1, prefix_id=pid)
+        engine.run()
+        _require(engine.stats["prefill_tokens_saved"]
+                 == (500 if use_prefix else 0), "prefix not used")
+        del engine
+    g, r = got
+    err = (g - r).abs()
+    scale = r.abs().max().item()
+    # both sides run the kernels; the prefix's K/V come from a prefill
+    # of another length, so the matmuls tile (and split K) otherwise and
+    # bf16 activations may round an ulp apart: phase 4's tolerance
+    row = {"max_abs_err": err.max().item(), "logit_scale": scale,
+           "mean_abs_err": err.mean().item(),
+           "argmax_agree": bool(g.argmax() == r.argmax())}
+    _require(bool(torch.isfinite(g).all())
+             and row["max_abs_err"] <= 2.0 ** -4 * scale
+             and row["mean_abs_err"] <= 2.0 ** -8 * scale,
+             f"prefix vs whole-prompt first-token logits: {row}")
+    _log("prefix_logits " + json.dumps(row))
+    return row
 
 
 def _flash_bound(kind, b, s, h, d, causal):
@@ -880,14 +1262,33 @@ def main(argv=None):
     timer = Timer(torch)
     qmm_rows = check_quantized_matmul(torch, timer, gen)
     paged_row = check_paged_attention(torch, timer, gen)
+    q4_rows = check_quantized_matmul_int4(torch, timer, gen)
     del timer
 
     cfg = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int8")
     t = time.perf_counter()
-    model = random_int8_llama(torch, cfg, gen)
+    model = random_quant_llama(torch, cfg, gen)
     _log(f"weights: {time.perf_counter() - t:.1f} s")
     serving = serve(torch, model)
     model_rows = kernel_vs_plain_model(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg4 = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int4",
+                                 quant_group=Q4_GROUP)
+    t = time.perf_counter()
+    model = random_quant_llama(torch, cfg4, gen)
+    _log(f"int4 weights: {time.perf_counter() - t:.1f} s")
+    http = serve_http(torch, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = prefix_sharing(torch, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix["logits"] = prefix_logits(torch, model)
+    q4_model_rows = kernel_vs_plain_model(torch, model, name="model_int4")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -956,6 +1357,15 @@ def main(argv=None):
          "plain_ms": per_step([paged_row], "plain_ms"),
          "bound_ms": per_step([paged_row], "bound_ms"),
          "bound_by": paged_row["bound_by"], "library_ms": None},
+        {"name": "quantized_matmul_int4", "route": "cuda",
+         "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul_int4.cu",
+         "replaces": "sparkdl_tpu/ops/pallas/quantized_matmul.py:291",
+         "launches": http["launches"]["quantized_matmul_int4"],
+         "max_abs_err": max(r["max_abs_err"] for r in q4_rows),
+         "ms": per_step(q4_rows, "ms"),
+         "plain_ms": per_step(q4_rows, "plain_ms"),
+         "bound_ms": per_step(q4_rows, "bound_ms"),
+         "bound_by": "bytes", "library_ms": per_step(q4_rows, "library_ms")},
         flash_line("flash_fwd", "fwd", 45),
         flash_line("flash_bwd_dq", "dq", 158),
         flash_line("flash_bwd_dkv", "dkv", 206),
@@ -965,8 +1375,10 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"card": card, "kernels": kernels, "qmm": qmm_rows,
-                       "paged": paged_row, "serving": serving,
-                       "model": model_rows, "flash": flash_rows,
+                       "paged": paged_row, "q4mm": q4_rows,
+                       "serving": serving, "model": model_rows,
+                       "http": http, "prefix": prefix,
+                       "model_int4": q4_model_rows, "flash": flash_rows,
                        "train": training, "train_vs_plain": train_rows,
                        "remat": remat_rows,
                        "total_s": time.perf_counter() - t_start}, f,

@@ -2,9 +2,11 @@
 
 The tree is given as nested dicts of arrays (numpy, or anything
 ``np.asarray`` takes), dense (``kernel``), with LoRA adapters
-(``kernel`` + ``lora_a`` + ``lora_b``) or int8 (``kernel_q`` +
-``kernel_scale``), exactly as ``Llama(cfg).init(...)["params"]`` and
-``quantize_llama_params`` make it. The port keeps the JAX names and
+(``kernel`` + ``lora_a`` + ``lora_b``), int8 (``kernel_q`` +
+``kernel_scale``) or int4 (``kernel_q4`` + ``kernel_scale4``, loaded
+into a model built with the same ``quant_group``), exactly as
+``Llama(cfg).init(...)["params"]`` and ``quantize_llama_params`` make
+it. int8 and fp32 leaves arrive untouched. The port keeps the JAX names and
 layouts, so the only renaming is ``layer_<i>`` → ``layers.<i>``. Each
 value is cast to its weight's dtype: the JAX init's fp32 base kernels
 become ``cfg.dtype`` (the value the JAX forward computes with, since it

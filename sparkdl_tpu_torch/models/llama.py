@@ -22,11 +22,13 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
   single-token steps attend through
   :func:`sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode`,
   multi-token prefill gathers each row's pages and attends in plain
-  PyTorch, as the JAX model does; dense or weight-only int8.
+  PyTorch, as the JAX model does, from any start position (chunked
+  prefill and shared prefixes); dense, or weight-only int8 or int4.
 
-The dense slot cache, int4, multi-LoRA, MoE, injected attention
-functions (ring attention) and the tensor-parallel binding are not
-ported yet: each raises NotImplementedError by name.
+The dense slot cache, multi-LoRA, MoE, injected attention functions
+(ring attention) and the tensor-parallel binding are not ported yet:
+each raises NotImplementedError by name. The TPU's kernel-mode fields
+(``paged_kernel``, ``quant_kernel``) are not fields here.
 """
 
 import dataclasses
@@ -73,16 +75,18 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple = ("q_proj", "v_proj")
-    quant: str = ""               # "" (dense) | "int8" weight-only
+    quant: str = ""               # "" (dense) | "int8" | "int4" weight-only
+    # int4 group size (rows per scale); must match the checkpoint's
+    # quantize group, since it sizes the (in/group, out) scales
+    quant_group: int = 64
     multi_lora: int = 0           # not ported yet: 0 only
     n_experts: int = 0            # not ported yet: 0 only
 
     def __post_init__(self):
-        if self.quant == "int4":
-            raise NotImplementedError("quant='int4' is not ported yet")
-        if self.quant not in ("", "int8"):
+        if self.quant not in ("", "int8", "int4"):
             raise ValueError(
-                f"unknown quant mode {self.quant!r}; expected '' or 'int8'")
+                f"unknown quant mode {self.quant!r}; expected '', 'int8' "
+                "or 'int4'")
         if self.quant and self.lora_rank:
             raise ValueError(
                 f"quant={self.quant!r} requires lora_rank=0 (merge "
@@ -194,11 +198,18 @@ class RMSNorm(nn.Module):
         return (norm * self.scale).to(x.dtype)
 
 
+def _quant_dense(cfg, d_in, features, dtype, device):
+    from sparkdl_tpu_torch.models.quant import QuantDense, QuantDense4
+
+    if cfg.quant == "int4":
+        return QuantDense4(d_in, features, dtype, device,
+                           group=cfg.quant_group)
+    return QuantDense(d_in, features, dtype, device)
+
+
 def _dense(cfg, d_in, features, device, name):
     if cfg.quant:
-        from sparkdl_tpu_torch.models.quant import QuantDense
-
-        return QuantDense(d_in, features, cfg.dtype, device)
+        return _quant_dense(cfg, d_in, features, cfg.dtype, device)
     if cfg.lora_rank and name in cfg.lora_targets:
         return LoRADense(d_in, features, cfg.lora_rank, cfg.lora_alpha,
                          cfg.dtype, device)
@@ -331,11 +342,9 @@ class Llama(nn.Module):
             Block(cfg, device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         if cfg.quant:
-            from sparkdl_tpu_torch.models.quant import QuantDense
-
-            # int8 head over FP32 activations, as the JAX package
-            self.lm_head = QuantDense(cfg.d_model, cfg.vocab_size,
-                                      torch.float32, device)
+            # quantized head over FP32 activations, as the JAX package
+            self.lm_head = _quant_dense(cfg, cfg.d_model, cfg.vocab_size,
+                                        torch.float32, device)
         else:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size,
                                  torch.float32, device)
@@ -464,12 +473,12 @@ def init_weights(model, generator, std=0.02):
     projection, the embedding, the head and ``lora_a`` normal(0, std),
     ``lora_b`` zeros and the norm scales ones (the JAX LoRA init, with
     normal(std) in place of the base projections' lecun-normal).
-    Returns ``model``. Dense models only: an int8 model is built from a
-    dense state dict
+    Returns ``model``. Dense models only: a quantized model is built
+    from a dense state dict
     (:func:`~sparkdl_tpu_torch.models.quant.quantize_llama_params`)."""
     if model.cfg.quant:
         raise ValueError("init_weights fills dense weights; quantize a dense "
-                         "state dict for an int8 model")
+                         "state dict for a quantized model")
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rpartition(".")[2]

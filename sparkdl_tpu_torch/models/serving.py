@@ -10,7 +10,15 @@ Counterpart of ``sparkdl_tpu/models/serving.py``'s
   the write-only dump for padding junk;
 - admission prefills the prompt (padded to a power of two, floor 8)
   straight into the slot's pages and samples the first token at the
-  true prompt end;
+  true prompt end; with ``prefill_chunk`` a longer prompt prefills in
+  segments of that many tokens, one segment per staged slot per
+  scheduling iteration, interleaved with decode chunks (a prefill at a
+  logical start offset: positions ``start + arange(bucket)``);
+- a registered prefix (``register_prefix``) is prefilled once into
+  pool pages; a request that extends it (``submit(prefix_id=...)``)
+  shares the prefix's full pages read-only through its block table,
+  gets a copy of the partial boundary page (its suffix writes land
+  there) and prefills only its suffix;
 - decoding runs ``chunk``-token chunks over all slots at once: a Python
   loop over tokens whose state (tokens, positions, KV pool) stays on
   the device, with ONE host copy of the chunk's tokens and logprobs at
@@ -18,11 +26,13 @@ Counterpart of ``sparkdl_tpu/models/serving.py``'s
 - inactive slots keep stepping at a frozen position with every table
   entry pointed at the dump page, so every step has the same shape.
 
+Weights: dense, or weight-only int8 or int4 (``quant=``).
+
 Not ported yet, and refused by name: the dense slot cache
-(``page_size=0``), tensor parallelism (``mesh``, ``rules``), chunked
-prefill (``prefill_chunk``), int4 (``quant="int4"``), kernel-mode
-routing (``quant_kernel``), prefix sharing (``prefix_id``,
-``register_prefix``), multi-LoRA (``adapter_id``) and telemetry.
+(``page_size=0``), tensor parallelism (``mesh``, ``rules``),
+kernel-mode routing (``quant_kernel``) and multi-LoRA
+(``adapter_id``). ``telemetry`` is an attribute that stays ``None``:
+no telemetry hooks are ported.
 """
 
 import dataclasses
@@ -42,6 +52,15 @@ def _hits_stop(tokens, stops):
                and tuple(tokens[-len(st):]) == st for st in stops)
 
 
+def _bucket(n, cap):
+    """Prefill length for ``n`` tokens: a power of two with a floor of 8,
+    capped at ``cap`` (the cache rows left after the start offset)."""
+    b = 8
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
 @dataclasses.dataclass
 class _Slot:
     req_id: int = -1
@@ -58,19 +77,24 @@ class ContinuousBatchingEngine:
 
         eng = ContinuousBatchingEngine(model, model.state_dict(),
                                        n_slots=8, page_size=64,
-                                       quant="int8")
+                                       quant="int4", prefill_chunk=256)
         rid = eng.submit(prompt_tokens_1d, max_new_tokens=64)
         results = eng.run()          # {rid: np.ndarray of new tokens}
 
     ``model`` gives the config; ``params`` is a state dict with its keys
-    (dense, or already int8 when ``model.cfg.quant`` is set). The
+    (dense, or already quantized when ``model.cfg.quant`` is set). The
     engine's model takes those tensors as its weights, moved to
-    ``device`` (default CUDA). ``quant="int8"`` quantizes a dense dict
-    at construction. ``generator``: a ``torch.Generator`` on ``device``
-    for temperature sampling (default: seeded with 0).
+    ``device`` (default CUDA). ``quant="int8"`` or ``"int4"`` quantizes
+    a dense dict at construction (int4 with ``cfg.quant_group`` rows a
+    scale). ``prefill_chunk`` > 0: prompts (or suffixes) longer than
+    this prefill in segments interleaved with decode chunks, bounding
+    the decode stall one admission causes to one segment.
+    ``generator``: a ``torch.Generator`` on ``device`` for temperature
+    sampling (default: seeded with 0).
 
     ``stats`` afterwards holds steps, slot-step counts, prefill
-    segments and the slot utilization ratio.
+    segments, prefix tokens not prefilled again and the slot
+    utilization ratio.
     """
 
     def __init__(self, model, params, *, n_slots=4, temperature=0.0,
@@ -78,12 +102,9 @@ class ContinuousBatchingEngine:
                  n_pages=None, prefill_chunk=0, top_k=0, top_p=1.0,
                  quant="", quant_kernel="", device=None, generator=None):
         for name, value in (("mesh", mesh), ("rules", rules),
-                            ("prefill_chunk", prefill_chunk),
                             ("quant_kernel", quant_kernel)):
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if quant == "int4":
-            raise NotImplementedError("quant='int4' is not ported yet")
         if not page_size:
             raise NotImplementedError(
                 "page_size=0 (the dense slot cache) is not ported yet; "
@@ -91,15 +112,23 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         cfg = model.cfg
         if quant:
-            if quant != "int8":
+            if quant not in ("int8", "int4"):
                 raise ValueError(
-                    f"unknown quant mode {quant!r}; expected 'int8'")
+                    f"unknown quant mode {quant!r}; expected 'int8' or "
+                    "'int4'")
             if cfg.quant:
                 raise ValueError(
                     f"model is already quantized (cfg.quant={cfg.quant!r});"
                     " pass quant= only with a dense state dict")
             cfg = dataclasses.replace(cfg, quant=quant)
-            params = quantize_llama_params(params, device=self.device)
+            params = quantize_llama_params(
+                params, bits=8 if quant == "int8" else 4,
+                group=cfg.quant_group, device=self.device)
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+        self._prefilling = {}  # slot -> staged chunked-prefill state
         self.page_size = int(page_size)
         self._max_pages = -(-cfg.max_cache_len // self.page_size)
         n_slots = int(n_slots)
@@ -120,7 +149,8 @@ class ContinuousBatchingEngine:
         self._on_token = None  # streaming callback, set per run()
         self._model = Llama.from_params(self.cfg, params, self.device)
         self.params = params
-        self._queue = []           # (rid, prompt, max_new)
+        self._queue = []           # (rid, prompt, max_new, prefix_id)
+        self._prefixes = {}        # prefix_id -> (tokens, pool pages)
         self._slots = [_Slot() for _ in range(self.n_slots)]
         self._results = {}
         self._stops = {}           # rid -> tuple of stop token tuples
@@ -130,7 +160,11 @@ class ContinuousBatchingEngine:
         self.logprobs = {}         # last drained burst's logprobs
         self._next_id = 0
         self.stats = {"steps": 0, "active_slot_steps": 0,
-                      "total_slot_steps": 0, "prefill_segments": 0}
+                      "total_slot_steps": 0, "prefill_segments": 0,
+                      "prefill_tokens_saved": 0}
+        # request-level telemetry hook of the JAX engine: none is ported,
+        # so it stays None
+        self.telemetry = None
         # host-side page allocator: page 0 reserved as the junk dump
         self._free_pages = list(range(1, self.cfg.n_pages))
         self._tables = np.zeros((self.n_slots, self._max_pages), np.int32)
@@ -146,16 +180,54 @@ class ContinuousBatchingEngine:
     # -- public API ---------------------------------------------------
 
     def register_prefix(self, prefix_tokens, adapter_id=0):
-        raise NotImplementedError("register_prefix is not ported yet")
+        """Prefill a shared prompt PREFIX (a system prompt) once into
+        pool pages that stay reserved; returns its ``prefix_id``. A
+        request submitted with it shares the prefix's full pages
+        read-only, gets a copy of the partial boundary page and
+        prefills only its suffix."""
+        if adapter_id:
+            raise NotImplementedError("adapter_id is not ported yet")
+        prefix = np.asarray(prefix_tokens, np.int32).reshape(-1)
+        if not len(prefix):
+            raise ValueError("empty prefix")
+        # < (not <=): a prefix filling the whole cache leaves no room
+        # for even a one-token suffix, so it could never be used
+        if len(prefix) >= self.cfg.max_cache_len:
+            raise ValueError(
+                f"prefix ({len(prefix)}) must be shorter than "
+                f"max_cache_len ({self.cfg.max_cache_len})")
+        need = -(-len(prefix) // self.page_size)
+        if need > len(self._free_pages):
+            raise RuntimeError(
+                f"paged pool exhausted registering prefix: needs {need} "
+                f"pages, {len(self._free_pages)} free")
+        pages = [self._free_pages.pop() for _ in range(need)]
+        table = np.zeros((self._max_pages,), np.int32)
+        table[:need] = pages
+        with torch.no_grad():
+            self._prefill(table, prefix, 0, len(prefix))
+        pid = f"prefix-{len(self._prefixes)}"
+        self._prefixes[pid] = (prefix, pages)
+        return pid
+
+    def copy_pages(self, src_pages, dst_pages):
+        """Copy physical pages ``src -> dst`` of every layer's K and V
+        pool in place (a shared prefix's partial boundary page becomes
+        the slot's own: its suffix writes land there)."""
+        dev = self.device
+        src = torch.as_tensor(np.asarray(src_pages, np.int64), device=dev)
+        dst = torch.as_tensor(np.asarray(dst_pages, np.int64), device=dev)
+        for pool in (self._cache.k, self._cache.v):
+            pool[:, dst] = pool[:, src]
 
     def submit(self, prompt_tokens, max_new_tokens, prefix_id=None,
                adapter_id=0, stop=None):
-        """Queue a request; returns its id. ``stop``: token-id sequences
-        that end THIS request's generation when they appear (included in
-        the output, like eos); finish causes land in
+        """Queue a request; returns its id. ``prefix_id`` (from
+        :meth:`register_prefix`): the prompt must START with that prefix
+        and extend it by at least one token. ``stop``: token-id
+        sequences that end THIS request's generation when they appear
+        (included in the output, like eos); finish causes land in
         :attr:`finish_reasons` after run()."""
-        if prefix_id is not None:
-            raise NotImplementedError("prefix_id is not ported yet")
         if adapter_id:
             raise NotImplementedError("adapter_id is not ported yet")
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
@@ -169,6 +241,17 @@ class ContinuousBatchingEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_cache_len "
                 f"({self.cfg.max_cache_len})")
+        if prefix_id is not None:
+            if prefix_id not in self._prefixes:
+                raise ValueError(
+                    f"unknown prefix_id {prefix_id!r}; call "
+                    "register_prefix first")
+            prefix = self._prefixes[prefix_id][0]
+            if (len(prompt) <= len(prefix)
+                    or not np.array_equal(prompt[:len(prefix)], prefix)):
+                raise ValueError(
+                    f"prompt must extend the registered prefix "
+                    f"{prefix_id} by at least one token")
         rid = self._next_id
         self._next_id += 1
         if stop:
@@ -178,7 +261,7 @@ class ContinuousBatchingEngine:
             if any(not s for s in seqs):
                 raise ValueError("empty stop sequence")
             self._stops[rid] = seqs
-        self._queue.append((rid, prompt, int(max_new_tokens)))
+        self._queue.append((rid, prompt, int(max_new_tokens), prefix_id))
         return rid
 
     def run(self, progress=None, on_token=None):
@@ -202,6 +285,7 @@ class ContinuousBatchingEngine:
         deactivates slots; abandoned cache rows are junk that later
         admissions overwrite."""
         self._queue.clear()
+        self._prefilling.clear()
         self._stops.clear()
         self._finish_reasons.clear()
         self._logprobs.clear()
@@ -223,50 +307,110 @@ class ContinuousBatchingEngine:
             logits, self._generator, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p)
 
+    def _worst_case_tokens(self, p_len, max_new):
+        """Cache rows a request can ever touch: page reservation, the
+        pool dead-end check and the HTTP frontend's request validation
+        all size worst cases with this one hook."""
+        return p_len + max_new
+
     def _pages_needed(self, req):
-        """Pages a request reserves: its worst case, prompt + budget."""
-        _, prompt, max_new = req
-        return -(-(len(prompt) + max_new) // self.page_size)
+        """Fresh pages a request reserves: its worst case minus the
+        prefix pages it shares (the dead-end check must agree with
+        admission, or it cries exhaustion over requests that would
+        admit)."""
+        _, prompt, max_new, prefix_id = req
+        total = -(-self._worst_case_tokens(len(prompt), max_new)
+                  // self.page_size)
+        if prefix_id is not None:
+            total -= len(self._prefixes[prefix_id][0]) // self.page_size
+        return total
 
     def _try_admit_paged(self, slot_idx):
         """Allocate the queue head's worst-case pages, point the slot's
-        block table at them and prefill straight into them. Returns
-        False (request left at the queue head) when the pool cannot
-        cover it yet — capacity admission control."""
-        need = self._pages_needed(self._queue[0])
+        block table at them (a prefix's full pages shared, its partial
+        boundary page copied into the slot's first own page) and prefill
+        the prompt, or only its suffix, straight into them; with
+        ``prefill_chunk`` a long suffix is staged instead, one segment
+        an iteration. Returns False (request left at the queue head)
+        when the pool cannot cover it yet — capacity admission
+        control."""
+        rid, prompt, max_new, prefix_id = self._queue[0]
+        P = self.page_size
+        total = -(-self._worst_case_tokens(len(prompt), max_new) // P)
+        # no prefix = the empty-prefix case: nothing shared, start 0
+        prefix, prefix_pages = np.zeros((0,), np.int32), []
+        if prefix_id is not None:
+            prefix, prefix_pages = self._prefixes[prefix_id]
+        n_full = len(prefix) // P
+        shared = prefix_pages[:n_full]
+        need = total - len(shared)
         if need > len(self._free_pages):
             return False
-        rid, prompt, max_new = self._queue.pop(0)
+        self._queue.pop(0)
         own = [self._free_pages.pop() for _ in range(need)]
         self._slot_pages[slot_idx] = own
         self._tables[slot_idx] = 0
-        self._tables[slot_idx, :need] = own
-        self._prefill_segment(slot_idx, prompt, rid, max_new)
+        self._tables[slot_idx, :total] = shared + own
+        if len(prefix) % P:
+            self.copy_pages([prefix_pages[n_full]], [own[0]])
+        suffix, start = prompt[len(prefix):], len(prefix)
+        self.stats["prefill_tokens_saved"] += len(prefix)
+        if self.prefill_chunk and len(suffix) > self.prefill_chunk:
+            # staged only: segments run one per scheduling iteration
+            # (the first in this iteration's advance phase), and the
+            # slot stays masked out of decode until the last one
+            self._prefilling[slot_idx] = {
+                "rid": rid, "suffix": suffix, "start": start, "done": 0,
+                "max_new": max_new}
+            return True
+        self._prefill_segment(slot_idx, suffix, start, len(suffix),
+                              final=True, rid=rid, max_new=max_new)
         return True
 
-    def _prefill_segment(self, slot_idx, tokens, rid, max_new):
-        """Prefill ``tokens`` into the slot's pages and activate the
-        slot with the sampled first token."""
-        true_len = len(tokens)
-        # power-of-two pad with a floor of 8; the cache-end cap cannot
-        # undercut true_len because submit() bounds the prompt
-        b = 8
-        while b < true_len:
-            b *= 2
-        bucket = min(b, self.cfg.max_cache_len)
+    def _prefill(self, table_row, tokens, start, true_len):
+        """One paged prefill of ``tokens[:true_len]`` at logical
+        positions ``start + arange(bucket)`` through ``table_row``;
+        returns the logits at the last true token (1, vocab). Padding
+        junk lands past the true end (overwritten later) or, beyond the
+        table's pages, in the dump page."""
+        bucket = _bucket(true_len, self.cfg.max_cache_len - start)
         padded = np.zeros((1, bucket), np.int32)
-        padded[0, :true_len] = tokens
+        padded[0, :true_len] = tokens[:true_len]
         dev = self.device
         logits = self._model(
             torch.as_tensor(padded, device=dev),
-            torch.arange(bucket, device=dev)[None, :],
-            torch.as_tensor(self._tables[slot_idx][None], device=dev),
+            start + torch.arange(bucket, device=dev)[None, :],
+            torch.as_tensor(table_row[None], device=dev),
             self._cache)
-        tok, lp = self._sample(logits[:, true_len - 1])
+        return logits[:, true_len - 1]
+
+    def _prefill_segment(self, slot_idx, seg_tokens, start, true_len, *,
+                         final, rid=None, max_new=None):
+        """Prefill one segment into the slot's pages at offset
+        ``start``; the FINAL segment's sampled token (the request's
+        first) activates the slot."""
+        last = self._prefill(self._tables[slot_idx], seg_tokens, start,
+                             true_len)
         self.stats["prefill_segments"] += 1
-        self._pos[slot_idx] = true_len
-        self._token[slot_idx] = tok[0]
-        self._activate_slot(slot_idx, rid, max_new, tok, lp)
+        if final:
+            tok, lp = self._sample(last)
+            self._pos[slot_idx] = start + true_len
+            self._token[slot_idx] = tok[0]
+            self._activate_slot(slot_idx, rid, max_new, tok, lp)
+
+    def _advance_prefill(self, slot_idx):
+        """One more segment for a mid-prefill slot; activates it on the
+        last one."""
+        st = self._prefilling[slot_idx]
+        seg = min(self.prefill_chunk, len(st["suffix"]) - st["done"])
+        final = st["done"] + seg == len(st["suffix"])
+        self._prefill_segment(
+            slot_idx, st["suffix"][st["done"]:st["done"] + seg],
+            st["start"] + st["done"], seg, final=final, rid=st["rid"],
+            max_new=st["max_new"])
+        st["done"] += seg
+        if final:
+            del self._prefilling[slot_idx]
 
     def _activate_slot(self, slot_idx, rid, max_new, tok, lp):
         """Admission epilogue: slot bookkeeping + the instant-finish
@@ -300,19 +444,23 @@ class ContinuousBatchingEngine:
 
     def _fill_slots(self):
         """Admit queued requests into free slots while the pool covers
-        the queue head's worst case; returns the active mask."""
+        the queue head's worst case, advance every staged chunked
+        prefill by one segment, and return the active mask."""
         for i, s in enumerate(self._slots):
-            if not s.active and self._queue:
+            if not s.active and i not in self._prefilling and self._queue:
                 if not self._try_admit_paged(i):
                     break
+        for i in list(self._prefilling):
+            self._advance_prefill(i)
         return np.array([s.active for s in self._slots])
 
     def _deadend_check(self):
         """Nothing active: raise when the queue head can NEVER admit (a
         genuine pool shortfall) rather than spinning forever — an
         instantly finished admission also lands here, with its pages
-        free again, and is not a dead end."""
-        if self._queue:
+        free again, and is not a dead end; nor is a slot still in
+        chunked prefill."""
+        if self._queue and not self._prefilling:
             need = self._pages_needed(self._queue[0])
             if need > len(self._free_pages):
                 raise RuntimeError(
@@ -344,7 +492,8 @@ class ContinuousBatchingEngine:
         return toks.cpu().numpy(), lps.cpu().numpy()
 
     def _run(self, progress):
-        while self._queue or any(s.active for s in self._slots):
+        while (self._queue or self._prefilling
+               or any(s.active for s in self._slots)):
             active = self._fill_slots()
             if not active.any():
                 self._deadend_check()
@@ -356,7 +505,9 @@ class ContinuousBatchingEngine:
             while n < need and n < self.chunk:
                 n *= 2
             n = min(n, self.chunk)
-            # non-active rows masked to the dump page
+            # non-active rows (free or still in chunked prefill) masked
+            # to the dump page: their junk writes must not corrupt the
+            # rows a staged prefill has already written
             tables = torch.as_tensor(
                 np.where(active[:, None], self._tables, 0),
                 device=self.device)

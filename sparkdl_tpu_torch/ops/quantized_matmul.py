@@ -1,15 +1,20 @@
-"""Weight-only int8 matmul: x @ dequant(w_q) with per-column scales.
+"""Weight-only int8 and int4 matmuls: x @ dequant(w) with fp32 scales.
 
-Counterpart of ``sparkdl_tpu/ops/pallas/quantized_matmul.py`` (int8
-only; int4 is not ported yet). Weights stay int8 on the card with fp32
-scales, half the bytes of bf16: a decode step is bound by the bytes of
-its weights. ``quantized_matmul`` takes its path from the device of its
-inputs: CPU tensors run :func:`quantized_matmul_reference`, CUDA
-tensors launch the hand-written kernel in ``csrc/quantized_matmul.cu``
-or raise. There is no fallback from the kernel to the plain version.
+Counterpart of ``sparkdl_tpu/ops/pallas/quantized_matmul.py``. int8
+weights carry one fp32 scale a column, half the bytes of bf16; int4
+weights are nibble-packed two rows to a byte with one fp32 scale per
+``group`` rows of a column, a quarter of the bytes of bf16 plus 1/8 of
+that in scales. A decode step is bound by the bytes of its weights.
+Each wrapper takes its path from the device of its inputs: CPU tensors
+run the plain version (:func:`quantized_matmul_reference`,
+:func:`quantized_matmul_int4_reference`), CUDA tensors launch the
+hand-written kernel (``csrc/quantized_matmul.cu``,
+``csrc/quantized_matmul_int4.cu``) or raise. There is no fallback from
+a kernel to its plain version.
 """
 
 import ctypes
+import warnings
 
 import torch
 
@@ -22,7 +27,11 @@ DEFAULT_QUANT_TARGETS = ("gate_proj", "up_proj", "down_proj",
                          "q_proj", "k_proj", "v_proj",
                          "o_proj", "lm_head")
 
+# int4 group size (rows of a column per scale)
+INT4_GROUP = 64
+
 _KERNEL_DTYPES = {torch.bfloat16: "qmm_bf16", torch.float32: "qmm_f32"}
+_Q4_KERNEL_DTYPES = {torch.bfloat16: "q4mm_bf16", torch.float32: "q4mm_f32"}
 
 
 def quantize_int8(w):
@@ -37,17 +46,51 @@ def quantize_int8(w):
     return w_q.to(torch.int8), scales
 
 
+def quantize_int4(w, group=INT4_GROUP):
+    """Group-wise symmetric int4 quantization of a (K, N) weight matrix
+    → (packed int8 (K/2, N), scales fp32 (K/group, N)), on ``w``'s
+    device. Row 2i rides the LOW nibble of packed row i, row 2i+1 the
+    HIGH nibble. Bit-identical to the JAX package's numpy version."""
+    w = w.to(torch.float32)
+    k, n = w.shape
+    if k % max(group, 2):
+        raise ValueError(f"K={k} must be divisible by group={group} (and 2)")
+    g = w.reshape(k // group, group, n)
+    scales = g.abs().amax(dim=1) / 7.0                 # (K/group, N)
+    scales = torch.where(scales == 0.0, torch.ones_like(scales), scales)
+    w_q = torch.clamp(torch.round(g / scales[:, None, :]), -7, 7)
+    w_q = w_q.reshape(k, n).to(torch.int8).to(torch.uint8)
+    packed = (w_q[0::2] & 0x0F) | ((w_q[1::2] & 0x0F) << 4)
+    return packed.view(torch.int8), scales
+
+
+def unpack_int4(packed):
+    """(K/2, N) packed int8 → (K, N) int8: both nibbles sign-extended
+    (the low one by an arithmetic shift pair, the high one by one)."""
+    p = packed.to(torch.int8)
+    low = (p << 4) >> 4
+    high = p >> 4
+    kh, n = p.shape
+    return torch.stack([low, high], dim=1).reshape(2 * kh, n)
+
+
+def _dequant_int4(packed, scales, group):
+    w = unpack_int4(packed).to(torch.float32)
+    return w * scales.repeat_interleave(group, dim=0)
+
+
 def quantize_params(params, targets=DEFAULT_QUANT_TARGETS, bits=8,
-                    device=None):
+                    group=INT4_GROUP, device=None):
     """Quantize the matching 2-D ``<module>.kernel`` entries of a flat
     state dict → (new dict, bytes saved). Each weight is quantized on
-    ``device`` (default CUDA) one matrix at a time; ``<name>.kernel``
-    becomes ``<name>.kernel_q`` (int8) + ``<name>.kernel_scale`` (fp32),
-    the JAX package's leaf names. Other entries pass through as they
-    are. Accepts tensors or numpy arrays."""
-    if bits == 4:
-        raise NotImplementedError("bits=4 (int4) is not ported yet")
-    if bits != 8:
+    ``device`` (default CUDA) one matrix at a time. ``bits=8``:
+    ``<name>.kernel`` becomes ``<name>.kernel_q`` (int8) +
+    ``<name>.kernel_scale`` (fp32, per column); ``bits=4``:
+    ``<name>.kernel_q4`` (nibble-packed int8, (K/2, N)) +
+    ``<name>.kernel_scale4`` (fp32, (K/group, N)) — the JAX package's
+    leaf names. Other entries pass through as they are. Accepts tensors
+    or numpy arrays."""
+    if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     device = resolve_device(device)
     out, saved = {}, 0
@@ -57,16 +100,46 @@ def quantize_params(params, targets=DEFAULT_QUANT_TARGETS, bits=8,
         value = torch.as_tensor(value)
         if leaf == "kernel" and value.ndim == 2 and any(
                 t in owner for t in targets):
-            w_q, s = quantize_int8(value.to(device))
+            if bits == 8:
+                w_q, s = quantize_int8(value.to(device))
+                names = ("kernel_q", "kernel_scale")
+            else:
+                w_q, s = quantize_int4(value.to(device), group=group)
+                names = ("kernel_q4", "kernel_scale4")
             # savings against the ORIGINAL dtype (bf16 kernels are 2
             # bytes an element, not 4)
             saved += (value.numel() * value.element_size()
                       - w_q.numel() - 4 * s.numel())
-            out[module + ".kernel_q"] = w_q
-            out[module + ".kernel_scale"] = s
+            out[f"{module}.{names[0]}"] = w_q
+            out[f"{module}.{names[1]}"] = s
         else:
             out[name] = value
     return out, saved
+
+
+def dequantize_params(qparams, dtype=torch.bfloat16):
+    """The inverse layout of :func:`quantize_params`: every
+    (``kernel_q``, ``kernel_scale``) or (``kernel_q4``,
+    ``kernel_scale4``) pair of a flat state dict becomes a dense
+    ``kernel`` in ``dtype`` again (the int4 group from the scale
+    shape). Other entries pass through."""
+    out = {}
+    for name, value in qparams.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "kernel_q":
+            w = (value.to(torch.float32)
+                 * qparams[f"{module}.kernel_scale"][None, :])
+        elif leaf == "kernel_q4":
+            scales = qparams[f"{module}.kernel_scale4"]
+            w = _dequant_int4(value, scales,
+                              2 * value.shape[0] // scales.shape[0])
+        elif leaf in ("kernel_scale", "kernel_scale4"):
+            continue
+        else:
+            out[name] = value
+            continue
+        out[f"{module}.kernel"] = w.to(dtype)
+    return out
 
 
 def quantized_matmul_reference(x, w_q, scales):
@@ -152,3 +225,116 @@ def _library():
     signatures = {name: _SIGNATURE for name in _KERNEL_DTYPES.values()}
     signatures["qmm_plan"] = _PLAN_SIGNATURE
     return _build.load("quantized_matmul", signatures)
+
+
+# -- int4 --------------------------------------------------------------
+
+
+def quantized_matmul_int4_reference(x, packed, scales, group=INT4_GROUP):
+    """The plain version: the JAX package's XLA lowering,
+    ``(x.f32 @ (unpack(packed).f32 * repeat(scales, group))).astype(
+    x.dtype)``."""
+    w = _dequant_int4(packed, scales, group)
+    return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def _int4_group(x, packed, scales, group):
+    """The JAX dispatch's shape checks; returns the group to compute
+    with. A ``group`` that does not cover K with the given scale rows
+    warns and yields the group the shapes imply; scales that no group
+    can cover raise."""
+    if x.ndim != 2 or packed.ndim != 2 or scales.ndim != 2:
+        raise ValueError(
+            f"quantized_matmul_int4 needs x (M, K), packed (K/2, N) and "
+            f"scales (K/group, N); got {tuple(x.shape)}, "
+            f"{tuple(packed.shape)} and {tuple(scales.shape)}")
+    k, s_rows = x.shape[1], scales.shape[0]
+    if k != 2 * packed.shape[0]:
+        raise ValueError(
+            f"packed int4 weight has {packed.shape[0]} rows; K={k} "
+            "activations need K//2")
+    if scales.shape[1] != packed.shape[1]:
+        raise ValueError(
+            f"scales shape {tuple(scales.shape)} does not match "
+            f"N={packed.shape[1]}")
+    if group <= 0 or group * s_rows != k:
+        if s_rows == 0 or k % s_rows:
+            raise ValueError(
+                f"int4 scales with {s_rows} rows cannot cover K={k} "
+                f"under any group (requested group={group})")
+        inferred = k // s_rows
+        warnings.warn(
+            f"int4 group={group} does not cover K={k} with {s_rows} scale "
+            f"rows; using inferred group={inferred}", RuntimeWarning,
+            stacklevel=3)
+        group = inferred
+    return group
+
+
+def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
+    """x (M, K) @ dequant(packed (K/2, N) int8, two nibbles a byte)
+    with group-wise fp32 scales (K/group, N) → (M, N) in x's dtype.
+    CPU inputs: the plain version. CUDA inputs: the kernel, which takes
+    x in bf16 or fp32, packed int8 and scales fp32, all contiguous on
+    one card (packed 8-byte and scales 16-byte aligned); anything else
+    raises. A ``group`` that disagrees with the scale rows warns and
+    computes with the inferred group on the same route, as the JAX
+    dispatch does; a non-int8 packed weight raises on CUDA (the JAX
+    dispatch degrades it to its XLA lowering with a warning)."""
+    group = _int4_group(x, packed, scales, group)
+    if x.device.type == "cpu":
+        return quantized_matmul_int4_reference(x, packed, scales, group)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not (packed.device == x.device and scales.device == x.device):
+        raise ValueError("x, packed and scales must be on one CUDA device")
+    if x.dtype not in _Q4_KERNEL_DTYPES:
+        raise TypeError(f"x dtype {x.dtype}: the kernel takes bf16 or fp32")
+    if packed.dtype != torch.int8:
+        raise TypeError(f"packed dtype {packed.dtype} is not int8")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales dtype {scales.dtype} is not fp32")
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError("quantized_matmul_int4 needs contiguous inputs")
+    m, k = x.shape
+    n = packed.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _library_int4()
+    splits, k_per_split = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.q4mm_plan(
+        m, k, n, torch.cuda.get_device_properties(x.device)
+        .multi_processor_count, ctypes.byref(splits),
+        ctypes.byref(k_per_split)), "quantized_matmul_int4 plan")
+    splits = splits.value
+    # fp32 partial sums of the K splits, summed in order by a second pass
+    partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    fn = getattr(lib, _Q4_KERNEL_DTYPES[x.dtype])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(),
+                 partial.data_ptr() if partial is not None else None,
+                 m, k, n, group, splits, k_per_split.value, stream)
+    # the C entry point refuses (cudaErrorInvalidValue) an odd K, a
+    # group that does not divide K and misaligned weights or scales:
+    # see launch() in csrc/quantized_matmul_int4.cu
+    _build.check(lib, err, f"quantized_matmul_int4 ({m}, {k}, {n}), "
+                           f"group {group}")
+    quantized_matmul_int4.launches += 1
+    return out
+
+
+quantized_matmul_int4.launches = 0
+
+_Q4_SIGNATURE = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+
+
+def _library_int4():
+    signatures = {name: _Q4_SIGNATURE for name in _Q4_KERNEL_DTYPES.values()}
+    signatures["q4mm_plan"] = _PLAN_SIGNATURE
+    return _build.load("quantized_matmul_int4", signatures)

@@ -187,8 +187,6 @@ def test_loaders_reject_mismatched_trees(jax_params):
 
 
 def test_only_the_paged_path_is_ported():
-    with pytest.raises(NotImplementedError, match="int4"):
-        pt_llama.LlamaConfig.tiny(quant="int4")
     with pytest.raises(ValueError, match="unknown quant"):
         pt_llama.LlamaConfig.tiny(quant="int2")
     model = pt_llama.Llama(pt_llama.LlamaConfig.tiny(n_layers=1),

@@ -71,9 +71,7 @@ def test_quantize_params_matches_jax_tree():
     assert "layers.0.attn.q_proj.kernel" not in out
 
 
-def test_quantize_params_refuses_int4():
-    with pytest.raises(NotImplementedError, match="int4"):
-        pt_qmm.quantize_params({}, bits=4, device="cpu")
+def test_quantize_params_refuses_unknown_bits():
     with pytest.raises(ValueError, match="bits"):
         pt_qmm.quantize_params({}, bits=3, device="cpu")
 

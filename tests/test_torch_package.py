@@ -65,11 +65,13 @@ def test_port_files_exist():
                  "sparkdl_tpu_torch/ops/attention.py",
                  "sparkdl_tpu_torch/parallel/train.py",
                  "sparkdl_tpu_torch/parallel/ring_attention.py",
+                 "sparkdl_tpu_torch/models/server.py",
+                 "sparkdl_tpu_torch/observe/metrics.py",
                  "chip_smoke.py"):
         assert want in names, want
     csrc = REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
     for src in ("quantized_matmul.cu", "paged_attention.cu",
-                "flash_attention.cu"):
+                "flash_attention.cu", "quantized_matmul_int4.cu"):
         text = (csrc / src).read_text()
         # each kernel names the TPU kernel it replaces
         assert "Replaces: sparkdl_tpu/ops/pallas/" in text, src
