@@ -15,7 +15,9 @@ and on any failed check. Phases:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 1. build every ``sparkdl_tpu_torch/ops/csrc/*.cu`` (one nvcc each, all
-   started together);
+   started together), and beside it ``nvcc -Xptxas -v`` on the flash
+   source: the registers, spills, stack and shared memory of the Hopper
+   forward and dq kernels are printed once (``ptxas`` line);
 2. the serving kernels against their plain versions on the card at the
    shapes one decode step (and a prefill) gives them, timed with CUDA
    events (L2 flushed between runs, median of 25) beside the bound
@@ -51,7 +53,8 @@ and on any failed check. Phases:
    D 128, causal) and at a ragged S of 1000 (causal and not, D 128 and
    64), timed at the training shape beside their bounds and beside
    ``scaled_dot_product_attention`` (forward, and its backward against
-   dq + dk/dv);
+   dq + dk/dv), with TFLOP/s, and the forward's and dq's times before
+   their Hopper redesign (``old_ms``) beside them;
 5. LoRA fine-tuning at full width (Llama-3-8B, rank 16 on q and v,
    flash attention, random bf16 weights): batch 2 x 2048, AdamW on the
    adapters, one warm-up step and 5 timed ones; the loss must fall, the
@@ -120,6 +123,14 @@ FLASH_SHAPES = [(2, 2048, 32, 128, True),
                 (1, 1000, 4, 128, False),
                 (1, 1000, 4, 64, True)]
 
+# the flash forward's and dq's device ms a call at FLASH_SHAPES[0] before
+# their Hopper redesign: the mma.sync kernels, timed by this script's
+# phase 2b on one H100 80GB HBM3 at 700 W (PERF.md section 6, the B1
+# and B2 rows)
+FLASH_OLD_MS = {"fwd": 0.674, "dq": 0.652}
+# the kernels whose ptxas resources phase 1 prints
+PTXAS_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel")
+
 # the training phase: batch x seq tokens a step, warm-up + timed steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 
@@ -143,6 +154,63 @@ def _card_line(torch):
          "--format=csv,noheader", "-i", str(torch.cuda.current_device())],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def start_ptxas_report():
+    """Start ``nvcc -Xptxas -v`` on the flash source (device code only,
+    the library's own flags), beside the build; read by
+    :func:`finish_ptxas_report`."""
+    from sparkdl_tpu_torch.ops import _build
+
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = os.path.join(_build.BUILD_DIR, f"ptxas-{os.getpid()}.cubin")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cmd = [_build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o", out,
+           os.path.join(_build.CSRC, "flash_attention.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def finish_ptxas_report(started):
+    """Registers, spills, stack and static shared memory of each
+    instantiation of PTXAS_KERNELS, from ptxas's own report."""
+    import re
+
+    proc, out = started
+    text, _ = proc.communicate(timeout=600)
+    if os.path.exists(out):
+        os.remove(out)
+    _require(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+    rows, current = {}, None
+    for line in text.splitlines():
+        # ptxas's warnings, and its notes of wgmma serialisation
+        if (("warning" in line or "Performance Loss" in line)
+                and current is not None):
+            rows[current].setdefault("warnings", []).append(line.strip())
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            k = re.search(r"(" + "|".join(PTXAS_KERNELS) + r")ILi(\d+)E",
+                          m.group(1))
+            current = f"{k.group(1)}<{k.group(2)}>" if k else None
+            if current is not None:
+                rows.setdefault(current, {"static_smem_bytes": 0})
+            continue
+        if current is None:
+            continue
+        row = rows.setdefault(current, {"static_smem_bytes": 0})
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                row[key] = int(m.group(1))
+    _require(all(any(r.startswith(k) for r in rows) for k in PTXAS_KERNELS),
+             f"no ptxas report for {PTXAS_KERNELS}:\n{text[-2000:]}")
+    return rows
 
 
 def _bf16_ulp(torch, x):
@@ -775,6 +843,11 @@ def serve_http(torch, model):
         "request_s": {"min": min(latency),
                       "median": statistics.median(latency),
                       "max": max(latency)},
+        # the blocking clients alone: each is answered when its request
+        # ends, not when the burst drains
+        "request_s_blocking": {"min": min(latency[0::2]),
+                               "median": statistics.median(latency[0::2]),
+                               "max": max(latency[0::2])},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "stats": stats, "launches": launches,
     }
@@ -863,15 +936,20 @@ def prefix_logits(torch, model):
     return row
 
 
+def _flash_flops(kind, b, s, h, d, causal):
+    """Operations of one flash call: 4 (forward), 6 (dq) or 8 (dk/dv)
+    * D flops a visible (query, key) pair."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return {"fwd": 4, "dq": 6, "dkv": 8}[kind] * pairs * d
+
+
 def _flash_bound(kind, b, s, h, d, causal):
     """(bound ms, bound_by) of one flash call: bf16 tensors (B, S, H, D)
-    read or written once, fp32 (B, H, S) vectors, and 4 (forward), 6
-    (dq) or 8 (dk/dv) * D flops a visible (query, key) pair."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    tensors, vectors, per_pair = {"fwd": (4, 1, 4), "dq": (5, 2, 6),
-                                  "dkv": (6, 2, 8)}[kind]
+    read or written once, fp32 (B, H, S) vectors, and the operations of
+    :func:`_flash_flops`."""
+    tensors, vectors = {"fwd": (4, 1), "dq": (5, 2), "dkv": (6, 2)}[kind]
     nbytes = tensors * b * s * h * d * 2 + vectors * b * h * s * 4
-    flops = per_pair * pairs * d
+    flops = _flash_flops(kind, b, s, h, d, causal)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -981,6 +1059,10 @@ def check_flash(torch, timer, gen):
                                             else None),
                              "host_us": timer.host_us(kernel),
                              "bound_ms": bound, "bound_by": bound_by}
+                row[kind]["tflops"] = (_flash_flops(kind, b, s, h, d, causal)
+                                       / row[kind]["ms"] / 1e9)
+                if kind in FLASH_OLD_MS:
+                    row[kind]["old_ms"] = FLASH_OLD_MS[kind]
             # one SDPA backward computes dq, dk and dv together: its time
             # stands on the dk/dv row only, beside both backward kernels
             row["fwd"]["library_covers"] = "o (SDPA returns no lse)"
@@ -1244,6 +1326,7 @@ def main(argv=None):
         sys.exit(2)
     from sparkdl_tpu_torch.models.llama import LlamaConfig
     from sparkdl_tpu_torch.ops import _build
+    from sparkdl_tpu_torch.ops import flash_attention as fa
 
     # the plain versions' fp32 products are full fp32, as stated
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1254,8 +1337,15 @@ def main(argv=None):
          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
+    ptxas = start_ptxas_report()
     _build.build(_build.sources())
     _log(f"build: {time.perf_counter() - t:.1f} s for {_build.sources()}")
+    resources = finish_ptxas_report(ptxas)
+    for name, row in resources.items():
+        kernel, d = name.rstrip(">").split("<")
+        row["dynamic_smem_bytes"] = fa._library().flash_smem_bytes(
+            PTXAS_KERNELS.index(kernel), int(d))
+    _log("ptxas " + json.dumps(resources))
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)

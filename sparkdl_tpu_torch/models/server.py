@@ -7,9 +7,13 @@ ids, the model's native interface.
 
 Threading model: every engine method runs on ONE engine thread; HTTP
 handler threads only enqueue work and wait. The engine thread drains
-arrivals into ``engine.submit`` and calls ``run()`` — during which new
-arrivals still land mid-burst through ``_poll_queue``, the run's
-progress hook — and posts results to per-request mailboxes. ``run()``
+arrivals into ``engine.submit`` and calls ``run()``. The run's progress
+hook, called after every decode chunk, posts each request finished so
+far (``engine.take_finished()``) to its mailbox, so a blocking client
+is answered, and a stream sent its ``done``, as soon as its request
+ends, not when the burst drains (the JAX frontend answers at the
+drain); then it pulls new arrivals in mid-burst (``_poll_queue``).
+What ``run()`` returns at the end is posted the same way. ``run()``
 enters ``torch.no_grad()`` on that thread (grad mode is thread-local),
 and each kernel launches on the engine thread's current stream.
 
@@ -314,7 +318,7 @@ class ServingFrontend:
             if not self._live and self._arrivals.empty():
                 continue
             try:
-                results = self.engine.run(progress=self._poll_queue,
+                results = self.engine.run(progress=self._progress,
                                           on_token=on_token)
             except Exception as e:  # engine fault: fail the waiters
                 for box in self._live.values():
@@ -325,17 +329,28 @@ class ServingFrontend:
                 # on every later burst
                 self.engine.abort_requests()
                 continue
-            for rid, toks in results.items():
-                box = self._live.pop(rid, None)
-                if box is None:
-                    continue
-                box.result = (
-                    toks.tolist(),
-                    self.engine.finish_reasons.get(rid, "length"),
-                    self.engine.logprobs.get(rid, []),
-                )
-                box.tokens.put(None)
-                box.done.set()
+            self._post({rid: (toks,
+                              self.engine.finish_reasons.get(rid, "length"),
+                              self.engine.logprobs.get(rid, []))
+                        for rid, toks in results.items()})
+
+    def _progress(self, engine):
+        """``run()``'s progress hook: answer every request finished so
+        far, then admit arrivals."""
+        self._post(engine.take_finished())
+        self._poll_queue(engine)
+
+    def _post(self, finished):
+        """Hand each finished request ``{rid: (tokens, finish reason,
+        logprobs)}`` to its mailbox: the result, the stream's end, the
+        blocking waiter's wake-up."""
+        for rid, (toks, reason, lps) in finished.items():
+            box = self._live.pop(rid, None)
+            if box is None:
+                continue
+            box.result = (toks.tolist(), reason, lps)
+            box.tokens.put(None)
+            box.done.set()
 
     # -- lifecycle ----------------------------------------------------
 

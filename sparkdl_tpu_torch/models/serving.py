@@ -279,6 +279,20 @@ class ContinuousBatchingEngine:
             # never retain the caller's closure past this run
             self._on_token = None
 
+    def take_finished(self):
+        """Hand over every request finished so far in the current
+        ``run()``: ``{req_id: (tokens, finish reason, logprobs)}``. They
+        leave what ``run()`` returns and its ``finish_reasons`` and
+        ``logprobs``. A front-end calls it from ``run()``'s progress hook
+        to answer each request as soon as it ends, not when the burst
+        drains (the JAX engine has no such call: its front-end answers at
+        the drain)."""
+        out = {rid: (toks, self._finish_reasons.pop(rid),
+                     self._logprobs.pop(rid))
+               for rid, toks in self._results.items()}
+        self._results = {}
+        return out
+
     def abort_requests(self):
         """Discard every queued and active request WITHOUT producing
         results (service fault recovery). Frees pool pages and

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers and the
 stream as ``void*``, sizes as ``int``, a ``cudaError_t`` returned as
 ``int``), so it compiles with ``nvcc`` alone in seconds — no PyTorch
 headers, no extension build. The library lands in ``ops/_build/`` as
-``<name>-<hash>.so``, where the hash covers the source and the flags:
-an edited source builds anew, an unchanged one loads the existing file.
+``<name>-<hash>.so``, where the hash covers the source, every shared
+header ``csrc/*.cuh`` and the flags: an edited source or header builds
+anew, an unchanged one loads the existing file.
 The build writes to a temporary name and renames it into place, so two
 processes building at once cannot load half a file.
 """
@@ -43,9 +44,15 @@ def nvcc_path():
 
 
 def library_path(name):
-    """Where ``csrc/<name>.cu`` builds to, keyed by its content."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to, keyed by its content, the
+    content of every header in ``csrc/`` (any source may include any of
+    them) and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -212,4 +212,5 @@ def _library():
         "flash_fwd": [_P] * 5 + _TAIL,
         "flash_bwd_dq": [_P] * 7 + _TAIL,
         "flash_bwd_dkv": [_P] * 8 + _TAIL,
+        "flash_smem_bytes": [_I, _I],
     })

@@ -3,6 +3,7 @@ package, its entry points never move to the CPU on their own, and its
 chip smoke script refuses to run without a card."""
 
 import ast
+import os
 import pathlib
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from sparkdl_tpu_torch.models import llama as pt_llama
 from sparkdl_tpu_torch.models.lora import lora_mask
 from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+from sparkdl_tpu_torch.ops import _build
 from sparkdl_tpu_torch.ops import quantized_matmul as pt_qmm
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
 from sparkdl_tpu_torch.parallel import train as pt_train
@@ -133,3 +135,62 @@ def test_chip_smoke_exits_nonzero_without_cuda(no_cuda, capsys):
         chip_smoke.main([])
     assert exc.value.code not in (0, None)
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_library_path_follows_the_source_its_headers_and_the_flags(
+        tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")  # a pure function of content
+    assert first.startswith(os.path.join(_build.BUILD_DIR, "k-"))
+
+    # an edited header builds anew, as an edited source does
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    by_header = _build.library_path("k")
+    assert by_header != first
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    by_source = _build.library_path("k")
+    assert by_source not in (first, by_header)
+    # a new header counts too; other sources and the flags as well
+    (tmp_path / "other.cuh").write_text("\n")
+    with_new_header = _build.library_path("k")
+    assert with_new_header != by_source
+    (tmp_path / "unrelated.cu").write_text("\n")
+    assert _build.library_path("k") == with_new_header
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path("k") != with_new_header
+
+
+def _c_body(text, name):
+    """The body of the C function or kernel ``name`` (from its name to
+    the closing brace at column 0)."""
+    start = text.index(f"{name}(")
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_flash_forward_and_dq_are_warp_specialised_wgmma_kernels():
+    csrc = REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
+    src = (csrc / "flash_attention.cu").read_text()
+    hopper = (csrc / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src
+    assert "cp.async.bulk.tensor" in _c_body(hopper, "tma_load")
+    assert "mbarrier.try_wait" in _c_body(hopper, "mbar_wait")
+    assert "wgmma.mma_async" in _c_body(hopper, "wgmma_ss_n128")
+    assert "wgmma.mma_async" in _c_body(hopper, "wgmma_rs_n128")
+    producer = _c_body(src, "produce")
+    assert "mbar_wait" in producer and "tma_tile" in producer
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel"):
+        body = _c_body(src, kernel)
+        # a producer role apart from the consumer warpgroups
+        assert "produce<" in body and "setmaxnreg_dec" in body
+        assert "setmaxnreg_inc" in body
+        assert "hopper::wgmma_ss" in body and "hopper::wgmma_rs" in body
+        assert "hopper::mbar_wait(ring." in body
+        # no warp-level mma.sync product
+        assert "mma(" not in body.replace("wgmma", "")
+        assert "mma.sync.aligned" not in body
+    # dk/dv keeps its mma.sync body
+    assert "mma(" in _c_body(src, "flash_bwd_dkv_kernel")
+    assert "mma.sync.aligned" not in hopper

@@ -142,6 +142,77 @@ def test_concurrent_clients_each_get_their_tokens(tiny, frontend):
     assert results == [toks for toks, _ in oracle]
 
 
+def test_a_short_request_is_answered_while_a_long_one_still_generates(
+        tiny):
+    """Results are posted as each request finishes, not when the burst
+    drains: a short blocking request sent while a long streamed one is
+    generating gets its answer before the long stream's ``done``, and
+    both carry the tokens the engine gives them alone."""
+    rng = np.random.default_rng(3)
+    long_p, short_p = (rng.integers(0, 256, (n,)).astype(np.int32)
+                       for n in (6, 5))
+    long_n, short_n = 56, 3
+    ((long_toks, _),) = _oracle(tiny, [long_p], [long_n])
+    ((short_toks, short_lps),) = _oracle(tiny, [short_p], [short_n])
+
+    eng = ContinuousBatchingEngine(tiny, tiny.state_dict(), **ENGINE)
+    # after its first chunk (streamed to the client) the long request
+    # waits until the short one is submitted, and each chunk takes at
+    # least 5 ms: the short one is admitted mid-burst with most of the
+    # long budget still to go
+    submitted = threading.Event()
+    submit, decode = eng.submit, eng._decode_chunk
+    chunks = []
+
+    def gated_submit(tokens, *a, **k):
+        rid = submit(tokens, *a, **k)
+        if len(tokens) == len(short_p):
+            submitted.set()
+        return rid
+
+    def slow_decode(*a, **k):
+        if chunks:
+            submitted.wait(TIMEOUT)
+        chunks.append(1)
+        time.sleep(0.005)
+        return decode(*a, **k)
+
+    eng.submit, eng._decode_chunk = gated_submit, slow_decode
+    fe = ServingFrontend(eng).start()
+    try:
+        events, first = [], threading.Event()
+
+        def stream_long():
+            req = urllib.request.Request(
+                _url(fe, "/generate"),
+                data=json.dumps({"tokens": long_p.tolist(),
+                                 "max_new_tokens": long_n,
+                                 "stream": True}).encode())
+            with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
+                for line in r:
+                    if line.startswith(b"data: "):
+                        events.append(json.loads(line[6:].strip()))
+                        first.set()
+
+        t = threading.Thread(target=stream_long)
+        t.start()
+        assert first.wait(TIMEOUT)  # the long request is generating
+        out = _post(fe, {"tokens": short_p.tolist(),
+                         "max_new_tokens": short_n})
+        seen = list(events)  # the long stream when the short one returned
+        t.join(TIMEOUT)
+        assert not t.is_alive()
+    finally:
+        fe.close()
+    assert out["tokens"] == short_toks
+    assert out["finish_reason"] == "length"
+    np.testing.assert_allclose(out["logprobs"], short_lps, atol=1e-6)
+    assert {"done": "length"} not in seen
+    assert len(seen) < long_n
+    assert events[-1] == {"done": "length"}
+    assert [e["token"] for e in events[:-1]] == long_toks
+
+
 @pytest.mark.parametrize("body", [
     b"{not json",
     json.dumps({"max_new_tokens": 4}).encode(),            # no tokens
