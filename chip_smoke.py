@@ -15,9 +15,10 @@ and on any failed check. Phases:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 1. build every ``sparkdl_tpu_torch/ops/csrc/*.cu`` (one nvcc each, all
-   started together), and beside it ``nvcc -Xptxas -v`` on the flash
-   source: the registers, spills, stack and shared memory of the Hopper
-   forward and dq kernels are printed once (``ptxas`` line);
+   started together), and beside it ``nvcc -Xptxas -v`` on the flash and
+   int4 sources: the registers, spills, stack and shared memory of the
+   three Hopper flash kernels and of the int4 kernels are printed once
+   (``ptxas`` line);
 2. the serving kernels against their plain versions on the card at the
    shapes one decode step (and a prefill) gives them, timed with CUDA
    events (L2 flushed between runs, median of 25) beside the bound
@@ -25,8 +26,9 @@ and on any failed check. Phases:
    timed beside the int8 matmul as its library yardstick;
 2c. the int4 matmul against its plain version at the same decode-step
    shapes and a prefill chunk (M = 256), group 64, timed beside its
-   bound and ``torch._weight_int4pack_mm`` (checked against the plain
-   version first);
+   bound, ``torch._weight_int4pack_mm`` (checked against the plain
+   version first) and its time before the tensor-core redesign
+   (``old_ms``);
 3. serving at full width: 16 requests (prompts 64-1024 tokens, budgets
    32-128, greedy) through 8 slots, pages of 64; every request must end
    on its full budget, and the launch counters, zeroed just before the
@@ -53,8 +55,8 @@ and on any failed check. Phases:
    D 128, causal) and at a ragged S of 1000 (causal and not, D 128 and
    64), timed at the training shape beside their bounds and beside
    ``scaled_dot_product_attention`` (forward, and its backward against
-   dq + dk/dv), with TFLOP/s, and the forward's and dq's times before
-   their Hopper redesign (``old_ms``) beside them;
+   dq + dk/dv), with TFLOP/s, and each kernel's time before its Hopper
+   redesign (``old_ms``) beside it;
 5. LoRA fine-tuning at full width (Llama-3-8B, rank 16 on q and v,
    flash attention, random bf16 weights): batch 2 x 2048, AdamW on the
    adapters, one warm-up step and 5 timed ones; the loss must fall, the
@@ -123,13 +125,22 @@ FLASH_SHAPES = [(2, 2048, 32, 128, True),
                 (1, 1000, 4, 128, False),
                 (1, 1000, 4, 64, True)]
 
-# the flash forward's and dq's device ms a call at FLASH_SHAPES[0] before
-# their Hopper redesign: the mma.sync kernels, timed by this script's
-# phase 2b on one H100 80GB HBM3 at 700 W (PERF.md section 6, the B1
-# and B2 rows)
-FLASH_OLD_MS = {"fwd": 0.674, "dq": 0.652}
-# the kernels whose ptxas resources phase 1 prints
-PTXAS_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel")
+# the flash kernels' device ms a call at FLASH_SHAPES[0] before their
+# Hopper redesign: the mma.sync kernels, timed by this script's phase 2b
+# on one H100 80GB HBM3 at 700 W (PERF.md section 6, the B1, B2 and B3
+# rows)
+FLASH_OLD_MS = {"fwd": 0.674, "dq": 0.652, "dkv": 0.911}
+# the int4 matmul's device ms a call at each Q4_SHAPES row before its
+# tensor-core redesign (CUDA-core FMAs for every x), timed by this
+# script's phase 2c on the same card (PERF.md section 6, the B6 row)
+Q4_OLD_MS = [0.031, 0.016, 0.071, 0.070, 0.438, 1.421]
+# the kernels whose ptxas resources phase 1 prints, by source
+PTXAS_KERNELS = {"flash_attention": ("flash_fwd_kernel",
+                                     "flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel"),
+                 "quantized_matmul_int4": ("q4mm_gemv_kernel",
+                                           "q4mm_gemm_kernel",
+                                           "q4mm_kernel")}
 
 # the training phase: batch x seq tokens a step, warm-up + timed steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
@@ -157,19 +168,45 @@ def _card_line(torch):
 
 
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on the flash source (device code only,
-    the library's own flags), beside the build; read by
+    """Start ``nvcc -Xptxas -v`` on each source of PTXAS_KERNELS (device
+    code only, the library's own flags), beside the build; read by
     :func:`finish_ptxas_report`."""
     from sparkdl_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    out = os.path.join(_build.BUILD_DIR, f"ptxas-{os.getpid()}.cubin")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    cmd = [_build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o", out,
-           os.path.join(_build.CSRC, "flash_attention.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
+    started = []
+    for src in PTXAS_KERNELS:
+        out = os.path.join(_build.BUILD_DIR,
+                           f"ptxas-{src}-{os.getpid()}.cubin")
+        cmd = [_build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+               out, os.path.join(_build.CSRC, f"{src}.cu")]
+        started.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), out))
+    return started
+
+
+def _ptxas_label(fn):
+    """A readable name for a mangled kernel of PTXAS_KERNELS, or None:
+    ``flash_fwd_kernel<128>``, ``q4mm_gemv_kernel<group 64>``,
+    ``q4mm_kernel<fp32>``."""
+    import re
+
+    names = [n for ns in PTXAS_KERNELS.values() for n in ns]
+    m = re.search(r"(" + "|".join(names) + r")I(\w+)", fn)
+    if m is None:
+        return None
+    name, rest = m.groups()
+    d = re.match(r"Li(\d+)E", rest)
+    if name.startswith("flash") and d:
+        return f"{name}<{d.group(1)}>"
+    if name.startswith("q4mm_gem") and d:  # <k16 steps a scale group>
+        return f"{name}<group {16 * int(d.group(1))}>"
+    if name == "q4mm_kernel":
+        return f"{name}<{'bf16' if 'bfloat16' in rest[:20] else 'fp32'}>"
+    return f"{name}<{rest[:40]}>"
 
 
 def finish_ptxas_report(started):
@@ -177,39 +214,39 @@ def finish_ptxas_report(started):
     instantiation of PTXAS_KERNELS, from ptxas's own report."""
     import re
 
-    proc, out = started
-    text, _ = proc.communicate(timeout=600)
-    if os.path.exists(out):
-        os.remove(out)
-    _require(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
     rows, current = {}, None
-    for line in text.splitlines():
-        # ptxas's warnings, and its notes of wgmma serialisation
-        if (("warning" in line or "Performance Loss" in line)
-                and current is not None):
-            rows[current].setdefault("warnings", []).append(line.strip())
-        m = re.search(r"(?:Compiling entry function|Function properties for)"
-                      r" '?(\w+)", line)
-        if m:
-            k = re.search(r"(" + "|".join(PTXAS_KERNELS) + r")ILi(\d+)E",
-                          m.group(1))
-            current = f"{k.group(1)}<{k.group(2)}>" if k else None
-            if current is not None:
-                rows.setdefault(current, {"static_smem_bytes": 0})
-            continue
-        if current is None:
-            continue
-        row = rows.setdefault(current, {"static_smem_bytes": 0})
-        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
-                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
-                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
-                         ("registers", r"Used (\d+) registers"),
-                         ("static_smem_bytes", r"(\d+) bytes smem")):
-            m = re.search(pat, line)
+    for proc, out in started:
+        text, _ = proc.communicate(timeout=600)
+        if os.path.exists(out):
+            os.remove(out)
+        _require(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+        for line in text.splitlines():
+            # ptxas's warnings, and its notes of wgmma serialisation
+            if (("warning" in line or "Performance Loss" in line)
+                    and current is not None):
+                rows[current].setdefault("warnings", []).append(
+                    line.strip())
+            m = re.search(r"(?:Compiling entry function|Function properties"
+                          r" for) '?(\w+)", line)
             if m:
-                row[key] = int(m.group(1))
-    _require(all(any(r.startswith(k) for r in rows) for k in PTXAS_KERNELS),
-             f"no ptxas report for {PTXAS_KERNELS}:\n{text[-2000:]}")
+                current = _ptxas_label(m.group(1))
+                if current is not None:
+                    rows.setdefault(current, {"static_smem_bytes": 0})
+                continue
+            if current is None:
+                continue
+            row = rows[current]
+            for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    row[key] = int(m.group(1))
+    want = [n for ns in PTXAS_KERNELS.values() for n in ns]
+    _require(all(any(r.startswith(k + "<") for r in rows) for k in want),
+             f"no ptxas report for every kernel of {want}: {sorted(rows)}")
     return rows
 
 
@@ -369,7 +406,8 @@ def check_quantized_matmul_int4(torch, timer, gen):
 
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     rows = []
-    for m, k, n, xname, calls, per_layer in Q4_SHAPES:
+    for (m, k, n, xname, calls, per_layer), old_ms in zip(Q4_SHAPES,
+                                                          Q4_OLD_MS):
         x = torch.randn((m, k), generator=gen, device=DEVICE).to(
             dtypes[xname])
         # every nibble value -8..7; scales bf16-exact (see int4pack_ms)
@@ -381,10 +419,11 @@ def check_quantized_matmul_int4(torch, timer, gen):
         ref = qmm.quantized_matmul_int4_reference(x, packed, scales,
                                                   Q4_GROUP)
         torch.cuda.synchronize()
-        # tolerance: the int8 check's. Both multiply the same fp32
-        # dequantized weights into K fp32 products summed in another
-        # order (at most 1e-5 of the sum of |terms|), and a bf16 output
-        # may land one ulp apart
+        # tolerance: the int8 check's. Both sum the same exact fp32
+        # products in another order: the plain version x (q s), the
+        # tensor cores s (sum of q x over a group) and the CUDA cores
+        # x (q s) (at most 1e-5 of the sum of |terms|), and a bf16
+        # output may land one ulp apart
         mag = x.float().abs() @ qmm._dequant_int4(packed, scales,
                                                   Q4_GROUP).abs()
         err = (out.float() - ref.float()).abs()
@@ -408,6 +447,7 @@ def check_quantized_matmul_int4(torch, timer, gen):
                 x, packed, scales, group=Q4_GROUP)),
             "plain_ms": timer.ms(lambda: qmm.quantized_matmul_int4_reference(
                 x, packed, scales, Q4_GROUP)),
+            "old_ms": old_ms,
             "host_us": timer.host_us(lambda: qmm.quantized_matmul_int4(
                 x, packed, scales, group=Q4_GROUP)),
             "bound_ms": bound * 1e3,
@@ -1341,10 +1381,12 @@ def main(argv=None):
     _build.build(_build.sources())
     _log(f"build: {time.perf_counter() - t:.1f} s for {_build.sources()}")
     resources = finish_ptxas_report(ptxas)
+    flash_kernels = PTXAS_KERNELS["flash_attention"]
     for name, row in resources.items():
-        kernel, d = name.rstrip(">").split("<")
-        row["dynamic_smem_bytes"] = fa._library().flash_smem_bytes(
-            PTXAS_KERNELS.index(kernel), int(d))
+        kernel, arg = name.rstrip(">").split("<")
+        if kernel in flash_kernels:
+            row["dynamic_smem_bytes"] = fa._library().flash_smem_bytes(
+                flash_kernels.index(kernel), int(arg))
     _log("ptxas " + json.dumps(resources))
 
     gen = torch.Generator(device=DEVICE)

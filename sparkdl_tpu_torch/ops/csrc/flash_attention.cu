@@ -14,9 +14,9 @@
 // acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)). Backward:
 // p = exp(s - lse), ds = p (dp - delta) scale with dp = do.v and delta =
 // sum(do * o) computed by the caller; dq = sum ds k, dk = sum ds^T q,
-// dv = sum p^T do, ds and p cast to bf16 before their products. The
-// forward and dq take exponentials as exp2 with log2(e) folded into the
-// scale (and into lse); lse is returned in natural-log units.
+// dv = sum p^T do, ds and p cast to bf16 before their products. All
+// three take exponentials as exp2 with log2(e) folded into the scale
+// (and into lse); lse is returned in natural-log units.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are contiguous (B, S, H, D), the
 // models' own layout (no transposes), k and v with as many heads as q
@@ -64,28 +64,37 @@
 // heaviest causal tile first, so a slice's k and v are read from L2 by
 // blocks running together. No atomics: dq is deterministic.
 //
-// Known limits: a consumer does not overlap its own softmax with its
-// next q k^T (only the two warpgroups interleave), so part of the
-// softmax stays exposed; every 128-row q tile reads all of its k and v
-// tiles again from L2 (no cluster multicast), so the L2's bandwidth
-// sets a floor under both kernels' time; the grid is not persistent;
-// GQA is repeated by the caller rather than read in place.
+// dk/dv (flash_bwd_dkv_kernel): the same warp-specialised shape, turned
+// key-stationary. A block owns 128 keys of one (b, h), 64 for each
+// consumer warpgroup, so no two warpgroups write one row and the kernel
+// needs no atomics: dk and dv are deterministic. Setmaxnreg gives the
+// producer 24 registers a thread and the consumers 240: a consumer
+// holds dk and dv for its 64 keys (64 + 64 fp32 a thread at D = 128) and
+// s^T, dp^T of a 64-row q tile (32 + 32). The producer warp loads the
+// block's k and v tiles once by TMA, then streams q and do tiles of 64
+// rows through a ring of 2 stages (128-byte swizzle); each stage also
+// carries its rows' lse * log2(e) and delta, which the producer's lanes
+// store beside the TMA and arrive for on the stage's full barrier. A
+// consumer's tile: s^T = k q^T and dp^T = v do^T, two shared-memory
+// wgmmas in flight together (k and v K-major from rows 64 cw of the
+// block's tiles, q and do K-major); p = 2^(s scale log2(e) - lse
+// log2(e)) by one FFMA and one ex2.approx while dp^T still runs; ds =
+// p (dp - delta) scale; p and ds packed to bf16 in registers are the A
+// operands of dV += p^T do and dK += ds^T q, with do and q MN-major
+// through the transpose bit (the q rows are the products' depth). The
+// TPU's sequential grid axis becomes the loop over q tiles, which starts
+// at the block's diagonal when causal; only the diagonal tile and the
+// one holding row S - 1 are masked (rows >= S arrive as zeros and are
+// masked by row). A (b, h)'s key blocks are consecutive blocks, key block
+// 0 (the heaviest causal one) first, so q and do are read from L2 by
+// blocks running together.
 //
-// dk/dv (flash_bwd_dkv_kernel): the products run on the tensor cores
-// through warp-level mma.sync m16n8k16 (bf16 operands, fp32
-// accumulators). A block of 4 warps owns 64 keys; each warp owns 16 of
-// them and keeps their dk and dv accumulators in registers, so no warp
-// ever reduces with another and the kernel needs no atomics: the results
-// are deterministic. q and do stream through shared memory in tiles of
-// 64 rows (rows padded by 8 bf16 so the fragment loads hit 32 distinct
-// banks). The TPU's sequential grid axis becomes that loop inside the
-// block, pruned by the causal bound: it visits q tiles from the diagonal
-// on. A score tile's fp32 accumulator fragment is, register for
-// register, the A operand of the next product once it is packed to
-// bf16, so p and ds never leave registers. It walks each q tile in two
-// halves of 32 columns to keep two (16, D) accumulators within the
-// register file. Known limits: loads are synchronous (no TMA pipeline),
-// mma.sync instead of wgmma, and GQA is repeated by the caller.
+// Known limits: a consumer does not overlap its softmax with the next
+// tile's products (the two warpgroups interleave on the tensor cores);
+// every 128-row (forward, dq) or 128-key (dk/dv) block reads its
+// streamed tiles again from L2 (no cluster multicast); the grids are
+// not persistent; GQA is repeated by the caller rather than read in
+// place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,185 +143,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
     for (int nt = 0; nt < D / 8; ++nt)
       out[nt * 4] = pack(acc[nt][2 * r] * inv[r], acc[nt][2 * r + 1] * inv[r]);
   }
-}
-
-// ---- dk/dv: warp-level mma.sync, 64-row tiles staged by all threads ------
-
-constexpr int BLOCK = 64;              // keys of a block, rows of a q tile
-constexpr int WARPS = 4;               // 16 keys of the block each
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;                 // bf16 of padding a shared-memory row
-
-// D * 2 bytes a row, staged as 16-byte vectors; rows >= S become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* tile,
-                                          const __nv_bfloat16* src,
-                                          size_t row_stride, int row0,
-                                          int S) {
-  constexpr int LD = D + PAD;
-  constexpr int VECS = D / 8;
-  for (int i = threadIdx.x; i < BLOCK * VECS; i += THREADS) {
-    const int r = i / VECS, c8 = (i % VECS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + (size_t)(row0 + r) * row_stride + c8);
-    *reinterpret_cast<uint4*>(tile + r * LD + c8) = val;
-  }
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// In the m16n8k16 fragments, lane = 4 g + t: A holds rows g and g + 8 at
-// columns 2t, 2t + 1 (and + 8); B holds column g at rows 2t, 2t + 1 (and
-// + 8); C holds rows g and g + 8 at columns 2t, 2t + 1.
-
-// A fragment: rows row0.. of a tile, depth k0..k0 + 15.
-__device__ __forceinline__ void load_a(uint32_t* a, const uint16_t* t,
-                                       int LD, int row0, int k0, int lane) {
-  const uint16_t* p = t + (row0 + (lane >> 2)) * LD + k0 + (lane & 3) * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-}
-
-// B fragment with B[k][n] = t[n0 + n][k0 + k]: the tile's rows are the
-// product's columns (K for q.k^T, V for do.v^T, Q and dO for dk/dv's
-// scores); pairs along k are adjacent.
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const uint16_t* t, int LD, int n0,
-                                            int k0, int lane) {
-  const uint16_t* p = t + (n0 + (lane >> 2)) * LD + k0 + (lane & 3) * 2;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment with B[k][n] = t[k0 + k][n0 + n]: the tile's rows are the
-// product's depth (V for p.v, K for ds.k, Q and dO for dk/dv).
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const uint16_t* t, int LD, int k0,
-                                            int n0, int lane) {
-  const uint16_t* p = t + (k0 + (lane & 3) * 2) * LD + n0 + (lane >> 2);
-  b0 = uint32_t(p[0]) | (uint32_t(p[LD]) << 16);
-  b1 = uint32_t(p[8 * LD]) | (uint32_t(p[9 * LD]) << 16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int S, int H,
-                         int causal, float scale) {
-  constexpr int LD = D + PAD;
-  constexpr int HALF = BLOCK / 2;  // q columns a pass
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ks = smem;
-  uint16_t* vs = ks + BLOCK * LD;
-  uint16_t* qs = vs + BLOCK * LD;
-  uint16_t* dos = qs + BLOCK * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + BLOCK * LD);
-  float* delta_s = lse_s + BLOCK;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = (lane & 3) * 2;
-  const size_t stride = (size_t)H * D;
-  const size_t base = ((size_t)b * S * H + h) * D;
-  const size_t vec = ((size_t)b * H + h) * S;
-  const int k0 = kt * BLOCK;
-  const int key_a = k0 + warp * 16 + (lane >> 2);
-
-  load_tile<D>(ks, k + base, stride, k0, S);
-  load_tile<D>(vs, v + base, stride, k0, S);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
-
-  const int n_q = (S + BLOCK - 1) / BLOCK;
-  for (int i = causal ? kt : 0; i < n_q; ++i) {
-    const int i0 = i * BLOCK;
-    __syncthreads();
-    load_tile<D>(qs, q + base, stride, i0, S);
-    load_tile<D>(dos, dout + base, stride, i0, S);
-    if (threadIdx.x < BLOCK) {
-      const int row = i0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < S ? lse[vec + row] : 0.f;
-      delta_s[threadIdx.x] = row < S ? delta[vec + row] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n0 = half * HALF;
-      // s^T = k.q^T and dp^T = v.do^T: this warp's 16 keys x 32 queries
-      float s[HALF / 8][4], dp[HALF / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < HALF / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, ks, LD, warp * 16, kk * 16, lane);
-        load_a(av, vs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int nt = 0; nt < HALF / 8; ++nt) {
-          uint32_t b0, b1;
-          load_b_rows(b0, b1, qs, LD, n0 + nt * 8, kk * 16, lane);
-          mma(s[nt], ak, b0, b1);
-          load_b_rows(b0, b1, dos, LD, n0 + nt * 8, kk * 16, lane);
-          mma(dp[nt], av, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < HALF / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key_a + 8 * (e >> 1);
-          const int col = n0 + nt * 8 + c + (e & 1);
-          const int row = i0 + col;
-          float p = expf(s[nt][e] * scale - lse_s[col]);
-          if (row >= S || (causal && row < key)) p = 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - delta_s[col]) * scale;  // ds^T
-        }
-      // dv += p^T do, dk += ds^T q over these 32 queries
-#pragma unroll
-      for (int kk = 0; kk < HALF / 16; ++kk) {
-        uint32_t ap[4], ads[4];
-        c_to_a(ap, s, kk);
-        c_to_a(ads, dp, kk);
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          uint32_t b0, b1;
-          load_b_cols(b0, b1, dos, LD, n0 + kk * 16, nt * 8, lane);
-          mma(dv_acc[nt], ap, b0, b1);
-          load_b_cols(b0, b1, qs, LD, n0 + kk * 16, nt * 8, lane);
-          mma(dk_acc[nt], ads, b0, b1);
-        }
-      }
-    }
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(dk + base, stride, key_a, S, dk_acc, one, lane);
-  store_rows<D>(dv + base, stride, key_a, S, dv_acc, one, lane);
 }
 
 // ---- forward and dq: warp-specialised wgmma mainloop (hopper.cuh) -------
@@ -757,9 +587,261 @@ __global__ void __launch_bounds__(HTHREADS, 1)
                 row_a, S, acc, one, lane);
 }
 
+// ---- dk/dv: key-stationary warp-specialised wgmma (hopper.cuh) ---------
+
+constexpr int DKV_BN = 128;    // keys of a block (2 consumers x 64)
+constexpr int DKV_BM = 64;     // q rows of a streamed q / do tile
+constexpr int DKV_STAGES = 2;  // q/do ring depth
+
+// dk/dv's shared memory, byte offsets from a 1024-byte aligned base: the
+// block's k and v tiles, the ring's q and do tiles, each stage's lse
+// (times log2(e)) and delta ([stage][2][64] fp32), then the mbarriers:
+// kv_full, full[DKV_STAGES], empty[DKV_STAGES].
+template <int D>
+struct DkvSmem {
+  static constexpr int KV = DKV_BN * D * 2;    // a k or v tile
+  static constexpr int ROWS = DKV_BM * D * 2;  // a q or do tile
+  static constexpr int V0 = KV;
+  static constexpr int Q0 = 2 * KV;
+  static constexpr int DO0 = Q0 + DKV_STAGES * ROWS;
+  static constexpr int VEC0 = DO0 + DKV_STAGES * ROWS;
+  static constexpr int BAR = VEC0 + DKV_STAGES * 2 * DKV_BM * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * DKV_STAGES) + 1024;
+};
+
+// The ring of q/do tiles: a stage's full barrier completes with its TMA
+// bytes and one arrival from each lane of the producer warp (the lane's
+// lse and delta are stored); its empty barrier with one arrival from
+// each of the 8 consumer warps.
+struct DkvRing {
+  uint32_t bars;
+  __device__ uint32_t kv_full() const { return bars; }
+  __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
+  __device__ uint32_t empty(int s) const {
+    return bars + 8 * (1 + DKV_STAGES + s);
+  }
+  __device__ void init() const {
+    hopper::mbar_init(kv_full(), 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      hopper::mbar_init(full(s), 32);
+      hopper::mbar_init(empty(s), 8);
+    }
+    hopper::mbar_fence_init();
+  }
+};
+
+// The producer warp: the block's k and v tiles once, then q/do tiles
+// i_begin .. n_q - 1 through the ring, with their rows' lse * log2(e) and
+// delta (0 for rows >= S). A lane reads its 4 values before it waits for
+// the stage, so the loads overlap the wait.
+template <int D>
+__device__ __forceinline__ void produce_dkv(
+    const DkvRing& ring, uint32_t base, float* vecs, const CUtensorMap* tq,
+    const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    size_t vec, int S, int h, int b, int key0, int i_begin, int n_q,
+    int lane) {
+  using Smem = DkvSmem<D>;
+  if (lane == 0) {
+    hopper::tma_prefetch(tq);
+    hopper::tma_prefetch(tdo);
+    hopper::tma_prefetch(tk);
+    hopper::tma_prefetch(tv);
+    hopper::mbar_expect_tx(ring.kv_full(), 2 * Smem::KV);
+    hopper::tma_tile<D>(base, tk, ring.kv_full(), DKV_BN, h, key0, b);
+    hopper::tma_tile<D>(base + Smem::V0, tv, ring.kv_full(), DKV_BN, h,
+                        key0, b);
+  }
+  for (int i = i_begin; i < n_q; ++i) {
+    const int it = i - i_begin, s = it % DKV_STAGES;
+    const int i0 = i * DKV_BM;
+    float l[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = i0 + lane + 32 * r;
+      l[r] = row < S ? lse[vec + row] * LOG2E : 0.f;
+      dl[r] = row < S ? delta[vec + row] : 0.f;
+    }
+    hopper::mbar_wait(ring.empty(s), ((it / DKV_STAGES) & 1) ^ 1);
+    float* vs = vecs + s * 2 * DKV_BM;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      vs[lane + 32 * r] = l[r];
+      vs[DKV_BM + lane + 32 * r] = dl[r];
+    }
+    if (lane == 0) {
+      hopper::mbar_expect_tx(ring.full(s), 2 * Smem::ROWS);
+      hopper::tma_tile<D>(base + Smem::Q0 + s * Smem::ROWS, tq, ring.full(s),
+                          DKV_BM, h, i0, b);
+      hopper::tma_tile<D>(base + Smem::DO0 + s * Smem::ROWS, tdo,
+                          ring.full(s), DKV_BM, h, i0, b);
+    } else {
+      hopper::mbar_arrive(ring.full(s));
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int S, int H,
+                         int causal, float scale, float scale_log2) {
+  using Smem = DkvSmem<D>;
+  constexpr int BM = DKV_BM;
+  extern __shared__ __align__(1024) uint8_t hsmem[];
+  const uint32_t base = (hopper::smem_u32(hsmem) + 1023u) & ~1023u;
+  float* vecs = reinterpret_cast<float*>(
+      hsmem + (base - hopper::smem_u32(hsmem)) + Smem::VEC0);
+  const DkvRing ring{base + Smem::BAR};
+  // block -> (key block, head, batch): a (b, h)'s key blocks are
+  // consecutive blocks, key block 0 (the heaviest causal one) first
+  const int n_kb = (S + DKV_BN - 1) / DKV_BN;
+  const int kb = blockIdx.x % n_kb, bh = blockIdx.x / n_kb;
+  const int h = bh % H, b = bh / H;
+  const int key0 = kb * DKV_BN;
+  const int n_q = (S + BM - 1) / BM;
+  // causal: the first q tile that can see the block's first key
+  const int i_begin = causal ? key0 / BM : 0;
+  const size_t vec = ((size_t)b * H + h) * S;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x < 32)
+      produce_dkv<D>(ring, base, vecs, &tq, &tk, &tv, &tdo, lse, delta, vec,
+                     S, h, b, key0, i_begin, n_q, threadIdx.x);
+    return;
+  }
+  hopper::setmaxnreg_inc<240>();
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: 64 keys
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int c = (lane & 3) * 2;
+  const int kc0 = key0 + 64 * cw;
+  const int key_a = kc0 + warp * 16 + (lane >> 2);  // and key_a + 8
+
+  // 64 x N fp32 wgmma fragments as [n8 block][4] (mma.sync's C layout a
+  // warp): dk and dv (keys x D); s^T and dp^T (keys x q rows)
+  float dk_acc[D / 8][4], dv_acc[D / 8][4], s[BM / 8][4], dp[BM / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  uint32_t pa[BM / 16][4], da[BM / 16][4];
+  const uint32_t kt = base, vt = base + Smem::V0;
+
+  hopper::mbar_wait(ring.kv_full(), 0);
+  for (int i = i_begin; i < n_q; ++i) {
+    const int it = i - i_begin, st = it % DKV_STAGES;
+    const uint32_t phase = (it / DKV_STAGES) & 1;
+    const int i0 = i * BM;
+    const uint32_t qs = base + Smem::Q0 + st * Smem::ROWS;
+    const uint32_t dos = base + Smem::DO0 + st * Smem::ROWS;
+    const float* vs = vecs + st * 2 * BM;
+    if (causal && i0 + BM - 1 < kc0) {
+      // every row of the tile is above this warpgroup's keys
+      if (lane == 0) hopper::mbar_arrive(ring.empty(st));
+      continue;
+    }
+
+    hopper::mbar_wait(ring.full(st), phase);
+    hopper::wgmma_fence();
+    // s^T = k q^T and dp^T = v do^T, both in flight together
+    hopper::wgmma_ss_n64_first(&s[0][0], hopper::desc_k(kt, DKV_BN, 64 * cw, 0),
+                               hopper::desc_k(qs, BM, 0, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      hopper::wgmma_ss_n64(&s[0][0],
+                           hopper::desc_k(kt, DKV_BN, 64 * cw, 16 * kk),
+                           hopper::desc_k(qs, BM, 0, 16 * kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_ss_n64_first(&dp[0][0],
+                               hopper::desc_k(vt, DKV_BN, 64 * cw, 0),
+                               hopper::desc_k(dos, BM, 0, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      hopper::wgmma_ss_n64(&dp[0][0],
+                           hopper::desc_k(vt, DKV_BN, 64 * cw, 16 * kk),
+                           hopper::desc_k(dos, BM, 0, 16 * kk), 1);
+    hopper::wgmma_commit();
+
+    // p^T while dp^T is still in flight: a column is a q row
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs<BM / 2>(&s[0][0]);
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt) {
+      const float2 l = *reinterpret_cast<const float2*>(vs + nt * 8 + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = hopper::ex2(fmaf(s[nt][e], scale_log2,
+                                    -((e & 1) ? l.y : l.x)));
+    }
+    if ((causal && i0 < kc0 + 63) || i0 + BM > S) {
+      // a row of this tile can be hidden from a key, or be >= S: zero
+      // its p (only the diagonal tile and the last one)
+#pragma unroll
+      for (int nt = 0; nt < BM / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_a + 8 * (e >> 1);
+          const int row = i0 + nt * 8 + c + (e & 1);
+          if (row >= S || (causal && row < key)) s[nt][e] = 0.f;
+        }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<BM / 2>(&dp[0][0]);
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(vs + BM + nt * 8 + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)  // ds^T
+        dp[nt][e] = s[nt][e] * (dp[nt][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      c_to_a(pa[kk], s, kk);
+      c_to_a(da[kk], dp, kk);
+    }
+
+    // dv += p^T do and dk += ds^T q: do and q MN-major (the q rows are
+    // the products' depth)
+    hopper::fence_regs<D / 2>(&dk_acc[0][0]);
+    hopper::fence_regs<D / 2>(&dv_acc[0][0]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      hopper::wgmma_rs<D>(&dv_acc[0][0], pa[kk],
+                          hopper::desc_mn(dos, BM, 16 * kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      hopper::wgmma_rs<D>(&dk_acc[0][0], da[kk],
+                          hopper::desc_mn(qs, BM, 16 * kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<D / 2>(&dk_acc[0][0]);
+    hopper::fence_regs<D / 2>(&dv_acc[0][0]);
+    hopper::fence_regs<BM / 4>(&pa[0][0]);  // read by the products in flight
+    hopper::fence_regs<BM / 4>(&da[0][0]);
+    if (lane == 0) hopper::mbar_arrive(ring.empty(st));
+  }
+  const float one[2] = {1.f, 1.f};
+  const size_t off = ((size_t)b * S * H + h) * D;
+  store_rows<D>(dk + off, (size_t)H * D, key_a, S, dk_acc, one, lane);
+  store_rows<D>(dv + off, (size_t)H * D, key_a, S, dv_acc, one, lane);
+}
+
 // Shapes this tiling cannot take are refused, never launched: a head
 // dim other than 64 or 128, a grid above the card's limits, a pointer
-// not 16-byte aligned (the tiles are staged as 16-byte vectors); a
+// not 16-byte aligned (the TMA maps need 16-byte aligned tensors); a
 // shared-memory need above the card's limit fails in
 // cudaFuncSetAttribute.
 bool refused(int B, int S, int H, int D, const void* const* ptrs, int n) {
@@ -825,26 +907,28 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-size_t dkv_smem(int D) {
-  return 4 * BLOCK * (D + PAD) * sizeof(uint16_t) + 2 * BLOCK * sizeof(float);
-}
-
 template <int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int B,
             int S, int H, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem(D);
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, smem);
+  using Smem = DkvSmem<D>;
+  const long long blocks =
+      (long long)((S + DKV_BN - 1) / DKV_BN) * B * H;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::bshd_map(&tq, q, B, S, H, D, DKV_BM);
+  if (err == cudaSuccess)
+    err = hopper::bshd_map(&tdo, dout, B, S, H, D, DKV_BM);
+  if (err == cudaSuccess) err = hopper::bshd_map(&tk, k, B, S, H, D, DKV_BN);
+  if (err == cudaSuccess) err = hopper::bshd_map(&tv, v, B, S, H, D, DKV_BN);
+  if (err == cudaSuccess)
+    err = prepare(flash_bwd_dkv_kernel<D>, Smem::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BLOCK - 1) / BLOCK, H, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H,
-      causal, scale);
+  flash_bwd_dkv_kernel<D><<<(unsigned)blocks, HTHREADS, Smem::BYTES,
+                            stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, causal, scale, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -908,7 +992,7 @@ int flash_smem_bytes(int kernel, int D) {
       return D == 64 ? HopperSmem<64, DQ_BN, 2>::BYTES
                      : HopperSmem<128, DQ_BN, 2>::BYTES;
     case 2:
-      return static_cast<int>(dkv_smem(D));
+      return D == 64 ? DkvSmem<64>::BYTES : DkvSmem<128>::BYTES;
     default:
       return -1;
   }

@@ -276,11 +276,14 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
     with group-wise fp32 scales (K/group, N) → (M, N) in x's dtype.
     CPU inputs: the plain version. CUDA inputs: the kernel, which takes
     x in bf16 or fp32, packed int8 and scales fp32, all contiguous on
-    one card (packed 8-byte and scales 16-byte aligned); anything else
-    raises. A ``group`` that disagrees with the scale rows warns and
-    computes with the inferred group on the same route, as the JAX
-    dispatch does; a non-int8 packed weight raises on CUDA (the JAX
-    dispatch degrades it to its XLA lowering with a warning)."""
+    one card; anything else raises. bf16 x at N a multiple of 16 and
+    group 32, 64 or 128 runs on the tensor cores, which need x, packed,
+    scales and the output 16-byte aligned; fp32 x and other bf16 shapes
+    run on the CUDA cores, which need packed 8-byte and scales 16-byte
+    aligned. A ``group`` that disagrees with the scale rows
+    warns and computes with the inferred group on the same route, as
+    the JAX dispatch does; a non-int8 packed weight raises on CUDA (the
+    JAX dispatch degrades it to its XLA lowering with a warning)."""
     group = _int4_group(x, packed, scales, group)
     if x.device.type == "cpu":
         return quantized_matmul_int4_reference(x, packed, scales, group)
@@ -305,8 +308,9 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
     lib = _library_int4()
     splits, k_per_split = ctypes.c_int(), ctypes.c_int()
     _build.check(lib, lib.q4mm_plan(
-        m, k, n, torch.cuda.get_device_properties(x.device)
-        .multi_processor_count, ctypes.byref(splits),
+        m, k, n, group, int(x.dtype == torch.bfloat16),
+        torch.cuda.get_device_properties(x.device).multi_processor_count,
+        ctypes.byref(splits),
         ctypes.byref(k_per_split)), "quantized_matmul_int4 plan")
     splits = splits.value
     # fp32 partial sums of the K splits, summed in order by a second pass
@@ -320,8 +324,8 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
                  partial.data_ptr() if partial is not None else None,
                  m, k, n, group, splits, k_per_split.value, stream)
     # the C entry point refuses (cudaErrorInvalidValue) an odd K, a
-    # group that does not divide K and misaligned weights or scales:
-    # see launch() in csrc/quantized_matmul_int4.cu
+    # group that does not divide K and misaligned inputs: see
+    # launch_tc() and launch_simt() in csrc/quantized_matmul_int4.cu
     _build.check(lib, err, f"quantized_matmul_int4 ({m}, {k}, {n}), "
                            f"group {group}")
     quantized_matmul_int4.launches += 1
@@ -332,9 +336,12 @@ quantized_matmul_int4.launches = 0
 
 _Q4_SIGNATURE = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
+# M, K, N, group, x is bf16, SMs; splits, k_per_split out
+_Q4_PLAN_SIGNATURE = ([ctypes.c_int] * 6
+                      + [ctypes.POINTER(ctypes.c_int)] * 2)
 
 
 def _library_int4():
     signatures = {name: _Q4_SIGNATURE for name in _Q4_KERNEL_DTYPES.values()}
-    signatures["q4mm_plan"] = _PLAN_SIGNATURE
+    signatures["q4mm_plan"] = _Q4_PLAN_SIGNATURE
     return _build.load("quantized_matmul_int4", signatures)

@@ -54,21 +54,26 @@ def test_forward_plain_matches_pallas(causal, s, d):
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("s", [40, 128])
+@pytest.mark.parametrize("s,d", [(40, 32), (128, 32), (200, 64),
+                                 (200, 128)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_backward_plain_matches_pallas(causal, s):
+def test_backward_plain_matches_pallas(causal, s, d):
     """(dq, dk, dv) of the plain backward against the Pallas dq and dk/dv
-    kernels on the same do, lse and delta."""
-    d = 32
+    kernels on the same do, lse and delta. S = 200 is ragged for the
+    CUDA kernels' 64-row tiles (rows past S arrive as TMA zeros there)
+    at the head dims they take; Pallas runs it in blocks of 40."""
     q, k, v = _qkv(s, s, d)
     do = np.random.default_rng(s + 1).standard_normal(q.shape).astype(
         np.float32)
     jq, jk, jv, jdo = map(_bhsd, (q, k, v, do))
+    blk = 40 if s % 128 else 128
     jo, jlse = jax_flash.flash_attention_bhsd(
-        jq, jk, jv, causal=causal, interpret=True, return_lse=True)
+        jq, jk, jv, causal=causal, bq=blk, bk=blk, interpret=True,
+        return_lse=True)
     jdelta = jnp.sum(jdo * jo, axis=-1, keepdims=True)
     ref = jax_flash.flash_attention_bwd_bhsd(
-        jq, jk, jv, jdo, jlse, jdelta, causal=causal, interpret=True)
+        jq, jk, jv, jdo, jlse, jdelta, causal=causal, bq=blk, bk=blk,
+        interpret=True)
     got = pt_flash.flash_attention_bwd_reference(
         *map(torch.from_numpy, (q, k, v, do)),
         torch.from_numpy(np.array(jlse)[..., 0]),

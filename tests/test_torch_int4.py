@@ -187,6 +187,57 @@ def test_quantized_matmul_int4_bf16_within_one_ulp(m):
         assert np.all(np.abs(got - ref) <= tol), np.abs(got - ref).max()
 
 
+def _tensor_core_order(x, packed, s, group):
+    """A plain fp32 emulation of the CUDA tensor-core kernel's sums (not
+    the port's path): each group's exact nibble x x products summed in
+    fp32, that partial times the column's fp32 scale, added in fp32 group
+    after group."""
+    q = pt_qmm.unpack_int4(torch.from_numpy(packed)).numpy().astype(
+        np.float32)
+    k = q.shape[0]
+    acc = np.zeros((x.shape[0], q.shape[1]), np.float32)
+    for g in range(k // group):
+        rows = slice(g * group, (g + 1) * group)
+        part = (x[:, rows].astype(np.float32) @ q[rows]).astype(np.float32)
+        acc = (acc + part * s[g][None, :]).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_tensor_core_sum_order_within_the_chip_tolerance(m):
+    """The argument that lets the kernel's tolerance stay unchanged:
+    summing s_g (sum of q x over a group) instead of x (q s) moves a
+    bf16 output by at most 1e-5 of the sum of |terms| plus one bf16 ulp
+    (the chip smoke's phase 2c bound), at a decode (M 8) and a prefill
+    (M 256) row count. Every nibble value appears, one column is all
+    -8, and x and the scales are bf16-exact, as on the card."""
+    k, n, group = 512, 48, 64
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).bfloat16()
+    nib = rng.integers(-8, 8, (k, n)).astype(np.int8)
+    nib[:16, 0] = np.arange(-8, 8)         # every value in one column
+    nib[:, 1] = -8                         # an all-(-8) column
+    u = nib.astype(np.uint8)
+    packed = ((u[0::2] & 0x0F) | ((u[1::2] & 0x0F) << 4)).view(np.int8)
+    s = torch.from_numpy((rng.random((k // group, n)) * 1e-2 + 1e-4)
+                         .astype(np.float32)).bfloat16().float().numpy()
+    ref = pt_qmm.quantized_matmul_int4_reference(
+        x, torch.from_numpy(packed), torch.from_numpy(s), group)
+    assert ref.dtype == torch.bfloat16
+    ref = ref.float().numpy()
+    xf = x.float().numpy()
+    got = torch.from_numpy(_tensor_core_order(xf, packed, s, group)) \
+        .bfloat16().float().numpy()
+    tol = 1e-5 * _terms(xf, packed, s, group) + _bf16_ulp(ref)
+    assert np.all(np.abs(got - ref) <= tol), np.abs(got - ref).max()
+    # the fp32 sums themselves differ by the order alone
+    exact = (xf.astype(np.float64) @ (nib.astype(np.float64)
+                                      * np.repeat(s, group, 0)))
+    assert np.all(np.abs(_tensor_core_order(xf, packed, s, group) - exact)
+                  <= 1e-5 * _terms(xf, packed, s, group))
+
+
 def test_quantized_matmul_int4_group_mismatch_warns_like_jax():
     """A group that does not match the scale rows: both warn and compute
     with the group the shapes imply, the same numbers as that group."""

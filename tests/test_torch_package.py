@@ -179,18 +179,37 @@ def test_flash_forward_and_dq_are_warp_specialised_wgmma_kernels():
     assert "mbarrier.try_wait" in _c_body(hopper, "mbar_wait")
     assert "wgmma.mma_async" in _c_body(hopper, "wgmma_ss_n128")
     assert "wgmma.mma_async" in _c_body(hopper, "wgmma_rs_n128")
-    producer = _c_body(src, "produce")
-    assert "mbar_wait" in producer and "tma_tile" in producer
-    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel"):
+    for name in ("produce", "produce_dkv"):
+        producer = _c_body(src, name)
+        assert "mbar_wait" in producer and "tma_tile" in producer
+    for kernel, produce in (("flash_fwd_kernel", "produce<"),
+                            ("flash_bwd_dq_kernel", "produce<"),
+                            ("flash_bwd_dkv_kernel", "produce_dkv<")):
         body = _c_body(src, kernel)
         # a producer role apart from the consumer warpgroups
-        assert "produce<" in body and "setmaxnreg_dec" in body
+        assert produce in body and "setmaxnreg_dec" in body
         assert "setmaxnreg_inc" in body
         assert "hopper::wgmma_ss" in body and "hopper::wgmma_rs" in body
         assert "hopper::mbar_wait(ring." in body
         # no warp-level mma.sync product
         assert "mma(" not in body.replace("wgmma", "")
         assert "mma.sync.aligned" not in body
-    # dk/dv keeps its mma.sync body
-    assert "mma(" in _c_body(src, "flash_bwd_dkv_kernel")
+    # no flash kernel is left on mma.sync
+    assert "mma.sync.aligned" not in src
     assert "mma.sync.aligned" not in hopper
+
+
+def test_int4_bf16_products_reach_the_tensor_cores():
+    """Both of the int4 matmul's bf16 kernels multiply through mma.sync
+    in the source; fp32 x stays on the CUDA-core kernel, which has no
+    tensor-core product."""
+    src = (REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
+           / "quantized_matmul_int4.cu").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in \
+        _c_body(src, "mma16816")
+    for kernel in ("q4mm_gemv_kernel", "q4mm_gemm_kernel"):
+        assert "mma16816(" in _c_body(src, kernel)
+    assert "mma" not in _c_body(src, "q4mm_kernel")
+    bf16 = _c_body(src, "int q4mm_bf16")
+    assert "launch_tc(" in bf16 and "tc_takes(N, group)" in bf16
+    assert "launch_simt<float>" in _c_body(src, "int q4mm_f32")
