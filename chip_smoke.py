@@ -15,15 +15,20 @@ and on any failed check. Phases:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 1. build every ``sparkdl_tpu_torch/ops/csrc/*.cu`` (one nvcc each, all
-   started together), and beside it ``nvcc -Xptxas -v`` on the flash and
-   int4 sources: the registers, spills, stack and shared memory of the
-   three Hopper flash kernels and of the int4 kernels are printed once
-   (``ptxas`` line);
+   started together), and beside it ``nvcc -Xptxas -v`` on every
+   source: the registers, spills, stack and shared memory of each
+   kernel of PTXAS_KERNELS are printed once (``ptxas`` line);
 2. the serving kernels against their plain versions on the card at the
    shapes one decode step (and a prefill) gives them, timed with CUDA
    events (L2 flushed between runs, median of 25) beside the bound
-   computed from bytes or operations, and ``torch._weight_int8pack_mm``
-   timed beside the int8 matmul as its library yardstick;
+   computed from bytes or operations, their time before their Hopper
+   redesign (``old_ms``, ``old_host_us``), and
+   ``torch._weight_int8pack_mm`` timed beside the int8 matmul as its
+   library yardstick; the int8 weights span -128..127 with one column
+   all -128; the paged decode is also checked (not timed) at its split
+   boundaries: one token (every later split empty), a length ending on
+   a split boundary and one past it, full rows, an inactive row on the
+   dump page, and every row at 2048;
 2c. the int4 matmul against its plain version at the same decode-step
    shapes and a prefill chunk (M = 256), group 64, timed beside its
    bound, ``torch._weight_int4pack_mm`` (checked against the plain
@@ -134,13 +139,26 @@ FLASH_OLD_MS = {"fwd": 0.674, "dq": 0.652, "dkv": 0.911}
 # tensor-core redesign (CUDA-core FMAs for every x), timed by this
 # script's phase 2c on the same card (PERF.md section 6, the B6 row)
 Q4_OLD_MS = [0.031, 0.016, 0.071, 0.070, 0.438, 1.421]
+# the int8 matmul's device ms a call at each QMM_SHAPES row, and the
+# paged decode's at phase 2's lengths, before their Hopper redesign
+# (CUDA-core FMAs; one block a (row, kv head), pages in order), timed by
+# this script's phase 2 on the same card (PERF.md section 6, the B5 and
+# B4 rows), with their wrappers' host µs a call from the same run
+QMM_OLD_MS = [0.0309, 0.0167, 0.0645, 0.0660, 0.386, 2.463]
+QMM_OLD_HOST_US = [44.75, 57.70, 55.47, 59.00, 62.97, 47.31]
+PAGED_OLD_MS, PAGED_OLD_HOST_US = 0.245, 47.84
 # the kernels whose ptxas resources phase 1 prints, by source
 PTXAS_KERNELS = {"flash_attention": ("flash_fwd_kernel",
                                      "flash_bwd_dq_kernel",
                                      "flash_bwd_dkv_kernel"),
                  "quantized_matmul_int4": ("q4mm_gemv_kernel",
                                            "q4mm_gemm_kernel",
-                                           "q4mm_kernel")}
+                                           "q4mm_kernel"),
+                 "quantized_matmul": ("qmm_gemv_kernel", "qmm_gemm_kernel",
+                                      "qmm_kernel"),
+                 "paged_attention": ("paged_split_kernel",
+                                     "paged_merge_kernel",
+                                     "paged_decode_kernel")}
 
 # the training phase: batch x seq tokens a step, warm-up + timed steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
@@ -191,20 +209,23 @@ def start_ptxas_report():
 def _ptxas_label(fn):
     """A readable name for a mangled kernel of PTXAS_KERNELS, or None:
     ``flash_fwd_kernel<128>``, ``q4mm_gemv_kernel<group 64>``,
-    ``q4mm_kernel<fp32>``."""
+    ``q4mm_kernel<fp32>``, ``paged_split_kernel<128>`` (D), and
+    ``qmm_gemv_kernel<>`` for a kernel that is no template."""
     import re
 
     names = [n for ns in PTXAS_KERNELS.values() for n in ns]
-    m = re.search(r"(" + "|".join(names) + r")I(\w+)", fn)
+    m = re.search(r"(" + "|".join(names) + r")(I?)(\w*)", fn)
     if m is None:
         return None
-    name, rest = m.groups()
+    name, template, rest = m.groups()
+    if not template:
+        return f"{name}<>"
     d = re.match(r"Li(\d+)E", rest)
-    if name.startswith("flash") and d:
+    if name.startswith(("flash", "paged_split")) and d:
         return f"{name}<{d.group(1)}>"
     if name.startswith("q4mm_gem") and d:  # <k16 steps a scale group>
         return f"{name}<group {16 * int(d.group(1))}>"
-    if name == "q4mm_kernel":
+    if name in ("q4mm_kernel", "qmm_kernel", "paged_decode_kernel"):
         return f"{name}<{'bf16' if 'bfloat16' in rest[:20] else 'fp32'}>"
     return f"{name}<{rest[:40]}>"
 
@@ -320,11 +341,16 @@ def check_quantized_matmul(torch, timer, gen):
 
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     rows = []
-    for m, k, n, xname, calls, per_layer in QMM_SHAPES:
+    for (m, k, n, xname, calls, per_layer), old_ms, old_host_us in zip(
+            QMM_SHAPES, QMM_OLD_MS, QMM_OLD_HOST_US):
         x = torch.randn((m, k), generator=gen, device=DEVICE).to(
             dtypes[xname])
-        w_q = torch.randint(-127, 128, (k, n), generator=gen,
+        # every int8 value, -128 too (the kernel's contract takes any
+        # int8, though quantize_int8 stops at -127), and one column all
+        # -128
+        w_q = torch.randint(-128, 128, (k, n), generator=gen,
                             device=DEVICE, dtype=torch.int8)
+        w_q[:, 1] = -128
         scales = torch.rand((n,), generator=gen, device=DEVICE) * 1e-2 \
             + 1e-4
         out = qmm.quantized_matmul(x, w_q, scales)
@@ -349,11 +375,14 @@ def check_quantized_matmul(torch, timer, gen):
             "shape": [m, k, n], "x": xname,
             "calls_per_decode_step": calls, "per_layer": per_layer,
             "max_abs_err": err.max().item(),
+            "worst_err_over_tol": (err / tol).max().item(),
             "ms": timer.ms(lambda: qmm.quantized_matmul(x, w_q, scales)),
             "plain_ms": timer.ms(
                 lambda: qmm.quantized_matmul_reference(x, w_q, scales)),
+            "old_ms": old_ms,
             "host_us": timer.host_us(
                 lambda: qmm.quantized_matmul(x, w_q, scales)),
+            "old_host_us": old_host_us,
             "bound_ms": bound * 1e3,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / PEAK_FLOPS[xname] else "operations"),
@@ -465,6 +494,41 @@ def check_quantized_matmul_int4(torch, timer, gen):
     return rows
 
 
+def _paged_case(torch, pa, q, k_pool, v_pool, lens_h, inactive, page,
+                max_pages, perm):
+    """One phase-2 paged case: each row's pages drawn from ``perm`` (the
+    rows in ``inactive`` keep every entry on the dump page 0), the
+    kernel against its plain version. Returns the inputs and the error
+    record."""
+    b = len(lens_h)
+    tables_h = np.zeros((b, max_pages), np.int32)
+    for i in range(b):
+        if i not in inactive:
+            used = -(-int(lens_h[i]) // page)
+            tables_h[i, :used] = perm[i * max_pages:i * max_pages + used]
+    tables = torch.as_tensor(tables_h, device=DEVICE)
+    lens = torch.as_tensor(np.asarray(lens_h, np.int32), device=DEVICE)
+    out = pa.paged_attention_decode(q, k_pool, v_pool, tables, lens)
+    ref = pa.paged_attention_decode_reference(q, k_pool, v_pool, tables,
+                                              lens)
+    # both round each probability to bf16 before the PV product, the
+    # kernel relative to its split's max and the plain version relative
+    # to the row's (relative error <= 2^-9 a side, allowed 2^-8 of the
+    # probability-weighted |v|), and both round the output to bf16 (one
+    # ulp)
+    weighted_abs = pa.paged_attention_decode_reference(
+        q.float(), k_pool.float(), v_pool.float().abs(), tables, lens)
+    err = (out.float() - ref.float()).abs()
+    tol = 2.0 ** -8 * weighted_abs + _bf16_ulp(torch, ref.float()) + 1e-5
+    bad = int((err > tol).sum())
+    _require(bad == 0 and bool(torch.isfinite(out).all()),
+             f"paged_attention_decode, lens {list(lens_h)}: {bad} elements "
+             f"beyond tolerance, max err {err.max().item()}")
+    return tables, lens, {"lens": [int(n) for n in lens_h],
+                          "max_abs_err": err.max().item(),
+                          "worst_err_over_tol": (err / tol).max().item()}
+
+
 def check_paged_attention(torch, timer, gen):
     from sparkdl_tpu_torch.ops import paged_attention as pa
 
@@ -476,30 +540,26 @@ def check_paged_attention(torch, timer, gen):
                          device=DEVICE).bfloat16()
     v_pool = torch.randn((n_pages, page, hkv, d), generator=gen,
                          device=DEVICE).bfloat16()
-    # one token, a page boundary, one past it, mid, full, ...; the last
-    # row is an inactive slot: every entry on the dump page 0
-    lens_h = np.array([1, 64, 65, 300, 1000, 2048, 777, 5], np.int32)
     perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
-    tables_h = np.zeros((b, max_pages), np.int32)
-    for i in range(b - 1):
-        used = -(-int(lens_h[i]) // page)
-        tables_h[i, :used] = perm[i * max_pages:i * max_pages + used]
-    tables = torch.as_tensor(tables_h, device=DEVICE)
-    lens = torch.as_tensor(lens_h, device=DEVICE)
-    out = pa.paged_attention_decode(q, k_pool, v_pool, tables, lens)
-    ref = pa.paged_attention_decode_reference(q, k_pool, v_pool, tables,
-                                              lens)
-    # the plain version rounds each probability to bf16 before the PV
-    # product (relative error <= 2^-9, allowed 2^-8 of the probability-
-    # weighted |v|), and both round the output to bf16 (one ulp)
-    weighted_abs = pa.paged_attention_decode_reference(
-        q.float(), k_pool.float(), v_pool.float().abs(), tables, lens)
-    err = (out.float() - ref.float()).abs()
-    tol = 2.0 ** -8 * weighted_abs + _bf16_ulp(torch, ref.float()) + 1e-5
-    bad = int((err > tol).sum())
-    _require(bad == 0 and bool(torch.isfinite(out).all()),
-             f"paged_attention_decode: {bad} elements beyond tolerance, "
-             f"max err {err.max().item()}")
+    # the timed case: one token, a page boundary, one past it, mid,
+    # full, ...; the last row is an inactive slot: every entry on the
+    # dump page 0
+    lens_h = np.array([1, 64, 65, 300, 1000, 2048, 777, 5], np.int32)
+    tables, lens, timed = _paged_case(torch, pa, q, k_pool, v_pool, lens_h,
+                                      {b - 1}, page, max_pages, perm)
+    # check-only cases at the split kernel's boundaries (its tokens a
+    # split from the wrapper's plan): one token (every later split
+    # empty), a length ending on a split boundary, one past it, two
+    # splits, a split boundary past the first, full rows and an inactive
+    # row; then every row at 2048
+    splits, per = pa._split_plan(q, k_pool, tables)
+    span = max(per, 1) * page
+    edge = [1, span, span + 1, 2 * span, 2 * span + 1, max_len,
+            max_len - 1, 7]
+    checks = [_paged_case(torch, pa, q, k_pool, v_pool, lens_h_, inactive,
+                          page, max_pages, perm)[2]
+              for lens_h_, inactive in ((edge, {b - 1}),
+                                        ([max_len] * b, set()))]
     visible = int(lens_h.sum())
     nbytes = (visible * hkv * d * 2 * 2 + 2 * q.numel() * 2
               + tables.numel() * 4 + lens.numel() * 4)
@@ -508,14 +568,20 @@ def check_paged_attention(torch, timer, gen):
     row = {
         "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "page": page,
                   "lens": lens_h.tolist()},
+        "splits": splits, "pages_per_split": per,
         "calls_per_decode_step": 1, "per_layer": True,
-        "max_abs_err": err.max().item(),
+        "max_abs_err": max([timed["max_abs_err"]]
+                           + [c["max_abs_err"] for c in checks]),
+        "worst_err_over_tol": timed["worst_err_over_tol"],
+        "boundary_checks": checks,
         "ms": timer.ms(lambda: pa.paged_attention_decode(
             q, k_pool, v_pool, tables, lens)),
         "plain_ms": timer.ms(lambda: pa.paged_attention_decode_reference(
             q, k_pool, v_pool, tables, lens)),
+        "old_ms": PAGED_OLD_MS,
         "host_us": timer.host_us(lambda: pa.paged_attention_decode(
             q, k_pool, v_pool, tables, lens)),
+        "old_host_us": PAGED_OLD_HOST_US,
         "bound_ms": bound * 1e3,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= flops / PEAK_FLOPS["bf16"] else "operations"),

@@ -1,5 +1,5 @@
 """Shared kernel-dispatch helpers: device resolution, tile sizing,
-padding.
+padding, and the host side of a kernel launch (SM count, stream).
 
 Counterpart of ``sparkdl_tpu/ops/_dispatch.py``. The JAX package probes
 its backend (``use_pallas``) and quietly takes the XLA lowering off the
@@ -44,3 +44,27 @@ def pad_to(x, multiple, axis):
     widths = [0, 0] * (x.ndim - axis)
     widths[-1] = pad
     return F.pad(x, widths), pad
+
+
+_SM_COUNTS = {}  # CUDA device index -> streaming multiprocessors
+
+
+def sm_count(device):
+    """The SM count of a CUDA device, read from its properties once per
+    device: a kernel wrapper's split plan needs it on every call."""
+    n = _SM_COUNTS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNTS[device.index] = n
+    return n
+
+
+def launch_on(device, fn, *args):
+    """Call a kernel's C entry point ``fn(*args, stream)`` on ``device``'s
+    current stream. The current device is switched (and restored) only
+    when ``device`` is not already current, which a decode step's
+    hundreds of calls a step never need."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)

@@ -512,7 +512,12 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     const uint32_t kt = base + Smem::K0 + st * Smem::TILE;
     const uint32_t vt = base + Smem::V0 + st * Smem::TILE;
     if (causal && j * BN > row0 + 63) {
-      // every key of the tile is above this warpgroup's rows
+      // every key of the tile is above this warpgroup's rows. The stage
+      // is still waited for: a parity wait passes at once on a barrier
+      // whose previous phase is incomplete, so a consumer that skipped a
+      // phase could read the stage's next use before it has arrived
+      hopper::mbar_wait(ring.k_full(st), phase);
+      hopper::mbar_wait(ring.v_full(st), phase);
       if (lane == 0) {
         hopper::mbar_arrive(ring.k_empty(st));
         hopper::mbar_arrive(ring.v_empty(st));
@@ -747,7 +752,9 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     const uint32_t dos = base + Smem::DO0 + st * Smem::ROWS;
     const float* vs = vecs + st * 2 * BM;
     if (causal && i0 + BM - 1 < kc0) {
-      // every row of the tile is above this warpgroup's keys
+      // every row of the tile is above this warpgroup's keys; the stage
+      // is still waited for (see flash_bwd_dq_kernel)
+      hopper::mbar_wait(ring.full(st), phase);
       if (lane == 0) hopper::mbar_arrive(ring.empty(st));
       continue;
     }

@@ -16,11 +16,16 @@ import ctypes
 import torch
 
 from sparkdl_tpu_torch.ops import _build
+from sparkdl_tpu_torch.ops._dispatch import launch_on, sm_count
 
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.bfloat16: "paged_decode_bf16",
                   torch.float32: "paged_decode_f32"}
+
+# split plans by (B, H, Hkv, D, page, max_pages, element bytes, device
+# index), asked of the library once each
+_PLANS = {}
 
 
 def paged_attention_decode_reference(q, k_pool, v_pool, tables, lens,
@@ -80,7 +85,13 @@ def paged_attention_decode(q, k_pool, v_pool, tables, lens, scale=None):
     which takes q and the pools in bf16 or fp32 (one dtype), int32
     tables and lens, all contiguous on one card, and raises otherwise
     (also on a tile the kernel cannot hold: the C entry point refuses
-    it).
+    it). bf16 pools with D 64, 128 or 256, H / Hkv <= 8 and pages of a
+    multiple of 16 rows take the split kernel: the pages of a row split
+    over blocks (the table's width decides how many; ``lens`` is never
+    read on the host), each on the tensor cores, then a merge pass in
+    logsumexp form, with an fp32 workspace of B * H * splits * (D + 2)
+    allocated here. fp32 pools and other bf16 shapes take the
+    page-serial kernel.
     """
     _check(q, k_pool, v_pool, tables, lens)
     if q.device.type == "cpu":
@@ -107,14 +118,19 @@ def paged_attention_decode(q, k_pool, v_pool, tables, lens, scale=None):
         return out
     scale = scale if scale is not None else d ** -0.5
     lib = _library()
-    fn = getattr(lib, _KERNEL_DTYPES[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 b, h, hkv, d, page, tables.shape[1], float(scale), stream)
+    splits, per = _split_plan(q, k_pool, tables)
+    # the split kernel's partials (o, m, l of each split), merged in order
+    work = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 0 else None)
+    err = launch_on(q.device, getattr(lib, _KERNEL_DTYPES[q.dtype]),
+                    q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                    tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                    work.data_ptr() if work is not None else None,
+                    b, h, hkv, d, page, tables.shape[1], splits, per,
+                    float(scale))
     # the kernel refuses (cudaErrorInvalidValue) the shapes its tiling
-    # cannot take: see launch() in csrc/paged_attention.cu
+    # cannot take: see launch_serial() and launch_split() in
+    # csrc/paged_attention.cu
     _build.check(lib, err, f"paged_attention_decode (H {h}, Hkv {hkv}, "
                  f"D {d}, page {page}, {q.dtype})")
     paged_attention_decode.launches += 1
@@ -123,10 +139,37 @@ def paged_attention_decode(q, k_pool, v_pool, tables, lens, scale=None):
 
 paged_attention_decode.launches = 0
 
-_SIGNATURE = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+
+def _split_plan(q, k_pool, tables):
+    """(splits, pages a split) of a CUDA call: the C plan's choice for
+    the call's shapes, asked of the library once per shape and device;
+    (0, 0) on the page-serial route. Only shapes decide it, never the
+    lengths."""
+    b, h, d = q.shape
+    _, page, hkv, _ = k_pool.shape
+    key = (b, h, hkv, d, page, tables.shape[1], q.element_size(),
+           q.device.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = _library()
+        splits, per = ctypes.c_int(), ctypes.c_int()
+        _build.check(lib, lib.paged_decode_plan(
+            *key[:-1], sm_count(q.device), ctypes.byref(splits),
+            ctypes.byref(per)), "paged_attention_decode plan")
+        plan = _PLANS[key] = (splits.value, per.value)
+    return plan
+
+
+# q, k, v, tables, lens, out, work; B, H, Hkv, D, page, max_pages,
+# splits, pages a split; scale; stream
+_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
               + [ctypes.c_float, ctypes.c_void_p])
+# B, H, Hkv, D, page, max_pages, element bytes, SMs; splits, pages a
+# split out
+_PLAN_SIGNATURE = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 2
 
 
 def _library():
-    return _build.load("paged_attention",
-                       {name: _SIGNATURE for name in _KERNEL_DTYPES.values()})
+    signatures = {name: _SIGNATURE for name in _KERNEL_DTYPES.values()}
+    signatures["paged_decode_plan"] = _PLAN_SIGNATURE
+    return _build.load("paged_attention", signatures)

@@ -19,7 +19,7 @@ import warnings
 import torch
 
 from sparkdl_tpu_torch.ops import _build
-from sparkdl_tpu_torch.ops._dispatch import resolve_device
+from sparkdl_tpu_torch.ops._dispatch import launch_on, resolve_device, sm_count
 
 # Dense layers quantized by default: every 2-D projection of the
 # decoder family; embeddings stay dense (a lookup reads one row).
@@ -32,6 +32,25 @@ INT4_GROUP = 64
 
 _KERNEL_DTYPES = {torch.bfloat16: "qmm_bf16", torch.float32: "qmm_f32"}
 _Q4_KERNEL_DTYPES = {torch.bfloat16: "q4mm_bf16", torch.float32: "q4mm_f32"}
+
+# split plans by (plan function, device index, shape, x is bf16): a plan
+# depends on nothing else, and a decode step asks for the same few
+# hundreds of times
+_PLANS = {}
+
+
+def _plan(lib, plan_fn, what, device, *shape):
+    """(splits, k_per_split) of a C plan function for ``shape``, asked
+    of the library once per shape and device."""
+    key = (plan_fn, device.index, *shape)
+    plan = _PLANS.get(key)
+    if plan is None:
+        splits, k_per_split = ctypes.c_int(), ctypes.c_int()
+        _build.check(lib, getattr(lib, plan_fn)(
+            *shape, sm_count(device), ctypes.byref(splits),
+            ctypes.byref(k_per_split)), what)
+        plan = _PLANS[key] = (splits.value, k_per_split.value)
+    return plan
 
 
 def quantize_int8(w):
@@ -166,8 +185,12 @@ def quantized_matmul(x, w_q, scales):
     """x (M, K) @ dequant(w_q (K, N) int8) with per-column fp32 scales
     (N,) → (M, N) in x's dtype. CPU inputs: the plain version. CUDA
     inputs: the kernel, which takes x in bf16 or fp32, w_q int8 and
-    scales fp32, all contiguous on one card (w_q 8-byte aligned);
-    anything else raises. A non-int8 weight raises on CUDA (the JAX
+    scales fp32, all contiguous on one card; anything else raises. bf16
+    x at N a multiple of 16 and K a multiple of 8, with x, w_q, scales
+    and the output 16-byte aligned, runs on the tensor cores (a
+    ``mma.sync`` GEMV at M <= 8, a ``wgmma`` GEMM above); fp32 x (the
+    ``lm_head``) and every other bf16 call run on the CUDA cores, which
+    need w_q 8-byte aligned. A non-int8 weight raises on CUDA (the JAX
     dispatch degrades it to its XLA lowering with a warning)."""
     _check(x, w_q, scales)
     if x.device.type == "cpu":
@@ -191,24 +214,20 @@ def quantized_matmul(x, w_q, scales):
     if m == 0 or n == 0:
         return out
     lib = _library()
-    splits, k_per_split = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib, lib.qmm_plan(
-        m, k, n, torch.cuda.get_device_properties(x.device)
-        .multi_processor_count, ctypes.byref(splits),
-        ctypes.byref(k_per_split)), "quantized_matmul plan")
-    splits = splits.value
+    splits, k_per_split = _plan(lib, "qmm_plan", "quantized_matmul plan",
+                                x.device, m, k, n,
+                                int(x.dtype == torch.bfloat16))
     # fp32 partial sums of the K splits, summed in order by a second pass
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    fn = getattr(lib, _KERNEL_DTYPES[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(),
-                 partial.data_ptr() if partial is not None else None,
-                 m, k, n, splits, k_per_split.value, stream)
+    err = launch_on(x.device, getattr(lib, _KERNEL_DTYPES[x.dtype]),
+                    x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(),
+                    partial.data_ptr() if partial is not None else None,
+                    m, k, n, splits, k_per_split)
     # the kernel refuses (cudaErrorInvalidValue) a w_q that is not
-    # 8-byte aligned: see launch() in csrc/quantized_matmul.cu
+    # 8-byte aligned on the CUDA cores: see launch_simt() in
+    # csrc/quantized_matmul.cu
     _build.check(lib, err, f"quantized_matmul ({m}, {k}, {n})")
     quantized_matmul.launches += 1
     return out
@@ -218,7 +237,8 @@ quantized_matmul.launches = 0
 
 
 _SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_PLAN_SIGNATURE = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+# M, K, N, x is bf16, SMs; splits, k_per_split out
+_PLAN_SIGNATURE = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
 
 
 def _library():
@@ -306,23 +326,18 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
     if m == 0 or n == 0:
         return out
     lib = _library_int4()
-    splits, k_per_split = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib, lib.q4mm_plan(
-        m, k, n, group, int(x.dtype == torch.bfloat16),
-        torch.cuda.get_device_properties(x.device).multi_processor_count,
-        ctypes.byref(splits),
-        ctypes.byref(k_per_split)), "quantized_matmul_int4 plan")
-    splits = splits.value
+    splits, k_per_split = _plan(lib, "q4mm_plan",
+                                "quantized_matmul_int4 plan", x.device,
+                                m, k, n, group,
+                                int(x.dtype == torch.bfloat16))
     # fp32 partial sums of the K splits, summed in order by a second pass
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    fn = getattr(lib, _Q4_KERNEL_DTYPES[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(),
-                 partial.data_ptr() if partial is not None else None,
-                 m, k, n, group, splits, k_per_split.value, stream)
+    err = launch_on(x.device, getattr(lib, _Q4_KERNEL_DTYPES[x.dtype]),
+                    x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(),
+                    partial.data_ptr() if partial is not None else None,
+                    m, k, n, group, splits, k_per_split)
     # the C entry point refuses (cudaErrorInvalidValue) an odd K, a
     # group that does not divide K and misaligned inputs: see
     # launch_tc() and launch_simt() in csrc/quantized_matmul_int4.cu

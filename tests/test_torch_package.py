@@ -213,3 +213,52 @@ def test_int4_bf16_products_reach_the_tensor_cores():
     bf16 = _c_body(src, "int q4mm_bf16")
     assert "launch_tc(" in bf16 and "tc_takes(N, group)" in bf16
     assert "launch_simt<float>" in _c_body(src, "int q4mm_f32")
+
+
+@pytest.mark.parametrize("source,tensor_core,cuda_core,entry", [
+    ("quantized_matmul",
+     {"gemv_step": "mma16816(", "qmm_gemv_kernel": "gemv_step(",
+      "qmm_gemm_kernel": "wgmma_rs_n128_kb("},
+     "qmm_kernel", ("int qmm_bf16", "launch_tc(")),
+    ("paged_attention", {"paged_split_kernel": "mma16816("},
+     "paged_decode_kernel", ("int paged_decode_bf16", "launch_split(")),
+])
+def test_int8_and_paged_bf16_products_reach_the_tensor_cores(
+        source, tensor_core, cuda_core, entry):
+    """The redesigned int8 matmul and paged decode multiply bf16 through
+    mma.sync or wgmma in their own source (no library product); fp32
+    inputs keep the CUDA-core kernel, which has no tensor-core product;
+    the bf16 entry point routes to the tensor-core path by shape."""
+    csrc = REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
+    src = (csrc / f"{source}.cu").read_text()
+    hopper = (csrc / "hopper.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in \
+        _c_body(src, "mma16816")
+    assert "wgmma.mma_async" in _c_body(hopper, "wgmma_rs_n128_kb")
+    for kernel, product in tensor_core.items():
+        assert product in _c_body(src, kernel)
+    assert "mma" not in _c_body(src, cuda_core)
+    name, launch = entry
+    assert launch in _c_body(src, name)
+    assert "cublas" not in src.lower() and "cutlass" not in src.lower()
+
+
+@pytest.mark.parametrize("kernel,full,empty", [
+    ("flash_bwd_dq_kernel", "ring.k_full(st), phase", "ring.k_empty(st)"),
+    ("flash_bwd_dkv_kernel", "ring.full(st), phase", "ring.empty(st)"),
+])
+def test_flash_backward_skip_waits_for_the_stage_it_releases(kernel, full,
+                                                            empty):
+    """A causal tile that a consumer warpgroup skips is still waited for
+    before the warpgroup releases its stage: a parity wait passes at once
+    while the barrier's previous phase is incomplete, so a consumer that
+    skipped a phase could read the stage's next use before it arrived
+    (seen on the card as a wrong dk block, about one run in six)."""
+    src = (REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
+           / "flash_attention.cu").read_text()
+    body = _c_body(src, kernel)
+    skip = body[body.index("if (causal &&"):]
+    skip = skip[:skip.index("continue;")]
+    assert f"hopper::mbar_wait({full})" in skip
+    assert skip.index(f"hopper::mbar_wait({full})") < skip.index(
+        f"hopper::mbar_arrive({empty})")
