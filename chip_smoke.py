@@ -73,7 +73,27 @@ and on any failed check. Phases:
    gradient;
 6b. the peak memory of one train step at depth 2 (batch 2 x 2048)
    without remat, with the step's ``remat=True`` and with
-   ``cfg.remat``; the three losses must be bit-identical.
+   ``cfg.remat``; the three losses must be bit-identical; then every
+   model of the driver is freed;
+9a. ``HorovodRunner(np=1)``: one gang worker on the card (a NCCL group
+   of one) runs phase 5's configuration at full width through
+   ``hvd.broadcast_parameters`` (``replicate``), ``shard_batch`` and
+   AdamW wrapped in ``hvd.DistributedOptimizer`` (the ~27 MB of fp32
+   adapter gradients reduced over NCCL at every step): one warm-up step
+   and 3 timed ones; the loss must fall, each flash counter, zeroed
+   after the warm-up, read 32 x 3, the worker's ``log_to_driver`` line
+   reach the driver's stdout and its result the driver, and a battery of
+   collectives on CUDA tensors (over NCCL at world size 1) return their
+   inputs' values; ms a step
+   beside phase 5's, the gang's start seconds and the adapter
+   reduction's ms;
+9b. ``HorovodRunner(np=-2)``: two ranks on the one card (so gloo), depth
+   4 at full width, the global batch 2 x 2048 one row a rank, 3 steps:
+   ``hvd.check_synchronized`` on the adapters in both ranks, a battery
+   of collectives on CUDA tensors against their expected values, each
+   flash counter at 4 x 3 a rank, and rank 0's adapters and the losses
+   against a single-process run of the same 3 steps on the whole
+   global batch in the driver (same weights, microbatches of one row).
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -162,6 +182,13 @@ PTXAS_KERNELS = {"flash_attention": ("flash_fwd_kernel",
 
 # the training phase: batch x seq tokens a step, warm-up + timed steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
+
+# phases 9a and 9b: the np each HorovodRunner takes (a CPU rehearsal
+# runs them in-process with -1), their timed steps, and 9b's depth (two
+# copies of the model share the card)
+GANG_NP = {"9a": 1, "9b": -2}
+GANG_STEPS = 3
+GANG_SHARED_DEPTH = 4
 
 
 class CheckFailed(RuntimeError):
@@ -1419,6 +1446,357 @@ def remat_memory(torch, gen):
     return report
 
 
+class _StdoutCopy:
+    """Keep a copy of what this process prints (the control plane's
+    threads included) while still printing it."""
+
+    def __init__(self):
+        self.text = []
+
+    def write(self, s):
+        self.text.append(s)
+        return self._out.write(s)
+
+    def flush(self):
+        self._out.flush()
+
+    def __enter__(self):
+        self._out, sys.stdout = sys.stdout, self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self._out
+        return False
+
+    def seen(self):
+        return "".join(self.text)
+
+
+def _battery_inputs(torch, rank, size, device):
+    """The gang phases' collective inputs on ``rank``: small exact values
+    (negative integers, so the integer average truncates toward zero)."""
+    base = torch.arange(12, device=device).reshape(4, 3)
+    splits = [j + rank + 1 for j in range(size)]
+    return {
+        "f32": (base * (rank + 1) - 5.5 * rank).float(),
+        "i32": ((base - 3) * (2 * rank - 1) + rank).int(),
+        "ragged": torch.full((rank + 1, 3), float(rank), device=device),
+        "a2a": torch.arange(sum(splits), device=device).float() + 100 * rank,
+        "splits": splits,
+        "rs": torch.arange(6 * size, device=device).reshape(2 * size, 3)
+        .float() * (rank + 1),
+    }
+
+
+def _battery(hvd, torch, device):
+    """The collectives of phases 9a and 9b on this rank's CUDA tensors;
+    returns
+    {name: (result on the CPU, the device type it came back on)}."""
+    rank, size = hvd.rank(), hvd.size()
+    x = _battery_inputs(torch, rank, size, device)
+    out = {}
+    for op in (hvd.Average, hvd.Sum, hvd.Min, hvd.Max):
+        out[f"f32_{op}"] = hvd.allreduce(x["f32"], op=op)
+        out[f"i32_{op}"] = hvd.allreduce(x["i32"], op=op)
+    out["allgather_ragged"] = hvd.allgather(x["ragged"])
+    out["alltoall_splits"] = hvd.alltoall(x["a2a"], splits=x["splits"])
+    out["reducescatter_sum"] = hvd.reducescatter(x["rs"], op=hvd.Sum)
+    result = {k: (v.cpu(), v.device.type) for k, v in out.items()}
+    result["broadcast_object"] = (hvd.broadcast_object(
+        {"root": rank, "pad": "p" * 1000 * rank}, root_rank=size - 1), None)
+    return result
+
+
+def _battery_expected(torch, rank, size):
+    """What :func:`_battery` must return on ``rank``, from every rank's
+    inputs (the JAX engine's semantics: a float average in fp32, an
+    integer one truncated from float64)."""
+    xs = [_battery_inputs(torch, r, size, "cpu") for r in range(size)]
+    want = {}
+    for k in ("f32", "i32"):
+        stack = torch.stack([x[k] for x in xs])
+        total = stack.sum(0).to(stack.dtype)
+        want[f"{k}_sum"] = total
+        want[f"{k}_min"] = stack.min(0).values
+        want[f"{k}_max"] = stack.max(0).values
+        want[f"{k}_average"] = ((total / size) if k == "f32" else
+                                (total.double() / size).to(torch.int32))
+    want["allgather_ragged"] = torch.cat([x["ragged"] for x in xs])
+    parts = []
+    for x in xs:
+        start = sum(x["splits"][:rank])
+        parts.append(x["a2a"][start:start + x["splits"][rank]])
+    want["alltoall_splits"] = torch.cat(parts)
+    rows = xs[0]["rs"].shape[0] // size
+    want["reducescatter_sum"] = sum(x["rs"] for x in xs)[
+        rank * rows:(rank + 1) * rows]
+    want["broadcast_object"] = {"root": size - 1,
+                                "pad": "p" * 1000 * (size - 1)}
+    return want
+
+
+def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
+    """Every rank of phases 9a and 9b: bind the card (``hvd.init``), build
+    the LoRA Llama of ``cfg`` from ``seed + rank`` and take rank 0's
+    weights (``replicate``), train on this rank's rows of ``batch``
+    through ``hvd.DistributedOptimizer``, ``warmup`` steps and then
+    ``steps`` timed ones (flash counters zeroed between), then run the
+    collective battery on this rank's device. Rank 0 returns every
+    rank's report (``allgather_object``)."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod import log_to_driver
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.llama import Llama, init_weights
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.parallel.train import (
+        make_lm_loss_fn,
+        make_train_step,
+        replicate,
+        shard_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    st = _state.state()
+    if device == "cuda":
+        device = st.device
+        _require(device is not None and device.type == "cuda",
+                 f"gang rank {rank} bound no card ({device})")
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    t = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + rank)  # only replicate() can make them agree
+    model = init_weights(Llama(cfg, device=device), gen)
+    replicate(model)
+    sync()
+    init_s = time.perf_counter() - t
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                          betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4),
+        named_parameters=named)
+    hvd.broadcast_optimizer_state(opt)
+    step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask,
+                           device=device)
+    mine = shard_batch(batch)
+    losses = [step(mine)["loss"].item() for _ in range(warmup)]
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(steps):
+        sync()
+        t = time.perf_counter()
+        losses.append(step(mine)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+
+    # what the wrapped optimizer adds a step: the fused reduction of the
+    # adapter gradients (cat, allreduce in place, copy back), then the
+    # allreduce alone on a buffer of the same size
+    def host_ms(fn, runs=10):
+        spent = []
+        for _ in range(runs):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            spent.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(spent)
+
+    numel = sum(p.grad.numel() for _, p in named)
+    flat = torch.zeros(numel, device=device)
+    sync_ms = host_ms(opt.synchronize)
+    allreduce_ms = host_ms(lambda: hvd.allreduce_(flat))
+    synchronized = hvd.check_synchronized([p for _, p in named],
+                                          name="adapters")
+    report = {
+        "rank": rank, "size": size, "backend": st.backend,
+        "device": str(device), "ready_s": ready_s, "init_s": init_s,
+        "losses": losses, "step_ms": [1e3 * x for x in times],
+        "step_ms_median": 1e3 * statistics.median(times),
+        "rows": int(mine["inputs"].shape[0]),
+        "peak_mem_gb": peak / 1e9, "launches": launches,
+        "adapter_values": numel, "adapter_mb": 4 * numel / 1e6,
+        "sync_ms": sync_ms, "allreduce_ms": allreduce_ms,
+        "synchronized": synchronized,
+        "battery": _battery(hvd, torch, device),
+        "adapters": ({n: p.detach().cpu() for n, p in named}
+                     if adapters and rank == 0 else None),
+    }
+    log_to_driver(f"gang rank {rank} of {size} ({st.backend} on {device}): "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                  f"{report['step_ms_median']:.1f} ms a step")
+    return hvd.allgather_object(report)
+
+
+def _gang_run(np_arg, cfg, batch, **kw):
+    """One HorovodRunner run of :func:`gang_main`, this process's stdout
+    copied; returns (every rank's report, the run's wall seconds, the
+    stdout text)."""
+    from sparkdl_tpu_torch import HorovodRunner
+
+    with _StdoutCopy() as out:
+        t = time.perf_counter()
+        ranks = HorovodRunner(np=np_arg).run(
+            gang_main, cfg=cfg, batch=batch, device=DEVICE,
+            started=time.time(), **kw)
+        wall_s = time.perf_counter() - t
+    return ranks, wall_s, out.seen()
+
+
+def _check_gang_ranks(torch, ranks, cfg, steps, seen, phase):
+    """The checks 9a and 9b share: each rank's losses finite and falling
+    over the run, its flash counters at a call a layer a step, its
+    adapters synchronized, its collective battery as expected (on the
+    card: over NCCL at 9a's world size 1, through gloo at 9b's), its
+    log_to_driver line on this stdout."""
+    for r in ranks:
+        want = _battery_expected(torch, r["rank"], len(ranks))
+        for name, expected in want.items():
+            got, where = r["battery"][name]
+            ok = (got == expected if name == "broadcast_object" else
+                  got.dtype == expected.dtype and torch.equal(got, expected)
+                  and where == torch.device(DEVICE).type)
+            _require(ok, f"phase {phase} rank {r['rank']}: {name} gave "
+                     f"{got} on {where}, want {expected}")
+        losses = r["losses"]
+        _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                 f"phase {phase} rank {r['rank']}: losses {losses}")
+        want = cfg.n_layers * steps
+        for name, n in r["launches"].items():
+            _require(n == want, f"phase {phase} rank {r['rank']}: {name} "
+                     f"{n} launches in {steps} steps, want {want}")
+        _require(r["synchronized"] is True,
+                 f"phase {phase} rank {r['rank']}: adapters not synchronized")
+        line = f"gang rank {r['rank']} of {r['size']} ("
+        _require(line in seen, f"phase {phase}: the driver's stdout lacks "
+                 f"rank {r['rank']}'s log_to_driver line")
+
+
+def gang_train(torch, phase5):
+    """Phase 9a: HorovodRunner(np=1) at phase 5's configuration."""
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = _train_cfg()
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    ranks, wall_s, seen = _gang_run(
+        GANG_NP["9a"], cfg, batch, steps=GANG_STEPS, warmup=1, seed=SEED,
+        adapters=False)
+    _check_gang_ranks(torch, ranks, cfg, GANG_STEPS, seen, "9a")
+    r0 = ranks[0]
+    _require(len(ranks) == max(GANG_NP["9a"], 1) and r0["rank"] == 0,
+             f"phase 9a: rank 0's result did not reach the driver: {ranks}")
+    if GANG_NP["9a"] >= 1:
+        _require(r0["backend"] == "cpu:gloo,cuda:nccl",
+                 f"phase 9a: backend {r0['backend']}, want NCCL for CUDA")
+    report = {k: v for k, v in r0.items() if k not in ("battery",
+                                                       "adapters")}
+    report.update({
+        "np": GANG_NP["9a"], "n_layers": cfg.n_layers, "run_wall_s": wall_s,
+        "tokens_per_s": GANG_STEPS * TRAIN_BATCH * TRAIN_SEQ
+        / (sum(r0["step_ms"]) / 1e3),
+        "phase5_step_ms_median": phase5["step_ms_median"],
+        "step_ms_over_phase5": r0["step_ms_median"]
+        / phase5["step_ms_median"]})
+    _log("gang " + json.dumps(report))
+    return report
+
+
+def gang_shared_card(torch):
+    """Phase 9b: HorovodRunner(np=-2), two ranks sharing the card, against
+    a single-process run of the same steps in the driver."""
+    from sparkdl_tpu_torch.models.llama import Llama, init_weights
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.train import (
+        global_batch,
+        make_lm_loss_fn,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(n_layers=GANG_SHARED_DEPTH)
+    batch = global_batch(np.random.default_rng(SEED + 4), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    ranks, wall_s, seen = _gang_run(
+        GANG_NP["9b"], cfg, batch, steps=GANG_STEPS, warmup=0, seed=SEED,
+        adapters=True)
+    size = len(ranks)
+    _check_gang_ranks(torch, ranks, cfg, GANG_STEPS, seen, "9b")
+    _require([r["rows"] for r in ranks] == [TRAIN_BATCH // size] * size,
+             f"phase 9b: rows a rank {[r['rows'] for r in ranks]}")
+    if GANG_NP["9b"] <= -2 and DEVICE == "cuda":
+        _require(all(r["backend"] == "gloo" for r in ranks),
+                 f"phase 9b: backends {[r['backend'] for r in ranks]}, "
+                 "want gloo for ranks sharing a card")
+
+    # the same steps in one process: rank 0's weights, the whole global
+    # batch in microbatches of one rank's rows (its gradient is the
+    # mean of theirs, as the gang's averaged gradient is)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    model = init_weights(Llama(cfg, device=DEVICE), gen)
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    start = {n: p.detach().clone() for n, p in named}
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask,
+                           grad_accum=size, device=DEVICE)
+    ref_losses = [step(batch)["loss"].item() for _ in range(GANG_STEPS)]
+    gang_losses = np.mean([r["losses"] for r in ranks], axis=0).tolist()
+    # Tolerance on phase 6's footing: the loss within 2^-10 relative, and
+    # each adapter's change over the 3 steps within 2^-5 of its norm. The
+    # two runs do the same per-row products on the same card; they differ
+    # in where the rows' gradients are summed (gloo on the host against
+    # autograd's accumulation) and in the fp32 mean of the losses.
+    report = {"np": GANG_NP["9b"], "n_layers": cfg.n_layers, "size": size,
+              "run_wall_s": wall_s, "losses": gang_losses,
+              "single_process_losses": ref_losses, "adapters": {}}
+    for got_l, ref_l in zip(gang_losses, ref_losses):
+        _require(abs(got_l - ref_l) <= 2.0 ** -10 * abs(ref_l),
+                 f"phase 9b losses {gang_losses} vs one process "
+                 f"{ref_losses}")
+    got = ranks[0]["adapters"]
+    for name, p in named:
+        ref_delta = (p.detach() - start[name]).cpu()
+        delta = got[name] - start[name].cpu()
+        rel = ((delta - ref_delta).norm() / ref_delta.norm()).item()
+        report["adapters"][name] = {
+            "rel_change_err": rel,
+            "max_abs_err": (got[name] - p.detach().cpu()).abs().max().item()}
+        _require(ref_delta.norm() > 0 and rel <= 2.0 ** -5,
+                 f"phase 9b {name}: gang vs one process, relative error "
+                 f"of the change {rel}")
+    report["worst_rel_change_err"] = max(
+        a["rel_change_err"] for a in report["adapters"].values())
+    report["max_abs_err"] = max(
+        a["max_abs_err"] for a in report["adapters"].values())
+    report["ranks"] = [{k: v for k, v in r.items()
+                        if k not in ("battery", "adapters")} for r in ranks]
+    _log("gang_shared " + json.dumps(
+        {k: v for k, v in report.items() if k != "adapters"}))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -1504,6 +1882,11 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     remat_rows = remat_memory(torch, gen)
+    # the gang's workers need the card's memory: the driver holds no model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gang = gang_train(torch, training)
+    gang_shared = gang_shared_card(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -1518,11 +1901,16 @@ def main(argv=None):
 
     def flash_line(name, kind, body_line):
         t = main_flash[kind]
+        by_phase = {"5": training["launches"][name],
+                    "9a": gang["launches"][name],
+                    "9b": sum(r["launches"][name]
+                              for r in gang_shared["ranks"])}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
                             f"{body_line}",
-                "launches": training["launches"][name],
+                "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
                 "max_abs_err": max(
                     e for r in flash_rows
                     for n, e in r["max_abs_err"].items()
@@ -1578,7 +1966,8 @@ def main(argv=None):
                        "http": http, "prefix": prefix,
                        "model_int4": q4_model_rows, "flash": flash_rows,
                        "train": training, "train_vs_plain": train_rows,
-                       "remat": remat_rows,
+                       "remat": remat_rows, "gang": gang,
+                       "gang_shared": gang_shared,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,15 +1,25 @@
 """sparkdl_tpu_torch: the PyTorch + CUDA port of ``sparkdl_tpu``.
 
 The JAX package stays the reference; this package mirrors its paths
-(``ops/``, ``models/``, ``parallel/``, ``observe/``) and imports nothing
-of it. Three slices are ported: paged, weight-only int8 or int4,
-continuous-batching serving of the Llama decoder
-(``models.serving.ContinuousBatchingEngine``, with chunked prefill and
-shared prefixes) behind an HTTP front-end (``models.server.
-ServingFrontend``), and single-card LoRA fine-tuning of it
-(``parallel.train.make_train_step`` over ``models.lora``), with
-hand-written CUDA kernels (``ops/csrc/``) for the paged decode
-attention, the int8 and int4 matmuls and flash attention (forward, dq,
-dk/dv). Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+(``ops/``, ``models/``, ``parallel/``, ``observe/``, ``hvd/``,
+``horovod/``) and imports nothing of it. Ported so far: paged,
+weight-only int8 or int4, continuous-batching serving of the Llama
+decoder (``models.serving.ContinuousBatchingEngine``, with chunked
+prefill and shared prefixes) behind an HTTP front-end
+(``models.server.ServingFrontend``); LoRA fine-tuning of it
+(``parallel.train.make_train_step`` over ``models.lora``); and the
+HorovodRunner contract over ``torch.distributed`` (``HorovodRunner``,
+the ``hvd`` collectives and ``hvd.DistributedOptimizer``), which runs
+that fine-tuning data-parallel on a gang of workers. Hand-written CUDA
+kernels (``ops/csrc/``) do the paged decode attention, the int8 and int4
+matmuls and flash attention (forward, dq, dk/dv). Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``;
+``HorovodRunner(np>=1)`` runs one worker a card.
+
+Public surface as ``sparkdl_tpu/__init__.py``: ``HorovodRunner`` at the
+package root.
 """
+
+from sparkdl_tpu_torch.horovod.runner_base import HorovodRunner
+
+__all__ = ["HorovodRunner"]

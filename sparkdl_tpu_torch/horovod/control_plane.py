@@ -1,0 +1,386 @@
+"""Worker-to-driver control plane of a HorovodRunner gang.
+
+Counterpart of ``sparkdl_tpu/horovod/control_plane.py``, with the frames
+this port uses: AUTH, READY, LOG (a worker's streamed stdout and stderr
+lines), USERLOG (``log_to_driver``), RESULT (rank 0's cloudpickled return
+value, in parts when it is larger than one frame), EXC (a rank's
+traceback) and BYE. The frame numbers and layout are the JAX package's.
+No telemetry, heartbeat, stack-dump or profile frames, and no native log
+ring: log lines take the same socket.
+
+The data plane (gradients, parameters, collectives) never touches this
+channel; it runs over the gang's process group.
+
+Frame format: ``u32 length | u8 type | u32 rank | payload`` (big
+endian), where length counts type, rank and payload. JSON payloads,
+except RESULT's raw bytes.
+
+The driver unpickles RESULT, so whoever can deliver frames can run code
+on the driver. Every connection must therefore open with an AUTH frame,
+an HMAC of its rank under the per-job secret, which the launcher hands
+its workers in their environment and never sends over the wire; and a
+frame's length is capped before anything is allocated. Threat model:
+peers without the secret. Workers hold it and are trusted.
+"""
+
+import hashlib
+import hmac
+import json
+import os
+import secrets as _secrets
+import socket
+import struct
+import sys
+import threading
+import time
+import traceback
+
+# Message types (the JAX package's numbers)
+MSG_READY = 1
+MSG_LOG = 2
+MSG_USERLOG = 3
+MSG_RESULT = 4
+MSG_EXC = 5
+MSG_BYE = 6
+MSG_AUTH = 7
+MSG_RESULT_PART = 8  # a part of a RESULT larger than one frame
+MSG_RESULT_END = 9  # ends a RESULT sent in parts
+
+_HEADER = struct.Struct(">IBI")  # length (of type+rank+payload), type, rank
+
+# the launcher's worker environment: where the driver listens, the secret
+CONTROL_ADDR_ENV = "SPARKDL_TORCH_CONTROL_ADDR"
+CONTROL_SECRET_ENV = "SPARKDL_TORCH_CONTROL_SECRET"
+
+MAX_FRAME = 64 << 20  # bounds what one frame may make the driver allocate
+RESULT_CHUNK = 32 << 20  # a RESULT above this goes in parts
+MAX_RESULT_TOTAL = 4 << 30  # and the driver keeps at most this much of it
+# A log line is cut to this many characters by its sender, BEFORE it is
+# encoded: cutting the encoded frame would leave invalid JSON, and one
+# runaway line must not poison the connection that READY, RESULT and BYE
+# still need.
+MAX_LOG_TEXT = 64 << 10
+# what the driver keeps of a traceback (the tail, which names the raise)
+MAX_TRACEBACK = 4 * MAX_LOG_TEXT
+
+
+def auth_token(secret, rank):
+    """A rank's credential: HMAC-SHA256 over the rank, so the secret
+    itself never crosses the wire."""
+    return hmac.new(secret.encode("utf-8"),
+                    b"sparkdl-tpu-auth-v1" + struct.pack(">I", rank),
+                    hashlib.sha256).digest()
+
+
+def auth_frame(secret, rank):
+    """The frame a client sends first on connecting."""
+    token = auth_token(secret, rank)
+    return _HEADER.pack(len(token) + 5, MSG_AUTH, rank) + token
+
+
+_AUTH_PAYLOAD_LEN = len(auth_token("", 0))
+
+
+def _recv_exact(sock, n):
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            return None
+        buf += chunk
+    return buf
+
+
+class ControlPlaneServer:
+    """The driver's end: a TCP server on an ephemeral loopback port that
+    merges the workers' log lines (and their BYEs) into ``log_path``,
+    prints them per ``verbosity``, and collects READY, EXC and rank 0's
+    RESULT.
+
+    ``verbosity="all"`` prints every worker line to the driver's stdout
+    as ``[rank] line``; ``"log_callback_only"`` prints only the
+    ``log_to_driver`` messages. Either way every line goes to the log
+    file.
+    """
+
+    def __init__(self, num_workers, verbosity="log_callback_only",
+                 log_path=None):
+        self.verbosity = verbosity
+        self.secret = _secrets.token_hex(32)  # the workers get it
+        self._log_file = open(log_path, "a", buffering=1) if log_path \
+            else None
+        self._lock = threading.Lock()
+        self._ready = set()
+        self._result = None
+        self._result_parts = []
+        self._result_parts_bytes = 0
+        self._result_overflow = False
+        self._exceptions = {}  # rank -> traceback text
+        self._threads = []
+        self._closed = False
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(max(num_workers, 8))
+        self.address = f"127.0.0.1:{self._srv.getsockname()[1]}"
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="hvd-control-accept",
+            daemon=True)
+        self._accept_thread.start()
+
+    def _accept_loop(self):
+        while not self._closed:
+            try:
+                conn, _ = self._srv.accept()
+            except OSError:
+                return
+            t = threading.Thread(target=self._serve_conn, args=(conn,),
+                                 name="hvd-control-conn", daemon=True)
+            t.start()
+            with self._lock:
+                self._threads = [x for x in self._threads if x.is_alive()]
+                self._threads.append(t)
+
+    def _log(self, text):
+        with self._lock:
+            if self._log_file is not None:
+                self._log_file.write(text + "\n")
+
+    def _serve_conn(self, conn):
+        auth_rank = None  # the rank the AUTH frame proved
+        try:
+            while True:
+                head = _recv_exact(conn, _HEADER.size)
+                if head is None:
+                    return
+                length, mtype, rank = _HEADER.unpack(head)
+                if auth_rank is None and length - 5 != _AUTH_PAYLOAD_LEN:
+                    # before AUTH the only frame taken is AUTH's size
+                    self._log(f"[control-plane] pre-auth frame of length "
+                              f"{length}; closing")
+                    return
+                if length < 5 or length - 5 > MAX_FRAME:
+                    self._log(f"[control-plane] oversized frame ({length} "
+                              f"bytes) from rank {rank}; closing")
+                    return
+                payload = _recv_exact(conn, length - 5)
+                if payload is None:
+                    return
+                if auth_rank is None:
+                    if mtype != MSG_AUTH or not hmac.compare_digest(
+                            payload, auth_token(self.secret, rank)):
+                        self._log(f"[control-plane] unauthenticated "
+                                  f"connection (frame type {mtype}, rank "
+                                  f"{rank}); closing")
+                        return
+                    auth_rank = rank
+                    continue
+                if rank != auth_rank:
+                    self._log(f"[control-plane] rank-{auth_rank} connection"
+                              f" sent a frame of rank {rank}; closing")
+                    return
+                try:
+                    self._handle(mtype, rank, payload)
+                except (ValueError, UnicodeError, AttributeError):
+                    # a malformed frame must not close the connection
+                    # that READY, RESULT and BYE still need
+                    self._log(f"[control-plane] bad frame from rank "
+                              f"{rank}:\n{traceback.format_exc()}")
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def _handle(self, mtype, rank, payload):
+        if mtype == MSG_READY:
+            with self._lock:
+                self._ready.add(rank)
+        elif mtype == MSG_LOG:
+            msg = json.loads(payload.decode("utf-8", "replace"))
+            line = msg.get("text", "")
+            self._log(f"[rank {rank} {msg.get('stream', 'stdout')}] {line}")
+            if self.verbosity == "all":
+                print(f"[{rank}] {line}", flush=True)
+        elif mtype == MSG_USERLOG:
+            text = json.loads(payload.decode("utf-8", "replace")).get(
+                "text", "")
+            # the log_to_driver contract: the driver prints it
+            print(text, flush=True)
+            self._log(f"[rank {rank} log_to_driver] {text}")
+        elif mtype in (MSG_RESULT, MSG_RESULT_PART, MSG_RESULT_END):
+            self._handle_result(mtype, rank, payload)
+        elif mtype == MSG_EXC:
+            tb = json.loads(payload.decode("utf-8", "replace")).get(
+                "traceback", "")
+            with self._lock:
+                self._exceptions[rank] = tb
+            self._log(f"[rank {rank} EXCEPTION]\n{tb}")
+        elif mtype == MSG_BYE:
+            exit_code = json.loads(payload.decode("utf-8", "replace")).get(
+                "exit_code")
+            self._log(f"[rank {rank} BYE] exit code {exit_code}")
+
+    def _handle_result(self, mtype, rank, payload):
+        if rank != 0:
+            # the job's value is rank 0's alone
+            self._log(f"[control-plane] ignoring RESULT from rank {rank}")
+            return
+        with self._lock:
+            if mtype == MSG_RESULT:
+                self._result = payload
+            elif mtype == MSG_RESULT_PART:
+                if self._result_overflow:
+                    return
+                self._result_parts.append(payload)
+                self._result_parts_bytes += len(payload)
+                if self._result_parts_bytes > MAX_RESULT_TOTAL:
+                    self._result_overflow = True
+                    self._result_parts = []
+            else:
+                if not self._result_overflow:
+                    self._result = b"".join(self._result_parts)
+                self._result_parts = []
+        if self._result_overflow and mtype == MSG_RESULT_PART:
+            self._log(f"[control-plane] RESULT above {MAX_RESULT_TOTAL} "
+                      "bytes; discarded")
+
+    def wait_drained(self, timeout=5.0):
+        """Join the connection handlers, so every frame already sent is
+        handled (an exited worker's socket ends after its last byte)."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            threads = list(self._threads)
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+
+    def ready_count(self):
+        with self._lock:
+            return len(self._ready)
+
+    @property
+    def exceptions(self):
+        with self._lock:
+            return dict(self._exceptions)
+
+    @property
+    def result_bytes(self):
+        with self._lock:
+            return self._result
+
+    def close(self):
+        self._closed = True
+        try:
+            self._srv.close()
+        except OSError:
+            pass
+        with self._lock:
+            if self._log_file is not None:
+                self._log_file.close()
+                self._log_file = None
+
+
+class ControlPlaneClient:
+    """A worker's end: one authenticated socket to the driver that
+    carries every frame, log lines included (a send is one ``sendall``
+    under a lock)."""
+
+    def __init__(self, address, rank, secret):
+        host, port = address.rsplit(":", 1)
+        self.rank = rank
+        self._sock = socket.create_connection((host, int(port)), timeout=30)
+        self._sock.settimeout(None)
+        self._sock.sendall(auth_frame(secret, rank))
+        self._lock = threading.Lock()
+        self._closing = False
+
+    def _send(self, mtype, payload):
+        frame = _HEADER.pack(len(payload) + 5, mtype, self.rank) + payload
+        with self._lock:
+            try:
+                self._sock.sendall(frame)
+            except OSError:
+                pass  # the driver is gone; its launcher reaps this worker
+
+    def _send_json(self, mtype, obj):
+        self._send(mtype, json.dumps(obj).encode("utf-8"))
+
+    def send_ready(self):
+        self._send(MSG_READY, b"")
+
+    def send_log(self, stream, text):
+        self._send_json(MSG_LOG, {"stream": stream,
+                                  "text": text[:MAX_LOG_TEXT]})
+
+    def send_user_log(self, text):
+        self._send_json(MSG_USERLOG, {"text": text[:MAX_LOG_TEXT]})
+
+    def send_result(self, pickled_bytes):
+        if len(pickled_bytes) <= RESULT_CHUNK:
+            self._send(MSG_RESULT, pickled_bytes)
+            return
+        view = memoryview(pickled_bytes)
+        for off in range(0, len(view), RESULT_CHUNK):
+            self._send(MSG_RESULT_PART, bytes(view[off:off + RESULT_CHUNK]))
+        self._send(MSG_RESULT_END, b"")
+
+    def send_exception(self, tb_text):
+        if len(tb_text) > MAX_TRACEBACK:
+            tb_text = "...[truncated]...\n" + tb_text[-MAX_TRACEBACK:]
+        self._send_json(MSG_EXC, {"traceback": tb_text})
+
+    def send_bye(self, exit_code):
+        self._send_json(MSG_BYE, {"exit_code": exit_code})
+
+    def start_driver_watchdog(self, grace_seconds=10.0):
+        """Exit this worker when the driver's end of the socket closes
+        (the driver died, even by SIGKILL): no worker outlives its
+        driver, holding its card."""
+
+        def watch():
+            try:
+                while self._sock.recv(4096):
+                    pass  # the driver sends nothing; any bytes are dropped
+            except OSError:
+                pass
+            if self._closing:
+                return  # our own close(): a finished worker
+            sys.stderr.write("hvd worker: driver connection lost; exiting "
+                             f"in {grace_seconds:.0f}s\n")
+            sys.stderr.flush()
+            time.sleep(grace_seconds)
+            if not self._closing:
+                os._exit(83)
+
+        threading.Thread(target=watch, name="hvd-driver-watchdog",
+                         daemon=True).start()
+
+    def close(self):
+        self._closing = True  # before the socket: not a driver death
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()
+
+
+_worker_client = None
+_worker_client_lock = threading.Lock()
+
+
+def get_worker_client():
+    """The process's client, or None outside a HorovodRunner worker
+    (then the driver is this process and ``log_to_driver`` prints)."""
+    global _worker_client
+    with _worker_client_lock:
+        if _worker_client is None:
+            addr = os.environ.get(CONTROL_ADDR_ENV)
+            if not addr:
+                return None
+            secret = os.environ.get(CONTROL_SECRET_ENV)
+            if not secret:
+                raise RuntimeError(
+                    f"{CONTROL_ADDR_ENV} is set but {CONTROL_SECRET_ENV} is "
+                    "not: refusing an unauthenticated channel to the driver")
+            _worker_client = ControlPlaneClient(
+                addr, int(os.environ.get("RANK", "0")), secret)
+        return _worker_client

@@ -1,0 +1,93 @@
+"""HorovodRunner: runs a distributed training function on a gang of
+worker processes.
+
+Counterpart of ``sparkdl_tpu/horovod/runner_base.py``, with the same
+signature byte for byte (reference ``runner_base.py:39-103``): the
+constructor is keyword-only ``(*, np, driver_log_verbosity=
+"log_callback_only")`` and ``run(main, **kwargs)`` returns rank 0's
+``main`` return value.
+
+- ``np == -1``: ``main(**kwargs)`` in this process, rank 0 of 1 (the
+  reference's own local mode);
+- ``np <= -2``: ``-np`` worker processes on this host; they may share a
+  card (then over gloo) or run on the CPU where there is none;
+- ``np >= 1``: ``np`` workers, one a CUDA card (NCCL for CUDA tensors);
+  fails fast when ``np`` exceeds the card count;
+- ``np == 0``: deprecated, every card.
+
+The pre-flight lint of the JAX package (its ``analysis`` passes over
+jaxprs) has no PyTorch counterpart, and the supervisor's retries are not
+ported: a failed gang raises.
+"""
+
+import logging
+
+_LOG_VERBOSITY_VALUES = ("all", "log_callback_only")
+
+
+class HorovodRunner:
+    """HorovodRunner runs distributed deep learning training jobs on a
+    gang of worker processes joined by ``torch.distributed``
+    (:mod:`sparkdl_tpu_torch.hvd`)."""
+
+    def __init__(self, *, np, driver_log_verbosity="log_callback_only"):
+        """
+        :param np: number of parallel processes to use for the Horovod job.
+
+            - If np >= 1, launch np workers, each bound to its own CUDA
+              card (one task slot <-> one card, reference
+              ``runner_base.py:44-45``). They start all together; if np
+              is greater than the number of cards, the job fails fast
+              (reference ``runner_base.py:54-58``). np = 0 (every card)
+              is deprecated (reference ``README.md:57-61``).
+            - If np < 0, spawn ``-np`` subprocesses on this host
+              (reference ``runner_base.py:48-53``); np = -1 runs
+              ``main`` in the current process.
+
+        :param driver_log_verbosity: driver log verbosity for np >= 0:
+            "all" streams every worker's stdout and stderr to the
+            driver; the default "log_callback_only" prints only the
+            messages sent with
+            :func:`sparkdl_tpu_torch.horovod.log_to_driver`. Local
+            gangs (np < 0) always stream (reference ``README.md:44-47``).
+            Every worker's output also goes to the job's log files.
+        """
+        if not isinstance(np, int) or isinstance(np, bool):
+            raise TypeError(
+                f"HorovodRunner np must be an int, got {type(np).__name__}: {np!r}"
+            )
+        if driver_log_verbosity not in _LOG_VERBOSITY_VALUES:
+            raise ValueError(
+                "driver_log_verbosity must be one of "
+                f"{_LOG_VERBOSITY_VALUES}, got {driver_log_verbosity!r}"
+            )
+        self.num_processor = np
+        self.driver_log_verbosity = driver_log_verbosity
+
+    def run(self, main, **kwargs):
+        """Runs a Horovod training job invoking main(**kwargs).
+
+        ``main`` and the keyword arguments are serialized with
+        cloudpickle and sent to every worker (reference
+        ``runner_base.py:82-83``); a large closure makes the job slow to
+        start, so load data inside ``main``.
+
+        :return: return value of rank 0's ``main`` (reference
+            ``runner_base.py:93-95``); in-process for np = -1.
+        """
+        np_arg = self.num_processor
+        if np_arg == -1:
+            logging.getLogger("HorovodRunner").warning(
+                "HorovodRunner is running in local mode (np=-1): main() is "
+                "invoked in the current process with a single worker. Use "
+                "np<=-2 for a local multi-process gang or np>0 for a "
+                "gang with one worker a CUDA card."
+            )
+            from sparkdl_tpu_torch.hvd import _state
+
+            with _state.local_mode():
+                return main(**kwargs)
+        from sparkdl_tpu_torch.horovod.launcher import launch_gang
+
+        return launch_gang(np=np_arg, main=main, kwargs=kwargs,
+                           driver_log_verbosity=self.driver_log_verbosity)

@@ -1,6 +1,7 @@
-"""Training of the port: the single-card train step, the losses and the
-dense attention oracle. The mesh, sharding and ring attention of the JAX
-package's ``parallel`` are not ported yet."""
+"""Training of the port: the train step, the losses, the data-parallel
+helpers of a HorovodRunner gang (``shard_batch``, ``replicate``) and the
+dense attention oracle. The mesh, tensor and sequence sharding and ring
+attention of the JAX package's ``parallel`` are not ported yet."""
 
 from sparkdl_tpu_torch.parallel.train import (  # noqa: F401
     cross_entropy_loss,
@@ -9,4 +10,6 @@ from sparkdl_tpu_torch.parallel.train import (  # noqa: F401
     make_lm_loss_fn,
     make_train_step,
     param_count,
+    replicate,
+    shard_batch,
 )

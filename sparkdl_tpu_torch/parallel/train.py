@@ -1,12 +1,17 @@
-"""The single-card train step, the language-model losses and their
-helpers.
+"""The train step, the language-model losses and their helpers, and the
+data-parallel pieces of a HorovodRunner gang.
 
 Counterpart of ``sparkdl_tpu/parallel/train.py`` (``make_train_step``,
 the two cross entropies, ``make_lm_loss_fn``, ``global_batch``,
-``param_count``). The JAX step is a pure function of (params,
-opt_state, batch); here the model and the optimizer hold the state and
-``step(batch)`` updates them in place. Sharding, the mesh, HorovodRunner
-gangs and the telemetry wrappers are not ported yet.
+``param_count``, ``shard_batch``, ``replicate``). The JAX step is a pure
+function of (params, opt_state, batch); here the model and the optimizer
+hold the state and ``step(batch)`` updates them in place. Data
+parallelism is a gang's: :func:`shard_batch` gives each rank its rows of
+the global batch, :func:`replicate` copies the root's weights to every
+rank, and ``hvd.DistributedOptimizer`` averages the gradients at each
+step (the JAX package's mesh sharding and ``psum`` over the data axis).
+The mesh, tensor and sequence sharding and the telemetry wrappers are
+not ported yet.
 
 Usage (LoRA fine-tune)::
 
@@ -20,7 +25,14 @@ Usage (LoRA fine-tune)::
     metrics = step(global_batch(np.random.default_rng(0), vocab, 2, 2048))
 
 ``weight_decay=1e-4`` is ``optax.adamw``'s default (torch's is 1e-2);
-the update is otherwise the same formula.
+the update is otherwise the same formula. Data-parallel, inside a
+HorovodRunner ``main`` (every rank runs it)::
+
+    hvd.init()
+    replicate(model)                          # rank 0's weights
+    opt = hvd.DistributedOptimizer(opt)       # before make_train_step
+    step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask)
+    metrics = step(shard_batch(global_batch(rng, vocab, 8, 2048)))
 """
 
 import numpy as np
@@ -210,6 +222,39 @@ def make_lm_loss_fn(model, *, loss="logits", chunk=512, ce_bf16=False):
 
     loss_fn.model = model
     return loss_fn
+
+
+def shard_batch(batch, *, rank=None, size=None):
+    """This rank's rows of a host global batch: the ``rank``-th of
+    ``size`` contiguous, equal slices of every array's leading axis
+    (``hvd.rank()`` and ``hvd.size()`` by default). Raises ValueError
+    when the rows do not split evenly. With equal slices and a loss that
+    is a mean over each slice's tokens, the gang's averaged gradient is
+    the global batch's."""
+    if rank is None or size is None:
+        from sparkdl_tpu_torch import hvd
+
+        rank = hvd.rank() if rank is None else rank
+        size = hvd.size() if size is None else size
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} outside a gang of {size}")
+    rows = {k: v.shape[0] for k, v in batch.items()}
+    n = next(iter(rows.values()))
+    if any(r != n for r in rows.values()) or n % size:
+        raise ValueError(f"a batch of {rows} rows does not split evenly "
+                         f"over {size} ranks")
+    per = n // size
+    return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+
+
+def replicate(module, root_rank=0):
+    """Copy ``root_rank``'s parameters and buffers into ``module`` on
+    every rank of the gang, in place (``hvd.broadcast_parameters`` over
+    its state dict); returns ``module``."""
+    from sparkdl_tpu_torch import hvd
+
+    hvd.broadcast_parameters(module.state_dict(), root_rank=root_rank)
+    return module
 
 
 def param_count(params):

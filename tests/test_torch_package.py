@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sparkdl_tpu_torch import HorovodRunner
 from sparkdl_tpu_torch.models import llama as pt_llama
 from sparkdl_tpu_torch.models.lora import lora_mask
 from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
@@ -25,6 +26,27 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sparkdl_tpu", "sparkdl",
              "horovod"}
 PORT_FILES = sorted((REPO / "sparkdl_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
+
+
+# the HorovodRunner slice's modules and the JAX file each one ports
+GANG_COUNTERPARTS = {
+    "sparkdl_tpu_torch/hvd/__init__.py": "sparkdl_tpu/hvd/__init__.py",
+    "sparkdl_tpu_torch/hvd/_state.py": "sparkdl_tpu/hvd/_state.py",
+    "sparkdl_tpu_torch/hvd/_collectives.py":
+        "sparkdl_tpu/hvd/_collectives.py",
+    "sparkdl_tpu_torch/hvd/optim.py": "horovod/torch/__init__.py",
+    "sparkdl_tpu_torch/horovod/__init__.py":
+        "sparkdl_tpu/horovod/__init__.py",
+    "sparkdl_tpu_torch/horovod/topology.py":
+        "sparkdl_tpu/horovod/topology.py",
+    "sparkdl_tpu_torch/horovod/control_plane.py":
+        "sparkdl_tpu/horovod/control_plane.py",
+    "sparkdl_tpu_torch/horovod/_worker.py": "sparkdl_tpu/horovod/_worker.py",
+    "sparkdl_tpu_torch/horovod/launcher.py":
+        "sparkdl_tpu/horovod/launcher.py",
+    "sparkdl_tpu_torch/horovod/runner_base.py":
+        "sparkdl_tpu/horovod/runner_base.py",
+}
 
 
 def _imported_roots(path):
@@ -69,6 +91,7 @@ def test_port_files_exist():
                  "sparkdl_tpu_torch/parallel/ring_attention.py",
                  "sparkdl_tpu_torch/models/server.py",
                  "sparkdl_tpu_torch/observe/metrics.py",
+                 *GANG_COUNTERPARTS,
                  "chip_smoke.py"):
         assert want in names, want
     csrc = REPO / "sparkdl_tpu_torch" / "ops" / "csrc"
@@ -77,6 +100,15 @@ def test_port_files_exist():
         text = (csrc / src).read_text()
         # each kernel names the TPU kernel it replaces
         assert "Replaces: sparkdl_tpu/ops/pallas/" in text, src
+
+
+@pytest.mark.parametrize("module,counterpart", sorted(
+    GANG_COUNTERPARTS.items()))
+def test_gang_module_docstrings_name_their_jax_counterpart(module,
+                                                          counterpart):
+    doc = ast.get_docstring(ast.parse((REPO / module).read_text()))
+    assert doc and f"``{counterpart}``" in doc, module
+    assert (REPO / counterpart).exists(), counterpart
 
 
 @pytest.fixture
@@ -99,6 +131,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("xpu")
+    # a gang of one worker a card fails fast, before any worker exists
+    for np_arg in (1, 2):
+        with pytest.raises(RuntimeError, match="one worker a CUDA card"):
+            HorovodRunner(np=np_arg).run(lambda: None)
 
 
 def test_training_entry_points_default_to_cuda(no_cuda):
