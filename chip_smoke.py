@@ -4,8 +4,9 @@ against its plain PyTorch version at the main paths' shapes, serve
 Llama-3-8B at full width (random int8 weights, paged KV cache) through
 ``ContinuousBatchingEngine``, serve it again in int4 behind the HTTP
 ``ServingFrontend`` (chunked prefill, then shared prefixes), then
-LoRA-fine-tune it at full width through ``make_train_step``, and show
-every run went through its kernels.
+LoRA-fine-tune it at full width through ``make_train_step``, then as
+HorovodRunner gangs (one resumed from a checkpoint after its worker is
+killed), and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -93,7 +94,19 @@ and on any failed check. Phases:
    of collectives on CUDA tensors against their expected values, each
    flash counter at 4 x 3 a rank, and rank 0's adapters and the losses
    against a single-process run of the same 3 steps on the whole
-   global batch in the driver (same weights, microbatches of one row).
+   global batch in the driver (same weights, microbatches of one row);
+9c. a supervised ``HorovodRunner(np=1)`` at 9a's configuration
+   (``supervisor.policy`` set to one retry, restored afterwards): 4
+   steps in all, each followed by an async ``TrainCheckpointer`` save of
+   the adapters and the AdamW state (~82 MB), its write joined, then a
+   barrier; after step 1's save the worker SIGKILLs itself, the
+   supervisor relaunches the gang once, and the new worker restores step
+   1 onto the card and runs steps 2-3; the run must show one relaunch
+   from step 1, the moments on the card, each flash counter at 32 x 2,
+   and steps 2-3's losses and the final adapters' sha256 equal to 9a's
+   bit for bit; it prints the snapshot and write ms of every save, the
+   checkpoint's bytes, the restore ms, the seconds from the kill to the
+   first resumed step, and the run's wall seconds beside 9a's.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -183,12 +196,15 @@ PTXAS_KERNELS = {"flash_attention": ("flash_fwd_kernel",
 # the training phase: batch x seq tokens a step, warm-up + timed steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 
-# phases 9a and 9b: the np each HorovodRunner takes (a CPU rehearsal
-# runs them in-process with -1), their timed steps, and 9b's depth (two
-# copies of the model share the card)
-GANG_NP = {"9a": 1, "9b": -2}
+# phases 9a-9c: the np each HorovodRunner takes (a CPU rehearsal runs
+# them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
+# (two copies of the model share the card)
+GANG_NP = {"9a": 1, "9b": -2, "9c": 1}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
+# phase 9c: the step after whose committed save the first attempt's rank
+# is killed
+RESUME_KILL_AFTER = 1
 
 
 class CheckFailed(RuntimeError):
@@ -1535,22 +1551,24 @@ def _battery_expected(torch, rank, size):
     return want
 
 
-def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
-    """Every rank of phases 9a and 9b: bind the card (``hvd.init``), build
-    the LoRA Llama of ``cfg`` from ``seed + rank`` and take rank 0's
-    weights (``replicate``), train on this rank's rows of ``batch``
-    through ``hvd.DistributedOptimizer``, ``warmup`` steps and then
-    ``steps`` timed ones (flash counters zeroed between), then run the
-    collective battery on this rank's device. Rank 0 returns every
-    rank's report (``allgather_object``)."""
+def _gang_trainer(cfg, batch, seed, device):
+    """A gang rank's trainer, as phases 9a-9c build it: bind the card
+    (``hvd.init``), build the LoRA Llama of ``cfg`` from ``seed + rank``
+    and take rank 0's weights (``replicate``), AdamW on the adapters
+    wrapped in ``hvd.DistributedOptimizer``; returns a namespace with
+    the model's adapters (``named``), ``opt``, ``step``, this rank's rows
+    of ``batch`` (``mine``), ``device``, ``sync``, ``init_s`` (the model
+    built and replicated), ``opt_s`` (the wrapped optimizer built), and
+    ``ready_at`` and ``built_at`` (the wall clock past ``hvd.init`` and
+    at the end)."""
+    import types
+
     import torch
 
     from sparkdl_tpu_torch import hvd
-    from sparkdl_tpu_torch.horovod import log_to_driver
     from sparkdl_tpu_torch.hvd import _state
     from sparkdl_tpu_torch.models.llama import Llama, init_weights
     from sparkdl_tpu_torch.models.lora import lora_mask
-    from sparkdl_tpu_torch.ops import flash_attention as fa
     from sparkdl_tpu_torch.parallel.train import (
         make_lm_loss_fn,
         make_train_step,
@@ -1561,8 +1579,8 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hvd.init()
-    ready_s = time.time() - started
-    rank, size = hvd.rank(), hvd.size()
+    ready_at = time.time()
+    rank = hvd.rank()
     st = _state.state()
     if device == "cuda":
         device = st.device
@@ -1584,14 +1602,50 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
     init_s = time.perf_counter() - t
     mask = lora_mask(model)
     named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    t = time.perf_counter()  # a process's first optimizer imports dynamo
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW([p for _, p in named], lr=1e-4,
                           betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4),
         named_parameters=named)
+    opt_s = time.perf_counter() - t
     hvd.broadcast_optimizer_state(opt)
     step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask,
                            device=device)
-    mine = shard_batch(batch)
+    return types.SimpleNamespace(
+        named=named, opt=opt, step=step, mine=shard_batch(batch),
+        device=device, on_card=on_card, sync=sync, init_s=init_s,
+        opt_s=opt_s, ready_at=ready_at, built_at=time.time(),
+        backend=st.backend)
+
+
+def _adapter_digest(named):
+    """sha256 of the adapters' names and fp32 bytes, in model order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in named:
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
+    """Every rank of phases 9a and 9b (:func:`_gang_trainer`): train on
+    this rank's rows of ``batch``, ``warmup`` steps and then ``steps``
+    timed ones (flash counters zeroed between), then run the collective
+    battery on this rank's device. Rank 0 returns every rank's report
+    (``allgather_object``), its adapters' digest among them."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod import log_to_driver
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    tr = _gang_trainer(cfg, batch, seed, device)
+    ready_s = tr.ready_at - started
+    rank, size = hvd.rank(), hvd.size()
+    named, opt, step, mine = tr.named, tr.opt, tr.step, tr.mine
+    device, on_card, sync = tr.device, tr.on_card, tr.sync
     losses = [step(mine)["loss"].item() for _ in range(warmup)]
     fa.flash_fwd.launches = 0
     fa.flash_bwd_dq.launches = 0
@@ -1629,8 +1683,9 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
     synchronized = hvd.check_synchronized([p for _, p in named],
                                           name="adapters")
     report = {
-        "rank": rank, "size": size, "backend": st.backend,
-        "device": str(device), "ready_s": ready_s, "init_s": init_s,
+        "rank": rank, "size": size, "backend": tr.backend,
+        "device": str(device), "ready_s": ready_s, "init_s": tr.init_s,
+        "opt_s": tr.opt_s,
         "losses": losses, "step_ms": [1e3 * x for x in times],
         "step_ms_median": 1e3 * statistics.median(times),
         "rows": int(mine["inputs"].shape[0]),
@@ -1641,8 +1696,9 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
         "battery": _battery(hvd, torch, device),
         "adapters": ({n: p.detach().cpu() for n, p in named}
                      if adapters and rank == 0 else None),
+        "adapter_sha256": _adapter_digest(named) if rank == 0 else None,
     }
-    log_to_driver(f"gang rank {rank} of {size} ({st.backend} on {device}): "
+    log_to_driver(f"gang rank {rank} of {size} ({tr.backend} on {device}): "
                   f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
                   f"{report['step_ms_median']:.1f} ms a step")
     return hvd.allgather_object(report)
@@ -1797,6 +1853,225 @@ def gang_shared_card(torch):
     return report
 
 
+def _preempt(marker, saves):
+    """Phase 9c's preemption of this rank: on rank 0, the kill's wall
+    clock and this attempt's saves go to ``marker``; then SIGKILL. In the
+    CPU rehearsal in one process (no control plane: ``GANG_NP["9c"] ==
+    -1``) it raises what the launcher raises for a rank killed so."""
+    import signal
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod.control_plane import get_worker_client
+
+    if hvd.rank() == 0:
+        with open(marker, "w") as f:
+            json.dump({"killed_at": time.time(), "saves": saves}, f)
+    if get_worker_client() is None:
+        from sparkdl_tpu_torch.horovod.supervisor import GangFailure
+
+        raise GangFailure("rank 0 preempted (in-process rehearsal)",
+                          kind="worker_death", exit_codes=[-signal.SIGKILL])
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def resume_main(cfg, batch, steps, seed, device, ckpt_dir, kill_after,
+                marker):
+    """Every rank of phase 9c (:func:`_gang_trainer`, the configuration of
+    9a): ``steps`` steps in all, each followed by an async
+    ``TrainCheckpointer`` save of the adapters and the optimizer state,
+    its write joined, then a barrier. The first attempt preempts itself
+    after step ``kill_after`` (:func:`_preempt`); a relaunch restores the
+    step its restart context names onto the card and runs the rest, its
+    flash counters zeroed first. Rank 0 returns every rank's report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod import restart_context
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    tr = _gang_trainer(cfg, batch, seed, device)
+    ctx = restart_context()
+    ckpt = TrainCheckpointer(ckpt_dir, async_save=True)
+    start, restore_ms, restored_at, moments_on_card = 0, None, None, None
+    if ctx.resume_step is not None:
+        tr.sync()
+        t = time.perf_counter()
+        state = ckpt.restore(ctx.resume_step,
+                             target={"adapters": dict(tr.named), "opt": None})
+        with torch.no_grad():
+            for name, p in tr.named:
+                p.copy_(state["adapters"][name])
+        tr.opt.load_state_dict(state["opt"])
+        tr.sync()
+        restore_ms = 1e3 * (time.perf_counter() - t)
+        restored_at = time.time()
+        moments_on_card = all(
+            tr.opt.state[p][k].device == p.device
+            for _, p in tr.named for k in ("exp_avg", "exp_avg_sq"))
+        start = ckpt.last_restored_step + 1
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    losses, times, saves, first_step_at = [], [], [], None
+    for s in range(start, steps):
+        tr.sync()
+        t = time.perf_counter()
+        losses.append(tr.step(tr.mine)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+        if first_step_at is None:
+            first_step_at = time.time()
+        wrote = ckpt.save(s, {"adapters": dict(tr.named),
+                              "opt": tr.opt.state_dict()})
+        ckpt.wait_until_finished()
+        hvd.barrier()  # rank 0's step committed before any rank dies
+        if wrote:
+            saves.append(dict(ckpt.last_save))
+        if ctx.attempt == 0 and s == kill_after:
+            _preempt(marker, saves)
+    ckpt.close()
+    report = {
+        "rank": hvd.rank(), "size": hvd.size(), "attempt": ctx.attempt,
+        "resume_step": ctx.resume_step, "restored_step":
+        ckpt.last_restored_step, "start_step": start, "losses": losses,
+        "step_ms": [1e3 * x for x in times], "restore_ms": restore_ms,
+        "moments_on_card": moments_on_card, "init_s": tr.init_s,
+        "opt_s": tr.opt_s,
+        "ready_at": tr.ready_at, "built_at": tr.built_at,
+        "restored_at": restored_at, "first_step_at": first_step_at,
+        "saves": saves,
+        "launches": {"flash_fwd": fa.flash_fwd.launches,
+                     "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                     "flash_bwd_dkv": fa.flash_bwd_dkv.launches},
+        "adapter_sha256": (_adapter_digest(tr.named) if hvd.rank() == 0
+                           else None),
+    }
+    return hvd.allgather_object(report)
+
+
+def _run_resumable(np_arg, **kw):
+    """Phase 9c's supervised run of :func:`resume_main`: a HorovodRunner
+    gang, or for ``np_arg == -1`` (the CPU rehearsal) ``supervise`` over
+    ``resume_main`` in local mode in this process."""
+    from sparkdl_tpu_torch import HorovodRunner, horovod
+    from sparkdl_tpu_torch.horovod import supervisor
+    from sparkdl_tpu_torch.hvd import _state
+
+    if np_arg != -1:
+        return HorovodRunner(np=np_arg).run(resume_main, **kw)
+
+    def launch(ctx):
+        horovod._set_restart_context(ctx)
+        try:
+            with _state.local_mode():
+                return resume_main(**kw)
+        finally:
+            horovod._set_restart_context(horovod.RestartContext(0, None))
+
+    return supervisor.supervise(launch, supervisor.policy)
+
+
+def gang_resume(torch, gang):
+    """Phase 9c: 9a's configuration under a supervisor policy of one
+    retry; the gang's rank preempts itself after step 1's save, is
+    relaunched and resumes from that checkpoint; the resumed steps'
+    losses and the final adapters against 9a's."""
+    import shutil
+    import tempfile
+
+    from sparkdl_tpu_torch.horovod import launcher, supervisor
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = _train_cfg()
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    steps = 1 + GANG_STEPS  # 9a's warm-up and timed steps
+    # each launch attempt's wall-clock start and end, for the relaunch's
+    # breakdown
+    launches = []
+    launch_once = launcher._launch_gang_once
+
+    def timed_launch(*args, **kw):
+        t0 = time.time()
+        try:
+            return launch_once(*args, **kw)
+        finally:
+            launches.append((t0, time.time()))
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-9c-")
+    ckpt_dir = os.path.join(work, "ckpt")
+    marker = os.path.join(work, "preempted.json")
+    before = supervisor.policy
+    supervisor.policy = supervisor.RetryPolicy(
+        max_retries=1, backoff_base=0.5, backoff_max=1.0, jitter=0.0,
+        resume_dir=ckpt_dir)
+    launcher._launch_gang_once = timed_launch
+    try:
+        t = time.perf_counter()
+        ranks = _run_resumable(
+            GANG_NP["9c"], cfg=cfg, batch=batch, steps=steps, seed=SEED,
+            device=DEVICE, ckpt_dir=ckpt_dir, kill_after=RESUME_KILL_AFTER,
+            marker=marker)
+        wall_s = time.perf_counter() - t
+        with open(marker) as f:
+            preempted = json.load(f)
+    finally:
+        launcher._launch_gang_once = launch_once
+        supervisor.policy = before
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = ranks[0]
+    resumed = steps - 1 - RESUME_KILL_AFTER
+    _require(r0["attempt"] == 1 and r0["resume_step"] == RESUME_KILL_AFTER
+             and r0["restored_step"] == RESUME_KILL_AFTER,
+             f"phase 9c: attempt {r0['attempt']}, resume step "
+             f"{r0['resume_step']}, restored {r0['restored_step']}; want "
+             f"one relaunch from step {RESUME_KILL_AFTER}")
+    _require(r0["moments_on_card"] is True,
+             "phase 9c: the restored AdamW moments are not on the "
+             "adapters' device")
+    for r in ranks:
+        for name, n in r["launches"].items():
+            _require(n == cfg.n_layers * resumed,
+                     f"phase 9c rank {r['rank']}: {name} {n} launches in "
+                     f"{resumed} resumed steps, want {cfg.n_layers * resumed}")
+    saves = preempted["saves"] + r0["saves"]
+    _require([s["step"] for s in saves] == list(range(steps)),
+             f"phase 9c: rank 0 saved steps {[s['step'] for s in saves]}")
+    # bit for bit: the flash backward kernels own their rows (no atomics)
+    # and NCCL at world size 1 copies, so the resumed steps are 9a's
+    want_losses = gang["losses"][RESUME_KILL_AFTER + 1:]
+    _require(r0["losses"] == want_losses,
+             f"phase 9c losses {r0['losses']} vs 9a's {want_losses}")
+    _require(r0["adapter_sha256"] == gang["adapter_sha256"],
+             f"phase 9c adapters {r0['adapter_sha256']} vs 9a's "
+             f"{gang['adapter_sha256']}")
+    report = {
+        "np": GANG_NP["9c"], "n_layers": cfg.n_layers, "steps": steps,
+        "killed_after_step": RESUME_KILL_AFTER, "relaunches": r0["attempt"],
+        "resume_step": r0["resume_step"], "losses": r0["losses"],
+        "gang_9a_losses": want_losses, "adapter_sha256": r0["adapter_sha256"],
+        "snapshot_ms": [1e3 * s["snapshot_s"] for s in saves],
+        "write_ms": [1e3 * s["write_s"] for s in saves],
+        "checkpoint_bytes": saves[-1]["bytes"], "restore_ms": r0["restore_ms"],
+        "kill_to_first_resumed_step_s":
+        r0["first_step_at"] - preempted["killed_at"],
+        # kill -> launcher's failure -> backoff -> new worker past
+        # hvd.init -> model built -> step restored -> first step done
+        "relaunch_breakdown_s": None if len(launches) != 2 else {
+            "kill_to_failure": launches[0][1] - preempted["killed_at"],
+            "failure_to_relaunch": launches[1][0] - launches[0][1],
+            "relaunch_to_ready": r0["ready_at"] - launches[1][0],
+            "ready_to_built": r0["built_at"] - r0["ready_at"],
+            "built_to_restored": r0["restored_at"] - r0["built_at"],
+            "first_resumed_step": r0["first_step_at"] - r0["restored_at"]},
+        "init_s": r0["init_s"], "opt_s": r0["opt_s"],
+        "step_ms": r0["step_ms"],
+        "launches": r0["launches"], "run_wall_s": wall_s,
+        "gang_9a_run_wall_s": gang["run_wall_s"]}
+    _log("gang_resume " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -1887,6 +2162,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     gang = gang_train(torch, training)
     gang_shared = gang_shared_card(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gang_resumed = gang_resume(torch, gang)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -1904,7 +2182,8 @@ def main(argv=None):
         by_phase = {"5": training["launches"][name],
                     "9a": gang["launches"][name],
                     "9b": sum(r["launches"][name]
-                              for r in gang_shared["ranks"])}
+                              for r in gang_shared["ranks"]),
+                    "9c": gang_resumed["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -1968,6 +2247,7 @@ def main(argv=None):
                        "train": training, "train_vs_plain": train_rows,
                        "remat": remat_rows, "gang": gang,
                        "gang_shared": gang_shared,
+                       "gang_resume": gang_resumed,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

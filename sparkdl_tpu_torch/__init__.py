@@ -2,7 +2,7 @@
 
 The JAX package stays the reference; this package mirrors its paths
 (``ops/``, ``models/``, ``parallel/``, ``observe/``, ``hvd/``,
-``horovod/``) and imports nothing of it. Ported so far: paged,
+``horovod/``, ``utils/``) and imports nothing of it. Ported so far: paged,
 weight-only int8 or int4, continuous-batching serving of the Llama
 decoder (``models.serving.ContinuousBatchingEngine``, with chunked
 prefill and shared prefixes) behind an HTTP front-end
@@ -10,7 +10,11 @@ prefill and shared prefixes) behind an HTTP front-end
 (``parallel.train.make_train_step`` over ``models.lora``); and the
 HorovodRunner contract over ``torch.distributed`` (``HorovodRunner``,
 the ``hvd`` collectives and ``hvd.DistributedOptimizer``), which runs
-that fine-tuning data-parallel on a gang of workers. Hand-written CUDA
+that fine-tuning data-parallel on a gang of workers, with train
+checkpoints (``utils.checkpoint.TrainCheckpointer``) and supervised
+restarts (``horovod.supervisor``, ``horovod.restart_context``): a gang
+that loses a worker is launched again and resumes from its latest
+checkpoint. Hand-written CUDA
 kernels (``ops/csrc/``) do the paged decode attention, the int8 and int4
 matmuls and flash attention (forward, dq, dk/dv). Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``;

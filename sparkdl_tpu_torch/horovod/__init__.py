@@ -1,13 +1,62 @@
 """Worker-side utilities of HorovodRunner jobs, and the runner itself
 (:mod:`sparkdl_tpu_torch.horovod.runner_base`, the launcher, the
-control plane and the worker bootstrap).
+supervisor, the control plane and the worker bootstrap).
 
 Counterpart of ``sparkdl_tpu/horovod/__init__.py``: ``log_to_driver``
-sends a string from a worker to the driver, which prints it. The
-supervisor's ``restart_context`` is not ported.
+sends a string from a worker to the driver, which prints it;
+``restart_context`` tells a worker which attempt of a supervised gang
+it runs in and the checkpoint step to resume from.
 """
 
+import collections
+
 MAX_LOG_MESSAGE_LENGTH = 4000  # reference sparkdl/horovod/__init__.py:23
+
+
+RestartContext = collections.namedtuple(
+    "RestartContext",
+    ["attempt", "resume_step", "source_axes", "target_axes"],
+    defaults=[None, None],
+)
+RestartContext.__doc__ = """The gang supervisor's restart context.
+
+``attempt``: how many times this gang has been relaunched (0 on the
+first launch). ``resume_step``: the newest
+:class:`~sparkdl_tpu_torch.utils.checkpoint.TrainCheckpointer` step
+committed under the supervisor policy's ``resume_dir`` when this attempt
+was launched, or None (start from scratch). ``source_axes`` /
+``target_axes``: the mesh axes of an elastic relaunch at another world
+size, which is not ported; always None."""
+
+# this process's context: the worker bootstrap sets it from its command
+# line before main runs; outside a relaunch it stays the first attempt's
+_context = RestartContext(0, None)
+
+
+def _set_restart_context(context):
+    global _context
+    _context = context
+
+
+def restart_context():
+    """The supervisor's restart context for this worker process.
+
+    A checkpoint-aware main resumes where the previous attempt left
+    off::
+
+        ctx = restart_context()
+        start = 0
+        if ctx.resume_step is not None:
+            state = ckpt.restore(ctx.resume_step, target=state)
+            start = ckpt.last_restored_step + 1
+        for step in range(start, total_steps):
+            ...
+
+    Outside a supervised relaunch (the first attempt, a gang without
+    retries, local ``np=-1`` mode) it is ``RestartContext(0, None)``, so
+    calling it unconditionally is always safe.
+    """
+    return _context
 
 
 def log_to_driver(message):
@@ -30,4 +79,4 @@ def log_to_driver(message):
         print(message, flush=True)
 
 
-__all__ = ["log_to_driver"]
+__all__ = ["log_to_driver", "restart_context", "RestartContext"]

@@ -2,15 +2,18 @@
 
 Counterpart of ``sparkdl_tpu/horovod/_worker.py``. The launcher runs
 ``python -m sparkdl_tpu_torch.horovod._worker --job-dir D --payload P
-[--per-card]`` once for each rank, with the rank's ``torch.distributed``
-environment and the control plane's address and secret. The worker:
+--attempt A [--resume-step S] [--per-card]`` once for each rank, with
+the rank's ``torch.distributed`` environment and the control plane's
+address and secret. The worker:
 
 1. tees its stdout and stderr to ``D/rank-<r>.log`` and, line by line,
    to the driver, and asks the kernel to end it if the launcher dies;
 2. in a one-card-a-rank gang (``--per-card``), requires its card;
 3. calls ``hvd.init()`` (binds the card, joins the process group);
 4. sends READY;
-5. loads ``(main, kwargs)`` from the cloudpickled payload and runs
+5. stores its restart context (``--attempt``, ``--resume-step``: what
+   :func:`sparkdl_tpu_torch.horovod.restart_context` returns), loads
+   ``(main, kwargs)`` from the cloudpickled payload and runs
    ``main(**kwargs)``;
 6. on rank 0, sends the cloudpickled return value as RESULT.
 
@@ -118,12 +121,14 @@ def _require_card():
 def main(argv=None):
     import cloudpickle
 
-    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch import horovod, hvd
     from sparkdl_tpu_torch.horovod.control_plane import get_worker_client
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--job-dir", required=True)
     parser.add_argument("--payload", required=True)
+    parser.add_argument("--attempt", type=int, default=0)
+    parser.add_argument("--resume-step", type=int, default=None)
     parser.add_argument("--per-card", action="store_true")
     args = parser.parse_args(argv)
     rank = int(os.environ["RANK"])
@@ -138,6 +143,8 @@ def main(argv=None):
                 _require_card()
             hvd.init()
             client.send_ready()
+            horovod._set_restart_context(horovod.RestartContext(
+                args.attempt, args.resume_step))
             with open(args.payload, "rb") as f:
                 user_main, kwargs = cloudpickle.load(f)
             result = user_main(**kwargs)

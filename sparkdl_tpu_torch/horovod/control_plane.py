@@ -110,6 +110,9 @@ class ControlPlaneServer:
         self._log_file = open(log_path, "a", buffering=1) if log_path \
             else None
         self._lock = threading.Lock()
+        # one handler thread a worker: each printed line whole, never cut
+        # by another's (print() writes the text and the newline apart)
+        self._print_lock = threading.Lock()
         self._ready = set()
         self._result = None
         self._result_parts = []
@@ -200,12 +203,12 @@ class ControlPlaneServer:
             line = msg.get("text", "")
             self._log(f"[rank {rank} {msg.get('stream', 'stdout')}] {line}")
             if self.verbosity == "all":
-                print(f"[{rank}] {line}", flush=True)
+                self._print(f"[{rank}] {line}")
         elif mtype == MSG_USERLOG:
             text = json.loads(payload.decode("utf-8", "replace")).get(
                 "text", "")
             # the log_to_driver contract: the driver prints it
-            print(text, flush=True)
+            self._print(text)
             self._log(f"[rank {rank} log_to_driver] {text}")
         elif mtype in (MSG_RESULT, MSG_RESULT_PART, MSG_RESULT_END):
             self._handle_result(mtype, rank, payload)
@@ -219,6 +222,10 @@ class ControlPlaneServer:
             exit_code = json.loads(payload.decode("utf-8", "replace")).get(
                 "exit_code")
             self._log(f"[rank {rank} BYE] exit code {exit_code}")
+
+    def _print(self, line):
+        with self._print_lock:
+            print(line, flush=True)
 
     def _handle_result(self, mtype, rank, payload):
         if rank != 0:

@@ -19,13 +19,21 @@ Counterpart of the local half of ``sparkdl_tpu/horovod/launcher.py``:
   once, and all must be READY within ``START_TIMEOUT_S``; after a worker
   fails, the others get ``ABORT_GRACE_S`` to end before they are killed
   (one left in a collective would wait for its peer forever);
-- a worker's exception reaches the driver as a RuntimeError holding that
-  rank's traceback, and no worker outlives the launch: every process is
-  killed and reaped when the launch ends, however it ends.
+- a failed launch raises a typed
+  :class:`~sparkdl_tpu_torch.horovod.supervisor.GangFailure` (a
+  RuntimeError) with its kind, every rank's exit code and the tracebacks
+  of the ranks that raised; no worker outlives the launch: every process
+  is killed and reaped when the launch ends, however it ends;
+- :func:`launch_gang` runs each launch under the supervisor
+  (:data:`sparkdl_tpu_torch.horovod.supervisor.policy`, read at call
+  time): a transient failure is launched again with a fresh job dir,
+  rendezvous store and control plane, and its attempt number and resume
+  step reach the workers on their command line (``--attempt``,
+  ``--resume-step``).
 
-The supervisor and its retries, Spark, ssh and multi-host specs, the
-slot registry, telemetry, elastic resizing and the pre-flight lint of
-the JAX launcher are not ported.
+Spark, ssh and multi-host specs, the slot registry, telemetry, the hang
+detector, elastic resizing and the pre-flight lint of the JAX launcher
+are not ported.
 """
 
 import logging
@@ -47,6 +55,12 @@ _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+class SlotExhaustionError(RuntimeError):
+    """``np`` exceeds the host's CUDA cards (reference
+    ``runner_base.py:56-58``). Never retried: a relaunch cannot create
+    cards."""
+
+
 def _resolve_num_workers(np_arg):
     """(number of workers, per_card) for ``HorovodRunner(np=np_arg)``,
     ``np_arg != -1``; raises before anything is spawned when a
@@ -61,7 +75,7 @@ def _resolve_num_workers(np_arg):
                        "README.md:57-61); using every CUDA card.")
         np_arg = cards
     if cards == 0 or np_arg > cards:
-        raise RuntimeError(
+        raise SlotExhaustionError(
             f"HorovodRunner(np={np_arg}) runs one worker a CUDA card, and "
             f"this host has {cards}; the job fails fast rather than wait "
             "(np <= -2 runs a gang of -np local workers, which may share a "
@@ -107,23 +121,39 @@ def _tail(path, n=40):
 def launch_gang(np, main, kwargs, driver_log_verbosity):
     """Run ``main(**kwargs)`` on a gang of workers (``np`` as
     :class:`~sparkdl_tpu_torch.horovod.runner_base.HorovodRunner` takes
-    it, ``np != -1``) and return rank 0's return value. Raises
-    RuntimeError when a worker fails (with its traceback), when the
-    gang does not start within ``START_TIMEOUT_S``, or when it runs past
-    ``JOB_TIMEOUT_S``."""
+    it, ``np != -1``) and return rank 0's return value, relaunching a
+    gang that fails transiently as the supervisor's policy allows.
+    Raises :class:`~sparkdl_tpu_torch.horovod.supervisor.GangFailure`
+    when a worker fails (with its traceback), when the gang does not
+    start within ``START_TIMEOUT_S`` or runs past ``JOB_TIMEOUT_S``, and
+    :class:`SlotExhaustionError` when ``np`` exceeds the card count."""
     import cloudpickle
-    import torch.distributed as dist
 
-    from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
-    from sparkdl_tpu_torch.horovod.topology import Placement
+    from sparkdl_tpu_torch.horovod import supervisor
 
-    num_workers, per_card = _resolve_num_workers(np)
     payload = cloudpickle.dumps((main, kwargs))
     if len(payload) > LARGE_PAYLOAD_BYTES:
         logger.warning(
             "Pickled main + kwargs is %.1f MB; large closures make "
             "HorovodRunner jobs slow to start. Move data loading inside "
             "main().", len(payload) / 2**20)
+    return supervisor.supervise(
+        lambda ctx: _launch_gang_once(np, payload, driver_log_verbosity,
+                                      restart=ctx),
+        supervisor.policy)
+
+
+def _launch_gang_once(np, payload, driver_log_verbosity, restart):
+    """One launch attempt of the cloudpickled ``(main, kwargs)``, its
+    workers told ``restart`` (a RestartContext); rank 0's result."""
+    import cloudpickle
+    import torch.distributed as dist
+
+    from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
+    from sparkdl_tpu_torch.horovod.supervisor import GangFailure
+    from sparkdl_tpu_torch.horovod.topology import Placement
+
+    num_workers, per_card = _resolve_num_workers(np)
     job_dir = tempfile.mkdtemp(prefix="sparkdl-torch-job-")
     payload_path = os.path.join(job_dir, "payload.pkl")
     with open(payload_path, "wb") as f:
@@ -141,8 +171,16 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
         store = dist.TCPStore("127.0.0.1", 0, is_master=True,
                               wait_for_workers=False)
         logger.info("Launching HorovodRunner gang: %d worker(s), %s, "
-                    "job_dir=%s", num_workers,
-                    "one card a rank" if per_card else "local", job_dir)
+                    "attempt %d, job_dir=%s", num_workers,
+                    "one card a rank" if per_card else "local",
+                    restart.attempt, job_dir)
+        cmd = [sys.executable, "-m", "sparkdl_tpu_torch.horovod._worker",
+               "--job-dir", job_dir, "--payload", payload_path,
+               "--attempt", str(restart.attempt)]
+        if restart.resume_step is not None:
+            cmd += ["--resume-step", str(restart.resume_step)]
+        if per_card:
+            cmd.append("--per-card")
         for r in range(num_workers):
             env = _worker_env(
                 os.environ, rank=r, size=num_workers, placement=placement,
@@ -153,13 +191,10 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
             boot_log = open(os.path.join(job_dir, f"rank-{r}.log"), "ab",
                             buffering=0)
             boot_logs.append(boot_log)
-            cmd = [sys.executable, "-m", "sparkdl_tpu_torch.horovod._worker",
-                   "--job-dir", job_dir, "--payload", payload_path]
             procs.append(subprocess.Popen(
-                cmd + (["--per-card"] if per_card else []), env=env,
-                stdout=boot_log, stderr=subprocess.STDOUT))
+                cmd, env=env, stdout=boot_log, stderr=subprocess.STDOUT))
 
-        def fail(reason, codes):
+        def fail(reason, codes, kind):
             excs = server.exceptions
             detail = "\n".join(f"--- rank {r} ---\n{tb}"
                                for r, tb in sorted(excs.items()))
@@ -168,7 +203,9 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
                     f"--- rank {r} log tail ---\n"
                     + _tail(os.path.join(job_dir, f"rank-{r}.log"))
                     for r, c in enumerate(codes) if c)
-            raise RuntimeError(f"{reason} Worker logs: {job_dir}\n{detail}")
+            raise GangFailure(f"{reason} Worker logs: {job_dir}\n{detail}",
+                              kind=kind, exit_codes=[c or 0 for c in codes],
+                              exceptions=excs)
 
         start = time.monotonic()
         while server.ready_count() < num_workers:
@@ -177,12 +214,14 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
                 server.wait_drained(1.0)  # the EXC frames of the dead
                 fail("HorovodRunner gang failed to start: worker(s) "
                      f"{[r for r, c in enumerate(codes) if c]} exited "
-                     f"during rendezvous (codes {codes}).", codes)
+                     f"during rendezvous (codes {codes}).", codes,
+                     "start_failure")
             if time.monotonic() - start > START_TIMEOUT_S:
                 fail(f"HorovodRunner gang failed to start: only "
                      f"{server.ready_count()}/{num_workers} workers reached "
                      f"the rendezvous within {START_TIMEOUT_S:.0f}s "
-                     "(fail-fast, reference runner_base.py:54-58).", codes)
+                     "(fail-fast, reference runner_base.py:54-58).", codes,
+                     "rendezvous_timeout")
             time.sleep(0.05)
         logger.info("HorovodRunner gang ready in %.1f s",
                     time.monotonic() - start)
@@ -193,7 +232,7 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
             if (JOB_TIMEOUT_S is not None
                     and time.monotonic() - start > JOB_TIMEOUT_S):
                 fail(f"HorovodRunner job ran past {JOB_TIMEOUT_S:.0f}s; "
-                     "every worker was killed.", codes)
+                     "every worker was killed.", codes, "job_timeout")
             if any(c not in (None, 0) for c in codes):
                 if first_death is None:
                     first_death = time.monotonic()
@@ -201,16 +240,18 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
                     fail("HorovodRunner job failed: worker(s) "
                          f"{[r for r, c in enumerate(codes) if c]} died; "
                          "the others were killed after a "
-                         f"{ABORT_GRACE_S:.0f}s grace period.", codes)
+                         f"{ABORT_GRACE_S:.0f}s grace period.", codes,
+                         "worker_death")
             time.sleep(0.05)
         codes = [p.wait() for p in procs]
         server.wait_drained(5.0)
         if any(codes):
-            fail(f"HorovodRunner job failed (exit codes {codes}).", codes)
+            fail(f"HorovodRunner job failed (exit codes {codes}).", codes,
+                 "worker_death")
         result = server.result_bytes
         if result is None:
             fail("HorovodRunner job finished, but rank 0 returned no "
-                 "result over the control plane.", codes)
+                 "result over the control plane.", codes, "no_result")
         return cloudpickle.loads(result)
     finally:
         for p in procs:

@@ -15,9 +15,21 @@ constructor is keyword-only ``(*, np, driver_log_verbosity=
   fails fast when ``np`` exceeds the card count;
 - ``np == 0``: deprecated, every card.
 
+A gang (``np != -1``) runs under the supervisor
+(:mod:`sparkdl_tpu_torch.horovod.supervisor`): with its ``policy`` at the
+default a failed gang raises; with ``max_retries > 0`` a gang whose
+failure is transient (a rank killed by a signal, a rendezvous timeout, a
+rank whose traceback is the distributed runtime failing) is launched
+again, and a user-code exception never is. The resume contract: a
+relaunched worker's
+:func:`~sparkdl_tpu_torch.horovod.restart_context` gives its attempt
+number and the newest step committed under the policy's ``resume_dir``
+by a :class:`~sparkdl_tpu_torch.utils.checkpoint.TrainCheckpointer`;
+``main`` restores that step and continues after it. ``np == -1`` runs
+once, unsupervised.
+
 The pre-flight lint of the JAX package (its ``analysis`` passes over
-jaxprs) has no PyTorch counterpart, and the supervisor's retries are not
-ported: a failed gang raises.
+jaxprs) has no PyTorch counterpart.
 """
 
 import logging

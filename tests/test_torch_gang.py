@@ -1,4 +1,4 @@
-"""The port's HorovodRunner gangs, for real: three tests, each a gang of
+"""The port's HorovodRunner gangs, for real: five tests, each a gang of
 two worker processes on gloo (the tests run without a card), each
 bounded by the launcher's own start and job timeouts (patched below) so
 that none can hang the run:
@@ -13,7 +13,11 @@ that none can hang the run:
    adapters against the JAX package's single-process step on the whole
    batch from the same weights;
 3. a worker that raises fails the run with its traceback, and no worker
-   process is left.
+   process is left;
+4. under a supervisor policy with retries, a rank SIGKILLed mid-run
+   (first attempt only) is relaunched once and the run resumes from the
+   latest checkpoint onto the uninterrupted run's result;
+5. a user exception under the same policy runs exactly one attempt.
 
 cloudpickle sends this module's functions (the workers' mains) by value,
 so a worker imports the port and torch, never this module or JAX.
@@ -35,7 +39,7 @@ from sparkdl_tpu.models import llama as jax_llama
 from sparkdl_tpu.models import lora as jax_lora
 from sparkdl_tpu.parallel import train as jax_train
 from sparkdl_tpu_torch import HorovodRunner
-from sparkdl_tpu_torch.horovod import launcher
+from sparkdl_tpu_torch.horovod import launcher, supervisor
 from sparkdl_tpu_torch.models.from_jax import flatten_jax_tree
 from sparkdl_tpu_torch.parallel.train import global_batch
 from tests.horovod.test_frameworks import _torch_reference_step
@@ -335,3 +339,82 @@ def test_a_failing_worker_fails_the_run_and_leaves_no_process(tmp_path):
     for pid in pids:
         with pytest.raises(ProcessLookupError):
             os.kill(pid, 0)
+
+
+def _resumable_main(ckpt_dir, steps, kill_rank, kill_step):
+    """A checkpointed loop that resumes from its restart context: the
+    update depends on (rank, step), so a step skipped or taken twice
+    changes ``w``. On the first attempt rank ``kill_rank`` SIGKILLs
+    itself after step ``kill_step``'s save is committed (async write
+    joined, then a barrier)."""
+    import os
+    import signal
+
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod import restart_context
+    from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    hvd.init()
+    ctx = restart_context()
+    ckpt = TrainCheckpointer(ckpt_dir, async_save=True)
+    w = torch.zeros(4)
+    start = 0
+    if ctx.resume_step is not None:
+        w = ckpt.restore(ctx.resume_step, target={"w": w})["w"]
+        start = ckpt.last_restored_step + 1
+    saved = []
+    for step in range(start, steps):
+        g = hvd.allreduce(torch.full((4,), float((hvd.rank() + 1)
+                                                 * (step + 1))), op=hvd.Sum)
+        w -= 2.0 ** -7 * g  # exact: no rounding to hide a wrong step
+        saved.append(ckpt.save(step, {"w": w}))
+        ckpt.wait_until_finished()
+        hvd.barrier()
+        if ctx.attempt == 0 and hvd.rank() == kill_rank and step == kill_step:
+            os.kill(os.getpid(), signal.SIGKILL)
+    ckpt.close()
+    return {"w": w.tolist(), "attempt": ctx.attempt,
+            "resume_step": ctx.resume_step,
+            "saved": hvd.allgather_object(saved)}
+
+
+def test_a_sigkilled_rank_is_relaunched_and_resumes_from_its_checkpoint(
+        monkeypatch, tmp_path):
+    ckpt_dir = tmp_path / "ckpt"
+    monkeypatch.setattr(supervisor, "policy", supervisor.RetryPolicy(
+        max_retries=2, backoff_base=0.1, backoff_max=0.2,
+        resume_dir=str(ckpt_dir)))
+    got = HorovodRunner(np=-2).run(_resumable_main, ckpt_dir=str(ckpt_dir),
+                                   steps=5, kill_rank=1, kill_step=2)
+    assert got["attempt"] == 1  # exactly one relaunch
+    assert got["resume_step"] == 2
+    # the uninterrupted run: w -= 2^-7 (1 + 2)(step + 1) for steps 0-4
+    want = -2.0 ** -7 * 3 * sum(range(1, 6))
+    assert got["w"] == [want] * 4
+    # the resumed attempt: rank 0 wrote steps 3 and 4, rank 1 nothing
+    assert got["saved"] == [[True, True], [False, False]]
+    assert sorted(os.listdir(ckpt_dir)) == ["2", "3", "4"]
+
+
+def _counting_main(marker_path):
+    from sparkdl_tpu_torch import hvd
+
+    hvd.init()
+    if hvd.rank() == 0:
+        with open(marker_path, "a") as fh:
+            fh.write("x")
+        raise ValueError("user bug, never worth a relaunch")
+    hvd.barrier()  # never met: rank 1 waits until the launcher kills it
+
+
+def test_a_user_exception_is_never_relaunched(monkeypatch, tmp_path):
+    monkeypatch.setattr(supervisor, "policy", supervisor.RetryPolicy(
+        max_retries=2, backoff_base=0.1))
+    marker = tmp_path / "attempts"
+    with pytest.raises(supervisor.GangFailure, match="user bug") as exc:
+        HorovodRunner(np=-2).run(_counting_main, marker_path=str(marker))
+    assert marker.read_text() == "x"  # one attempt
+    assert exc.value.kind == "worker_death"
+    assert supervisor.classify_failure(exc.value)[0] == supervisor.PERMANENT

@@ -28,7 +28,7 @@ PORT_FILES = sorted((REPO / "sparkdl_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 
 
-# the HorovodRunner slice's modules and the JAX file each one ports
+# the HorovodRunner slices' modules and the JAX file each one ports
 GANG_COUNTERPARTS = {
     "sparkdl_tpu_torch/hvd/__init__.py": "sparkdl_tpu/hvd/__init__.py",
     "sparkdl_tpu_torch/hvd/_state.py": "sparkdl_tpu/hvd/_state.py",
@@ -46,6 +46,10 @@ GANG_COUNTERPARTS = {
         "sparkdl_tpu/horovod/launcher.py",
     "sparkdl_tpu_torch/horovod/runner_base.py":
         "sparkdl_tpu/horovod/runner_base.py",
+    "sparkdl_tpu_torch/horovod/supervisor.py":
+        "sparkdl_tpu/horovod/supervisor.py",
+    "sparkdl_tpu_torch/utils/checkpoint.py":
+        "sparkdl_tpu/utils/checkpoint.py",
 }
 
 
