@@ -2,9 +2,12 @@
 """Chip smoke of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version at the main paths' shapes, serve
 Llama-3-8B at full width (random int8 weights, paged KV cache) through
-``ContinuousBatchingEngine``, serve it again in int4 behind the HTTP
-``ServingFrontend`` (chunked prefill, then shared prefixes), then
-LoRA-fine-tune it at full width through ``make_train_step``, then as
+``ContinuousBatchingEngine``, serve it again over a dense slot cache
+and through ``generate()``, then in int4 behind the HTTP
+``ServingFrontend`` (chunked prefill, then
+shared prefixes), then LoRA-fine-tune it at full width through
+``make_train_step``, serve the fine-tune's base with 4 stacked adapters
+and speculatively with its int8 weights as the draft, then as
 HorovodRunner gangs (one resumed from a checkpoint after its worker is
 killed), and show every run went through its kernels.
 
@@ -42,7 +45,14 @@ and on any failed check. Phases:
    predict;
 4. the kernel path against the plain path at model level: the same
    weights at depth 2 (full width), one prefill and 4 decode steps;
-   then the serving model is freed;
+10. the dense slot cache: phase 3's 16 requests through the same int8
+   model with ``page_size=0``, every request on its budget and the int8
+   launches, zeroed before the run, equal to (7 x layers + 1) x (the
+   engine's steps + one prefill a request); the share of tokens that
+   agree with phase 3's paged run; then ``generate()`` on 2 x 128
+   prompt tokens for 32 new ones (its launches: 32 forwards); then, at
+   depth 2, kernels against plain over the dense cache (phase 4's
+   tolerance); then the serving model is freed;
 7. int4 serving at full width behind the HTTP ``ServingFrontend``
    (random normal(0.02) weights quantized to int4, group 64, 8 slots,
    pages of 64, chunk 16, ``prefill_chunk=256``): 16 concurrent HTTP
@@ -69,6 +79,24 @@ and on any failed check. Phases:
    adapters move, a frozen matrix stay bit-identical, and each flash
    counter, zeroed after the warm-up, read 32 x 5; then one more step
    under ``torch.profiler`` (device time by kernel, idle share);
+11. multi-LoRA serving on phase 5's bf16 base, paged (pages of 64):
+   4 adapters of rank 16 on q and v stacked with
+   ``stack_lora_adapters`` (adapter 0 phase 5's trained ones, 1-3
+   seeded with non-zero ``lora_b``), phase 3's 16 requests, 4 an
+   adapter; every request on its budget, the paged decode launches
+   equal to layers x the engine's steps; decode tokens/s and ms a step
+   beside phase 3's; at depth 2, each adapter's prefill and first decode
+   logits against a single-adapter model carrying it (phase 4's
+   tolerance);
+12. speculative serving: the same bf16 base as a paged target, its int8
+   weights as the draft, k = 4, greedy, phase 3's first 8 requests,
+   then the plain paged engine on the same target and requests; every
+   request on its budget, the int8 launches equal to (7 x layers + 1)
+   x the draft's forwards (k + 1 a round, one prefill a request), no
+   paged decode in the speculative run (the verify takes k + 1 tokens);
+   rounds, proposed, accepted, the acceptance rate, decode tokens/s and
+   ms a round beside the plain engine's, the share of tokens that agree
+   with it, and peak memory; then phase 5's model is freed;
 6. the kernel path against the plain path for one training step at
    depth 2 (full width, batch 1 x 2048): loss and every adapter
    gradient;
@@ -155,6 +183,10 @@ Q4_SHAPES = QMM_SHAPES[:5] + [(PREFILL_CHUNK, 4096, 14336, "bf16", 0,
                                False)]
 # phase 7b: one shared prefix, the requests that extend it
 PREFIX_LEN, N_PREFIX_REQUESTS = 512, 8
+# phase 11: adapters stacked on phase 5's base; phase 12: the draft
+# length and the requests served (phase 3's first)
+MULTI_LORA = 4
+SPEC_K, N_SPEC_REQUESTS = 4, 8
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
 # call; 32 a step), then ragged S (no tile divides 1000), both head dims
@@ -673,35 +705,71 @@ def random_quant_llama(torch, cfg, gen):
     return model
 
 
-def serve(torch, model):
-    """Phase 3: the main path, counters zeroed just before the run."""
-    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+def _requests(cfg, n=N_REQUESTS):
+    """Phase 3's requests (prompts of 64-1024 tokens, budgets of
+    32-128), which phases 10-12 serve again: the first ``n``."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(k),)).astype(np.int32)
+               for k in rng.integers(64, 1025, N_REQUESTS)]
+    budgets = [int(k) for k in rng.integers(32, 129, N_REQUESTS)]
+    return prompts[:n], budgets[:n]
+
+
+def _agreement(tokens, ref):
+    """How far two runs of the same requests agree: the share of
+    generated tokens equal to ``ref``'s at the same position of the same
+    request, and the share that lies before a request's first
+    disagreement (greedy decoding follows its own earlier tokens, so
+    one near-tie decided otherwise changes the rest of the request)."""
+    same = prefix = 0
+    for a, b in zip(tokens, ref):
+        eq = np.asarray(a) == np.asarray(b)
+        same += int(eq.sum())
+        prefix += len(eq) if eq.all() else int(np.argmin(eq))
+    total = sum(len(b) for b in ref)
+    return {"tokens": same / total, "before_first_difference":
+            prefix / total}
+
+
+def _zero_launches():
     from sparkdl_tpu_torch.ops import paged_attention as pa
     from sparkdl_tpu_torch.ops import quantized_matmul as qmm
+
+    qmm.quantized_matmul.launches = 0
+    qmm.quantized_matmul_int4.launches = 0
+    pa.paged_attention_decode.launches = 0
+
+
+def _read_launches():
+    from sparkdl_tpu_torch.ops import paged_attention as pa
+    from sparkdl_tpu_torch.ops import quantized_matmul as qmm
+
+    return {"quantized_matmul": qmm.quantized_matmul.launches,
+            "quantized_matmul_int4": qmm.quantized_matmul_int4.launches,
+            "paged_attention_decode": pa.paged_attention_decode.launches}
+
+
+def serve(torch, model):
+    """Phase 3: the main path, counters zeroed just before the run;
+    returns the report and each request's tokens."""
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
 
     cfg = model.cfg
     engine = ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
                                       chunk=16, page_size=64, device=DEVICE)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
-               for n in rng.integers(64, 1025, N_REQUESTS)]
-    budgets = [int(n) for n in rng.integers(32, 129, N_REQUESTS)]
+    prompts, budgets = _requests(cfg)
     rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
 
     spent = _time_engine(torch, engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    qmm.quantized_matmul.launches = 0
-    qmm.quantized_matmul_int4.launches = 0
-    pa.paged_attention_decode.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     results = engine.run()
     wall = time.perf_counter() - t0
-    launches = {"quantized_matmul": qmm.quantized_matmul.launches,
-                "paged_attention_decode": pa.paged_attention_decode.launches}
-    _require(qmm.quantized_matmul_int4.launches == 0,
-             f"the int8 run launched the int4 matmul "
-             f"{qmm.quantized_matmul_int4.launches} times")
+    launches = _read_launches()
+    _require(launches.pop("quantized_matmul_int4") == 0,
+             "the int8 run launched the int4 matmul")
 
     stats = dict(engine.stats)
     for rid, budget in zip(rids, budgets):
@@ -740,7 +808,7 @@ def serve(torch, model):
         "stats": stats, "launches": launches,
     }
     _log("serving " + json.dumps(report))
-    return report
+    return report, [results[r] for r in rids]
 
 
 def _depth2(model, **cfg_kw):
@@ -828,6 +896,138 @@ def kernel_vs_plain_model(torch, model, name="model"):
     return report
 
 
+def _check_budgets(engine, results, rids, budgets, vocab, phase):
+    """Every request ended on its full budget with in-vocabulary tokens
+    and finite logprobs <= 0."""
+    for rid, budget in zip(rids, budgets):
+        toks = results.get(rid)
+        _require(toks is not None and len(toks) == budget
+                 and engine.finish_reasons[rid] == "length",
+                 f"phase {phase} request {rid}: "
+                 f"{None if toks is None else len(toks)} tokens, budget "
+                 f"{budget}, finished on {engine.finish_reasons.get(rid)}")
+        _require(bool(((toks >= 0) & (toks < vocab)).all()),
+                 f"phase {phase} request {rid}: token outside the "
+                 "vocabulary")
+        lps = engine.logprobs[rid]
+        _require(bool(np.isfinite(lps).all() and (lps <= 1e-6).all()),
+                 f"phase {phase} request {rid}: logprobs not finite and "
+                 "<= 0")
+
+
+def _logits_row(torch, got, ref, what):
+    """Phase 4's tolerance on one pair of logits: the max error within
+    2^-4 and the mean within 2^-8 of the logits' scale."""
+    err = (got - ref).abs()
+    scale = ref.abs().max().item()
+    row = {"call": what, "max_abs_err": err.max().item(),
+           "logit_scale": scale, "mean_abs_err": err.mean().item(),
+           "argmax_agree": float((got.argmax(-1) == ref.argmax(-1))
+                                 .float().mean())}
+    _require(bool(torch.isfinite(got).all())
+             and row["max_abs_err"] <= 2.0 ** -4 * scale
+             and row["mean_abs_err"] <= 2.0 ** -8 * scale,
+             f"{what} logits: {row}")
+    return row
+
+
+def serve_dense(torch, model, phase3_tokens):
+    """Phase 10: the int8 model over the dense slot cache: phase 3's 16
+    requests through ``ContinuousBatchingEngine(page_size=0)``, then
+    ``generate()`` on 2 x 128 prompt tokens for 32 new ones, each with
+    the counters zeroed just before it; then, at depth 2, the kernel
+    path against the plain path over the dense cache."""
+    from sparkdl_tpu_torch.models.generate import generate
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    cfg = model.cfg
+    per_forward = 7 * cfg.n_layers + 1
+    engine = ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
+                                      chunk=16, page_size=0, device=DEVICE)
+    prompts, budgets = _requests(cfg)
+    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    spent = _time_engine(torch, engine, prefill="_admit")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(engine.stats)
+    _check_budgets(engine, results, rids, budgets, cfg.vocab_size, 10)
+    # one prefill a request (none finishes at admission), then the steps
+    want = per_forward * (stats["steps"] + len(rids))
+    _require(launches["quantized_matmul"] == want,
+             f"phase 10: {launches['quantized_matmul']} int8 launches, the "
+             f"engine's {stats['steps']} steps and {len(rids)} prefills "
+             f"predict {want}")
+    _require(launches["paged_attention_decode"] == 0
+             and launches["quantized_matmul_int4"] == 0,
+             f"phase 10 launched another kernel: {launches}")
+    tokens = [results[r] for r in rids]
+    decoded = sum(budgets) - len(rids)
+
+    rng = np.random.default_rng(SEED + 6)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 128)),
+                             device=DEVICE)
+    generate(model, None, prompt[:, :8], max_new_tokens=2, device=DEVICE)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t = time.perf_counter()
+    out, lps = generate(model, None, prompt, max_new_tokens=32,
+                        return_logprobs=True, device=DEVICE)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    gen_launches = _read_launches()
+    _require(tuple(out.shape) == (2, 160)
+             and bool(torch.equal(out[:, :128].long(), prompt))
+             and bool(torch.isfinite(lps).all()),
+             f"generate(): shape {tuple(out.shape)}")
+    _require(gen_launches["quantized_matmul"] == per_forward * 32,
+             f"generate(): {gen_launches['quantized_matmul']} int8 launches,"
+             f" want {per_forward * 32} (a prefill and 31 steps)")
+
+    small = _depth2(model, decode=True, page_size=0, n_pages=0)
+    steps = torch.as_tensor(rng.integers(0, small.cfg.vocab_size, (4, 2, 1)),
+                            device=DEVICE)
+
+    def run():
+        cache = small.init_cache(batch=2)
+        outs = [small(prompt[:, :100], cache=cache)]
+        outs += [small(steps[i], cache=cache) for i in range(4)]
+        return [o.float() for o in outs]
+
+    with torch.no_grad():
+        got = run()
+        with plain_ops():
+            ref = run()
+    logits = [_logits_row(torch, g, r, "dense prefill" if i == 0
+                          else f"dense decode {i}")
+              for i, (g, r) in enumerate(zip(got, ref))]
+    del small
+    report = {
+        "requests": len(rids), "n_slots": 8, "page_size": 0, "chunk": 16,
+        "n_layers": cfg.n_layers, "wall_s": wall,
+        "decode_s": spent["decode"],
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "prefill_s": sum(spent["prefill"]),
+        "prefill_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
+        "peak_mem_gb": peak / 1e9,
+        "agree_with_phase3": _agreement(tokens, phase3_tokens),
+        "stats": stats, "launches": launches,
+        "generate": {"batch": 2, "prompt": 128, "new_tokens": 32,
+                     "s": gen_s, "tokens_per_s": 2 * 32 / gen_s,
+                     "ms_per_step": 1e3 * gen_s / 32,
+                     "launches": gen_launches},
+        "logits": logits,
+    }
+    _log("dense " + json.dumps(report))
+    return report
+
+
 def _engine(model, **kw):
     """The int4 phases' engine: 8 slots, pages of 64, chunk 16,
     ``prefill_chunk`` 256, over ``model``'s own (quantized) weights."""
@@ -839,12 +1039,15 @@ def _engine(model, **kw):
                                     device=DEVICE, **kw)
 
 
-def _time_engine(torch, engine):
-    """Host clocks around the engine's own prefill-segment and
-    decode-chunk calls (each ends in a host copy or a synchronize, so
-    the device is done); returns the dict they fill."""
+def _time_engine(torch, engine, prefill="_prefill_segment",
+                 decode="_decode_chunk"):
+    """Host clocks around the engine's own prefill and decode calls (by
+    default its prefill segments and decode chunks; a dense engine
+    prefills in ``_admit``, a speculative one decodes in ``_round``;
+    each ends in a host copy or a synchronize, so the device is done);
+    returns the dict they fill."""
     spent = {"prefill": [], "decode": 0.0}
-    prefill_fn, decode_fn = engine._prefill_segment, engine._decode_chunk
+    prefill_fn, decode_fn = getattr(engine, prefill), getattr(engine, decode)
 
     def timed_prefill(*a, **k):
         torch.cuda.synchronize()
@@ -860,7 +1063,8 @@ def _time_engine(torch, engine):
         spent["decode"] += time.perf_counter() - t
         return out
 
-    engine._prefill_segment, engine._decode_chunk = timed_prefill, timed_decode
+    setattr(engine, prefill, timed_prefill)
+    setattr(engine, decode, timed_decode)
     return spent
 
 
@@ -891,8 +1095,6 @@ def serve_http(torch, model):
     import threading
 
     from sparkdl_tpu_torch.models.server import ServingFrontend
-    from sparkdl_tpu_torch.ops import paged_attention as pa
-    from sparkdl_tpu_torch.ops import quantized_matmul as qmm
 
     cfg = model.cfg
     engine = _engine(model)
@@ -918,9 +1120,7 @@ def serve_http(torch, model):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        qmm.quantized_matmul.launches = 0
-        qmm.quantized_matmul_int4.launches = 0
-        pa.paged_attention_decode.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(N_REQUESTS)]
@@ -929,10 +1129,7 @@ def serve_http(torch, model):
         for t in threads:
             t.join(timeout=900)
         wall = time.perf_counter() - t0
-        launches = {
-            "quantized_matmul_int4": qmm.quantized_matmul_int4.launches,
-            "paged_attention_decode": pa.paged_attention_decode.launches,
-            "quantized_matmul": qmm.quantized_matmul.launches}
+        launches = _read_launches()
         metrics = _http(fe, "/metrics")
     finally:
         fe.close()
@@ -1266,7 +1463,8 @@ def profile_step(torch, step, batch, step_ms):
 
 def train(torch, gen):
     """Phase 5: the training main path, counters zeroed after the
-    warm-up step, then one more step profiled."""
+    warm-up step, then one more step profiled; returns the report and
+    the trained model (phases 11 and 12 serve its weights)."""
     from sparkdl_tpu_torch.models.llama import Llama, init_weights
     from sparkdl_tpu_torch.models.lora import lora_mask
     from sparkdl_tpu_torch.ops import flash_attention as fa
@@ -1354,7 +1552,7 @@ def train(torch, gen):
     report["profile"] = profile_step(torch, step, batch, 1e3 * step_s)
     _log("train " + json.dumps({k: v for k, v in report.items()
                                 if k != "profile"}))
-    return report
+    return report, model
 
 
 def kernel_vs_plain_train(torch, gen):
@@ -1459,6 +1657,207 @@ def remat_memory(torch, gen):
     _require(len(losses) == 1 and all(np.isfinite(list(losses))),
              f"remat changed the loss: {report}")
     _log("remat " + json.dumps(report))
+    return report
+
+
+def _first_layers(params, n=2):
+    """A state dict's entries of the first ``n`` layers and the rest."""
+    return {k: v for k, v in params.items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+
+
+def serve_multi_lora(torch, model, gen, phase3):
+    """Phase 11: multi-LoRA serving on the bf16 base of phase 5's model,
+    paged (pages of 64): adapter 0 is phase 5's trained adapters,
+    adapters 1-3 seeded (normal 0.02, lora_b too), stacked with
+    ``stack_lora_adapters``; phase 3's 16 requests, adapter i % 4 for
+    request i, the counters zeroed just before the run; then, at depth
+    2, each adapter's prefill and first decode logits against a
+    single-adapter model carrying that adapter."""
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.lora import stack_lora_adapters
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    trained = {k: v.detach() for k, v in model.state_dict().items()}
+    adapters = [trained]
+    for _ in range(1, MULTI_LORA):
+        d = dict(trained)
+        for name, t in trained.items():
+            if name.endswith(("lora_a", "lora_b")):
+                d[name] = torch.randn(t.shape, generator=gen,
+                                      device=t.device) * 0.02
+        adapters.append(d)
+    stacked = stack_lora_adapters(adapters)
+    del adapters
+    cfg = dataclasses.replace(model.cfg, multi_lora=MULTI_LORA)
+    engine = ContinuousBatchingEngine(Llama(cfg, device="meta"), stacked,
+                                      n_slots=8, chunk=16, page_size=64,
+                                      device=DEVICE)
+    prompts, budgets = _requests(cfg)
+    ids = [i % MULTI_LORA for i in range(len(prompts))]
+    rids = [engine.submit(p, b, adapter_id=a)
+            for p, b, a in zip(prompts, budgets, ids)]
+    spent = _time_engine(torch, engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(engine.stats)
+    _check_budgets(engine, results, rids, budgets, cfg.vocab_size, 11)
+    want = cfg.n_layers * stats["steps"]
+    _require(launches["paged_attention_decode"] == want,
+             f"phase 11: {launches['paged_attention_decode']} paged decode "
+             f"launches, the engine's {stats['steps']} steps predict {want}")
+    del engine
+
+    small_cfg = dataclasses.replace(cfg, n_layers=2, decode=True,
+                                    page_size=64, n_pages=8)
+    small_params = _first_layers(stacked)
+    multi = Llama.from_params(small_cfg, small_params, device=DEVICE)
+    rng = np.random.default_rng(SEED + 7)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 100)),
+                             device=DEVICE)
+    step = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 1)),
+                           device=DEVICE)
+    tables = torch.as_tensor([[1, 2, 0], [4, 3, 0]], dtype=torch.int32,
+                             device=DEVICE)
+
+    def run(m, ids=None):
+        cache = m.init_cache()
+        outs = [m(prompt, torch.arange(100, device=DEVICE)[None], tables,
+                  cache, adapter_ids=ids)[:, -1]]
+        outs.append(m(step, torch.full((2, 1), 100, device=DEVICE), tables,
+                      cache, adapter_ids=ids)[:, -1])
+        return [o.float() for o in outs]
+
+    logits = []
+    with torch.no_grad():
+        for a in range(MULTI_LORA):
+            got = run(multi, torch.full((2,), a, device=DEVICE))
+            single = Llama.from_params(
+                dataclasses.replace(small_cfg, multi_lora=0),
+                {k: (v[a] if k.endswith(("lora_a", "lora_b")) else v)
+                 for k, v in small_params.items()}, device=DEVICE)
+            ref = run(single)
+            logits += [_logits_row(torch, g, r, f"adapter {a} {what}")
+                       for g, r, what in zip(got, ref,
+                                             ("prefill", "decode 1"))]
+            del single
+    del multi, small_params, stacked
+    decoded = sum(budgets) - len(rids)
+    report = {
+        "requests": len(rids), "adapters": MULTI_LORA,
+        "lora_rank": cfg.lora_rank, "n_slots": 8, "page_size": 64,
+        "chunk": 16, "n_layers": cfg.n_layers, "dtype": "bf16",
+        "wall_s": wall, "decode_s": spent["decode"],
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "phase3_decode_ms_per_step": phase3["decode_ms_per_step"],
+        "phase3_decode_tokens_per_s": phase3["decode_tokens_per_s"],
+        "prefill_s": sum(spent["prefill"]),
+        "peak_mem_gb": peak / 1e9, "stats": stats, "launches": launches,
+        "logits": logits,
+    }
+    _log("multi_lora " + json.dumps(report))
+    return report
+
+
+def serve_speculative(torch, model):
+    """Phase 12: speculative serving at full width: the bf16 base of
+    phase 5's model as a paged target (pages of 64), its int8 weights as
+    the draft, k = SPEC_K, greedy, phase 3's first N_SPEC_REQUESTS
+    requests; then the plain paged engine on the same target and
+    requests. Counters zeroed just before each run."""
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.quant import quantize_llama_params
+    from sparkdl_tpu_torch.models.serving import (
+        ContinuousBatchingEngine,
+        SpeculativeBatchingEngine,
+    )
+
+    base = {k: v.detach() for k, v in model.state_dict().items()
+            if not k.endswith(("lora_a", "lora_b"))}
+    cfg = dataclasses.replace(model.cfg, lora_rank=0)
+    draft_cfg = dataclasses.replace(cfg, quant="int8")
+    per_forward = 7 * cfg.n_layers + 1
+    t = time.perf_counter()
+    draft = quantize_llama_params(base, bits=8, device=DEVICE)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t
+    prompts, budgets = _requests(cfg, N_SPEC_REQUESTS)
+    torch.cuda.reset_peak_memory_stats()
+    engine = SpeculativeBatchingEngine(
+        Llama(cfg, device="meta"), base, draft,
+        draft_model=Llama(draft_cfg, device="meta"), n_slots=8, k=SPEC_K,
+        page_size=64, device=DEVICE)
+    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    spent = _time_engine(torch, engine, decode="_round")
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(engine.stats)
+    _check_budgets(engine, results, rids, budgets, cfg.vocab_size, 12)
+    # a draft forward a proposal and one to write the last, a round;
+    # one draft prefill a request
+    draft_forwards = stats["rounds"] * (SPEC_K + 1) + len(rids)
+    _require(launches["quantized_matmul"] == per_forward * draft_forwards,
+             f"phase 12: {launches['quantized_matmul']} int8 launches, "
+             f"{draft_forwards} draft forwards predict "
+             f"{per_forward * draft_forwards}")
+    _require(launches["paged_attention_decode"] == 0,
+             f"phase 12: the verify launched the paged decode "
+             f"{launches['paged_attention_decode']} times")
+    tokens = [results[r] for r in rids]
+    del engine, draft
+
+    plain = ContinuousBatchingEngine(Llama(cfg, device="meta"), base,
+                                     n_slots=8, chunk=16, page_size=64,
+                                     device=DEVICE)
+    prids = [plain.submit(p, b) for p, b in zip(prompts, budgets)]
+    plain_spent = _time_engine(torch, plain)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    presults = plain.run()
+    plain_wall = time.perf_counter() - t0
+    plain_launches = _read_launches()
+    pstats = dict(plain.stats)
+    _check_budgets(plain, presults, prids, budgets, cfg.vocab_size, 12)
+    want = cfg.n_layers * pstats["steps"]
+    _require(plain_launches["paged_attention_decode"] == want,
+             f"phase 12 plain engine: {plain_launches} launches, its "
+             f"{pstats['steps']} steps predict {want} paged decodes")
+    plain_tokens = [presults[r] for r in prids]
+    del plain
+    decoded = sum(budgets) - len(rids)
+    report = {
+        "requests": len(rids), "k": SPEC_K, "n_slots": 8, "page_size": 64,
+        "n_layers": cfg.n_layers, "target": "bf16", "draft": "int8",
+        "rounds": stats["rounds"], "proposed": stats["proposed"],
+        "accepted": stats["accepted"],
+        "acceptance_rate": stats["acceptance_rate"],
+        "draft_forwards": draft_forwards, "wall_s": wall,
+        "decode_s": spent["decode"],
+        "ms_per_round": 1e3 * spent["decode"] / stats["rounds"],
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "prefill_s": sum(spent["prefill"]), "quantize_s": quantize_s,
+        "plain": {"wall_s": plain_wall, "decode_s": plain_spent["decode"],
+                  "decode_ms_per_step": 1e3 * plain_spent["decode"]
+                  / pstats["steps"],
+                  "decode_tokens_per_s": decoded / plain_spent["decode"],
+                  "steps": pstats["steps"], "launches": plain_launches},
+        "agree_with_plain": _agreement(tokens, plain_tokens),
+        "peak_mem_gb": peak / 1e9, "stats": stats, "launches": launches,
+    }
+    _log("speculative " + json.dumps(report))
     return report
 
 
@@ -2120,8 +2519,11 @@ def main(argv=None):
     t = time.perf_counter()
     model = random_quant_llama(torch, cfg, gen)
     _log(f"weights: {time.perf_counter() - t:.1f} s")
-    serving = serve(torch, model)
+    serving, phase3_tokens = serve(torch, model)
     model_rows = kernel_vs_plain_model(torch, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = serve_dense(torch, model, phase3_tokens)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2150,7 +2552,14 @@ def main(argv=None):
     del timer
     gc.collect()
     torch.cuda.empty_cache()
-    training = train(torch, gen)
+    training, trained = train(torch, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = serve_multi_lora(torch, trained, gen, serving)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = serve_speculative(torch, trained)
+    del trained
     gc.collect()
     torch.cuda.empty_cache()
     train_rows = kernel_vs_plain_train(torch, gen)
@@ -2203,11 +2612,22 @@ def main(argv=None):
                                else t["library_ms"] * n_train_layers),
                 "library_covers": t["library_covers"]}
 
+    # each serving path's own run, counters zeroed just before it
+    qmm_by_phase = {"3": serving["launches"]["quantized_matmul"],
+                    "10": dense["launches"]["quantized_matmul"],
+                    "10_generate":
+                        dense["generate"]["launches"]["quantized_matmul"],
+                    "12": spec["launches"]["quantized_matmul"]}
+    paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
+                      "11": multi["launches"]["paged_attention_decode"],
+                      "12_plain": spec["plain"]["launches"][
+                          "paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
          "replaces": "sparkdl_tpu/ops/pallas/quantized_matmul.py:79",
-         "launches": serving["launches"]["quantized_matmul"],
+         "launches": sum(qmm_by_phase.values()),
+         "launches_by_phase": qmm_by_phase,
          "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
          "ms": per_step(qmm_rows, "ms"),
          "plain_ms": per_step(qmm_rows, "plain_ms"),
@@ -2216,7 +2636,8 @@ def main(argv=None):
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/paged_attention.cu",
          "replaces": "sparkdl_tpu/ops/pallas/paged_attention.py:46",
-         "launches": serving["launches"]["paged_attention_decode"],
+         "launches": sum(paged_by_phase.values()),
+         "launches_by_phase": paged_by_phase,
          "max_abs_err": paged_row["max_abs_err"],
          "ms": per_step([paged_row], "ms"),
          "plain_ms": per_step([paged_row], "plain_ms"),
@@ -2226,6 +2647,8 @@ def main(argv=None):
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul_int4.cu",
          "replaces": "sparkdl_tpu/ops/pallas/quantized_matmul.py:291",
          "launches": http["launches"]["quantized_matmul_int4"],
+         "launches_by_phase": {"7": http["launches"][
+             "quantized_matmul_int4"]},
          "max_abs_err": max(r["max_abs_err"] for r in q4_rows),
          "ms": per_step(q4_rows, "ms"),
          "plain_ms": per_step(q4_rows, "plain_ms"),
@@ -2242,6 +2665,8 @@ def main(argv=None):
             json.dump({"card": card, "kernels": kernels, "qmm": qmm_rows,
                        "paged": paged_row, "q4mm": q4_rows,
                        "serving": serving, "model": model_rows,
+                       "dense": dense, "multi_lora": multi,
+                       "speculative": spec,
                        "http": http, "prefix": prefix,
                        "model_int4": q4_model_rows, "flash": flash_rows,
                        "train": training, "train_vs_plain": train_rows,

@@ -2,11 +2,15 @@
 
 The JAX package stays the reference; this package mirrors its paths
 (``ops/``, ``models/``, ``parallel/``, ``observe/``, ``hvd/``,
-``horovod/``, ``utils/``) and imports nothing of it. Ported so far: paged,
-weight-only int8 or int4, continuous-batching serving of the Llama
-decoder (``models.serving.ContinuousBatchingEngine``, with chunked
-prefill and shared prefixes) behind an HTTP front-end
-(``models.server.ServingFrontend``); LoRA fine-tuning of it
+``horovod/``, ``utils/``, ``compat/``) and imports nothing of it. Ported
+so far: weight-only int8 or int4, continuous-batching serving of the
+Llama decoder over a paged or a dense slot cache
+(``models.serving.ContinuousBatchingEngine``, with chunked prefill,
+shared prefixes and multi-LoRA adapters chosen per request), speculative
+decoding (``models.serving.SpeculativeBatchingEngine``,
+``models.speculative.speculative_generate``) and ``models.generate``,
+behind an HTTP front-end (``models.server.ServingFrontend``); LoRA
+fine-tuning of it
 (``parallel.train.make_train_step`` over ``models.lora``); and the
 HorovodRunner contract over ``torch.distributed`` (``HorovodRunner``,
 the ``hvd`` collectives and ``hvd.DistributedOptimizer``), which runs
@@ -18,7 +22,9 @@ checkpoint. Hand-written CUDA
 kernels (``ops/csrc/``) do the paged decode attention, the int8 and int4
 matmuls and flash attention (forward, dq, dk/dv). Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``;
-``HorovodRunner(np>=1)`` runs one worker a card.
+``HorovodRunner(np>=1)`` runs one worker a card, and a gang's
+``import horovod.torch as hvd`` is the port's
+(``compat.horovod_torch``).
 
 Public surface as ``sparkdl_tpu/__init__.py``: ``HorovodRunner`` at the
 package root.

@@ -7,9 +7,13 @@ the rank's ``torch.distributed`` environment and the control plane's
 address and secret. The worker:
 
 1. tees its stdout and stderr to ``D/rank-<r>.log`` and, line by line,
-   to the driver, and asks the kernel to end it if the launcher dies;
+   to the driver through the control plane's drop-oldest log ring (a
+   driver slow to read never blocks a ``print``), and asks the kernel
+   to end it if the launcher dies;
 2. in a one-card-a-rank gang (``--per-card``), requires its card;
-3. calls ``hvd.init()`` (binds the card, joins the process group);
+3. binds the drop-in import names (``import horovod.torch as hvd``
+   gives :mod:`sparkdl_tpu_torch.compat.horovod_torch`) and calls
+   ``hvd.init()`` (binds the card, joins the process group);
 4. sends READY;
 5. stores its restart context (``--attempt``, ``--resume-step``: what
    :func:`sparkdl_tpu_torch.horovod.restart_context` returns), loads
@@ -31,8 +35,8 @@ import traceback
 
 
 class _TeeStream(io.TextIOBase):
-    """Line-buffered tee: complete lines go to the control plane, every
-    write to the local per-rank log."""
+    """Line-buffered tee: complete lines go to the control plane's log
+    ring (never blocking), every write to the local per-rank log."""
 
     def __init__(self, stream_name, local_file, client):
         self.stream_name = stream_name
@@ -122,6 +126,7 @@ def main(argv=None):
     import cloudpickle
 
     from sparkdl_tpu_torch import horovod, hvd
+    from sparkdl_tpu_torch.compat import horovod_torch
     from sparkdl_tpu_torch.horovod.control_plane import get_worker_client
 
     parser = argparse.ArgumentParser()
@@ -141,6 +146,9 @@ def main(argv=None):
                        os.path.join(args.job_dir, f"rank-{rank}.log")):
             if args.per_card:
                 _require_card()
+            # for the life of the process: the payload may name horovod
+            # modules, so this comes before it is unpickled
+            horovod_torch.install()
             hvd.init()
             client.send_ready()
             horovod._set_restart_context(horovod.RestartContext(

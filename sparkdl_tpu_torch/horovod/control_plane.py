@@ -5,8 +5,17 @@ this port uses: AUTH, READY, LOG (a worker's streamed stdout and stderr
 lines), USERLOG (``log_to_driver``), RESULT (rank 0's cloudpickled return
 value, in parts when it is larger than one frame), EXC (a rank's
 traceback) and BYE. The frame numbers and layout are the JAX package's.
-No telemetry, heartbeat, stack-dump or profile frames, and no native log
-ring: log lines take the same socket.
+No telemetry, heartbeat, stack-dump or profile frames.
+
+Log volume never blocks training (reference ``runner_base.py:65-68``):
+LOG frames go into a bounded drop-oldest ring (:class:`LogRing`, 4 MiB)
+that a daemon thread drains over a connection of its own, so a driver
+slow to read stalls that thread, never the training thread, and never
+holds the lock of the guaranteed socket that USERLOG, READY, RESULT,
+EXC and BYE take. The ring is flushed, within ``LOG_FLUSH_S``, before
+RESULT, EXC and BYE, and BYE reports how many frames it dropped. The
+JAX package's ring is native code (``native/ctrl_plane.cc``); this one
+is a Python thread.
 
 The data plane (gradients, parameters, collectives) never touches this
 channel; it runs over the gang's process group.
@@ -23,6 +32,7 @@ frame's length is capped before anything is allocated. Threat model:
 peers without the secret. Workers hold it and are trusted.
 """
 
+import collections
 import hashlib
 import hmac
 import json
@@ -62,6 +72,13 @@ MAX_RESULT_TOTAL = 4 << 30  # and the driver keeps at most this much of it
 MAX_LOG_TEXT = 64 << 10
 # what the driver keeps of a traceback (the tail, which names the raise)
 MAX_TRACEBACK = 4 * MAX_LOG_TEXT
+# the log ring's capacity (the JAX package's NativeLogSender default),
+# the kernel send buffer of its connection (small, so that the ring and
+# its drop count, not the kernel, absorb a stalled driver), and how long
+# RESULT, EXC and BYE wait for the ring to drain first
+LOG_RING_BYTES = 4 << 20
+LOG_SOCKET_BUFFER = 256 << 10
+LOG_FLUSH_S = 5.0
 
 
 def auth_token(secret, rank):
@@ -219,9 +236,14 @@ class ControlPlaneServer:
                 self._exceptions[rank] = tb
             self._log(f"[rank {rank} EXCEPTION]\n{tb}")
         elif mtype == MSG_BYE:
-            exit_code = json.loads(payload.decode("utf-8", "replace")).get(
-                "exit_code")
-            self._log(f"[rank {rank} BYE] exit code {exit_code}")
+            msg = json.loads(payload.decode("utf-8", "replace"))
+            dropped = int(msg.get("log_dropped", 0))
+            self._log(f"[rank {rank} BYE] exit code {msg.get('exit_code')}, "
+                      f"{dropped} log lines dropped")
+            if dropped:
+                self._print(f"[{rank}] {dropped} stdout/stderr lines were "
+                            "dropped: the driver read them too slowly "
+                            "(the rank's own log file has them all)")
 
     def _print(self, line):
         with self._print_lock:
@@ -286,19 +308,111 @@ class ControlPlaneServer:
                 self._log_file = None
 
 
+class LogRing:
+    """A bounded drop-oldest queue of LOG frames and the daemon thread
+    that drains it, in order, over its own authenticated connection.
+    :meth:`send` never blocks on the network: when the queued bytes pass
+    ``capacity`` the oldest frames are dropped and counted
+    (:attr:`dropped`)."""
+
+    def __init__(self, host, port, auth, capacity=LOG_RING_BYTES):
+        self.capacity = capacity
+        self.dropped = 0
+        self._frames = collections.deque()
+        self._bytes = 0
+        self._sending = False  # a frame is off the queue, not yet sent
+        self._closed = False
+        self._dead = False  # the connection failed: everything drops
+        self._cond = threading.Condition()
+        self._sock = socket.create_connection((host, port), timeout=30)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF,
+                              LOG_SOCKET_BUFFER)
+        self._sock.settimeout(None)
+        self._sock.sendall(auth)
+        threading.Thread(target=self._drain, name="hvd-log-ring",
+                         daemon=True).start()
+
+    def send(self, frame):
+        with self._cond:
+            if self._closed or self._dead:
+                self.dropped += 1
+                return
+            self._frames.append(frame)
+            self._bytes += len(frame)
+            while self._bytes > self.capacity and len(self._frames) > 1:
+                self._bytes -= len(self._frames.popleft())
+                self.dropped += 1
+            self._cond.notify_all()
+
+    def _drain(self):
+        while True:
+            with self._cond:
+                while not self._frames and not self._closed:
+                    self._cond.wait()
+                if self._closed:
+                    return
+                frame = self._frames.popleft()
+                self._bytes -= len(frame)
+                self._sending = True
+            try:
+                self._sock.sendall(frame)
+            except OSError:
+                with self._cond:  # the driver is gone
+                    self._dead = True
+                    self.dropped += 1 + len(self._frames)
+                    self._frames.clear()
+                    self._bytes = 0
+            finally:
+                with self._cond:
+                    self._sending = False
+                    self._cond.notify_all()
+            if self._dead:
+                return
+
+    def flush(self, timeout=LOG_FLUSH_S):
+        """Wait up to ``timeout`` seconds for every queued frame to be
+        sent; True when the ring drained."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while (self._frames or self._sending) and not self._dead:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(left)
+            return True
+
+    def close(self):
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()
+
+
 class ControlPlaneClient:
-    """A worker's end: one authenticated socket to the driver that
-    carries every frame, log lines included (a send is one ``sendall``
-    under a lock)."""
+    """A worker's end: one authenticated socket to the driver for the
+    frames that must arrive (a send is one ``sendall`` under a lock),
+    and a :class:`LogRing` on a second one for the tee'd stdout and
+    stderr lines."""
 
     def __init__(self, address, rank, secret):
         host, port = address.rsplit(":", 1)
         self.rank = rank
+        auth = auth_frame(secret, rank)
         self._sock = socket.create_connection((host, int(port)), timeout=30)
         self._sock.settimeout(None)
-        self._sock.sendall(auth_frame(secret, rank))
+        self._sock.sendall(auth)
         self._lock = threading.Lock()
         self._closing = False
+        self._logs = LogRing(host, int(port), auth)
+
+    @property
+    def log_dropped(self):
+        """LOG frames dropped so far (a driver slow to read)."""
+        return self._logs.dropped
 
     def _send(self, mtype, payload):
         frame = _HEADER.pack(len(payload) + 5, mtype, self.rank) + payload
@@ -315,13 +429,18 @@ class ControlPlaneClient:
         self._send(MSG_READY, b"")
 
     def send_log(self, stream, text):
-        self._send_json(MSG_LOG, {"stream": stream,
-                                  "text": text[:MAX_LOG_TEXT]})
+        """A tee'd line into the log ring: never blocks."""
+        payload = json.dumps({"stream": stream,
+                              "text": text[:MAX_LOG_TEXT]}).encode("utf-8")
+        self._logs.send(_HEADER.pack(len(payload) + 5, MSG_LOG, self.rank)
+                        + payload)
 
     def send_user_log(self, text):
+        # log_to_driver is explicit and low-rate: the guaranteed socket
         self._send_json(MSG_USERLOG, {"text": text[:MAX_LOG_TEXT]})
 
     def send_result(self, pickled_bytes):
+        self._logs.flush()  # the run's last lines reach the driver first
         if len(pickled_bytes) <= RESULT_CHUNK:
             self._send(MSG_RESULT, pickled_bytes)
             return
@@ -333,10 +452,13 @@ class ControlPlaneClient:
     def send_exception(self, tb_text):
         if len(tb_text) > MAX_TRACEBACK:
             tb_text = "...[truncated]...\n" + tb_text[-MAX_TRACEBACK:]
+        self._logs.flush()
         self._send_json(MSG_EXC, {"traceback": tb_text})
 
     def send_bye(self, exit_code):
-        self._send_json(MSG_BYE, {"exit_code": exit_code})
+        self._logs.flush()
+        self._send_json(MSG_BYE, {"exit_code": exit_code,
+                                  "log_dropped": self._logs.dropped})
 
     def start_driver_watchdog(self, grace_seconds=10.0):
         """Exit this worker when the driver's end of the socket closes
@@ -363,6 +485,7 @@ class ControlPlaneClient:
 
     def close(self):
         self._closing = True  # before the socket: not a driver death
+        self._logs.close()
         try:
             self._sock.shutdown(socket.SHUT_RDWR)
         except OSError:

@@ -15,6 +15,11 @@ constructor is keyword-only ``(*, np, driver_log_verbosity=
   fails fast when ``np`` exceeds the card count;
 - ``np == 0``: deprecated, every card.
 
+In every mode ``main`` may ``import horovod.torch as hvd`` (the
+reference's headline use): inside the run that name is
+:mod:`sparkdl_tpu_torch.compat.horovod_torch`, bound for the length of
+the call where ``main`` runs in this process.
+
 A gang (``np != -1``) runs under the supervisor
 (:mod:`sparkdl_tpu_torch.horovod.supervisor`): with its ``policy`` at the
 default a failed gang raises; with ``max_retries > 0`` a gang whose
@@ -95,9 +100,11 @@ class HorovodRunner:
                 "np<=-2 for a local multi-process gang or np>0 for a "
                 "gang with one worker a CUDA card."
             )
+            from sparkdl_tpu_torch.compat import horovod_torch
             from sparkdl_tpu_torch.hvd import _state
 
-            with _state.local_mode():
+            # import horovod.torch gives the port for the call only
+            with _state.local_mode(), horovod_torch.bound():
                 return main(**kwargs)
         from sparkdl_tpu_torch.horovod.launcher import launch_gang
 

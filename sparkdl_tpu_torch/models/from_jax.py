@@ -2,7 +2,11 @@
 
 The tree is given as nested dicts of arrays (numpy, or anything
 ``np.asarray`` takes), dense (``kernel``), with LoRA adapters
-(``kernel`` + ``lora_a`` + ``lora_b``), int8 (``kernel_q`` +
+(``kernel`` + ``lora_a`` + ``lora_b``), with stacked multi-LoRA
+adapters (``lora_a`` (N, in, rank) and ``lora_b`` (N, rank, out), as
+the JAX ``stack_lora_adapters`` makes them, loaded into a model built
+with ``multi_lora=N``, so both packages serve the same weights), int8
+(``kernel_q`` +
 ``kernel_scale``) or int4 (``kernel_q4`` + ``kernel_scale4``, loaded
 into a model built with the same ``quant_group``), exactly as
 ``Llama(cfg).init(...)["params"]`` and ``quantize_llama_params`` make

@@ -1,4 +1,4 @@
-"""Llama-family decoder: the training forward and the paged serving mode.
+"""Llama-family decoder: the training forward and the serving modes.
 
 Counterpart of ``sparkdl_tpu/models/llama.py``. The module and parameter
 names follow the JAX package's param tree
@@ -16,18 +16,34 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
   LoRA adapters (``lora_rank > 0``) on the ``lora_targets`` projections,
   every other weight frozen; ``remat`` recomputes each block in the
   backward;
-- serving (``decode=True``, ``page_size > 0``): the KV cache is one
-  pooled physical store per layer, (n_pages, page, Hkv, D), shared by
-  all batch rows through per-row block tables (:class:`PagedKVCache`);
-  single-token steps attend through
-  :func:`sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode`,
-  multi-token prefill gathers each row's pages and attends in plain
-  PyTorch, as the JAX model does, from any start position (chunked
-  prefill and shared prefixes); dense, or weight-only int8 or int4.
+- serving (``decode=True``) over one of two caches:
 
-The dense slot cache, multi-LoRA, MoE, injected attention functions
-(ring attention) and the tensor-parallel binding are not ported yet:
-each raises NotImplementedError by name. The TPU's kernel-mode fields
+  - paged (``page_size > 0``): one pooled physical store per layer,
+    (n_pages, page, Hkv, D), shared by all batch rows through per-row
+    block tables (:class:`PagedKVCache`); single-token steps attend
+    through
+    :func:`sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode`,
+    multi-token steps gather each row's pages and attend in plain
+    PyTorch, as the JAX model does, from any start position (chunked
+    prefill, shared prefixes, speculative verify);
+  - dense slot cache (``page_size == 0``, :class:`DenseKVCache`): each
+    row owns ``max_cache_len`` rows of K/V. With explicit ``positions``
+    every row writes and attends at its own positions (slot-mapped
+    serving); without them the cache's one shared index places the
+    tokens and advances by S (``generate`` and the speculative
+    rewind). Attention masks key t unless t <= the query's position,
+    so rows past a row's position are never read, whatever they hold;
+    it runs in plain PyTorch, as the JAX package computes it outside
+    any kernel;
+
+  dense, or weight-only int8 or int4;
+- multi-LoRA serving (``multi_lora = N``): N adapters stacked on one
+  frozen base, on attention projections only, selected per batch row by
+  ``adapter_ids`` (adapter 0 when omitted).
+
+MoE, injected attention functions (ring attention) and the
+tensor-parallel binding are not ported yet: each raises
+NotImplementedError by name. The TPU's kernel-mode fields
 (``paged_kernel``, ``quant_kernel``) are not fields here.
 """
 
@@ -40,7 +56,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from sparkdl_tpu_torch.models.lora import LoRADense
+from sparkdl_tpu_torch.models.lora import LoRADense, MultiLoRADense
 from sparkdl_tpu_torch.ops import attention as _attention
 from sparkdl_tpu_torch.ops import paged_attention as _paged
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
@@ -79,7 +95,11 @@ class LlamaConfig:
     # int4 group size (rows per scale); must match the checkpoint's
     # quantize group, since it sizes the (in/group, out) scales
     quant_group: int = 64
-    multi_lora: int = 0           # not ported yet: 0 only
+    # multi-LoRA serving: > 0 stacks that many adapters on the frozen
+    # base (state dicts from models.lora.stack_lora_adapters); the
+    # forward's adapter_ids select one a batch row. Attention targets
+    # only.
+    multi_lora: int = 0
     n_experts: int = 0            # not ported yet: 0 only
 
     def __post_init__(self):
@@ -95,7 +115,20 @@ class LlamaConfig:
             raise ValueError(
                 f"attention must be 'reference' or 'flash', got "
                 f"{self.attention!r}")
-        for name in ("flash_block", "multi_lora", "n_experts"):
+        if self.multi_lora:
+            attn_names = {"q_proj", "k_proj", "v_proj", "o_proj"}
+            bad = set(self.lora_targets) - attn_names
+            if bad:
+                raise ValueError(
+                    f"multi_lora supports attention adapter targets only; "
+                    f"got {sorted(bad)}")
+            if self.quant:
+                raise ValueError(
+                    "multi_lora and quant are mutually exclusive (quantize "
+                    "a merged single-adapter tree instead)")
+            if not self.lora_rank:
+                raise ValueError("multi_lora requires lora_rank > 0")
+        for name in ("flash_block", "n_experts"):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
@@ -210,6 +243,9 @@ def _quant_dense(cfg, d_in, features, dtype, device):
 def _dense(cfg, d_in, features, device, name):
     if cfg.quant:
         return _quant_dense(cfg, d_in, features, cfg.dtype, device)
+    if cfg.multi_lora and name in cfg.lora_targets:
+        return MultiLoRADense(d_in, features, cfg.lora_rank, cfg.lora_alpha,
+                              cfg.multi_lora, cfg.dtype, device)
     if cfg.lora_rank and name in cfg.lora_targets:
         return LoRADense(d_in, features, cfg.lora_rank, cfg.lora_alpha,
                          cfg.dtype, device)
@@ -226,6 +262,41 @@ class PagedKVCache:
     v: torch.Tensor
 
 
+@dataclasses.dataclass
+class DenseKVCache:
+    """The dense slot cache of every layer: ``k`` and ``v`` are
+    (n_layers, batch, max_cache_len, Hkv, D), one run of rows a batch
+    row. ``index`` is the shared index of a forward without
+    ``positions``: its tokens go to rows ``index..index+S-1`` of every
+    batch row, and it advances by S. Setting it back rewinds the cache
+    (rejected speculation): the rows beyond it are hidden by position
+    until they are written again."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int = 0
+
+
+def _attend(q, k, v, positions, hd):
+    """Attention of q (b, s, H, D) over the logical K/V view (b, L, Hkv,
+    D): key t is visible to the query at position p iff t <= p, so rows
+    past a query's position (junk, padding, another request's rows) are
+    never read. GQA by grouping the query heads of each kv head (no K/V
+    repeat); fp32 scores and accumulation; returns (b, s, H * D) in
+    v's dtype."""
+    b, s, n_heads, _ = q.shape
+    L, hkv = k.shape[1], k.shape[2]
+    mask = (torch.arange(L, device=q.device)[None, None, :]
+            <= positions[:, :, None])                         # (b, s, L)
+    qg = q.reshape(b, s, hkv, n_heads // hkv, hd)
+    scores = torch.einsum("bsgrd,blgd->bgrsl", qg.float(),
+                          k.float()) * hd ** -0.5
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bgrsl,blgd->bsgrd", probs.float(), v.float())
+    return o.to(v.dtype).reshape(b, s, n_heads * hd)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
@@ -240,18 +311,29 @@ class Attention(nn.Module):
         self.o_proj = _dense(cfg, cfg.n_heads * hd, cfg.d_model, device,
                              "o_proj")
 
-    def forward(self, x, cos, sin, positions, block_tables=None, k_pool=None,
-                v_pool=None):
+    @staticmethod
+    def _proj(module, x, adapter_ids):
+        # a multi-LoRA projection selects each row's adapter
+        if isinstance(module, MultiLoRADense):
+            return module(x, adapter_ids)
+        return module(x)
+
+    def forward(self, x, cos, sin, positions, block_tables=None, k_cache=None,
+                v_cache=None, adapter_ids=None):
+        """``k_cache`` / ``v_cache``: this layer's pool (paged, with
+        ``block_tables``) or its dense slot rows (b, L, Hkv, D); None in
+        training."""
         cfg = self.cfg
         hd = cfg.d_model // cfg.n_heads
         hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
         b, s, _ = x.shape
-        q = self.q_proj(x).reshape(b, s, cfg.n_heads, hd)
-        k = self.k_proj(x).reshape(b, s, hkv, hd)
-        v = self.v_proj(x).reshape(b, s, hkv, hd)
+        q = self._proj(self.q_proj, x, adapter_ids).reshape(
+            b, s, cfg.n_heads, hd)
+        k = self._proj(self.k_proj, x, adapter_ids).reshape(b, s, hkv, hd)
+        v = self._proj(self.v_proj, x, adapter_ids).reshape(b, s, hkv, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        if k_pool is None:
+        if k_cache is None:
             # training: GQA by repeating each kv head over its rep query
             # heads (jnp.repeat on the head axis), then attend
             if rep > 1:
@@ -261,35 +343,34 @@ class Attention(nn.Module):
                 o = _attention.flash_attention(q, k, v, causal=True)
             else:
                 o = _ring.attention_reference(q, k, v, causal=True)
-            return self.o_proj(o.reshape(b, s, cfg.n_heads * hd))
-        # write: logical -> physical scatter, in place into the pool
+            return self._proj(self.o_proj, o.reshape(b, s, cfg.n_heads * hd),
+                              adapter_ids)
+        if block_tables is None:
+            # dense slot cache: write each row's tokens at its own
+            # positions, then attend over all of its rows by position
+            rows = torch.arange(b, device=x.device)[:, None]
+            k_cache[rows, positions] = k.to(k_cache.dtype)
+            v_cache[rows, positions] = v.to(v_cache.dtype)
+            o = _attend(q, k_cache, v_cache, positions, hd)
+            return self._proj(self.o_proj, o, adapter_ids)
+        # paged write: logical -> physical scatter, in place into the pool
         P = cfg.page_size
         tables = block_tables.long()
         page_of = torch.gather(tables, 1, positions // P)     # (b, s)
-        k_pool[page_of, positions % P] = k.to(k_pool.dtype)
-        v_pool[page_of, positions % P] = v.to(v_pool.dtype)
+        k_cache[page_of, positions % P] = k.to(k_cache.dtype)
+        v_cache[page_of, positions % P] = v.to(v_cache.dtype)
         if s == 1:
             o = _paged.paged_attention_decode(
-                q[:, 0].contiguous(), k_pool, v_pool,
+                q[:, 0].contiguous(), k_cache, v_cache,
                 block_tables.to(torch.int32).contiguous(),
                 (positions[:, 0] + 1).to(torch.int32))
-            return self.o_proj(o.reshape(b, s, cfg.n_heads * hd))
-        # read: gather each row's pages into its logical view; GQA by
-        # grouping the query heads of each kv head (no K/V repeat);
-        # input-dtype operands, fp32 scores and accumulation
+            return self._proj(self.o_proj, o.reshape(b, s, cfg.n_heads * hd),
+                              adapter_ids)
+        # read: gather each row's pages into its logical view
         L = tables.shape[1] * P
-        k = k_pool[tables].reshape(b, L, hkv, hd)
-        v = v_pool[tables].reshape(b, L, hkv, hd)
-        mask = (torch.arange(L, device=x.device)[None, None, :]
-                <= positions[:, :, None])                     # (b, s, L)
-        qg = q.reshape(b, s, hkv, rep, hd)
-        scores = torch.einsum("bsgrd,blgd->bgrsl", qg.float(),
-                              k.float()) * hd ** -0.5
-        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        o = torch.einsum("bgrsl,blgd->bsgrd", probs.float(), v.float())
-        o = o.to(v.dtype).reshape(b, s, cfg.n_heads * hd)
-        return self.o_proj(o)
+        o = _attend(q, k_cache[tables].reshape(b, L, hkv, hd),
+                    v_cache[tables].reshape(b, L, hkv, hd), positions, hd)
+        return self._proj(self.o_proj, o, adapter_ids)
 
 
 class MLP(nn.Module):
@@ -313,10 +394,10 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, cos, sin, positions, block_tables=None, k_pool=None,
-                v_pool=None):
+    def forward(self, x, cos, sin, positions, block_tables=None, k_cache=None,
+                v_cache=None, adapter_ids=None):
         h = x + self.attn(self.attn_norm(x), cos, sin, positions,
-                          block_tables, k_pool, v_pool)
+                          block_tables, k_cache, v_cache, adapter_ids)
         return h + self.mlp(self.mlp_norm(h))
 
 
@@ -380,17 +461,31 @@ class Llama(nn.Module):
     def device(self):
         return self.embed.embedding.device
 
-    def init_cache(self):
-        """A zeroed :class:`PagedKVCache` for this config, on the
-        model's device."""
+    def init_cache(self, batch=None):
+        """A zeroed cache for this decode config, on the model's device:
+        a :class:`PagedKVCache` when ``cfg.page_size > 0`` (shared by
+        every row, so no ``batch``), else a :class:`DenseKVCache` of
+        ``batch`` rows at shared index 0."""
         cfg = self.cfg
-        if not (cfg.decode and cfg.page_size and cfg.n_pages):
-            raise NotImplementedError(
-                "only the paged decode cache is ported: set decode=True, "
-                "page_size > 0 and n_pages > 0")
-        shape = (cfg.n_layers, cfg.n_pages, cfg.page_size, cfg.n_kv_heads,
-                 cfg.d_model // cfg.n_heads)
-        return PagedKVCache(
+        if not cfg.decode:
+            raise ValueError("init_cache needs a decode config "
+                             "(decode=True)")
+        hd = cfg.d_model // cfg.n_heads
+        if cfg.page_size:
+            if not cfg.n_pages:
+                raise ValueError("the paged cache needs n_pages > 0")
+            if batch is not None:
+                raise ValueError("the paged cache is shared by every row; "
+                                 "batch sizes the dense slot cache only")
+            shape = (cfg.n_layers, cfg.n_pages, cfg.page_size,
+                     cfg.n_kv_heads, hd)
+            return PagedKVCache(
+                k=torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                v=torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+        if batch is None or batch < 1:
+            raise ValueError("the dense slot cache needs batch >= 1")
+        shape = (cfg.n_layers, batch, cfg.max_cache_len, cfg.n_kv_heads, hd)
+        return DenseKVCache(
             k=torch.zeros(shape, dtype=cfg.dtype, device=self.device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=self.device))
 
@@ -413,54 +508,83 @@ class Llama(nn.Module):
 
         Training (``cfg.decode`` False): the whole sequence at positions
         ``0..S-1`` (or ``positions``, (S,) or (B, S)), no cache.
-        Serving (``cfg.decode``, ``cfg.page_size > 0``): tokens at
-        explicit positions (B, S), their K/V written into ``cache``
-        through the rows' block tables (B, max_pages).
+        Serving (``cfg.decode``): the tokens' K/V written into ``cache``
+        (:meth:`init_cache`) and attended over. Paged
+        (``cfg.page_size > 0``): tokens at explicit positions (B, S)
+        through the rows' block tables (B, max_pages). Dense slot
+        cache: at explicit positions (B,) or (B, S), each row at its
+        own, or, with ``positions`` None, at the cache's shared index,
+        which then advances by S.
 
         ``return_hidden=True`` returns the final-norm hidden states
         (B, S, d_model) instead, the input of
         :func:`sparkdl_tpu_torch.parallel.train.fused_cross_entropy`.
-        ``adapter_ids`` (multi-LoRA) is not ported yet and raises."""
+        ``adapter_ids`` (B,): each row's adapter of a multi-LoRA model
+        (``cfg.multi_lora``); adapter 0 when omitted."""
         cfg = self.cfg
-        if adapter_ids is not None:
-            raise NotImplementedError("adapter_ids (multi-LoRA) is not "
-                                      "ported yet")
         b, s = tokens.shape
+        if adapter_ids is not None:
+            if not cfg.multi_lora:
+                raise ValueError("adapter_ids requires a multi_lora model "
+                                 "(LlamaConfig.multi_lora > 0)")
+            adapter_ids = torch.as_tensor(adapter_ids,
+                                          device=tokens.device).long()
+            if tuple(adapter_ids.shape) != (b,):
+                raise ValueError(f"adapter_ids must be ({b},), got "
+                                 f"{tuple(adapter_ids.shape)}")
+        elif cfg.multi_lora:
+            adapter_ids = torch.zeros((b,), dtype=torch.long,
+                                      device=tokens.device)
         if cfg.decode:
-            if not cfg.page_size:
-                raise NotImplementedError(
-                    "only the paged decode path is ported: set decode=True "
-                    "and page_size > 0")
-            if positions is None or block_tables is None or cache is None:
-                raise ValueError("paged decode needs explicit positions, "
-                                 "block_tables and cache")
+            if cache is None:
+                raise ValueError("decode needs a cache (model.init_cache())")
             if s > cfg.max_cache_len:
                 raise ValueError(
                     f"sequence {s} exceeds max_cache_len {cfg.max_cache_len}")
+            if cfg.page_size:
+                if positions is None or block_tables is None:
+                    raise ValueError("paged decode needs explicit positions "
+                                     "and block_tables")
+            elif block_tables is not None:
+                raise ValueError("block_tables belong to the paged cache "
+                                 "(page_size > 0)")
+            elif positions is None:
+                start = cache.index
+                if start + s > cfg.max_cache_len:
+                    raise ValueError(
+                        f"cache index {start} + {s} tokens exceeds "
+                        f"max_cache_len {cfg.max_cache_len}")
+                positions = torch.arange(start, start + s,
+                                         device=tokens.device)
+                cache.index = start + s
             length = cfg.max_cache_len
         else:
             if block_tables is not None or cache is not None:
-                raise NotImplementedError(
-                    "block_tables and cache belong to the paged decode "
-                    "path (decode=True, page_size > 0); the training "
-                    "forward takes tokens (and positions) only")
+                raise ValueError(
+                    "block_tables and cache belong to the decode path "
+                    "(decode=True); the training forward takes tokens "
+                    "(and positions) only")
             if positions is None:
                 positions = torch.arange(s, device=tokens.device)
             # the table covers training (seq s) and cached decoding
             length = max(s, cfg.max_cache_len)
         positions = torch.as_tensor(positions, device=tokens.device).long()
+        if positions.ndim == 1 and positions.shape[0] == b and s == 1 \
+                and cfg.decode:
+            positions = positions[:, None]  # slot-mapped (B,): one a row
         positions = positions.expand(b, s)
         cos, sin = self._rope_tables(tokens.device, length)
         x = self.embed(tokens.long())
         for i, layer in enumerate(self.layers):
             if cfg.decode:
                 x = layer(x, cos, sin, positions, block_tables, cache.k[i],
-                          cache.v[i])
+                          cache.v[i], adapter_ids)
             elif cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, cos, sin, positions, use_reentrant=False)
+                    layer, x, cos, sin, positions, None, None, None,
+                    adapter_ids, use_reentrant=False)
             else:
-                x = layer(x, cos, sin, positions)
+                x = layer(x, cos, sin, positions, adapter_ids=adapter_ids)
         x = self.final_norm(x)
         if return_hidden:
             return x

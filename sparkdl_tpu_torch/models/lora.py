@@ -2,11 +2,14 @@
 fine-tuning (the Llama-3-8B LoRA fine-tune).
 
 Counterpart of ``sparkdl_tpu/models/lora.py`` (``LoRADense``,
-``lora_mask``, ``merge_lora_with``; the multi-adapter serving module
-waits for the multi-LoRA serving slice). Only ``lora_a`` and ``lora_b``
-train: :func:`lora_mask` marks them, and the ``param_mask`` option of
+``MultiLoRADense``, ``stack_lora_adapters``, ``lora_mask``,
+``merge_lora_with``). Only ``lora_a`` and ``lora_b`` train:
+:func:`lora_mask` marks them, and the ``param_mask`` option of
 :func:`sparkdl_tpu_torch.parallel.train.make_train_step` freezes the
-rest.
+rest. Serving many fine-tunes of one base: :func:`stack_lora_adapters`
+stacks their adapters into one state dict for a model with
+``LlamaConfig.multi_lora`` set, whose :class:`MultiLoRADense`
+projections select each batch row's adapter.
 """
 
 from collections.abc import Mapping
@@ -42,6 +45,74 @@ class LoRADense(nn.Module):
         x = x.to(self.dtype)
         delta = (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)
         return x @ self.kernel + (self.alpha / self.rank) * delta
+
+
+class MultiLoRADense(nn.Module):
+    """Serving-side projection with ``n_adapters`` low-rank adapters
+    stacked on one frozen ``kernel`` (in, out), selected per batch row:
+    ``y[b] = x[b] @ W + (alpha / rank) * (x[b] @ A[ids[b]]) @ B[ids[b]]``,
+    computed in ``dtype``. ``lora_a`` (N, in, rank) and ``lora_b``
+    (N, rank, out) are fp32 and frozen, cast to ``dtype`` after the
+    gather; the two skinny products are batched matmuls, as the JAX
+    module leaves them to XLA."""
+
+    def __init__(self, d_in, features, rank, alpha, n_adapters, dtype,
+                 device):
+        super().__init__()
+        self.dtype, self.rank, self.alpha = dtype, rank, alpha
+        self.kernel = nn.Parameter(
+            torch.empty((d_in, features), dtype=dtype, device=device),
+            requires_grad=False)
+        self.lora_a = nn.Parameter(
+            torch.empty((n_adapters, d_in, rank), dtype=torch.float32,
+                        device=device), requires_grad=False)
+        self.lora_b = nn.Parameter(
+            torch.empty((n_adapters, rank, features), dtype=torch.float32,
+                        device=device), requires_grad=False)
+
+    def forward(self, x, ids):
+        """x (b, s, in), ids (b,) adapter indices."""
+        x = x.to(self.dtype)
+        a_sel = self.lora_a[ids].to(self.dtype)         # (b, in, r)
+        b_sel = self.lora_b[ids].to(self.dtype)         # (b, r, out)
+        delta = torch.bmm(torch.bmm(x, a_sel), b_sel)
+        return x @ self.kernel + (self.alpha / self.rank) * delta
+
+
+def stack_lora_adapters(state_dicts):
+    """ONE multi-adapter state dict from N single-adapter ones that share
+    a base (the port's state dicts, as ``model.state_dict()`` gives
+    them, trained ones included): every ``lora_a`` / ``lora_b`` entry
+    becomes a stacked (N, ...) fp32 tensor, adapter i from dict i;
+    every other entry must be identical across the dicts (one frozen
+    model) and is taken from the first, not copied. Load the result
+    into a model whose config has ``multi_lora=N``."""
+    state_dicts = [sd.state_dict() if isinstance(sd, nn.Module) else sd
+                   for sd in state_dicts]
+    if not state_dicts:
+        raise ValueError("stack_lora_adapters needs at least one state dict")
+    first = state_dicts[0]
+    for other in state_dicts[1:]:
+        if set(other) != set(first):
+            raise ValueError(
+                "adapter state dicts differ in their keys: "
+                f"{sorted(set(first) ^ set(other))}")
+    out = {}
+    for name, leaf in first.items():
+        if name.rpartition(".")[2] in ("lora_a", "lora_b"):
+            out[name] = torch.stack([sd[name].detach().float()
+                                     for sd in state_dicts])
+            continue
+        for other in state_dicts[1:]:
+            t = other[name]
+            if t is not leaf and not (t.shape == leaf.shape
+                                      and t.dtype == leaf.dtype
+                                      and torch.equal(t, leaf)):
+                raise ValueError(
+                    f"base param {name} differs across adapter trees — "
+                    "multi-LoRA serves ONE frozen base")
+        out[name] = leaf
+    return out
 
 
 def _jax_keys(name):

@@ -1,6 +1,12 @@
 """HTTP front-end for the continuous-batching engine: token-id JSON in,
 token-id JSON (or an SSE token stream) out.
 
+The engine is a ``ContinuousBatchingEngine`` or, unchanged, a
+``SpeculativeBatchingEngine`` (its progress hook runs after each
+speculation round, and its worst case counts the k-token scratch). The
+API takes no ``adapter_id``, as the JAX one takes none: a multi-LoRA
+engine behind it serves adapter 0.
+
 Counterpart of ``sparkdl_tpu/models/server.py``, on the standard
 library only. Tokenization is out of scope: the wire format is token
 ids, the model's native interface.

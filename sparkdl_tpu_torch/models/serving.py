@@ -1,38 +1,53 @@
-"""Continuous-batching decode engine over a paged KV cache.
+"""Continuous-batching decode engines over a paged KV cache or a dense
+slot cache, and the speculative engine over them.
 
-Counterpart of ``sparkdl_tpu/models/serving.py``'s
-``ContinuousBatchingEngine`` on its paged path (``page_size > 0``):
+Counterpart of ``sparkdl_tpu/models/serving.py``
+(``ContinuousBatchingEngine``, ``SpeculativeBatchingEngine``):
 
-- one pooled physical KV cache of ``n_pages`` pages shared by every
-  slot through per-slot block tables; admission reserves a request's
-  worst-case pages (prompt + budget) and queues it while the pool cannot
-  cover them; a finished request's pages return to the pool; page 0 is
-  the write-only dump for padding junk;
+- paged (``page_size > 0``): one pooled physical KV cache of
+  ``n_pages`` pages shared by every slot through per-slot block tables;
+  admission reserves a request's worst-case pages (prompt + budget) and
+  queues it while the pool cannot cover them; a finished request's
+  pages return to the pool; page 0 is the write-only dump for padding
+  junk;
+- dense slot cache (``page_size=0``): each slot owns ``max_cache_len``
+  rows; admission prefills the prompt straight into the slot's rows
+  (a slot-mapped prefill: the rows past its position, an earlier
+  request's or padding, stay hidden by position);
 - admission prefills the prompt (padded to a power of two, floor 8)
-  straight into the slot's pages and samples the first token at the
-  true prompt end; with ``prefill_chunk`` a longer prompt prefills in
-  segments of that many tokens, one segment per staged slot per
-  scheduling iteration, interleaved with decode chunks (a prefill at a
-  logical start offset: positions ``start + arange(bucket)``);
-- a registered prefix (``register_prefix``) is prefilled once into
-  pool pages; a request that extends it (``submit(prefix_id=...)``)
-  shares the prefix's full pages read-only through its block table,
-  gets a copy of the partial boundary page (its suffix writes land
-  there) and prefills only its suffix;
+  and samples the first token at the true prompt end; with
+  ``prefill_chunk`` (paged only) a longer prompt prefills in segments
+  of that many tokens, one segment per staged slot per scheduling
+  iteration, interleaved with decode chunks (a prefill at a logical
+  start offset: positions ``start + arange(bucket)``);
+- a registered prefix (``register_prefix``) is prefilled once: paged,
+  into pool pages that a request extending it (``submit(prefix_id=...)``)
+  shares read-only through its block table, with a copy of the partial
+  boundary page (its suffix writes land there); dense, into rows that
+  are copied into the slot at admission; either way only the suffix is
+  prefilled;
+- multi-LoRA (a model with ``cfg.multi_lora``): ``submit(adapter_id=)``
+  selects a request's adapter, and every forward carries each slot's;
+  a prefix is bound to the adapter it was registered under (its K/V
+  went through that adapter's projections);
 - decoding runs ``chunk``-token chunks over all slots at once: a Python
-  loop over tokens whose state (tokens, positions, KV pool) stays on
+  loop over tokens whose state (tokens, positions, KV cache) stays on
   the device, with ONE host copy of the chunk's tokens and logprobs at
   its end — scheduling happens between chunks, as in the JAX engine;
-- inactive slots keep stepping at a frozen position with every table
-  entry pointed at the dump page, so every step has the same shape.
+- inactive slots keep stepping at a frozen position (paged: with every
+  table entry pointed at the dump page), so every step has the same
+  shape;
+- :class:`SpeculativeBatchingEngine`: a draft proposes ``k`` tokens a
+  slot, one target forward verifies them, and each slot accepts its
+  longest agreeing prefix plus the target's next token (greedy), or
+  runs distribution-exact rejection sampling (temperature > 0). The
+  JAX round program becomes :meth:`~SpeculativeBatchingEngine._round`.
 
 Weights: dense, or weight-only int8 or int4 (``quant=``).
 
-Not ported yet, and refused by name: the dense slot cache
-(``page_size=0``), tensor parallelism (``mesh``, ``rules``),
-kernel-mode routing (``quant_kernel``) and multi-LoRA
-(``adapter_id``). ``telemetry`` is an attribute that stays ``None``:
-no telemetry hooks are ported.
+Not ported yet, and refused by name: tensor parallelism (``mesh``,
+``rules``) and kernel-mode routing (``quant_kernel``). ``telemetry`` is
+an attribute that stays ``None``: no telemetry hooks are ported.
 """
 
 import dataclasses
@@ -40,8 +55,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.models.generate import sample_logits_with_lp
-from sparkdl_tpu_torch.models.llama import Llama
+from sparkdl_tpu_torch.models.generate import (
+    restrict_logits,
+    sample_logits_with_lp,
+)
+from sparkdl_tpu_torch.models.llama import DenseKVCache, Llama
 from sparkdl_tpu_torch.models.quant import quantize_llama_params
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
 
@@ -59,6 +77,42 @@ def _bucket(n, cap):
     while b < n:
         b *= 2
     return min(b, cap)
+
+
+def _slot_prefill(model, cache, slot, tokens, start, adapter_ids=None):
+    """Prefill ``tokens`` into row ``slot`` of a dense slot cache at
+    positions ``start + arange(bucket)`` (a slot-mapped forward over a
+    view of that row: the writes land in ``cache`` itself); returns the
+    logits at the last true token (1, vocab). Padding junk lands past
+    the true end, where the position mask hides it until it is
+    overwritten."""
+    dev = cache.k.device
+    true_len = len(tokens)
+    bucket = _bucket(true_len, model.cfg.max_cache_len - start)
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :true_len] = tokens
+    view = DenseKVCache(cache.k[:, slot:slot + 1], cache.v[:, slot:slot + 1])
+    logits = model(torch.as_tensor(padded, device=dev),
+                   start + torch.arange(bucket, device=dev)[None, :],
+                   cache=view, adapter_ids=adapter_ids)
+    return logits[:, true_len - 1]
+
+
+def _prefix_rows(model, prefix, adapter_ids=None):
+    """A prefix's K/V rows in a dense model: prefilled into a batch-1
+    cache, of which rows ``0..len(prefix)-1`` are kept as (k, v), each
+    (n_layers, len(prefix), Hkv, D)."""
+    one = model.init_cache(batch=1)
+    _slot_prefill(model, one, 0, prefix, 0, adapter_ids)
+    n = len(prefix)
+    return one.k[:, 0, :n].clone(), one.v[:, 0, :n].clone()
+
+
+def _copy_rows(cache, slot, rows):
+    """Copy a prefix's (k, v) rows into the first rows of ``slot``."""
+    k, v = rows
+    cache.k[:, slot, :k.shape[1]] = k
+    cache.v[:, slot, :v.shape[1]] = v
 
 
 @dataclasses.dataclass
@@ -82,18 +136,22 @@ class ContinuousBatchingEngine:
         results = eng.run()          # {rid: np.ndarray of new tokens}
 
     ``model`` gives the config; ``params`` is a state dict with its keys
-    (dense, or already quantized when ``model.cfg.quant`` is set). The
+    (dense, or already quantized when ``model.cfg.quant`` is set; with
+    ``cfg.multi_lora``, stacked adapters from
+    :func:`~sparkdl_tpu_torch.models.lora.stack_lora_adapters`). The
     engine's model takes those tensors as its weights, moved to
     ``device`` (default CUDA). ``quant="int8"`` or ``"int4"`` quantizes
     a dense dict at construction (int4 with ``cfg.quant_group`` rows a
-    scale). ``prefill_chunk`` > 0: prompts (or suffixes) longer than
-    this prefill in segments interleaved with decode chunks, bounding
-    the decode stall one admission causes to one segment.
-    ``generator``: a ``torch.Generator`` on ``device`` for temperature
-    sampling (default: seeded with 0).
+    scale). ``page_size`` > 0 pools the KV cache in pages (``n_pages``,
+    by default the dense capacity plus the dump page); 0 keeps a dense
+    slot cache. ``prefill_chunk`` > 0 (paged only): prompts (or
+    suffixes) longer than this prefill in segments interleaved with
+    decode chunks, bounding the decode stall one admission causes to one
+    segment. ``generator``: a ``torch.Generator`` on ``device`` for
+    temperature sampling (default: seeded with 0).
 
     ``stats`` afterwards holds steps, slot-step counts, prefill
-    segments, prefix tokens not prefilled again and the slot
+    segments (paged), prefix tokens not prefilled again and the slot
     utilization ratio.
     """
 
@@ -105,10 +163,6 @@ class ContinuousBatchingEngine:
                             ("quant_kernel", quant_kernel)):
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if not page_size:
-            raise NotImplementedError(
-                "page_size=0 (the dense slot cache) is not ported yet; "
-                "pass page_size > 0")
         self.device = resolve_device(device)
         cfg = model.cfg
         if quant:
@@ -120,20 +174,30 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"model is already quantized (cfg.quant={cfg.quant!r});"
                     " pass quant= only with a dense state dict")
+            # replace() re-runs __post_init__: quant excludes LoRA and
+            # multi-LoRA
             cfg = dataclasses.replace(cfg, quant=quant)
             params = quantize_llama_params(
                 params, bits=8 if quant == "int8" else 4,
                 group=cfg.quant_group, device=self.device)
+        self.page_size = int(page_size)
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+        if self.prefill_chunk and not self.page_size:
+            raise ValueError(
+                "prefill_chunk requires the paged cache (page_size>0): the "
+                "dense slot cache has no per-slot write path for partial "
+                "prompts")
         self._prefilling = {}  # slot -> staged chunked-prefill state
-        self.page_size = int(page_size)
-        self._max_pages = -(-cfg.max_cache_len // self.page_size)
         n_slots = int(n_slots)
-        n_pages = (int(n_pages) if n_pages is not None
-                   else n_slots * self._max_pages + 1)
+        if self.page_size:
+            self._max_pages = -(-cfg.max_cache_len // self.page_size)
+            n_pages = (int(n_pages) if n_pages is not None
+                       else n_slots * self._max_pages + 1)
+        else:
+            self._max_pages, n_pages = 0, 0
         self.cfg = dataclasses.replace(cfg, page_size=self.page_size,
                                        n_pages=n_pages, decode=True)
         self.n_slots = n_slots
@@ -149,8 +213,9 @@ class ContinuousBatchingEngine:
         self._on_token = None  # streaming callback, set per run()
         self._model = Llama.from_params(self.cfg, params, self.device)
         self.params = params
-        self._queue = []           # (rid, prompt, max_new, prefix_id)
-        self._prefixes = {}        # prefix_id -> (tokens, pool pages)
+        self._queue = []     # (rid, prompt, max_new, prefix_id, adapter_id)
+        self._prefixes = {}  # prefix_id -> (tokens, pool pages | dense
+                             #   (k, v) rows, adapter_id)
         self._slots = [_Slot() for _ in range(self.n_slots)]
         self._results = {}
         self._stops = {}           # rid -> tuple of stop token tuples
@@ -165,28 +230,52 @@ class ContinuousBatchingEngine:
         # request-level telemetry hook of the JAX engine: none is ported,
         # so it stays None
         self.telemetry = None
-        # host-side page allocator: page 0 reserved as the junk dump
-        self._free_pages = list(range(1, self.cfg.n_pages))
-        self._tables = np.zeros((self.n_slots, self._max_pages), np.int32)
-        self._slot_pages = [[] for _ in range(self.n_slots)]
-        # device state: the pool (written in place), per-slot position
-        # and last token
-        self._cache = self._model.init_cache()
+        if self.page_size:
+            # host-side page allocator: page 0 reserved as the junk dump
+            self._free_pages = list(range(1, self.cfg.n_pages))
+            self._tables = np.zeros((self.n_slots, self._max_pages),
+                                    np.int32)
+            self._slot_pages = [[] for _ in range(self.n_slots)]
+            self._cache = self._model.init_cache()
+        else:
+            self._cache = self._model.init_cache(batch=self.n_slots)
+        # device state: the cache (written in place), per-slot position
+        # and last token; host: each slot's adapter
         self._pos = torch.zeros((self.n_slots,), dtype=torch.int32,
                                 device=self.device)
         self._token = torch.zeros((self.n_slots,), dtype=torch.int32,
                                   device=self.device)
+        self._adapter_ids = np.zeros((self.n_slots,), np.int32)
 
     # -- public API ---------------------------------------------------
 
+    def _adapter_arg(self, adapter_id):
+        """adapter_ids of a batch-1 forward: None on a single-adapter
+        engine."""
+        if not self.cfg.multi_lora:
+            return None
+        return torch.tensor([adapter_id], device=self.device)
+
+    def _check_adapter(self, adapter_id):
+        if self.cfg.multi_lora:
+            if not 0 <= adapter_id < self.cfg.multi_lora:
+                raise ValueError(
+                    f"adapter_id {adapter_id} outside the stacked range "
+                    f"[0, {self.cfg.multi_lora})")
+        elif adapter_id:
+            raise ValueError("adapter_id requires a multi_lora model "
+                             "(LlamaConfig.multi_lora > 0)")
+
     def register_prefix(self, prefix_tokens, adapter_id=0):
-        """Prefill a shared prompt PREFIX (a system prompt) once into
-        pool pages that stay reserved; returns its ``prefix_id``. A
-        request submitted with it shares the prefix's full pages
-        read-only, gets a copy of the partial boundary page and
-        prefills only its suffix."""
-        if adapter_id:
-            raise NotImplementedError("adapter_id is not ported yet")
+        """Prefill a shared prompt PREFIX (a system prompt) once and keep
+        its K/V; returns its ``prefix_id``. A request submitted with it
+        prefills only its suffix: paged, it shares the prefix's full
+        pages read-only and gets a copy of the partial boundary page;
+        dense, the prefix rows are copied into its slot. The K/V are
+        adapter-specific on a multi-LoRA engine (k_proj and v_proj carry
+        the adapter), so the prefix is bound to ``adapter_id`` and only
+        requests of that adapter may use it."""
+        self._check_adapter(adapter_id)
         prefix = np.asarray(prefix_tokens, np.int32).reshape(-1)
         if not len(prefix):
             raise ValueError("empty prefix")
@@ -196,18 +285,23 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefix ({len(prefix)}) must be shorter than "
                 f"max_cache_len ({self.cfg.max_cache_len})")
-        need = -(-len(prefix) // self.page_size)
-        if need > len(self._free_pages):
-            raise RuntimeError(
-                f"paged pool exhausted registering prefix: needs {need} "
-                f"pages, {len(self._free_pages)} free")
-        pages = [self._free_pages.pop() for _ in range(need)]
-        table = np.zeros((self._max_pages,), np.int32)
-        table[:need] = pages
-        with torch.no_grad():
-            self._prefill(table, prefix, 0, len(prefix))
         pid = f"prefix-{len(self._prefixes)}"
-        self._prefixes[pid] = (prefix, pages)
+        with torch.no_grad():
+            if not self.page_size:
+                rows = _prefix_rows(self._model, prefix,
+                                    self._adapter_arg(adapter_id))
+                self._prefixes[pid] = (prefix, rows, adapter_id)
+                return pid
+            need = -(-len(prefix) // self.page_size)
+            if need > len(self._free_pages):
+                raise RuntimeError(
+                    f"paged pool exhausted registering prefix: needs {need}"
+                    f" pages, {len(self._free_pages)} free")
+            pages = [self._free_pages.pop() for _ in range(need)]
+            table = np.zeros((self._max_pages,), np.int32)
+            table[:need] = pages
+            self._prefill(table, prefix, 0, len(prefix), adapter_id)
+        self._prefixes[pid] = (prefix, pages, adapter_id)
         return pid
 
     def copy_pages(self, src_pages, dst_pages):
@@ -224,13 +318,13 @@ class ContinuousBatchingEngine:
                adapter_id=0, stop=None):
         """Queue a request; returns its id. ``prefix_id`` (from
         :meth:`register_prefix`): the prompt must START with that prefix
-        and extend it by at least one token. ``stop``: token-id
-        sequences that end THIS request's generation when they appear
-        (included in the output, like eos); finish causes land in
+        and extend it by at least one token. ``adapter_id`` selects the
+        request's LoRA adapter on a multi-LoRA engine. ``stop``:
+        token-id sequences that end THIS request's generation when they
+        appear (included in the output, like eos); finish causes land in
         :attr:`finish_reasons` after run()."""
-        if adapter_id:
-            raise NotImplementedError("adapter_id is not ported yet")
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        self._check_adapter(adapter_id)
         if not len(prompt):
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -246,7 +340,12 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"unknown prefix_id {prefix_id!r}; call "
                     "register_prefix first")
-            prefix = self._prefixes[prefix_id][0]
+            prefix, _, pfx_adapter = self._prefixes[prefix_id]
+            if self.cfg.multi_lora and pfx_adapter != adapter_id:
+                raise ValueError(
+                    f"prefix {prefix_id} is bound to adapter {pfx_adapter};"
+                    f" request uses {adapter_id} — cached K/V rows are "
+                    "adapter-specific")
             if (len(prompt) <= len(prefix)
                     or not np.array_equal(prompt[:len(prefix)], prefix)):
                 raise ValueError(
@@ -261,7 +360,8 @@ class ContinuousBatchingEngine:
             if any(not s for s in seqs):
                 raise ValueError("empty stop sequence")
             self._stops[rid] = seqs
-        self._queue.append((rid, prompt, int(max_new_tokens), prefix_id))
+        self._queue.append((rid, prompt, int(max_new_tokens), prefix_id,
+                            int(adapter_id)))
         return rid
 
     def run(self, progress=None, on_token=None):
@@ -305,9 +405,10 @@ class ContinuousBatchingEngine:
         self._logprobs.clear()
         self._results.clear()
         for i, s in enumerate(self._slots):
-            self._free_pages.extend(self._slot_pages[i])
-            self._slot_pages[i] = []
-            self._tables[i] = 0
+            if self.page_size:
+                self._free_pages.extend(self._slot_pages[i])
+                self._slot_pages[i] = []
+                self._tables[i] = 0
             s.active = False
             s.req_id = -1
             s.remaining = 0
@@ -324,7 +425,8 @@ class ContinuousBatchingEngine:
     def _worst_case_tokens(self, p_len, max_new):
         """Cache rows a request can ever touch: page reservation, the
         pool dead-end check and the HTTP frontend's request validation
-        all size worst cases with this one hook."""
+        all size worst cases with this one hook (the speculative engine
+        adds its k-token verify scratch)."""
         return p_len + max_new
 
     def _pages_needed(self, req):
@@ -332,12 +434,32 @@ class ContinuousBatchingEngine:
         prefix pages it shares (the dead-end check must agree with
         admission, or it cries exhaustion over requests that would
         admit)."""
-        _, prompt, max_new, prefix_id = req
+        _, prompt, max_new, prefix_id, _aid = req
         total = -(-self._worst_case_tokens(len(prompt), max_new)
                   // self.page_size)
         if prefix_id is not None:
             total -= len(self._prefixes[prefix_id][0]) // self.page_size
         return total
+
+    def _admit(self, slot_idx):
+        """Dense admission: copy a prefix's rows into the slot, prefill
+        the prompt (or only its suffix) straight into the slot's rows
+        and activate it with the sampled first token."""
+        rid, prompt, max_new, prefix_id, adapter_id = self._queue.pop(0)
+        start = 0
+        if prefix_id is not None:
+            prefix, rows, _aid = self._prefixes[prefix_id]
+            start = len(prefix)
+            _copy_rows(self._cache, slot_idx, rows)
+            self.stats["prefill_tokens_saved"] += start
+        last = _slot_prefill(self._model, self._cache, slot_idx,
+                             prompt[start:], start,
+                             self._adapter_arg(adapter_id))
+        tok, lp = self._sample(last)
+        self._pos[slot_idx] = len(prompt)
+        self._token[slot_idx] = tok[0]
+        self._adapter_ids[slot_idx] = adapter_id
+        self._activate_slot(slot_idx, rid, max_new, tok, lp)
 
     def _try_admit_paged(self, slot_idx):
         """Allocate the queue head's worst-case pages, point the slot's
@@ -348,13 +470,13 @@ class ContinuousBatchingEngine:
         an iteration. Returns False (request left at the queue head)
         when the pool cannot cover it yet — capacity admission
         control."""
-        rid, prompt, max_new, prefix_id = self._queue[0]
+        rid, prompt, max_new, prefix_id, adapter_id = self._queue[0]
         P = self.page_size
         total = -(-self._worst_case_tokens(len(prompt), max_new) // P)
         # no prefix = the empty-prefix case: nothing shared, start 0
         prefix, prefix_pages = np.zeros((0,), np.int32), []
         if prefix_id is not None:
-            prefix, prefix_pages = self._prefixes[prefix_id]
+            prefix, prefix_pages, _aid = self._prefixes[prefix_id]
         n_full = len(prefix) // P
         shared = prefix_pages[:n_full]
         need = total - len(shared)
@@ -375,13 +497,14 @@ class ContinuousBatchingEngine:
             # slot stays masked out of decode until the last one
             self._prefilling[slot_idx] = {
                 "rid": rid, "suffix": suffix, "start": start, "done": 0,
-                "max_new": max_new}
+                "max_new": max_new, "adapter_id": adapter_id}
             return True
         self._prefill_segment(slot_idx, suffix, start, len(suffix),
-                              final=True, rid=rid, max_new=max_new)
+                              adapter_id, final=True, rid=rid,
+                              max_new=max_new)
         return True
 
-    def _prefill(self, table_row, tokens, start, true_len):
+    def _prefill(self, table_row, tokens, start, true_len, adapter_id):
         """One paged prefill of ``tokens[:true_len]`` at logical
         positions ``start + arange(bucket)`` through ``table_row``;
         returns the logits at the last true token (1, vocab). Padding
@@ -395,21 +518,22 @@ class ContinuousBatchingEngine:
             torch.as_tensor(padded, device=dev),
             start + torch.arange(bucket, device=dev)[None, :],
             torch.as_tensor(table_row[None], device=dev),
-            self._cache)
+            self._cache, adapter_ids=self._adapter_arg(adapter_id))
         return logits[:, true_len - 1]
 
-    def _prefill_segment(self, slot_idx, seg_tokens, start, true_len, *,
-                         final, rid=None, max_new=None):
+    def _prefill_segment(self, slot_idx, seg_tokens, start, true_len,
+                         adapter_id, *, final, rid=None, max_new=None):
         """Prefill one segment into the slot's pages at offset
         ``start``; the FINAL segment's sampled token (the request's
         first) activates the slot."""
         last = self._prefill(self._tables[slot_idx], seg_tokens, start,
-                             true_len)
+                             true_len, adapter_id)
         self.stats["prefill_segments"] += 1
         if final:
             tok, lp = self._sample(last)
             self._pos[slot_idx] = start + true_len
             self._token[slot_idx] = tok[0]
+            self._adapter_ids[slot_idx] = adapter_id
             self._activate_slot(slot_idx, rid, max_new, tok, lp)
 
     def _advance_prefill(self, slot_idx):
@@ -420,8 +544,8 @@ class ContinuousBatchingEngine:
         final = st["done"] + seg == len(st["suffix"])
         self._prefill_segment(
             slot_idx, st["suffix"][st["done"]:st["done"] + seg],
-            st["start"] + st["done"], seg, final=final, rid=st["rid"],
-            max_new=st["max_new"])
+            st["start"] + st["done"], seg, st["adapter_id"], final=final,
+            rid=st["rid"], max_new=st["max_new"])
         st["done"] += seg
         if final:
             del self._prefilling[slot_idx]
@@ -452,17 +576,20 @@ class ContinuousBatchingEngine:
         s.active = False
         s.tokens = []
         s.logprobs = []
-        self._free_pages.extend(self._slot_pages[slot_idx])
-        self._slot_pages[slot_idx] = []
-        self._tables[slot_idx] = 0
+        if self.page_size:
+            self._free_pages.extend(self._slot_pages[slot_idx])
+            self._slot_pages[slot_idx] = []
+            self._tables[slot_idx] = 0
 
     def _fill_slots(self):
-        """Admit queued requests into free slots while the pool covers
-        the queue head's worst case, advance every staged chunked
-        prefill by one segment, and return the active mask."""
+        """Admit queued requests into free slots (paged: while the pool
+        covers the queue head's worst case), advance every staged
+        chunked prefill by one segment, and return the active mask."""
         for i, s in enumerate(self._slots):
             if not s.active and i not in self._prefilling and self._queue:
-                if not self._try_admit_paged(i):
+                if not self.page_size:
+                    self._admit(i)
+                elif not self._try_admit_paged(i):
                     break
         for i in list(self._prefilling):
             self._advance_prefill(i)
@@ -474,7 +601,7 @@ class ContinuousBatchingEngine:
         instantly finished admission also lands here, with its pages
         free again, and is not a dead end; nor is a slot still in
         chunked prefill."""
-        if self._queue and not self._prefilling:
+        if self._queue and self.page_size and not self._prefilling:
             need = self._pages_needed(self._queue[0])
             if need > len(self._free_pages):
                 raise RuntimeError(
@@ -482,7 +609,22 @@ class ContinuousBatchingEngine:
                     f"pages, pool has {len(self._free_pages)} free and "
                     "nothing left to drain — raise n_pages")
 
-    def _decode_chunk(self, active, tables, n):
+    def _step_args(self, active):
+        """The per-step block tables (paged: inactive rows masked to the
+        dump page, so a staged prefill's written rows cannot be
+        overwritten by junk; dense: None) and the slots' adapter ids
+        (multi-LoRA only)."""
+        tables = None
+        if self.page_size:
+            tables = torch.as_tensor(
+                np.where(active[:, None], self._tables, 0),
+                device=self.device)
+        ids = None
+        if self.cfg.multi_lora:
+            ids = torch.as_tensor(self._adapter_ids, device=self.device)
+        return tables, ids
+
+    def _decode_chunk(self, active, tables, n, adapter_ids=None):
         """``n`` decode steps over every slot; returns (tokens, logprobs)
         as (n, n_slots) host arrays — the chunk's one host copy."""
         toks = torch.empty((n, self.n_slots), dtype=torch.int32,
@@ -493,14 +635,15 @@ class ContinuousBatchingEngine:
         last = self.cfg.max_cache_len - 1
         for i in range(n):
             logits = self._model(token[:, None], pos[:, None], tables,
-                                 self._cache)
+                                 self._cache, adapter_ids=adapter_ids)
             token, lp = self._sample(logits[:, -1])
             toks[i] = token
             lps[i] = lp
             # inactive slots freeze (their junk write lands in the dump
-            # page); active ones clamp at the last cache row: a chunk
-            # rounds up to a power of two, so a slot whose budget ends
-            # mid-chunk keeps stepping and its overshoot is discarded
+            # page or a row past their position); active ones clamp at
+            # the last cache row: a chunk rounds up to a power of two,
+            # so a slot whose budget ends mid-chunk keeps stepping and
+            # its overshoot is discarded
             pos = torch.where(active, torch.clamp(pos + 1, max=last), pos)
         self._token, self._pos = token, pos
         return toks.cpu().numpy(), lps.cpu().numpy()
@@ -519,14 +662,10 @@ class ContinuousBatchingEngine:
             while n < need and n < self.chunk:
                 n *= 2
             n = min(n, self.chunk)
-            # non-active rows (free or still in chunked prefill) masked
-            # to the dump page: their junk writes must not corrupt the
-            # rows a staged prefill has already written
-            tables = torch.as_tensor(
-                np.where(active[:, None], self._tables, 0),
-                device=self.device)
+            tables, ids = self._step_args(active)
             toks, lps = self._decode_chunk(
-                torch.as_tensor(active, device=self.device), tables, n)
+                torch.as_tensor(active, device=self.device), tables, n,
+                ids)
             self.stats["steps"] += n
             self.stats["total_slot_steps"] += n * self.n_slots
             self.stats["active_slot_steps"] += int(active.sum()) * n
@@ -572,3 +711,218 @@ class ContinuousBatchingEngine:
         out = self._results
         self._results = {}
         return out
+
+
+class SpeculativeBatchingEngine(ContinuousBatchingEngine):
+    """Continuous batching with per-slot speculative decoding: a DRAFT
+    (typically the int8 weights of the same model) proposes ``k`` tokens
+    a slot, one target forward verifies every slot's, and each slot
+    accepts its own longest agreeing prefix plus the target's next token
+    — greedy outputs are exactly the plain engine's.
+
+    ``temperature > 0`` switches the round to distribution-exact
+    rejection sampling
+    (:func:`~sparkdl_tpu_torch.models.speculative.spec_sample_tokens`),
+    with ``top_k`` / ``top_p`` restricting both the draft's and the
+    target's distributions: the output is distributed as restricted
+    target-only sampling, and the draft moves only the acceptance rate.
+
+    The TARGET cache may be paged (``page_size=``): verify writes ride
+    the slot's block table, and page reservation adds the k-token
+    scratch (:meth:`_worst_case_tokens`). The DRAFT always keeps a dense
+    slot cache. Prefix caching works on both sides: the target through
+    the base engine, the draft through its own dense prefix rows.
+
+    ``draft_params``: a state dict of ``draft_model`` (default: the
+    target's architecture). Refuses a multi-LoRA model and chunked
+    prefill, as the JAX engine does.
+    """
+
+    def __init__(self, model, params, draft_params, *, n_slots=4,
+                 eos_id=None, k=4, generator=None, draft_model=None,
+                 temperature=0.0, page_size=0, n_pages=None, top_k=0,
+                 top_p=1.0, device=None):
+        if model.cfg.multi_lora:
+            raise ValueError(
+                "SpeculativeBatchingEngine is single-adapter only")
+        # set before super(): _worst_case_tokens needs it
+        self.k = int(k)
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        super().__init__(model, params, n_slots=n_slots,
+                         temperature=temperature, eos_id=eos_id,
+                         page_size=page_size, n_pages=n_pages, top_k=top_k,
+                         top_p=top_p, device=device, generator=generator)
+        d_base = draft_model.cfg if draft_model is not None else model.cfg
+        self._draft_cfg = dataclasses.replace(
+            d_base, decode=True, max_cache_len=self.cfg.max_cache_len,
+            page_size=0, n_pages=0)
+        self.draft_params = draft_params
+        self._draft = Llama.from_params(self._draft_cfg, draft_params,
+                                        self.device)
+        self._draft_prefixes = {}  # prefix_id -> the draft's (k, v) rows
+        self._d_cache = self._draft.init_cache(batch=self.n_slots)
+        self.stats.update(rounds=0, proposed=0, accepted=0)
+
+    def _worst_case_tokens(self, p_len, max_new):
+        # + k scratch: a verify may write k positions past the final
+        # accepted token; those rows (and, paged, their pages) must be
+        # the request's own, never a neighbour's
+        return p_len + max_new + self.k
+
+    def submit(self, prompt_tokens, max_new_tokens, prefix_id=None,
+               adapter_id=0, stop=None):
+        prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        if self._worst_case_tokens(len(prompt), max_new_tokens) \
+                > self.cfg.max_cache_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) + k ({self.k}) speculation scratch "
+                f"exceeds max_cache_len ({self.cfg.max_cache_len}); raise "
+                "max_cache_len or lower k")
+        return super().submit(prompt, max_new_tokens, prefix_id=prefix_id,
+                              adapter_id=adapter_id, stop=stop)
+
+    def register_prefix(self, prefix_tokens, adapter_id=0):
+        """Shared-prefix caching for BOTH models: the target's through
+        the base engine, the draft's as its own dense rows, so a
+        prefixed admission prefills only the suffix on both sides and
+        the draft stays position-correct."""
+        pid = super().register_prefix(prefix_tokens, adapter_id)
+        prefix = np.asarray(prefix_tokens, np.int32).reshape(-1)
+        with torch.no_grad():
+            self._draft_prefixes[pid] = _prefix_rows(self._draft, prefix)
+        return pid
+
+    def _draft_admit(self, slot_idx, prompt, prefix_id):
+        """The prompt (or its suffix past a cached prefix) through the
+        draft into its dense slot rows; the logits are discarded."""
+        if slot_idx in self._prefilling:
+            # a staged slot would speculate against the previous
+            # occupant's draft rows
+            raise RuntimeError(
+                "speculative engine does not support chunked prefill")
+        if not self._slots[slot_idx].active:
+            return  # finished at admission: nothing to speculate
+        start = 0
+        if prefix_id is not None:
+            start = len(self._prefixes[prefix_id][0])
+            _copy_rows(self._d_cache, slot_idx,
+                       self._draft_prefixes[prefix_id])
+        _slot_prefill(self._draft, self._d_cache, slot_idx, prompt[start:],
+                      start)
+
+    def _admit(self, slot_idx):
+        _, prompt, _, prefix_id, _ = self._queue[0]
+        super()._admit(slot_idx)
+        self._draft_admit(slot_idx, prompt, prefix_id)
+
+    def _try_admit_paged(self, slot_idx):
+        _, prompt, _, prefix_id, _ = self._queue[0]
+        if not super()._try_admit_paged(slot_idx):
+            return False
+        self._draft_admit(slot_idx, prompt, prefix_id)
+        return True
+
+    def _restricted_probs(self, logits):
+        # restricting BOTH p and q to the top-k / nucleus support keeps
+        # the scheme exact for the restricted target distribution
+        return torch.softmax(
+            restrict_logits(logits.float() / self.temperature,
+                            top_k=self.top_k, top_p=self.top_p), dim=-1)
+
+    def _round(self, active, tables):
+        """One speculation round over every slot: the draft takes k
+        slot-mapped steps, ONE target forward scores the k+1 positions,
+        and acceptance runs on the device; returns (tokens (B, k+1),
+        counts (B,), logprobs (B, k+1)) as host arrays, the round's one
+        host copy. Rejected rows above a slot's accepted position are
+        junk that the next round's writes cover before any query can see
+        them (its write window [pos', pos' + k] spans them, as pos
+        advances by at most k + 1)."""
+        from sparkdl_tpu_torch.models.speculative import (
+            assemble_round,
+            spec_sample_tokens,
+        )
+
+        L, k = self.cfg.max_cache_len, self.k
+        token, pos = self._token, self._pos
+        tok, p = token, pos
+        props, q_rows = [], []
+        for _ in range(k):
+            last = self._draft(tok[:, None], p[:, None],
+                               cache=self._d_cache)[:, -1]
+            if self.temperature == 0.0:
+                tok = torch.argmax(last, -1).to(torch.int32)
+            else:
+                q_row = self._restricted_probs(last)
+                tok = torch.multinomial(q_row, 1, generator=self._generator
+                                        )[:, 0].to(torch.int32)
+                q_rows.append(q_row)
+            props.append(tok)
+            p = torch.where(active, torch.clamp(p + 1, max=L - 1), p)
+        # a logits-discarded step writes the last proposal's K/V: a fully
+        # accepted round advances past it
+        self._draft(tok[:, None], p[:, None], cache=self._d_cache)
+        prop = torch.stack(props, 1)                            # (B, k)
+        offs = torch.arange(k + 1, device=self.device)
+        ppos = torch.clamp(pos[:, None] + offs[None], max=L - 1)
+        ppos = torch.where(active[:, None], ppos, pos[:, None])
+        seq = torch.cat([token[:, None], prop], 1)
+        logits = self._model(seq, ppos, tables, self._cache)
+        if self.temperature == 0.0:
+            greedy = torch.argmax(logits, -1).to(torch.int32)   # (B, k+1)
+            agree = prop == greedy[:, :k]
+            all_acc = agree.all(-1)
+            m = torch.where(all_acc, k,
+                            torch.argmin(agree.to(torch.int32), -1))
+            final = torch.gather(greedy, 1, m[:, None])[:, 0]
+            tokens, counts = assemble_round(prop, m, final)
+            lp_all = torch.log_softmax(logits.float(), -1)
+        else:
+            p_probs = self._restricted_probs(logits)
+            tokens, counts = spec_sample_tokens(
+                torch.stack(q_rows, 1), p_probs, prop, self._generator)
+            lp_all = torch.log(torch.clamp(p_probs, min=1e-30))
+        # each token's logprob under the TARGET distribution at its
+        # verified position (the plain engine's convention)
+        lps = torch.gather(lp_all, -1, tokens[..., None].long())[..., 0]
+        return (tokens.cpu().numpy(), counts.cpu().numpy(),
+                lps.cpu().numpy())
+
+    def _run(self, progress):
+        while (self._queue or self._prefilling
+               or any(s.active for s in self._slots)):
+            active = self._fill_slots()
+            if not active.any():
+                self._deadend_check()
+                continue
+            tables, _ = self._step_args(active)
+            tokens, counts, lps = self._round(
+                torch.as_tensor(active, device=self.device), tables)
+            n_act = int(active.sum())
+            self.stats["rounds"] += 1
+            self.stats["proposed"] += self.k * n_act
+            self.stats["steps"] += 1
+            self.stats["total_slot_steps"] += self.n_slots
+            self.stats["active_slot_steps"] += n_act
+            new_pos = self._pos.cpu().numpy().copy()
+            new_tok = self._token.cpu().numpy().copy()
+            for i, s in enumerate(self._slots):
+                if not s.active:
+                    continue
+                cnt = int(counts[i])
+                # cnt - 1 proposals survived; the last token is the bonus
+                # (full acceptance) or the correction (first rejection)
+                self.stats["accepted"] += cnt - 1
+                if not self._accept_tokens(i, tokens[i, :cnt],
+                                           lps[i, :cnt]):
+                    new_pos[i] += cnt
+                    new_tok[i] = tokens[i, cnt - 1]
+            self._pos = torch.as_tensor(new_pos, device=self.device)
+            self._token = torch.as_tensor(new_tok, device=self.device)
+            if progress is not None:
+                progress(self)
+        self.stats["acceptance_rate"] = (
+            self.stats["accepted"] / max(1, self.stats["proposed"]))
+        return self._drain_results()

@@ -7,7 +7,7 @@ that none can hang the run:
    the JAX engine's semantics), ``log_to_driver`` lines on the driver's
    stdout, an oversized stdout line, rank 0's return value, and
    ``tests/horovod/test_frameworks.py::_torch_main`` on the port against
-   that file's own oracle;
+   that file's own oracle, through its own ``import horovod.torch``;
 2. the data-parallel LoRA step: each rank takes half of a global batch
    through ``shard_batch`` and ``DistributedOptimizer``; rank 0's
    adapters against the JAX package's single-process step on the whole
@@ -78,6 +78,8 @@ def _battery_main(inputs):
     """Every collective on this rank's inputs; rank 0 returns what both
     ranks got (an allgather_object), and the port's run of
     ``_torch_main`` of tests/horovod/test_frameworks.py."""
+    import sys
+
     import numpy as np
     import torch
 
@@ -124,24 +126,35 @@ def _battery_main(inputs):
     out["diverged_atol"] = hvd.check_synchronized(
         [synced + 1e-3 * r], atol=1e-2)
 
-    # tests/horovod/test_frameworks.py::_torch_main, on the port
-    torch.manual_seed(1234 + hvd.rank())
+    # tests/horovod/test_frameworks.py::_torch_main, with its own import
+    # of horovod.torch, which the worker binds to the port
+    import horovod.torch as hvd_torch
+
+    hvd_torch.init()
+    torch.manual_seed(1234 + hvd_torch.rank())
     model = torch.nn.Linear(4, 1)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    opt = hvd.DistributedOptimizer(opt)
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    hvd.broadcast_optimizer_state(opt, root_rank=0)
-    xs = torch.full((8, 4), float(hvd.rank() + 1))
+    opt = hvd_torch.DistributedOptimizer(opt)
+    hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd_torch.broadcast_optimizer_state(opt, root_rank=0)
+    xs = torch.full((8, 4), float(hvd_torch.rank() + 1))
     loss = ((model(xs) - torch.zeros(8, 1)) ** 2).mean()
     loss.backward()
     opt.step()
     flat = np.concatenate(
         [p.detach().numpy().ravel() for p in model.parameters()])
-    gathered = hvd.allgather(flat[None, :])
+    gathered = hvd_torch.allgather(flat[None, :])
+    try:
+        import horovod.keras  # noqa: F401
+        keras = "imported"
+    except ImportError as e:
+        keras = str(e)
     out["torch_main"] = {
-        "size": hvd.size(), "params": flat.tolist(),
+        "size": hvd_torch.size(), "params": flat.tolist(),
         "sync_diff": float(np.abs(gathered[0] - gathered[1]).max()),
-        "is_sgd": isinstance(opt, torch.optim.SGD)}
+        "is_sgd": isinstance(opt, torch.optim.SGD),
+        "module": hvd_torch.__name__, "keras": keras,
+        "jax_loaded": "jax" in sys.modules}
 
     log_to_driver(f"battery rank {r} of {n} done")
     print("A" * 200_000)  # cut by the sender; the channel survives
@@ -211,6 +224,9 @@ def test_gang_collectives_logs_result_and_torch_main(capfd):
         assert "diverged across ranks" in res["diverged"]
         tm = res["torch_main"]
         assert tm["size"] == 2 and tm["is_sgd"]
+        assert tm["module"] == "sparkdl_tpu_torch.compat.horovod_torch"
+        assert "only horovod.torch is bound" in tm["keras"]
+        assert not tm["jax_loaded"]
         assert tm["sync_diff"] < 1e-6
         np.testing.assert_allclose(tm["params"], _torch_reference_step(),
                                    atol=1e-5)

@@ -187,14 +187,16 @@ def test_loaders_reject_mismatched_trees(jax_params):
 
 
 def test_only_the_paged_path_is_ported():
+    """Both decode caches are ported now: a training model refuses a
+    cache and block tables, and builds none."""
     with pytest.raises(ValueError, match="unknown quant"):
         pt_llama.LlamaConfig.tiny(quant="int2")
     model = pt_llama.Llama(pt_llama.LlamaConfig.tiny(n_layers=1),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
+    with pytest.raises(ValueError, match="belong to the decode path"):
         model(torch.zeros(1, 4, dtype=torch.long), torch.arange(4)[None],
               torch.zeros(1, 1, dtype=torch.int32), None)
-    with pytest.raises(NotImplementedError, match="paged"):
+    with pytest.raises(ValueError, match="decode config"):
         model.init_cache()
 
 
@@ -382,10 +384,12 @@ def test_init_weights_follows_the_generator():
 
 
 def test_unported_training_options_raise_by_name():
-    for name, value in (("flash_block", 64), ("multi_lora", 2),
-                        ("n_experts", 4)):
+    for name, value in (("flash_block", 64), ("n_experts", 4)):
         with pytest.raises(NotImplementedError, match=name):
             pt_llama.LlamaConfig.tiny(**{name: value})
+    # multi_lora is ported, with the JAX config checks
+    with pytest.raises(ValueError, match="requires lora_rank > 0"):
+        pt_llama.LlamaConfig.tiny(multi_lora=2)
     with pytest.raises(ValueError, match="lora_rank=0"):
         pt_llama.LlamaConfig.tiny(quant="int8", lora_rank=4)
     with pytest.raises(ValueError, match="attention"):
@@ -395,6 +399,6 @@ def test_unported_training_options_raise_by_name():
         with pytest.raises(NotImplementedError, match=name):
             pt_llama.Llama(cfg, device="cpu", **{name: _jax_flash_fn})
     model = pt_llama.Llama(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="adapter_ids"):
+    with pytest.raises(ValueError, match="adapter_ids requires a multi_lora"):
         model(torch.zeros(1, 4, dtype=torch.long),
               adapter_ids=torch.zeros(1))

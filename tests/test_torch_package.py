@@ -13,7 +13,12 @@ import torch
 from sparkdl_tpu_torch import HorovodRunner
 from sparkdl_tpu_torch.models import llama as pt_llama
 from sparkdl_tpu_torch.models.lora import lora_mask
-from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+from sparkdl_tpu_torch.models.generate import generate
+from sparkdl_tpu_torch.models.serving import (
+    ContinuousBatchingEngine,
+    SpeculativeBatchingEngine,
+)
+from sparkdl_tpu_torch.models.speculative import speculative_generate
 from sparkdl_tpu_torch.ops import _build
 from sparkdl_tpu_torch.ops import quantized_matmul as pt_qmm
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
@@ -50,6 +55,8 @@ GANG_COUNTERPARTS = {
         "sparkdl_tpu/horovod/supervisor.py",
     "sparkdl_tpu_torch/utils/checkpoint.py":
         "sparkdl_tpu/utils/checkpoint.py",
+    "sparkdl_tpu_torch/utils/data.py": "sparkdl_tpu/utils/data.py",
+    "sparkdl_tpu_torch/compat/horovod_torch.py": "horovod/torch/__init__.py",
 }
 
 
@@ -94,6 +101,7 @@ def test_port_files_exist():
                  "sparkdl_tpu_torch/parallel/train.py",
                  "sparkdl_tpu_torch/parallel/ring_attention.py",
                  "sparkdl_tpu_torch/models/server.py",
+                 "sparkdl_tpu_torch/models/speculative.py",
                  "sparkdl_tpu_torch/observe/metrics.py",
                  *GANG_COUNTERPARTS,
                  "chip_smoke.py"):
@@ -113,6 +121,21 @@ def test_gang_module_docstrings_name_their_jax_counterpart(module,
     doc = ast.get_docstring(ast.parse((REPO / module).read_text()))
     assert doc and f"``{counterpart}``" in doc, module
     assert (REPO / counterpart).exists(), counterpart
+
+
+def test_a_port_gangs_horovod_torch_is_the_port():
+    """What a port gang binds for ``import horovod.torch`` imports
+    nothing of the JAX shim it stands in for."""
+    from sparkdl_tpu_torch.compat import horovod_torch
+
+    with horovod_torch.bound():
+        import horovod.torch as hvd
+
+        assert hvd is horovod_torch
+        assert hvd.DistributedOptimizer.__module__.startswith(
+            "sparkdl_tpu_torch.")
+    assert not _imported_roots(REPO / "sparkdl_tpu_torch" / "compat"
+                               / "horovod_torch.py") & FORBIDDEN
 
 
 @pytest.fixture
@@ -135,6 +158,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("xpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpeculativeBatchingEngine(model, model.state_dict(),
+                                  model.state_dict())
+    prompt = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(model, None, prompt, max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        speculative_generate(model, None, None, prompt, max_new_tokens=2)
     # a gang of one worker a card fails fast, before any worker exists
     for np_arg in (1, 2):
         with pytest.raises(RuntimeError, match="one worker a CUDA card"):

@@ -115,29 +115,36 @@ def test_engine_token_exact_with_stop(models):
     assert port_out[2][rids[2]] == "stop"
 
 
-@pytest.mark.parametrize("kwargs,name", [
-    (dict(mesh=object()), "mesh"),
-    (dict(rules=object()), "rules"),
-    (dict(quant="int8", quant_kernel="off"), "quant_kernel"),
-    (dict(quant="int4", quant_kernel="force_interpret"), "quant_kernel"),
-    (dict(quant_kernel="auto"), "quant_kernel"),
-    (dict(page_size=0), "page_size=0"),
+@pytest.mark.parametrize("kwargs,exc,name", [
+    (dict(mesh=object()), NotImplementedError, "mesh"),
+    (dict(rules=object()), NotImplementedError, "rules"),
+    (dict(quant="int8", quant_kernel="off"), NotImplementedError,
+     "quant_kernel"),
+    (dict(quant="int4", quant_kernel="force_interpret"), NotImplementedError,
+     "quant_kernel"),
+    (dict(quant_kernel="auto"), NotImplementedError, "quant_kernel"),
+    # the dense slot cache is ported; chunked prefill over it is refused
+    # as the JAX engine refuses it
+    (dict(page_size=0, prefill_chunk=4), ValueError,
+     "prefill_chunk requires the paged cache"),
 ])
-def test_unported_engine_arguments_raise_by_name(models, kwargs, name):
+def test_unported_engine_arguments_raise_by_name(models, kwargs, exc, name):
     tmodel = models[2]
     args = dict(n_slots=2, page_size=8, device="cpu")
     args.update(kwargs)
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(exc, match=name):
         ContinuousBatchingEngine(tmodel, tmodel.state_dict(), **args)
 
 
 def test_unported_request_features_raise_by_name(models):
+    """adapter_id is ported: on a single-adapter engine it raises the
+    JAX engine's ValueError."""
     tmodel = models[2]
     eng = ContinuousBatchingEngine(tmodel, tmodel.state_dict(), n_slots=2,
                                    page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="adapter_id"):
+    with pytest.raises(ValueError, match="requires a multi_lora model"):
         eng.submit([1, 2, 3], 2, adapter_id=1)
-    with pytest.raises(NotImplementedError, match="adapter_id"):
+    with pytest.raises(ValueError, match="requires a multi_lora model"):
         eng.register_prefix([1, 2, 3], adapter_id=1)
 
 
