@@ -3,7 +3,9 @@
 against its plain PyTorch version at the main paths' shapes, serve
 Llama-3-8B at full width (random int8 weights, paged KV cache) through
 ``ContinuousBatchingEngine``, serve it again over a dense slot cache
-and through ``generate()``, then in int4 behind the HTTP
+and through ``generate()``, by two replicas behind one
+``FleetFrontend`` and tensor-parallel on two ranks, then in int4 behind
+the HTTP
 ``ServingFrontend`` (chunked prefill, then
 shared prefixes), then LoRA-fine-tune it at full width through
 ``make_train_step``, serve the fine-tune's base with 4 stacked adapters
@@ -32,7 +34,10 @@ and on any failed check. Phases:
    all -128; the paged decode is also checked (not timed) at its split
    boundaries: one token (every later split empty), a length ending on
    a split boundary and one past it, full rows, an inactive row on the
-   dump page, and every row at 2048;
+   dump page, and every row at 2048; then both are checked (not
+   timed) at the shapes a TP=2 rank of phase 13 gives them (the int8
+   matmul's local slices and its vocab-split fp32 head, the paged
+   decode on 16 q heads over 4 kv heads);
 2c. the int4 matmul against its plain version at the same decode-step
    shapes and a prefill chunk (M = 256), group 64, timed beside its
    bound, ``torch._weight_int4pack_mm`` (checked against the plain
@@ -52,7 +57,38 @@ and on any failed check. Phases:
    agree with phase 3's paged run; then ``generate()`` on 2 x 128
    prompt tokens for 32 new ones (its launches: 32 forwards); then, at
    depth 2, kernels against plain over the dense cache (phase 4's
-   tolerance); then the serving model is freed;
+   tolerance);
+14. the fleet: int8 paged engines at phase 3's settings behind one
+   ``FleetFrontend`` (max_queue 24), sharing phase 3's weights on the
+   card: 32 concurrent urllib clients (odd ones streamed), some refused
+   with 503 and ``Retry-After``, first at one replica and then at 2
+   (tokens/s, time to first token and each engine's decode ms a step
+   beside the one replica's); then 8 while replica 0's engine raises
+   SystemExit inside ``run()`` after 3 decode chunks (its requests get
+   500, the replica is replaced) and 8 after the respawn; every 200 on
+   its budget, ``server_requests_total`` accounting for every request,
+   one restart, and the launches, zeroed before each fleet's first
+   burst, equal to what the engines' counts predict; requests/s and tokens/s beside
+   phase 3's, the streamed clients' time to first token, requests a
+   replica, the seconds from the fault to a live replacement and peak
+   memory; then the serving model is freed;
+13. tensor-parallel serving: ``HorovodRunner(np=-2)``, two ranks on the
+   one card (gloo), each ``make_mesh(MeshSpec(model=2))`` and phase
+   3's int8 weights rebuilt from the shared seed; at depth 2 the TP=2
+   logits of one prefill and two decode steps through the kernels
+   against the same TP layers through the plain versions and against
+   one card's through the kernels and through the plain versions
+   (phase 4's tolerance); then an int8 paged engine with ``mesh=`` (4
+   kv heads a rank, the paged decode through
+   ``paged_attention_decode_sharded``) serves phase 3's first 8
+   requests; each rank's launches equal its engine's counts (32 paged
+   decodes a step, 225 int8 matmuls a forward), its collectives 64
+   all-reduces, 2 all-gathers and 1 token broadcast a forward, both
+   ranks return the same tokens, logprobs, stats and finish reasons,
+   every request ends on its budget; decode ms a step and tokens/s
+   beside phase 3's, each collective's ms at the decode step's shapes,
+   peak memory a rank and the share of tokens that agree with phase
+   3;
 7. int4 serving at full width behind the HTTP ``ServingFrontend``
    (random normal(0.02) weights quantized to int4, group 64, 8 slots,
    pages of 64, chunk 16, ``prefill_chunk=256``): 16 concurrent HTTP
@@ -174,6 +210,17 @@ QMM_SHAPES = [(8, 4096, 4096, "bf16", 2, True),
               (8, 14336, 4096, "bf16", 1, True),
               (8, 4096, 128256, "fp32", 1, False),
               (512, 4096, 14336, "bf16", 0, False)]
+# the qmm shapes a TP=2 rank of phase 13 runs (its local slices: q
+# 4096 -> 2048, k and v 4096 -> 512, gate and up 4096 -> 7168, o
+# 2048 -> 4096, down 7168 -> 4096, the vocab-split head on fp32
+# activations), then its prefill at a 512-token bucket; checked against
+# the plain version, not timed
+QMM_TP_SHAPES = [(8, 4096, 2048, "bf16"), (8, 4096, 512, "bf16"),
+                 (8, 4096, 7168, "bf16"), (8, 2048, 4096, "bf16"),
+                 (8, 7168, 4096, "bf16"), (8, 4096, 64128, "fp32"),
+                 (512, 4096, 7168, "bf16"), (512, 7168, 4096, "bf16")]
+# the paged decode's heads (q, kv) on phase 3's path and on a TP=2 rank
+PAGED_HEADS = [(32, 8), (16, 4)]
 
 # int4 (B6) shapes: the decode step's projections and head as above, at
 # group 64, then one prefill segment (prefill_chunk = 256 tokens)
@@ -187,6 +234,13 @@ PREFIX_LEN, N_PREFIX_REQUESTS = 512, 8
 # length and the requests served (phase 3's first)
 MULTI_LORA = 4
 SPEC_K, N_SPEC_REQUESTS = 4, 8
+# phase 13: the requests the tensor-parallel ranks serve (phase 3's
+# first); phase 14: the fleet's replicas, its admission bound, the
+# clients of its burst, of the burst at a faulting replica (which dies
+# after that many decode chunks) and of the burst after its respawn
+N_TP_REQUESTS = 8
+FLEET_REPLICAS, FLEET_MAX_QUEUE, N_FLEET_REQUESTS = 2, 24, 32
+N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 8, 3
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
 # call; 32 a step), then ragged S (no tile divides 1000), both head dims
@@ -231,7 +285,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # phases 9a-9c: the np each HorovodRunner takes (a CPU rehearsal runs
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
-GANG_NP = {"9a": 1, "9b": -2, "9c": 1}
+GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -411,46 +465,55 @@ def int8pack_ms(torch, timer, x, w_q, scales):
     return timer.ms(lambda: torch._weight_int8pack_mm(xb, w_t, sb)), ""
 
 
+def _qmm_case(torch, qmm, gen, m, k, n, xname):
+    """One int8 matmul case: inputs drawn at (M, K, N) with x in
+    ``xname``, the kernel against its plain version. Returns the inputs
+    and the error record."""
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtypes[xname])
+    # every int8 value, -128 too (the kernel's contract takes any int8,
+    # though quantize_int8 stops at -127), and one column all -128
+    w_q = torch.randint(-128, 128, (k, n), generator=gen, device=DEVICE,
+                        dtype=torch.int8)
+    w_q[:, 1] = -128
+    scales = torch.rand((n,), generator=gen, device=DEVICE) * 1e-2 + 1e-4
+    out = qmm.quantized_matmul(x, w_q, scales)
+    ref = qmm.quantized_matmul_reference(x, w_q, scales)
+    torch.cuda.synchronize()
+    # tolerance: the two sum K fp32 products in different orders (at
+    # most 1e-5 of the sum of |terms|, far above fp32's order-change
+    # error at these K), and a bf16 output may land one ulp apart
+    mag = x.float().abs() @ (w_q.float().abs() * scales)
+    err = (out.float() - ref.float()).abs()
+    tol = 1e-5 * mag + (_bf16_ulp(torch, ref.float())
+                        if xname == "bf16" else 1e-6 * ref.abs())
+    bad = int((err > tol).sum())
+    _require(bad == 0 and bool(torch.isfinite(out).all()),
+             f"quantized_matmul ({m}, {k}, {n}) {xname}: {bad} elements "
+             f"beyond tolerance, max err {err.max().item()}")
+    return x, w_q, scales, {"shape": [m, k, n], "x": xname,
+                            "max_abs_err": err.max().item(),
+                            "worst_err_over_tol": (err / tol).max().item()}
+
+
 def check_quantized_matmul(torch, timer, gen):
+    """Phase 2: the int8 kernel against its plain version at QMM_SHAPES,
+    timed beside its bound, the plain version and the library call; then
+    checked (not timed) at a TP rank's QMM_TP_SHAPES. Returns the timed
+    rows and the TP rows."""
     from sparkdl_tpu_torch.ops import quantized_matmul as qmm
 
-    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     rows = []
     for (m, k, n, xname, calls, per_layer), old_ms, old_host_us in zip(
             QMM_SHAPES, QMM_OLD_MS, QMM_OLD_HOST_US):
-        x = torch.randn((m, k), generator=gen, device=DEVICE).to(
-            dtypes[xname])
-        # every int8 value, -128 too (the kernel's contract takes any
-        # int8, though quantize_int8 stops at -127), and one column all
-        # -128
-        w_q = torch.randint(-128, 128, (k, n), generator=gen,
-                            device=DEVICE, dtype=torch.int8)
-        w_q[:, 1] = -128
-        scales = torch.rand((n,), generator=gen, device=DEVICE) * 1e-2 \
-            + 1e-4
-        out = qmm.quantized_matmul(x, w_q, scales)
-        ref = qmm.quantized_matmul_reference(x, w_q, scales)
-        torch.cuda.synchronize()
-        # tolerance: the two sum K fp32 products in different orders (at
-        # most 1e-5 of the sum of |terms|, far above fp32's order-change
-        # error at these K), and a bf16 output may land one ulp apart
-        mag = x.float().abs() @ (w_q.float().abs() * scales)
-        err = (out.float() - ref.float()).abs()
-        tol = 1e-5 * mag + (_bf16_ulp(torch, ref.float())
-                            if xname == "bf16" else 1e-6 * ref.abs())
-        bad = int((err > tol).sum())
-        _require(bad == 0 and bool(torch.isfinite(out).all()),
-                 f"quantized_matmul ({m}, {k}, {n}) {xname}: {bad} "
-                 f"elements beyond tolerance, max err {err.max().item()}")
+        x, w_q, scales, checked = _qmm_case(torch, qmm, gen, m, k, n, xname)
         xb = x.element_size()
         nbytes = k * n + 4 * n + m * k * xb + m * n * xb
         flops = 2 * m * k * n
         bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[xname])
         row = {
-            "shape": [m, k, n], "x": xname,
+            **checked,
             "calls_per_decode_step": calls, "per_layer": per_layer,
-            "max_abs_err": err.max().item(),
-            "worst_err_over_tol": (err / tol).max().item(),
             "ms": timer.ms(lambda: qmm.quantized_matmul(x, w_q, scales)),
             "plain_ms": timer.ms(
                 lambda: qmm.quantized_matmul_reference(x, w_q, scales)),
@@ -466,8 +529,13 @@ def check_quantized_matmul(torch, timer, gen):
             torch, timer, x, w_q, scales)
         _log("qmm " + json.dumps(row))
         rows.append(row)
-        del x, w_q, scales, out, ref, mag, err, tol
-    return rows
+        del x, w_q, scales
+    # a generator of their own: the draws after phase 2 stay as they were
+    tp_gen = _seeded(torch, SEED + 3)
+    tp_rows = [_qmm_case(torch, qmm, tp_gen, *shape)[3]
+               for shape in QMM_TP_SHAPES]
+    _log("qmm_tp " + json.dumps(tp_rows))
+    return rows, tp_rows
 
 
 def int4pack_ms(torch, timer, x, packed, scales, ref, mag):
@@ -607,34 +675,47 @@ def _paged_case(torch, pa, q, k_pool, v_pool, lens_h, inactive, page,
 def check_paged_attention(torch, timer, gen):
     from sparkdl_tpu_torch.ops import paged_attention as pa
 
-    b, h, hkv, d, page, max_len = 8, 32, 8, 128, 64, 2048
+    b, d, page, max_len = 8, 128, 64, 2048
     max_pages = max_len // page
     n_pages = b * max_pages + 1
-    q = torch.randn((b, h, d), generator=gen, device=DEVICE).bfloat16()
-    k_pool = torch.randn((n_pages, page, hkv, d), generator=gen,
-                         device=DEVICE).bfloat16()
-    v_pool = torch.randn((n_pages, page, hkv, d), generator=gen,
-                         device=DEVICE).bfloat16()
     perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
     # the timed case: one token, a page boundary, one past it, mid,
     # full, ...; the last row is an inactive slot: every entry on the
     # dump page 0
     lens_h = np.array([1, 64, 65, 300, 1000, 2048, 777, 5], np.int32)
-    tables, lens, timed = _paged_case(torch, pa, q, k_pool, v_pool, lens_h,
-                                      {b - 1}, page, max_pages, perm)
-    # check-only cases at the split kernel's boundaries (its tokens a
-    # split from the wrapper's plan): one token (every later split
-    # empty), a length ending on a split boundary, one past it, two
-    # splits, a split boundary past the first, full rows and an inactive
-    # row; then every row at 2048
-    splits, per = pa._split_plan(q, k_pool, tables)
-    span = max(per, 1) * page
-    edge = [1, span, span + 1, 2 * span, 2 * span + 1, max_len,
-            max_len - 1, 7]
-    checks = [_paged_case(torch, pa, q, k_pool, v_pool, lens_h_, inactive,
-                          page, max_pages, perm)[2]
-              for lens_h_, inactive in ((edge, {b - 1}),
-                                        ([max_len] * b, set()))]
+    checks = []
+    # phase 3's heads (timed below), then a TP=2 rank's (check only;
+    # another split plan; drawn from a generator of their own)
+    for (h, hkv), heads_gen in zip(PAGED_HEADS,
+                                   (gen, _seeded(torch, SEED + 2))):
+        inputs = [torch.randn(shape, generator=heads_gen, device=DEVICE)
+                  .bfloat16() for shape in ((b, h, d),
+                                            (n_pages, page, hkv, d),
+                                            (n_pages, page, hkv, d))]
+        tables, lens, first = _paged_case(torch, pa, *inputs, lens_h,
+                                          {b - 1}, page, max_pages, perm)
+        # check-only cases at the split kernel's boundaries (its tokens a
+        # split from the wrapper's plan): one token (every later split
+        # empty), a length ending on a split boundary, one past it, two
+        # splits, a split boundary past the first, full rows and an
+        # inactive row; then every row at 2048
+        plan = pa._split_plan(inputs[0], inputs[1], tables)
+        span = max(plan[1], 1) * page
+        edge = [1, span, span + 1, 2 * span, 2 * span + 1, max_len,
+                max_len - 1, 7]
+        cases = [_paged_case(torch, pa, *inputs, lens_h_, inactive, page,
+                             max_pages, perm)[2]
+                 for lens_h_, inactive in ((edge, {b - 1}),
+                                           ([max_len] * b, set()))]
+        if (h, hkv) == PAGED_HEADS[0]:
+            q, k_pool, v_pool = inputs
+            timed, (splits, per) = first, plan
+        else:
+            cases.append(first)
+        checks += [dict(c, H=h, Hkv=hkv, splits=plan[0],
+                        pages_per_split=plan[1]) for c in cases]
+    # tables and lens depend on the lengths alone: the same for both
+    h, hkv = PAGED_HEADS[0]
     visible = int(lens_h.sum())
     nbytes = (visible * hkv * d * 2 * 2 + 2 * q.numel() * 2
               + tables.numel() * 4 + lens.numel() * 4)
@@ -665,18 +746,27 @@ def check_paged_attention(torch, timer, gen):
     return row
 
 
-def random_quant_llama(torch, cfg, gen):
-    """Llama at ``cfg`` with weights drawn on the card, normal with std
-    0.02, each projection quantized to int8 (``cfg.quant="int8"``) or to
-    int4 at ``cfg.quant_group`` (``"int4"``) as it is drawn, one matrix
-    at a time."""
+def _seeded(torch, seed, device=None):
+    """A generator on ``device`` (default the card) seeded with ``seed``."""
+    gen = torch.Generator(device=device or DEVICE)
+    gen.manual_seed(seed)
+    return gen
+
+
+def random_quant_llama(torch, cfg, gen, device=None):
+    """Llama at ``cfg`` with weights drawn on ``device`` (default the
+    card), normal with std 0.02, each projection quantized to int8
+    (``cfg.quant="int8"``) or to int4 at ``cfg.quant_group``
+    (``"int4"``) as it is drawn, one matrix at a time. The same
+    generator state on the same card type draws the same weights (phase
+    13's ranks rebuild phase 3's)."""
     from sparkdl_tpu_torch.models.llama import Llama
     from sparkdl_tpu_torch.ops.quantized_matmul import (
         quantize_int4,
         quantize_int8,
     )
 
-    model = Llama(cfg, device=DEVICE)
+    model = Llama(cfg, device=device or DEVICE)
     modules = dict(model.named_modules())
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -811,22 +901,48 @@ def serve(torch, model):
     return report, [results[r] for r in rids]
 
 
-def _depth2(model, **cfg_kw):
+def _depth2(model, device=DEVICE, llama_kw=None, **cfg_kw):
     """The first 2 layers of ``model`` (the same tensors), its config
-    replaced by ``cfg_kw``."""
+    replaced by ``cfg_kw``, on ``device``; ``llama_kw`` (a mesh, a paged
+    binding) goes to ``Llama.from_params``."""
     from sparkdl_tpu_torch.models.llama import Llama
 
     cfg = dataclasses.replace(model.cfg, n_layers=2, **cfg_kw)
     params = {k: v for k, v in model.state_dict().items()
               if not k.startswith("layers.") or k.split(".")[1] in ("0", "1")}
-    return Llama.from_params(cfg, params, device=DEVICE)
+    return Llama.from_params(cfg, params, device=device, **(llama_kw or {}))
+
+
+def _depth2_logits(torch, small, device, n_decode, seed):
+    """The paged depth-2 check's run: one prefill of 100 tokens in two
+    rows (pages 1, 2 and 4, 3) and ``n_decode`` decode steps through
+    ``small`` on a fresh cache, the tokens drawn from ``seed``; each
+    call's logits in fp32."""
+    rng = np.random.default_rng(seed)
+    vocab = small.cfg.vocab_size
+    prompt = torch.as_tensor(rng.integers(0, vocab, (2, 100)), device=device)
+    steps = torch.as_tensor(rng.integers(0, vocab, (n_decode, 2, 1)),
+                            device=device)
+    tables = torch.as_tensor([[1, 2, 0], [4, 3, 0]], dtype=torch.int32,
+                             device=device)
+    cache = small.init_cache()
+    outs = [small(prompt, torch.arange(100, device=device)[None], tables,
+                  cache)]
+    for i in range(n_decode):
+        pos = torch.full((2, 1), 100 + i, device=device)
+        outs.append(small(steps[i], pos, tables, cache))
+    return [o.float() for o in outs]
+
+
+def _call_name(i):
+    return "prefill" if i == 0 else f"decode {i}"
 
 
 @contextlib.contextmanager
 def plain_ops():
     """Route the models' kernel calls to their plain versions (the
-    comparisons of phases 4 and 6 only; the package has no such
-    switch)."""
+    comparisons of phases 4, 6, 8, 10 and 13 only; the package has no
+    such switch)."""
     from sparkdl_tpu_torch.ops import flash_attention as fa
     from sparkdl_tpu_torch.ops import paged_attention as pa
     from sparkdl_tpu_torch.ops import quantized_matmul as qmm
@@ -853,45 +969,12 @@ def kernel_vs_plain_model(torch, model, name="model"):
     prefill of 100 tokens in two rows and 4 decode steps, through the
     kernels and through the plain versions; logits compared."""
     small = _depth2(model, decode=True, page_size=64, n_pages=8)
-    cfg = small.cfg
-    rng = np.random.default_rng(SEED + 1)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 100)),
-                             device=DEVICE)
-    steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2, 1)),
-                            device=DEVICE)
-    tables = torch.as_tensor([[1, 2, 0], [4, 3, 0]], dtype=torch.int32,
-                             device=DEVICE)
-
-    def run():
-        cache = small.init_cache()
-        outs = [small(prompt, torch.arange(100, device=DEVICE)[None],
-                      tables, cache)]
-        for i in range(4):
-            pos = torch.full((2, 1), 100 + i, device=DEVICE)
-            outs.append(small(steps[i], pos, tables, cache))
-        return [o.float() for o in outs]
-
     with torch.no_grad():
-        got = run()
+        got = _depth2_logits(torch, small, DEVICE, 4, SEED + 1)
         with plain_ops():
-            ref = run()
-    # bf16 activations round at different points in the two paths (one
-    # ulp here and there, 2^-8 relative); after two layers and the head
-    # the logits may move by a few of those ulps of their scale
-    report = []
-    for i, (g, r) in enumerate(zip(got, ref)):
-        err = (g - r).abs()
-        scale = r.abs().max().item()
-        row = {"call": "prefill" if i == 0 else f"decode {i}",
-               "max_abs_err": err.max().item(), "logit_scale": scale,
-               "mean_abs_err": err.mean().item(),
-               "argmax_agree": float((g.argmax(-1) == r.argmax(-1))
-                                     .float().mean())}
-        report.append(row)
-        _require(bool(torch.isfinite(g).all())
-                 and row["max_abs_err"] <= 2.0 ** -4 * scale
-                 and row["mean_abs_err"] <= 2.0 ** -8 * scale,
-                 f"{name} logits, kernels vs plain, {row}")
+            ref = _depth2_logits(torch, small, DEVICE, 4, SEED + 1)
+    report = [_logits_row(torch, g, r, f"{name} {_call_name(i)}")
+              for i, (g, r) in enumerate(zip(got, ref))]
     _log(f"{name} " + json.dumps(report))
     return report
 
@@ -915,20 +998,34 @@ def _check_budgets(engine, results, rids, budgets, vocab, phase):
                  "<= 0")
 
 
-def _logits_row(torch, got, ref, what):
-    """Phase 4's tolerance on one pair of logits: the max error within
-    2^-4 and the mean within 2^-8 of the logits' scale."""
+def _logits_cmp(torch, got, ref, what):
+    """One pair of logits compared: errors, scale, argmax agreement and
+    whether ``got`` is finite."""
     err = (got - ref).abs()
-    scale = ref.abs().max().item()
-    row = {"call": what, "max_abs_err": err.max().item(),
-           "logit_scale": scale, "mean_abs_err": err.mean().item(),
-           "argmax_agree": float((got.argmax(-1) == ref.argmax(-1))
-                                 .float().mean())}
-    _require(bool(torch.isfinite(got).all())
-             and row["max_abs_err"] <= 2.0 ** -4 * scale
+    return {"call": what, "max_abs_err": err.max().item(),
+            "logit_scale": ref.abs().max().item(),
+            "mean_abs_err": err.mean().item(),
+            "argmax_agree": float((got.argmax(-1) == ref.argmax(-1))
+                                  .float().mean()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _require_logits(row):
+    """Phase 4's tolerance on one compared pair: the max error within
+    2^-4 and the mean within 2^-8 of the logits' scale (bf16 activations
+    round at different points in the two paths, one ulp here and there,
+    2^-8 relative; after two layers and the head the logits may move by
+    a few of those ulps of their scale)."""
+    scale = row["logit_scale"]
+    _require(row["finite"] and row["max_abs_err"] <= 2.0 ** -4 * scale
              and row["mean_abs_err"] <= 2.0 ** -8 * scale,
-             f"{what} logits: {row}")
+             f"{row['call']} logits: {row}")
     return row
+
+
+def _logits_row(torch, got, ref, what):
+    """:func:`_logits_cmp` held to phase 4's tolerance."""
+    return _require_logits(_logits_cmp(torch, got, ref, what))
 
 
 def serve_dense(torch, model, phase3_tokens):
@@ -1861,6 +1958,299 @@ def serve_speculative(torch, model):
     return report
 
 
+def _fleet_post(fleet, payload):
+    """One client of phase 14: (HTTP code, the reply, its first token's
+    arrival or None, the 503's Retry-After or None, the seconds sent)."""
+    import urllib.error
+
+    t = time.perf_counter()
+    try:
+        reply = _http(fleet, "/generate", payload)
+    except urllib.error.HTTPError as e:
+        return e.code, str(e.reason), None, e.headers.get("Retry-After"), t
+    except OSError as e:  # no HTTP answer at all: reported as a failure
+        return f"{type(e).__name__}: {e}", None, None, None, t
+    if payload.get("stream"):
+        first = reply[0][0] if reply and "token" in reply[0][1] else None
+        code = 500 if "error" in reply[-1][1] else 200
+        return code, reply, first, None, t
+    return 200, reply, None, None, t
+
+
+def _fleet_burst(fleet, payloads):
+    """Every payload from its own client thread, released together;
+    returns their :func:`_fleet_post` results and the burst's wall
+    seconds."""
+    import threading
+
+    out = [None] * len(payloads)
+    gate = threading.Barrier(len(payloads))
+
+    def client(i):
+        gate.wait()
+        out[i] = _fleet_post(fleet, payloads[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return out, time.perf_counter() - t0
+
+
+def _fleet_tokens(code, reply, payload):
+    """The tokens and finish reason of an answered request."""
+    if payload.get("stream"):
+        return ([e["token"] for _, e in reply[:-1]],
+                reply[-1][1].get("done"))
+    return reply["tokens"], reply["finish_reason"]
+
+
+def _burst_summary(results, payloads, wall, vocab, what):
+    """One burst's answers checked (every 200 on its full budget with
+    in-vocabulary tokens, every 503 with Retry-After 1) and summed up:
+    codes, requests and tokens a second over the burst's wall, and the
+    streamed clients' time to first token."""
+    codes = [None if r is None else r[0] for r in results]
+    _require(all(isinstance(c, int) for c in codes),
+             f"{what}: clients without an HTTP answer: {codes}")
+    ttft, generated = [], 0
+    for (code, reply, first, retry, t_sent), payload in zip(results,
+                                                            payloads):
+        if code == 503:
+            _require(retry == "1", f"{what}: a 503 without Retry-After 1 "
+                     f"({retry})")
+        if code != 200:
+            continue
+        toks, reason = _fleet_tokens(code, reply, payload)
+        _require(len(toks) == payload["max_new_tokens"]
+                 and reason == "length"
+                 and all(0 <= t < vocab for t in toks),
+                 f"{what}: {len(toks)} tokens finished on {reason}, "
+                 f"budget {payload['max_new_tokens']}")
+        generated += len(toks)
+        if first is not None:
+            ttft.append(first - t_sent)
+    ttft.sort()
+    answered = codes.count(200)
+    return {"codes": codes, "answered": answered, "503": codes.count(503),
+            "wall_s": wall, "requests_per_s": answered / wall,
+            "generated_tokens": generated, "tokens_per_s": generated / wall,
+            "ttft_streamed_s": {
+                "p50": ttft[len(ttft) // 2] if ttft else None,
+                "p95": (ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))]
+                        if ttft else None)}}
+
+
+def _engines_launches(cfg, engines):
+    """The kernel launches the int8 paged ``engines``' counts predict."""
+    steps = sum(e.stats["steps"] for e in engines)
+    forwards = sum(e.stats["steps"] + e.stats["prefill_segments"]
+                   for e in engines)
+    return {"paged_attention_decode": cfg.n_layers * steps,
+            "quantized_matmul": (7 * cfg.n_layers + 1) * forwards,
+            "quantized_matmul_int4": 0}
+
+
+def _chunk_clock(engine):
+    """Host seconds inside ``engine``'s decode chunks, with no
+    synchronize (each chunk ends in a host copy of its tokens), so that
+    replicas sharing the card are not serialized by the clock."""
+    spent = [0.0]
+    decode = engine._decode_chunk
+
+    def clocked(*a, **k):
+        t = time.perf_counter()
+        try:
+            return decode(*a, **k)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    engine._decode_chunk = clocked
+    return spent
+
+
+def serve_fleet(torch, model, phase3):
+    """Phase 14: int8 paged engines at phase 3's settings behind one
+    FleetFrontend (max_queue FLEET_MAX_QUEUE), sharing ``model``'s
+    weights on the card. First one replica serves (a), N_FLEET_REQUESTS
+    clients at once, odd ones streamed; then FLEET_REPLICAS replicas
+    serve (a) again, (b) N_FAULT_REQUESTS more while replica 0's engine
+    raises SystemExit inside run() after FAULT_AFTER_CHUNKS decode
+    chunks, and (c) as many again after its respawn. Counters zeroed
+    just before each fleet's (a)."""
+    from sparkdl_tpu_torch.models.fleet import FleetFrontend
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    cfg = model.cfg
+    params = model.state_dict()
+
+    def fleet_of(replicas, engines):
+        def factory():
+            engine = ContinuousBatchingEngine(model, params, n_slots=8,
+                                              chunk=16, page_size=64,
+                                              device=DEVICE)
+            engines.append((engine, _chunk_clock(engine)))
+            return engine
+
+        return FleetFrontend(factory, replicas=replicas,
+                             max_queue=FLEET_MAX_QUEUE).start()
+
+    def decode_ms(engines):
+        return [1e3 * spent[0] / max(e.stats["steps"], 1)
+                for e, spent in engines]
+
+    rng = np.random.default_rng(SEED + 14)
+
+    def payloads(n, low, high, stream):
+        return [{"tokens": rng.integers(0, cfg.vocab_size,
+                                        (int(k),)).tolist(),
+                 "max_new_tokens": int(b), "stream": stream and bool(i % 2)}
+                for i, (k, b) in enumerate(zip(
+                    rng.integers(64, 1025, n), rng.integers(low, high, n)))]
+
+    burst = payloads(N_FLEET_REQUESTS, 32, 129, True)
+    # (b) and (c): budgets past FAULT_AFTER_CHUNKS chunks of 16
+    fault_burst = payloads(N_FAULT_REQUESTS, 64, 129, False)
+    after_burst = payloads(N_FAULT_REQUESTS, 32, 65, False)
+
+    # the same burst at one replica: what the second one adds
+    single = []
+    fleet = fleet_of(1, single)
+    try:
+        _zero_launches()
+        got, wall = _fleet_burst(fleet, burst)
+        launches = _read_launches()
+    finally:
+        fleet.close()
+    want = _engines_launches(cfg, [e for e, _ in single])
+    _require(launches == want, f"phase 14, one replica: launches "
+             f"{launches}, the engine's counts predict {want}")
+    one = _burst_summary(got, burst, wall, cfg.vocab_size,
+                         "phase 14, one replica")
+    one.update(launches=launches, decode_ms_per_step=decode_ms(single),
+               stats=dict(single[0][0].stats))
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = fleet_of(FLEET_REPLICAS, engines)
+    fault = {}
+    try:
+        _require(all(e._model.lm_head.kernel_q.data_ptr()
+                     == params["lm_head.kernel_q"].data_ptr()
+                     for e, _ in engines), "phase 14: a replica copied the "
+                 "weights")
+        _zero_launches()
+        got, wall = _fleet_burst(fleet, burst)
+        burst_ms = decode_ms(engines)
+
+        doomed = fleet._workers[0].engine
+        decode = doomed._decode_chunk
+        chunks = [0]
+
+        def faulting(*a, **k):
+            chunks[0] += 1
+            if chunks[0] > FAULT_AFTER_CHUNKS:
+                fault["at"] = time.perf_counter()
+                raise SystemExit("phase 14: injected replica fault")
+            return decode(*a, **k)
+
+        doomed._decode_chunk = faulting
+        got_fault, _ = _fleet_burst(fleet, fault_burst)
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            states = fleet.replica_states()
+            if fleet._restarts == 1 and all(s["alive"] for s in states):
+                fault["replaced"] = time.perf_counter()
+                break
+            time.sleep(0.01)
+        _require("replaced" in fault, "phase 14: replica 0 was not "
+                 f"replaced within 120 s ({fleet.replica_states()})")
+        got_after, _ = _fleet_burst(fleet, after_burst)
+        launches = _read_launches()
+        metrics = _http(fleet, "/metrics")
+        restarts = fleet.metrics.counter("server_replica_restarts_total",
+                                         cause="death").value
+        # a handler accounts its response just after writing it
+        deadline = time.perf_counter() + 30
+        while True:
+            codes_seen = {}
+            for (name, labels), c in list(fleet.metrics._metrics.items()):
+                if name == "server_requests_total":
+                    codes_seen[dict(labels)["code"]] = int(c.value)
+            if (sum(codes_seen.values()) >= N_FLEET_REQUESTS
+                    + 2 * N_FAULT_REQUESTS
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.05)
+    finally:
+        fleet.close()
+    peak = torch.cuda.max_memory_allocated()
+
+    two = _burst_summary(got, burst, wall, cfg.vocab_size, "phase 14")
+    faulted = _burst_summary(got_fault, fault_burst, 1.0, cfg.vocab_size,
+                             "phase 14 at the faulting replica")
+    after = _burst_summary(got_after, after_burst, 1.0, cfg.vocab_size,
+                           "phase 14 after the respawn")
+    for what, summary in (("", two), (", one replica", one)):
+        _require(summary["503"] >= 1 and summary["answered"]
+                 == N_FLEET_REQUESTS - summary["503"],
+                 f"phase 14{what}: burst codes {summary['codes']}")
+    fault_codes = faulted["codes"]
+    _require(fault_codes.count(500) >= 1
+             and set(fault_codes) <= {200, 500},
+             f"phase 14: codes at the faulting replica {fault_codes}")
+    _require(after["answered"] == N_FAULT_REQUESTS,
+             f"phase 14: codes after the respawn {after['codes']}")
+    codes = two["codes"] + fault_codes + after["codes"]
+    want_codes = {str(c): codes.count(c) for c in set(codes)}
+    _require(codes_seen == want_codes
+             and sum(codes_seen.values()) == len(codes),
+             f"phase 14: server_requests_total {codes_seen}, clients saw "
+             f"{want_codes}")
+    _require(restarts == 1, f"phase 14: {restarts} replica restarts")
+    _require(len(engines) == FLEET_REPLICAS + 1,
+             f"phase 14: {len(engines)} engines built")
+    served = [e._next_id for e, _ in engines]
+    _require(served[-1] >= 1 and served[1] >= 1,
+             f"phase 14: after the respawn, requests a replica {served}")
+    want = _engines_launches(cfg, [e for e, _ in engines])
+    _require(launches == want, f"phase 14: launches {launches}, the "
+             f"engines' counts predict {want}")
+    _require(f'server_replica_restarts_total{{cause="death"}} 1'
+             in metrics, "phase 14: /metrics lacks the restart")
+    report = {
+        "replicas": FLEET_REPLICAS, "max_queue": FLEET_MAX_QUEUE,
+        "n_layers": cfg.n_layers, "burst_requests": N_FLEET_REQUESTS,
+        "burst_answered": two["answered"], "burst_503": two["503"],
+        "burst_wall_s": wall, "requests_per_s": two["requests_per_s"],
+        "tokens_per_s": two["tokens_per_s"],
+        "ttft_streamed_s": two["ttft_streamed_s"],
+        "burst_decode_ms_per_step": burst_ms,
+        "one_replica": {k: v for k, v in one.items() if k != "codes"},
+        "tokens_per_s_over_one_replica": (two["tokens_per_s"]
+                                          / one["tokens_per_s"]),
+        "phase3_tokens_per_s": phase3["generated_tokens"]
+        / phase3["wall_s"],
+        "phase3_decode_tokens_per_s": phase3["decode_tokens_per_s"],
+        "fault_codes": fault_codes,
+        "fault_to_replacement_s": fault["replaced"] - fault["at"],
+        "requests_per_replica": served, "codes": want_codes,
+        "restarts": restarts,
+        "decoded_tokens": sum(x["generated_tokens"] - x["answered"]
+                              for x in (two, faulted, after)),
+        "peak_mem_gb": peak / 1e9, "launches": launches,
+        "stats": [dict(e.stats) for e, _ in engines]}
+    _log("fleet " + json.dumps(report))
+    return report
+
+
 class _StdoutCopy:
     """Keep a copy of what this process prints (the control plane's
     threads included) while still printing it."""
@@ -2471,6 +2861,234 @@ def gang_resume(torch, gang):
     return report
 
 
+def _count_collectives(mesh):
+    """Count the calls of ``mesh``'s collectives (its instance methods
+    wrapped: the model and the engine call them through this mesh);
+    returns the dict the counts land in."""
+    counts = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    for name in counts:
+        fn = getattr(mesh, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+
+        setattr(mesh, name, counted)
+    return counts
+
+
+def _time_collectives(torch, mesh, device, cfg, slots, runs=20):
+    """Host ms of each collective of a tensor-parallel decode step at its
+    shapes (all ranks call this together): the all-reduce of the hidden
+    after o_proj and down_proj, the all-gathers of the embedding and of
+    the head's logits, the broadcast of the sampled tokens; and their sum
+    a step (2 x layers all-reduces)."""
+    m = mesh.axis_size("model")
+    cases = {
+        "all_reduce": ("all_reduce", (slots, 1, cfg.d_model), cfg.dtype),
+        "all_gather_embed": ("all_gather", (slots, 1, cfg.d_model // m),
+                             cfg.dtype),
+        "all_gather_logits": ("all_gather",
+                              (slots, 1, cfg.vocab_size // m),
+                              torch.float32),
+        "broadcast_tokens": ("broadcast", (2, slots), torch.int32)}
+    ms = {}
+    for name, (op, shape, dtype) in cases.items():
+        x = torch.zeros(shape, dtype=dtype, device=device)
+        fn = getattr(mesh, op)
+        for _ in range(3):
+            fn(x, "model")
+        spent = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(x, "model")
+            torch.cuda.synchronize()
+            spent.append(1e3 * (time.perf_counter() - t))
+        ms[name] = statistics.median(spent)
+    ms["per_decode_step"] = (2 * cfg.n_layers * ms["all_reduce"]
+                             + ms["all_gather_embed"]
+                             + ms["all_gather_logits"]
+                             + ms["broadcast_tokens"])
+    return ms
+
+
+def _tp_depth2(torch, full, mesh, device, rank):
+    """Phase 13's model-level check: the first 2 layers of ``full``
+    tensor-parallel on ``mesh`` (the paged decode through its sharded
+    binding), through the kernels, against the same TP layers through
+    the plain versions (every rank), and against the same layers on one
+    card through the kernels and through the plain versions (rank 0
+    only): :func:`_depth2_logits` with 2 decode steps. Returns rank 0's
+    compared logits (None elsewhere)."""
+    from sparkdl_tpu_torch.ops.paged_attention import (
+        paged_attention_decode_sharded,
+    )
+
+    cfg_kw = {"decode": True, "page_size": 64, "n_pages": 8}
+    m = mesh.axis_size("model")
+    tp = _depth2(full, device, llama_kw={
+        "mesh": mesh, "paged_attention_fn": paged_attention_decode_sharded(
+            mesh, n_heads=full.cfg.n_heads, n_kv_heads=full.cfg.n_kv_heads)},
+        **cfg_kw)
+    refs = {}
+    with torch.no_grad():
+        got = _depth2_logits(torch, tp, device, 2, SEED + 13)
+        with plain_ops():
+            refs["tp plain"] = _depth2_logits(torch, tp, device, 2,
+                                              SEED + 13)
+        del tp
+        if rank:
+            return None
+        one = _depth2(full, device, **cfg_kw)
+        refs["one card"] = _depth2_logits(torch, one, device, 2, SEED + 13)
+        with plain_ops():
+            refs["one card plain"] = _depth2_logits(torch, one, device, 2,
+                                                    SEED + 13)
+    return [_logits_cmp(torch, g, r, f"phase 13 tp={m} vs {against} "
+                                     f"{_call_name(i)}")
+            for against, ref in refs.items()
+            for i, (g, r) in enumerate(zip(got, ref))]
+
+
+def tp_main(cfg, n_requests, device, started):
+    """Every rank of phase 13: a mesh over the gang's ranks on the
+    ``model`` axis; phase 3's weights rebuilt on this rank's card from
+    the shared seed (int8, one matrix at a time), then the model-level
+    check (:func:`_tp_depth2`); an int8 paged engine (8 slots, pages of
+    64, chunk 16) with ``mesh=``, which keeps this rank's slice, and the
+    whole model freed; phase 3's first ``n_requests`` requests, counters
+    zeroed just before the run; then the collectives timed at the decode
+    step's shapes. Rank 0 returns every rank's report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    mesh = make_mesh(MeshSpec(model=size))
+    dev = mesh.device if mesh.device is not None else torch.device(device)
+    t = time.perf_counter()
+    full = random_quant_llama(torch, cfg, _seeded(torch, SEED, dev), dev)
+    depth2 = _tp_depth2(torch, full, mesh, dev, rank)
+    engine = ContinuousBatchingEngine(full, full.state_dict(), n_slots=8,
+                                      chunk=16, page_size=64, mesh=mesh,
+                                      device=dev)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t
+    counts = _count_collectives(mesh)
+    prompts, budgets = _requests(cfg, n_requests)
+    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    spent = _time_engine(torch, engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    counts.update(dict.fromkeys(counts, 0))
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    collectives = dict(counts)
+    peak = torch.cuda.max_memory_allocated()
+    coll_ms = _time_collectives(torch, mesh, dev, cfg, engine.n_slots)
+    stats = dict(engine.stats)
+    decoded = sum(len(results[r]) for r in rids) - len(rids)
+    report = {
+        "rank": rank, "size": size, "backend": _state.state().backend,
+        "device": str(dev), "ready_s": ready_s, "build_s": build_s,
+        "n_kv_heads_local": engine._model.n_kv_heads,
+        "tokens": [results[r].tolist() for r in rids], "budgets": budgets,
+        "finish_reasons": [engine.finish_reasons[r] for r in rids],
+        "logprobs": [engine.logprobs[r].tolist() for r in rids],
+        "stats": stats, "launches": launches, "collectives": collectives,
+        "wall_s": wall, "decode_s": spent["decode"],
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "prefill_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
+        "collective_ms": coll_ms, "peak_mem_gb": peak / 1e9,
+        "depth2": depth2}
+    return hvd.allgather_object(report)
+
+
+def serve_tp(torch, phase3, phase3_tokens):
+    """Phase 13: HorovodRunner(np=GANG_NP["13"]) ranks of
+    :func:`tp_main`, two on the one card (gloo); the ranks' launches,
+    collectives, budgets and identity checked, the model-level logits
+    held to phase 4's tolerance."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int8")
+    t = time.perf_counter()
+    ranks = HorovodRunner(np=GANG_NP["13"]).run(
+        tp_main, cfg=cfg, n_requests=N_TP_REQUESTS, device=DEVICE,
+        started=time.time())
+    run_wall_s = time.perf_counter() - t
+    size = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(size))
+             and size == max(-GANG_NP["13"], 1),
+             f"phase 13: ranks {[r['rank'] for r in ranks]}")
+    r0 = ranks[0]
+    for r in ranks:
+        stats = r["stats"]
+        forwards = stats["steps"] + stats["prefill_segments"]
+        want = {"paged_attention_decode": cfg.n_layers * stats["steps"],
+                "quantized_matmul": (7 * cfg.n_layers + 1) * forwards,
+                "quantized_matmul_int4": 0}
+        _require(r["launches"] == want,
+                 f"phase 13 rank {r['rank']}: launches {r['launches']}, the "
+                 f"engine's counts predict {want}")
+        tp = size > 1
+        want = {"all_reduce": 2 * cfg.n_layers * forwards * tp,
+                "all_gather": 2 * forwards * tp, "broadcast": forwards * tp}
+        _require(r["collectives"] == want,
+                 f"phase 13 rank {r['rank']}: collectives "
+                 f"{r['collectives']}, want {want}")
+        _require(r["n_kv_heads_local"] * size == cfg.n_kv_heads,
+                 f"phase 13 rank {r['rank']}: {r['n_kv_heads_local']} kv "
+                 "heads in its cache")
+        for key in ("tokens", "finish_reasons", "logprobs", "stats"):
+            _require(r[key] == r0[key],
+                     f"phase 13: rank {r['rank']}'s {key} differ from rank "
+                     "0's")
+    for i, (toks, budget, reason, lps) in enumerate(zip(
+            r0["tokens"], r0["budgets"], r0["finish_reasons"],
+            r0["logprobs"])):
+        _require(len(toks) == budget and reason == "length"
+                 and all(0 <= t < cfg.vocab_size for t in toks),
+                 f"phase 13 request {i}: {len(toks)} tokens on {reason}, "
+                 f"budget {budget}")
+        _require(bool(np.isfinite(lps).all() and (np.asarray(lps)
+                                                  <= 1e-6).all()),
+                 f"phase 13 request {i}: logprobs not finite and <= 0")
+    for row in r0["depth2"]:
+        _require_logits(row)
+    report = {k: v for k, v in r0.items()
+              if k not in ("tokens", "logprobs", "finish_reasons")}
+    report.update({
+        "np": GANG_NP["13"], "n_layers": cfg.n_layers,
+        "requests": N_TP_REQUESTS, "run_wall_s": run_wall_s,
+        "ranks": [{k: r[k] for k in ("rank", "backend", "device",
+                                      "peak_mem_gb", "decode_ms_per_step",
+                                      "launches", "collectives")}
+                  for r in ranks],
+        "collectives_per_forward": {
+            k: v / (r0["stats"]["steps"] + r0["stats"]["prefill_segments"])
+            for k, v in r0["collectives"].items()},
+        "phase3_decode_ms_per_step": phase3["decode_ms_per_step"],
+        "phase3_decode_tokens_per_s": phase3["decode_tokens_per_s"],
+        "agree_with_phase3": _agreement(r0["tokens"],
+                                        phase3_tokens[:N_TP_REQUESTS])})
+    _log("tp " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -2510,23 +3128,29 @@ def main(argv=None):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     timer = Timer(torch)
-    qmm_rows = check_quantized_matmul(torch, timer, gen)
+    qmm_rows, qmm_tp_rows = check_quantized_matmul(torch, timer, gen)
     paged_row = check_paged_attention(torch, timer, gen)
     q4_rows = check_quantized_matmul_int4(torch, timer, gen)
     del timer
 
     cfg = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int8")
     t = time.perf_counter()
-    model = random_quant_llama(torch, cfg, gen)
+    # a generator of its own: phase 13's ranks draw the same weights
+    model = random_quant_llama(torch, cfg, _seeded(torch, SEED))
     _log(f"weights: {time.perf_counter() - t:.1f} s")
     serving, phase3_tokens = serve(torch, model)
     model_rows = kernel_vs_plain_model(torch, model)
     gc.collect()
     torch.cuda.empty_cache()
     dense = serve_dense(torch, model, phase3_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = serve_fleet(torch, model, serving)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    # the ranks need the card's memory: this process holds no model
+    tp = serve_tp(torch, serving, phase3_tokens)
     torch.cuda.reset_peak_memory_stats()
 
     cfg4 = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int4",
@@ -2617,18 +3241,30 @@ def main(argv=None):
                     "10": dense["launches"]["quantized_matmul"],
                     "10_generate":
                         dense["generate"]["launches"]["quantized_matmul"],
-                    "12": spec["launches"]["quantized_matmul"]}
+                    "12": spec["launches"]["quantized_matmul"],
+                    "13": sum(r["launches"]["quantized_matmul"]
+                              for r in tp["ranks"]),
+                    "14_one_replica": fleet["one_replica"]["launches"][
+                        "quantized_matmul"],
+                    "14": fleet["launches"]["quantized_matmul"]}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
+                      "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
                       "12_plain": spec["plain"]["launches"][
-                          "paged_attention_decode"]}
+                          "paged_attention_decode"],
+                      "13": sum(r["launches"]["paged_attention_decode"]
+                                for r in tp["ranks"]),
+                      "14_one_replica": fleet["one_replica"]["launches"][
+                          "paged_attention_decode"],
+                      "14": fleet["launches"]["paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
          "replaces": "sparkdl_tpu/ops/pallas/quantized_matmul.py:79",
          "launches": sum(qmm_by_phase.values()),
          "launches_by_phase": qmm_by_phase,
-         "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in qmm_rows + qmm_tp_rows),
          "ms": per_step(qmm_rows, "ms"),
          "plain_ms": per_step(qmm_rows, "plain_ms"),
          "bound_ms": per_step(qmm_rows, "bound_ms"),
@@ -2663,9 +3299,11 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"card": card, "kernels": kernels, "qmm": qmm_rows,
+                       "qmm_tp": qmm_tp_rows,
                        "paged": paged_row, "q4mm": q4_rows,
                        "serving": serving, "model": model_rows,
-                       "dense": dense, "multi_lora": multi,
+                       "dense": dense, "fleet": fleet, "tp": tp,
+                       "multi_lora": multi,
                        "speculative": spec,
                        "http": http, "prefix": prefix,
                        "model_int4": q4_model_rows, "flash": flash_rows,

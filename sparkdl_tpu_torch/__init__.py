@@ -9,7 +9,10 @@ Llama decoder over a paged or a dense slot cache
 shared prefixes and multi-LoRA adapters chosen per request), speculative
 decoding (``models.serving.SpeculativeBatchingEngine``,
 ``models.speculative.speculative_generate``) and ``models.generate``,
-behind an HTTP front-end (``models.server.ServingFrontend``); LoRA
+behind an HTTP front-end (``models.server.ServingFrontend``) or as
+replicas behind one admission-controlled front-end
+(``models.fleet.FleetFrontend``), and tensor-parallel on the ranks of
+a gang (``mesh=`` from ``parallel.mesh.make_mesh``); LoRA
 fine-tuning of it
 (``parallel.train.make_train_step`` over ``models.lora``); and the
 HorovodRunner contract over ``torch.distributed`` (``HorovodRunner``,

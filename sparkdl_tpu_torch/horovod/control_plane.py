@@ -79,6 +79,8 @@ MAX_TRACEBACK = 4 * MAX_LOG_TEXT
 LOG_RING_BYTES = 4 << 20
 LOG_SOCKET_BUFFER = 256 << 10
 LOG_FLUSH_S = 5.0
+# a worker's connections to the driver: its frames and its log ring
+CONNECTIONS_PER_WORKER = 2
 
 
 def auth_token(secret, rank):
@@ -137,6 +139,11 @@ class ControlPlaneServer:
         self._result_overflow = False
         self._exceptions = {}  # rank -> traceback text
         self._threads = []
+        # a worker's two connections (frames, log ring) each end here;
+        # wait_drained waits for both of every rank that said BYE
+        self._ended = collections.Counter()  # rank -> connections ended
+        self._bye = set()
+        self._conn_ended = threading.Condition(self._lock)
         self._closed = False
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -210,6 +217,10 @@ class ControlPlaneServer:
             pass
         finally:
             conn.close()
+            if auth_rank is not None:
+                with self._conn_ended:
+                    self._ended[auth_rank] += 1
+                    self._conn_ended.notify_all()
 
     def _handle(self, mtype, rank, payload):
         if mtype == MSG_READY:
@@ -236,6 +247,8 @@ class ControlPlaneServer:
                 self._exceptions[rank] = tb
             self._log(f"[rank {rank} EXCEPTION]\n{tb}")
         elif mtype == MSG_BYE:
+            with self._lock:
+                self._bye.add(rank)
             msg = json.loads(payload.decode("utf-8", "replace"))
             dropped = int(msg.get("log_dropped", 0))
             self._log(f"[rank {rank} BYE] exit code {msg.get('exit_code')}, "
@@ -275,12 +288,20 @@ class ControlPlaneServer:
 
     def wait_drained(self, timeout=5.0):
         """Join the connection handlers, so every frame already sent is
-        handled (an exited worker's socket ends after its last byte)."""
+        handled (an exited worker's socket ends after its last byte).
+        A rank that said BYE had opened its log ring's connection too,
+        which the accept thread may not have taken up yet: wait for both
+        of its connections to end."""
         deadline = time.monotonic() + timeout
         with self._lock:
             threads = list(self._threads)
         for t in threads:
             t.join(max(0.0, deadline - time.monotonic()))
+        with self._conn_ended:
+            self._conn_ended.wait_for(
+                lambda: all(self._ended[r] >= CONNECTIONS_PER_WORKER
+                            for r in self._bye),
+                max(0.0, deadline - time.monotonic()))
 
     def ready_count(self):
         with self._lock:

@@ -1,8 +1,8 @@
 """Models of the port: the Llama decoder (training forward with LoRA,
 the paged and dense-slot serving modes, multi-LoRA) and its LoRA
 adapters. The serving-side modules (``generate``, ``serving``,
-``speculative``, ``server``, ``quant``) are imported by path, as in the
-JAX package."""
+``speculative``, ``server``, ``fleet``, ``quant``) are imported by
+path, as in the JAX package."""
 
 from sparkdl_tpu_torch.models.llama import Llama, LlamaConfig, init_weights
 from sparkdl_tpu_torch.models.lora import (

@@ -48,8 +48,14 @@ def flatten_jax_tree(tree, prefix=""):
 def load_jax_params(model, tree):
     """Copy a JAX Llama param tree into ``model``'s weights in place
     (cast to each weight's dtype, on its device); returns ``model``.
-    Raises on a missing, unexpected or mis-shaped entry."""
+    A tensor-parallel model (built with a mesh) takes this rank's slice
+    of each whole leaf (:meth:`~sparkdl_tpu_torch.models.llama.Llama.
+    local_params`, after flattening), so a TP rank serves the same
+    weights as the JAX TP engine. Raises on a missing, unexpected or
+    mis-shaped entry."""
     flat = flatten_jax_tree(tree)
+    if getattr(model, "tp", None) is not None:
+        flat = model.local_params(flat)
     state = model.state_dict()
     missing = sorted(set(state) - set(flat))
     unexpected = sorted(set(flat) - set(state))

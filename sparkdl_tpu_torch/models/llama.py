@@ -39,12 +39,26 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
   dense, or weight-only int8 or int4;
 - multi-LoRA serving (``multi_lora = N``): N adapters stacked on one
   frozen base, on attention projections only, selected per batch row by
-  ``adapter_ids`` (adapter 0 when omitted).
+  ``adapter_ids`` (adapter 0 when omitted);
+- tensor-parallel serving (``Llama(cfg, mesh=...)``, a mesh whose
+  ``model`` axis is > 1): Megatron, done explicitly, as there is no
+  GSPMD here. Each rank of a port gang holds its slice of every split
+  weight (:func:`sparkdl_tpu_torch.parallel.sharding.tp_layout` of the
+  rules, default ``TRANSFORMER_RULES``), computes attention on its own
+  n_heads/m query heads and n_kv_heads/m kv heads (its cache holds only
+  those), and calls each collective by name on the mesh's ``model``
+  group: an all-reduce after each row-parallel projection (o_proj,
+  down_proj), an all-gather where a split output must be whole (the
+  embedding's d_model, the head's vocabulary). A projection the rules
+  leave whole (divisibility) computes whole, with no collective. Every
+  rank must run the same forwards in the same order.
+  ``paged_attention_fn`` replaces the single-token paged decode call
+  (the engine passes
+  :func:`~sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode_sharded`).
 
-MoE, injected attention functions (ring attention) and the
-tensor-parallel binding are not ported yet: each raises
-NotImplementedError by name. The TPU's kernel-mode fields
-(``paged_kernel``, ``quant_kernel``) are not fields here.
+MoE and injected attention functions (ring attention) are not ported
+yet: each raises NotImplementedError by name. The TPU's kernel-mode
+fields (``paged_kernel``, ``quant_kernel``) are not fields here.
 """
 
 import dataclasses
@@ -63,6 +77,53 @@ from sparkdl_tpu_torch.ops._dispatch import resolve_device
 from sparkdl_tpu_torch.parallel import ring_attention as _ring
 
 NEG_INF = -1e30
+
+# the last-dim layout of a projection's input and output by its
+# tensor-parallel role: "full" (whole), "split" (this rank's block),
+# "partial" (a summand of the whole)
+_IN = {"col": "full", "row": "split", "rep": "full"}
+_OUT = {"col": "split", "row": "partial", "rep": "full"}
+
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """A tensor-parallel model's place on its mesh's ``model`` axis."""
+
+    mesh: object
+    rank: int
+    size: int
+
+
+def _relayout(x, have, want, tp):
+    """``x``'s last dim moved from layout ``have`` to ``want`` on the
+    ``model`` axis: a partial sum is all-reduced, a split made whole by
+    an all-gather, a whole one split by taking this rank's block."""
+    if have == want:
+        return x
+    if have == "partial":
+        x, have = tp.mesh.all_reduce(x, "model"), "full"
+        if want == "full":
+            return x
+    if have == "split":
+        return tp.mesh.all_gather(x, "model")
+    n = x.shape[-1] // tp.size
+    return x[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def _tp_call(module, x, tp, have="full", want="full", adapter_ids=None):
+    """``module`` over ``x``; under tensor parallelism (``tp``) ``x``
+    comes in layout ``have`` and the output leaves in ``want``, each
+    moved to and from the layouts of the module's role."""
+    if tp is not None:
+        x = _relayout(x, have, _IN[module.tp_role], tp)
+    # a multi-LoRA projection selects each row's adapter
+    if isinstance(module, MultiLoRADense):
+        y = module(x, adapter_ids)
+    else:
+        y = module(x)
+    if tp is not None:
+        y = _relayout(y, _OUT[module.tp_role], want, tp)
+    return y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +274,7 @@ class Embed(nn.Module):
     def __init__(self, vocab, d_model, dtype, device):
         super().__init__()
         self.embedding = _param((vocab, d_model), dtype, device)
+        self.tp_split = False  # d_model split over the model axis
 
     def forward(self, tokens):
         return F.embedding(tokens, self.embedding)
@@ -301,6 +363,11 @@ class Attention(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         self.cfg = cfg
+        # this rank's heads, the tensor-parallel context and the decode
+        # binding (set by the model)
+        self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads
+        self.tp = None
+        self.paged_fn = None
         hd = cfg.d_model // cfg.n_heads
         self.q_proj = _dense(cfg, cfg.d_model, cfg.n_heads * hd, device,
                              "q_proj")
@@ -311,12 +378,8 @@ class Attention(nn.Module):
         self.o_proj = _dense(cfg, cfg.n_heads * hd, cfg.d_model, device,
                              "o_proj")
 
-    @staticmethod
-    def _proj(module, x, adapter_ids):
-        # a multi-LoRA projection selects each row's adapter
-        if isinstance(module, MultiLoRADense):
-            return module(x, adapter_ids)
-        return module(x)
+    def _proj(self, module, x, adapter_ids, have="full", want="full"):
+        return _tp_call(module, x, self.tp, have, want, adapter_ids)
 
     def forward(self, x, cos, sin, positions, block_tables=None, k_cache=None,
                 v_cache=None, adapter_ids=None):
@@ -325,12 +388,16 @@ class Attention(nn.Module):
         training."""
         cfg = self.cfg
         hd = cfg.d_model // cfg.n_heads
-        hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        n_heads, hkv = self.n_heads, self.n_kv_heads
+        rep = n_heads // hkv
         b, s, _ = x.shape
-        q = self._proj(self.q_proj, x, adapter_ids).reshape(
-            b, s, cfg.n_heads, hd)
-        k = self._proj(self.k_proj, x, adapter_ids).reshape(b, s, hkv, hd)
-        v = self._proj(self.v_proj, x, adapter_ids).reshape(b, s, hkv, hd)
+        # under tensor parallelism: this rank's heads ("split")
+        q = self._proj(self.q_proj, x, adapter_ids, want="split").reshape(
+            b, s, n_heads, hd)
+        k = self._proj(self.k_proj, x, adapter_ids, want="split").reshape(
+            b, s, hkv, hd)
+        v = self._proj(self.v_proj, x, adapter_ids, want="split").reshape(
+            b, s, hkv, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
         if k_cache is None:
@@ -343,8 +410,8 @@ class Attention(nn.Module):
                 o = _attention.flash_attention(q, k, v, causal=True)
             else:
                 o = _ring.attention_reference(q, k, v, causal=True)
-            return self._proj(self.o_proj, o.reshape(b, s, cfg.n_heads * hd),
-                              adapter_ids)
+            return self._proj(self.o_proj, o.reshape(b, s, n_heads * hd),
+                              adapter_ids, have="split")
         if block_tables is None:
             # dense slot cache: write each row's tokens at its own
             # positions, then attend over all of its rows by position
@@ -352,7 +419,7 @@ class Attention(nn.Module):
             k_cache[rows, positions] = k.to(k_cache.dtype)
             v_cache[rows, positions] = v.to(v_cache.dtype)
             o = _attend(q, k_cache, v_cache, positions, hd)
-            return self._proj(self.o_proj, o, adapter_ids)
+            return self._proj(self.o_proj, o, adapter_ids, have="split")
         # paged write: logical -> physical scatter, in place into the pool
         P = cfg.page_size
         tables = block_tables.long()
@@ -360,17 +427,18 @@ class Attention(nn.Module):
         k_cache[page_of, positions % P] = k.to(k_cache.dtype)
         v_cache[page_of, positions % P] = v.to(v_cache.dtype)
         if s == 1:
-            o = _paged.paged_attention_decode(
-                q[:, 0].contiguous(), k_cache, v_cache,
-                block_tables.to(torch.int32).contiguous(),
-                (positions[:, 0] + 1).to(torch.int32))
-            return self._proj(self.o_proj, o.reshape(b, s, cfg.n_heads * hd),
-                              adapter_ids)
+            decode = (self.paged_fn if self.paged_fn is not None
+                      else _paged.paged_attention_decode)
+            o = decode(q[:, 0].contiguous(), k_cache, v_cache,
+                       block_tables.to(torch.int32).contiguous(),
+                       (positions[:, 0] + 1).to(torch.int32))
+            return self._proj(self.o_proj, o.reshape(b, s, n_heads * hd),
+                              adapter_ids, have="split")
         # read: gather each row's pages into its logical view
         L = tables.shape[1] * P
         o = _attend(q, k_cache[tables].reshape(b, L, hkv, hd),
                     v_cache[tables].reshape(b, L, hkv, hd), positions, hd)
-        return self._proj(self.o_proj, o, adapter_ids)
+        return self._proj(self.o_proj, o, adapter_ids, have="split")
 
 
 class MLP(nn.Module):
@@ -381,9 +449,16 @@ class MLP(nn.Module):
         self.up_proj = _dense(cfg, cfg.d_model, cfg.d_ff, device, "up_proj")
         self.down_proj = _dense(cfg, cfg.d_ff, cfg.d_model, device,
                                 "down_proj")
+        self.tp = None  # the tensor-parallel context (set by the model)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        tp = self.tp
+        # the hidden in the layout down_proj takes: no collective between
+        # the three when down_proj is row-parallel
+        mid = "full" if tp is None else _IN[self.down_proj.tp_role]
+        g = _tp_call(self.gate_proj, x, tp, want=mid)
+        u = _tp_call(self.up_proj, x, tp, want=mid)
+        return _tp_call(self.down_proj, F.silu(g) * u, tp, have=mid)
 
 
 class Block(nn.Module):
@@ -405,40 +480,98 @@ class Llama(nn.Module):
     """The decoder. ``Llama(cfg)`` allocates its weights uninitialised
     on ``device`` (CUDA unless the caller names another); fill them with
     :func:`~sparkdl_tpu_torch.models.from_jax.load_jax_params`, or build
-    the model from a state dict with :meth:`from_params`."""
+    the model from a state dict with :meth:`from_params`.
+
+    ``mesh`` (:class:`sparkdl_tpu_torch.parallel.mesh.Mesh`) with a
+    ``model`` axis > 1 makes the model tensor-parallel: it holds only
+    this rank's slice of each weight, laid out by ``rules`` (default
+    ``TRANSFORMER_RULES``; :attr:`tp_specs` after construction), and
+    computes on this rank's heads. ``paged_attention_fn(q, k_pool,
+    v_pool, tables, lens)`` takes the place of the single-token paged
+    decode call."""
 
     def __init__(self, cfg, device=None, *, attention_fn=None,
-                 paged_attention_fn=None):
+                 paged_attention_fn=None, mesh=None, rules=None):
         super().__init__()
-        for name, value in (("attention_fn", attention_fn),
-                            ("paged_attention_fn", paged_attention_fn)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} (ring attention, tensor-parallel decode) is "
-                    "not ported yet")
+        if attention_fn is not None:
+            raise NotImplementedError(
+                "attention_fn (ring attention) is not ported yet")
         device = resolve_device(device)
         self.cfg = cfg
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, device)
+        tp = mesh is not None and mesh.axis_size("model") > 1
+        # a tensor-parallel model is laid out on the full shapes first,
+        # with no memory behind them, then given its local weights
+        build = torch.device("meta") if tp else device
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, build)
         self.layers = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+            Block(cfg, build) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, build)
         if cfg.quant:
             # quantized head over FP32 activations, as the JAX package
             self.lm_head = _quant_dense(cfg, cfg.d_model, cfg.vocab_size,
-                                        torch.float32, device)
+                                        torch.float32, build)
         else:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size,
-                                 torch.float32, device)
+                                 torch.float32, build)
+        self.tp, self.tp_specs, self.mesh = None, None, None
+        self.n_kv_heads = cfg.n_kv_heads  # this rank's, in the cache
+        if tp:
+            self._shard(mesh, rules, device)
+        for layer in self.layers:
+            layer.attn.paged_fn = paged_attention_fn
         self._rope = {}  # device -> (cos, sin), built at first use
 
+    def _shard(self, mesh, rules, device):
+        """Give every weight its local shape on ``device`` by the rules'
+        layout, and each projection its role."""
+        from sparkdl_tpu_torch.parallel import sharding
+
+        cfg, size = self.cfg, mesh.axis_size("model")
+        if cfg.n_kv_heads % size:
+            raise NotImplementedError(
+                f"n_kv_heads={cfg.n_kv_heads} does not divide over "
+                f"model={size}: the tensor-parallel cache holds each "
+                "rank's kv heads (a replicated pool is not ported)")
+        full = self.state_dict()
+        rules = sharding.TRANSFORMER_RULES if rules is None else rules
+        self.tp_specs = sharding.tp_layout(full, rules, mesh)
+        modules = dict(self.named_modules())
+        for name, t in sharding.shard_params(full, self.tp_specs,
+                                             mesh).items():
+            owner, _, leaf = name.rpartition(".")
+            old = getattr(modules[owner], leaf)
+            setattr(modules[owner], leaf, nn.Parameter(
+                torch.empty(t.shape, dtype=old.dtype, device=device),
+                requires_grad=old.requires_grad))
+        for prefix, role in sharding.projection_roles(
+                self.tp_specs, mesh).items():
+            modules[prefix].tp_role = role
+        self.embed.tp_split = bool(
+            sharding.split_dims(self.tp_specs["embed.embedding"],
+                                 mesh.shape))
+        self.mesh = mesh
+        self.tp = _TP(mesh, mesh.axis_rank("model"), size)
+        self.n_kv_heads = cfg.n_kv_heads // size
+        for layer in self.layers:
+            layer.attn.tp = layer.mlp.tp = self.tp
+            layer.attn.n_heads = cfg.n_heads // size
+            layer.attn.n_kv_heads = self.n_kv_heads
+
     @classmethod
-    def from_params(cls, cfg, params, device=None):
+    def from_params(cls, cfg, params, device=None, *, mesh=None, rules=None,
+                    paged_attention_fn=None):
         """A model whose weights ARE the tensors of ``params`` (a state
         dict with this model's keys), moved to ``device`` and cast to
         each weight's dtype where they differ — no other copy. Raises
-        on a missing, unexpected or mis-shaped entry."""
+        on a missing, unexpected or mis-shaped entry. With a
+        tensor-parallel ``mesh``, ``params`` is the whole state dict and
+        the model takes this rank's slice of it
+        (:func:`~sparkdl_tpu_torch.parallel.sharding.shard_params`)."""
         device = resolve_device(device)
-        model = cls(cfg, device="meta")
+        model = cls(cfg, device="meta", mesh=mesh, rules=rules,
+                    paged_attention_fn=paged_attention_fn)
+        if model.tp is not None:
+            params = model.local_params(params)
         expected = model.state_dict()
         missing = sorted(set(expected) - set(params))
         unexpected = sorted(set(params) - set(expected))
@@ -456,6 +589,19 @@ class Llama(nn.Module):
             state[name] = t.to(device=device, dtype=ref.dtype)
         model.load_state_dict(state, strict=True, assign=True)
         return model
+
+    def local_params(self, params):
+        """This rank's slice of the whole state dict (or flat JAX tree)
+        ``params`` by :attr:`tp_specs`; ``params`` itself for a model
+        that is not tensor-parallel."""
+        if self.tp is None:
+            return params
+        from sparkdl_tpu_torch.parallel import sharding
+
+        unknown = sorted(set(params) - set(self.tp_specs))
+        if unknown:
+            raise ValueError(f"params the model does not have: {unknown}")
+        return sharding.shard_params(params, self.tp_specs, self.mesh)
 
     @property
     def device(self):
@@ -478,13 +624,13 @@ class Llama(nn.Module):
                 raise ValueError("the paged cache is shared by every row; "
                                  "batch sizes the dense slot cache only")
             shape = (cfg.n_layers, cfg.n_pages, cfg.page_size,
-                     cfg.n_kv_heads, hd)
+                     self.n_kv_heads, hd)
             return PagedKVCache(
                 k=torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 v=torch.zeros(shape, dtype=cfg.dtype, device=self.device))
         if batch is None or batch < 1:
             raise ValueError("the dense slot cache needs batch >= 1")
-        shape = (cfg.n_layers, batch, cfg.max_cache_len, cfg.n_kv_heads, hd)
+        shape = (cfg.n_layers, batch, cfg.max_cache_len, self.n_kv_heads, hd)
         return DenseKVCache(
             k=torch.zeros(shape, dtype=cfg.dtype, device=self.device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=self.device))
@@ -575,6 +721,8 @@ class Llama(nn.Module):
         positions = positions.expand(b, s)
         cos, sin = self._rope_tables(tokens.device, length)
         x = self.embed(tokens.long())
+        if self.embed.tp_split:
+            x = self.tp.mesh.all_gather(x, "model")
         for i, layer in enumerate(self.layers):
             if cfg.decode:
                 x = layer(x, cos, sin, positions, block_tables, cache.k[i],
@@ -588,7 +736,7 @@ class Llama(nn.Module):
         x = self.final_norm(x)
         if return_hidden:
             return x
-        return self.lm_head(x.to(torch.float32))
+        return _tp_call(self.lm_head, x.to(torch.float32), self.tp)
 
 
 def init_weights(model, generator, std=0.02):

@@ -45,9 +45,26 @@ Counterpart of ``sparkdl_tpu/models/serving.py``
 
 Weights: dense, or weight-only int8 or int4 (``quant=``).
 
-Not ported yet, and refused by name: tensor parallelism (``mesh``,
-``rules``) and kernel-mode routing (``quant_kernel``). ``telemetry`` is
-an attribute that stays ``None``: no telemetry hooks are ported.
+Tensor-parallel serving (``mesh=``, ``rules=``): one engine a rank of a
+port gang, every rank making the same calls in the same order. The
+engine builds a tensor-parallel model from the whole state dict (this
+rank keeps its slice, ``models.llama``), its caches hold this rank's kv
+heads, and the paged decode runs through
+:func:`~sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode_sharded`.
+The ranks of a ``model`` group take the same host decisions (admission,
+eos, stops, budgets) because each sampled token, with its logprob, is
+broadcast from the group's first rank once a decode step and once a
+prefill.
+
+``telemetry``: an object with the JAX engine's hooks
+(``request_admitted(rid)``, ``request_pages(rid, pages)`` when it has
+one, ``admission_deferred(reason)``, ``decode_chunk(active, n_slots,
+n_tokens, free_pages=, n_pages=)``), each called behind one ``is not
+None`` test; None by default.
+
+Not ported yet, and refused by name: kernel-mode routing
+(``quant_kernel``) and a mesh with ``fsdp > 1`` (ZeRO-3 serving
+params).
 """
 
 import dataclasses
@@ -62,6 +79,9 @@ from sparkdl_tpu_torch.models.generate import (
 from sparkdl_tpu_torch.models.llama import DenseKVCache, Llama
 from sparkdl_tpu_torch.models.quant import quantize_llama_params
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
+from sparkdl_tpu_torch.ops.paged_attention import (
+    paged_attention_decode_sharded,
+)
 
 
 def _hits_stop(tokens, stops):
@@ -159,11 +179,25 @@ class ContinuousBatchingEngine:
                  eos_id=None, chunk=16, mesh=None, rules=None, page_size=0,
                  n_pages=None, prefill_chunk=0, top_k=0, top_p=1.0,
                  quant="", quant_kernel="", device=None, generator=None):
-        for name, value in (("mesh", mesh), ("rules", rules),
-                            ("quant_kernel", quant_kernel)):
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if quant_kernel:
+            raise NotImplementedError("quant_kernel is not ported yet")
+        if mesh is not None:
+            axis_sizes = dict(mesh.shape)
+            missing = {"model", "fsdp"} - set(axis_sizes)
+            if missing:
+                raise ValueError(
+                    f"TP serving needs mesh axes 'model' and 'fsdp' "
+                    f"(missing {sorted(missing)}); build the mesh with "
+                    "sparkdl_tpu_torch.parallel.mesh.make_mesh")
+            if axis_sizes["fsdp"] > 1:
+                raise NotImplementedError(
+                    f"a mesh with fsdp={axis_sizes['fsdp']} > 1 is not "
+                    "ported (ZeRO-3 serving params); put the ranks on "
+                    "'model' or 'data'")
+            if device is None:
+                device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         cfg = model.cfg
         if quant:
             if quant not in ("int8", "int4"):
@@ -211,8 +245,18 @@ class ContinuousBatchingEngine:
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(0)
         self._on_token = None  # streaming callback, set per run()
-        self._model = Llama.from_params(self.cfg, params, self.device)
-        self.params = params
+        paged_fn = None
+        if mesh is not None and self.page_size:
+            paged_fn = paged_attention_decode_sharded(
+                mesh, axis_name="model", n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads)
+        self._model = Llama.from_params(self.cfg, params, self.device,
+                                        mesh=mesh, rules=rules,
+                                        paged_attention_fn=paged_fn)
+        # under tensor parallelism this rank's slice (the model's own
+        # tensors): the whole dict is the caller's to free
+        self.params = (params if self._model.tp is None
+                       else self._model.state_dict())
         self._queue = []     # (rid, prompt, max_new, prefix_id, adapter_id)
         self._prefixes = {}  # prefix_id -> (tokens, pool pages | dense
                              #   (k, v) rows, adapter_id)
@@ -227,8 +271,8 @@ class ContinuousBatchingEngine:
         self.stats = {"steps": 0, "active_slot_steps": 0,
                       "total_slot_steps": 0, "prefill_segments": 0,
                       "prefill_tokens_saved": 0}
-        # request-level telemetry hook of the JAX engine: none is ported,
-        # so it stays None
+        # request-level hooks (the fleet's _WorkerTelemetry); None keeps
+        # each hook site at one test
         self.telemetry = None
         if self.page_size:
             # host-side page allocator: page 0 reserved as the junk dump
@@ -418,9 +462,18 @@ class ContinuousBatchingEngine:
     # -- scheduling ---------------------------------------------------
 
     def _sample(self, logits):
-        return sample_logits_with_lp(
+        tok, lp = sample_logits_with_lp(
             logits, self._generator, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p)
+        tp = self._model.tp
+        if tp is None:
+            return tok, lp
+        # one broadcast from the model group's first rank: every rank
+        # then takes the same host decisions on the same tokens
+        both = tp.mesh.broadcast(
+            torch.stack([tok.to(torch.int32),
+                         lp.to(torch.float32).view(torch.int32)]), "model")
+        return both[0], both[1].view(torch.float32)
 
     def _worst_case_tokens(self, p_len, max_new):
         """Cache rows a request can ever touch: page reservation, the
@@ -446,6 +499,8 @@ class ContinuousBatchingEngine:
         the prompt (or only its suffix) straight into the slot's rows
         and activate it with the sampled first token."""
         rid, prompt, max_new, prefix_id, adapter_id = self._queue.pop(0)
+        if self.telemetry is not None:
+            self.telemetry.request_admitted(rid)
         start = 0
         if prefix_id is not None:
             prefix, rows, _aid = self._prefixes[prefix_id]
@@ -483,6 +538,13 @@ class ContinuousBatchingEngine:
         if need > len(self._free_pages):
             return False
         self._queue.pop(0)
+        if self.telemetry is not None:
+            self.telemetry.request_admitted(rid)
+            # the request's worst-case pages; a telemetry without the
+            # hook is served as well
+            hook = getattr(self.telemetry, "request_pages", None)
+            if hook is not None:
+                hook(rid, total)
         own = [self._free_pages.pop() for _ in range(need)]
         self._slot_pages[slot_idx] = own
         self._tables[slot_idx] = 0
@@ -590,10 +652,24 @@ class ContinuousBatchingEngine:
                 if not self.page_size:
                     self._admit(i)
                 elif not self._try_admit_paged(i):
+                    if self.telemetry is not None:
+                        # requeued, not refused: the pool cannot cover
+                        # the head's worst case yet
+                        self.telemetry.admission_deferred("pool_exhausted")
                     break
         for i in list(self._prefilling):
             self._advance_prefill(i)
         return np.array([s.active for s in self._slots])
+
+    def _observe_chunk(self, active_count, n_tokens):
+        """The telemetry of one decode chunk (or speculation round), for
+        both decode loops."""
+        if self.telemetry is not None:
+            self.telemetry.decode_chunk(
+                active_count, self.n_slots, n_tokens,
+                free_pages=(len(self._free_pages)
+                            if self.page_size else None),
+                n_pages=(self.cfg.n_pages if self.page_size else None))
 
     def _deadend_check(self):
         """Nothing active: raise when the queue head can NEVER admit (a
@@ -669,6 +745,7 @@ class ContinuousBatchingEngine:
             self.stats["steps"] += n
             self.stats["total_slot_steps"] += n * self.n_slots
             self.stats["active_slot_steps"] += int(active.sum()) * n
+            self._observe_chunk(int(active.sum()), n)
             for i, s in enumerate(self._slots):
                 if s.active:
                     self._accept_tokens(i, toks[:, i], lps[:, i])
@@ -906,6 +983,8 @@ class SpeculativeBatchingEngine(ContinuousBatchingEngine):
             self.stats["steps"] += 1
             self.stats["total_slot_steps"] += self.n_slots
             self.stats["active_slot_steps"] += n_act
+            # one round: up to k + 1 tokens a slot
+            self._observe_chunk(n_act, self.k + 1)
             new_pos = self._pos.cpu().numpy().copy()
             new_tok = self._token.cpu().numpy().copy()
             for i, s in enumerate(self._slots):

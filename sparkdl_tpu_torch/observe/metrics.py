@@ -6,8 +6,8 @@ imports nothing of the JAX package): ``Counter``, ``Gauge``,
 ``Histogram``, ``Registry`` (``snapshot``, ``to_prometheus``,
 ``to_json``), ``render_prometheus`` and ``ensure_build_info``. Thread-safe
 by construction: every mutation is one short critical section over
-plain Python numbers. The gang-side merging (``merge_snapshots``,
-``snapshot_delta``, ``render_json``) belongs to the fleet and is not
+plain Python numbers. The gang telemetry's merging
+(``merge_snapshots``, ``snapshot_delta``) and ``render_json`` are not
 ported yet.
 
 ``build_info`` carries the git sha, ``torch_version`` (in place of the

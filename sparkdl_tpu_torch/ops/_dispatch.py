@@ -9,6 +9,8 @@ its path from the device of the tensors it is handed: the plain PyTorch
 version for CPU tensors, the CUDA kernel (or an error) for CUDA ones.
 """
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -68,3 +70,13 @@ def launch_on(device, fn, *args):
         return fn(*args, torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(device):
         return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches`` (a kernel launched), under a lock:
+    the engine threads of a serving fleet launch kernels at once."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

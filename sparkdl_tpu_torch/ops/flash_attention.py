@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from sparkdl_tpu_torch.ops import _build
+from sparkdl_tpu_torch.ops._dispatch import count_launch
 
 NEG_INF = -1e30
 
@@ -159,7 +160,7 @@ def flash_fwd(q, k, v, causal=True, scale=None):
         return o, lse
     _launch("flash_fwd", q, k, v, o, lse, b, s, h, d, int(causal),
             float(_scale(q, scale)))
-    flash_fwd.launches += 1
+    count_launch(flash_fwd)
     return o, lse
 
 
@@ -177,7 +178,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None):
         return dq
     _launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, b, s, h, d,
             int(causal), float(_scale(q, scale)))
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq)
     return dq
 
 
@@ -195,7 +196,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
         return dk, dv
     _launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv, b, s, h, d,
             int(causal), float(_scale(q, scale)))
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv)
     return dk, dv
 
 

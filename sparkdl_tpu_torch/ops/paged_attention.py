@@ -2,13 +2,15 @@
 paged KV cache through per-row block tables, reading only the pages a
 row owns.
 
-Counterpart of ``sparkdl_tpu/ops/pallas/paged_attention.py`` (the
-single-device binding; the tensor-parallel one is not ported yet). The
-pool layout is the serving engine's: page-major (n_pages, page, Hkv, D),
-page 0 the dump page for padding junk. ``paged_attention_decode`` takes
-its path from the device of its inputs: CPU tensors run
-:func:`paged_attention_decode_reference`, CUDA tensors launch the
-hand-written kernel in ``csrc/paged_attention.cu`` or raise.
+Counterpart of ``sparkdl_tpu/ops/pallas/paged_attention.py``: the
+single-device call and its tensor-parallel binding
+(:func:`paged_attention_decode_sharded`, one call a rank on its own kv
+heads). The pool layout is the serving engine's: page-major (n_pages,
+page, Hkv, D), page 0 the dump page for padding junk.
+``paged_attention_decode`` takes its path from the device of its
+inputs: CPU tensors run :func:`paged_attention_decode_reference`, CUDA
+tensors launch the hand-written kernel in ``csrc/paged_attention.cu``
+or raise.
 """
 
 import ctypes
@@ -16,7 +18,7 @@ import ctypes
 import torch
 
 from sparkdl_tpu_torch.ops import _build
-from sparkdl_tpu_torch.ops._dispatch import launch_on, sm_count
+from sparkdl_tpu_torch.ops._dispatch import count_launch, launch_on, sm_count
 
 NEG_INF = -1e30
 
@@ -133,11 +135,41 @@ def paged_attention_decode(q, k_pool, v_pool, tables, lens, scale=None):
     # csrc/paged_attention.cu
     _build.check(lib, err, f"paged_attention_decode (H {h}, Hkv {hkv}, "
                  f"D {d}, page {page}, {q.dtype})")
-    paged_attention_decode.launches += 1
+    count_launch(paged_attention_decode)
     return out
 
 
 paged_attention_decode.launches = 0
+
+
+def paged_attention_decode_sharded(mesh, *, axis_name="model", scale=None,
+                                   n_heads=None, n_kv_heads=None):
+    """Bind the paged decode to a tensor-parallel mesh: each rank's pool
+    holds its own kv heads (the serving engine's cache under ``mesh``)
+    and each rank runs the decode on them. Every kv head's GQA query
+    group lives on the same rank, so the binding runs no collective;
+    the o_proj that follows does the sum.
+
+    Returns ``f(q, k_pool, v_pool, tables, lens)`` on this rank's
+    LOCAL tensors: q (B, H/m, D), pools (n_pages, page, Hkv/m, D),
+    tables and lens whole, m the size of ``axis_name``. ``n_heads`` and
+    ``n_kv_heads`` (the model's, when given) check that the heads are
+    this rank's share. CUDA tensors launch the kernel
+    (:func:`paged_attention_decode`), CPU ones run its plain version."""
+    size = mesh.axis_size(axis_name)
+
+    def local_fn(q, k_pool, v_pool, tables, lens):
+        for what, total, local in (("query", n_heads, q.shape[1]),
+                                   ("kv", n_kv_heads, k_pool.shape[2])):
+            if total is not None and local * size != total:
+                raise ValueError(
+                    f"{local} local {what} heads on a {axis_name} axis of "
+                    f"{size}; the model has {total}")
+        # looked up at call time: the module attribute is the call
+        return paged_attention_decode(q, k_pool, v_pool, tables, lens,
+                                      scale=scale)
+
+    return local_fn
 
 
 def _split_plan(q, k_pool, tables):

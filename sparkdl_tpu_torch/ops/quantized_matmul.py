@@ -19,7 +19,12 @@ import warnings
 import torch
 
 from sparkdl_tpu_torch.ops import _build
-from sparkdl_tpu_torch.ops._dispatch import launch_on, resolve_device, sm_count
+from sparkdl_tpu_torch.ops._dispatch import (
+    count_launch,
+    launch_on,
+    resolve_device,
+    sm_count,
+)
 
 # Dense layers quantized by default: every 2-D projection of the
 # decoder family; embeddings stay dense (a lookup reads one row).
@@ -229,7 +234,7 @@ def quantized_matmul(x, w_q, scales):
     # 8-byte aligned on the CUDA cores: see launch_simt() in
     # csrc/quantized_matmul.cu
     _build.check(lib, err, f"quantized_matmul ({m}, {k}, {n})")
-    quantized_matmul.launches += 1
+    count_launch(quantized_matmul)
     return out
 
 
@@ -343,7 +348,7 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
     # launch_tc() and launch_simt() in csrc/quantized_matmul_int4.cu
     _build.check(lib, err, f"quantized_matmul_int4 ({m}, {k}, {n}), "
                            f"group {group}")
-    quantized_matmul_int4.launches += 1
+    count_launch(quantized_matmul_int4)
     return out
 
 

@@ -1,0 +1,194 @@
+"""The device mesh of a gang: named axes over its ranks, one process a
+rank, and the collectives of one axis.
+
+Counterpart of ``sparkdl_tpu/parallel/mesh.py``. Axes (any may be 1 and
+is then effectively absent):
+
+- ``data``  — pure data parallelism;
+- ``fsdp``  — data parallelism with parameter sharding (ZeRO-3 style);
+- ``seq``   — sequence/context parallelism;
+- ``model`` — tensor parallelism (Megatron-style column/row splits).
+
+There the mesh is an array of devices that GSPMD partitions one program
+over. Here it is a port-owned :class:`Mesh` over the ranks of the
+initialized default process group (a port gang, ``HorovodRunner``):
+each rank knows its coordinate on every axis and holds one process
+group per axis slice it belongs to, and a layer that needs a collective
+calls it by name on its axis (:meth:`Mesh.all_reduce`,
+:meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`). Ranks are laid out in
+row-major order of :meth:`MeshSpec.axis_sizes`, so the ``model`` axis
+varies fastest: the ranks of one tensor-parallel group are consecutive.
+
+The collectives follow the gang's wire rule
+(:mod:`sparkdl_tpu_torch.hvd._state`): CUDA tensors go over NCCL when
+every rank has a card of its own, and are staged through host memory
+over gloo when ranks share a card (or there is none); dtypes a backend
+lacks travel widened. A mesh of one rank needs no process group, and
+its collectives return their input.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import torch.distributed as dist
+
+from sparkdl_tpu_torch.hvd import _collectives, _state
+
+AXES = ("data", "fsdp", "seq", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    data: int = 1
+    fsdp: int = 1
+    seq: int = 1
+    model: int = 1
+
+    @property
+    def size(self):
+        return self.data * self.fsdp * self.seq * self.model
+
+    def axis_sizes(self):
+        return (self.data, self.fsdp, self.seq, self.model)
+
+
+class Mesh:
+    """This rank's view of a mesh: ``shape`` ({axis: size}),
+    ``coords`` ({axis: this rank's coordinate}), and for every axis of
+    size > 1 the global ranks of this rank's slice along it and their
+    process group. ``device`` is the card the gang bound for this rank
+    (None outside a gang: the caller names one)."""
+
+    def __init__(self, axis_names, axis_sizes, rank=0, groups=None,
+                 device=None):
+        self.axis_names = tuple(axis_names)
+        sizes = tuple(int(s) for s in axis_sizes)
+        if len(sizes) != len(self.axis_names):
+            raise ValueError(f"{len(self.axis_names)} axis names, "
+                             f"{len(sizes)} sizes")
+        self.shape = dict(zip(self.axis_names, sizes))
+        self.rank = int(rank)
+        coords = np.unravel_index(self.rank, sizes)
+        self.coords = {a: int(c) for a, c in zip(self.axis_names, coords)}
+        self.groups = dict(groups or {})  # axis -> (ranks, process group)
+        self.device = device
+
+    def axis_size(self, axis):
+        return self.shape.get(axis, 1)
+
+    def axis_rank(self, axis):
+        """This rank's coordinate on ``axis``."""
+        return self.coords.get(axis, 0)
+
+    def _group(self, axis):
+        entry = self.groups.get(axis)
+        return None if entry is None else entry[1]
+
+    def all_reduce(self, x, axis):
+        """The sum of ``x`` over the ranks of this rank's ``axis``
+        slice (a row-parallel projection's partial products)."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        w = _collectives._on_wire(x)
+        dist.all_reduce(w, group=group)
+        return _collectives._off_wire(w, x)
+
+    def all_gather(self, x, axis):
+        """The ``axis`` slice's ``x`` concatenated along the last
+        dimension, in coordinate order (a column-parallel output made
+        whole)."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        n = self.axis_size(axis)
+        w = _collectives._on_wire(x)
+        # gathered along dim 0 (gloo takes no other output shape)
+        out = w.new_empty((n * w.shape[0],) + tuple(w.shape[1:]))
+        dist.all_gather_into_tensor(out, w, group=group)
+        out = out.view((n,) + tuple(w.shape)).movedim(0, -2).reshape(
+            *w.shape[:-1], n * w.shape[-1])
+        return _collectives._off_wire(out, x)
+
+    def broadcast(self, x, axis):
+        """The ``axis`` slice's first rank's ``x`` on every rank of the
+        slice; returns a new tensor."""
+        entry = self.groups.get(axis)
+        if entry is None:
+            return x
+        ranks, group = entry
+        w = _collectives._on_wire(x)
+        dist.broadcast(w, src=ranks[0], group=group)
+        return _collectives._off_wire(w, x)
+
+
+def make_mesh(spec=None):
+    """This rank's :class:`Mesh` over the initialized default process
+    group, shaped by ``spec`` (default: every rank on the ``data`` axis).
+    Raises when the world size is not ``spec.size``. Every rank of the
+    group must call it, in the same order as its other collectives: each
+    axis slice's process group is created collectively. Without a
+    process group the world is this one rank."""
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+    else:
+        world, rank = 1, 0
+    if spec is None:
+        spec = MeshSpec(data=world)
+    if spec.size != world:
+        raise ValueError(f"MeshSpec {spec} needs {spec.size} ranks, the "
+                         f"process group has {world}")
+    sizes = spec.axis_sizes()
+    layout = np.arange(world).reshape(sizes)
+    groups = {}
+    for i, axis in enumerate(AXES):
+        if sizes[i] == 1:
+            continue
+        # every slice along this axis, each its own group; all ranks
+        # create every group, in the same order
+        slices = np.moveaxis(layout, i, -1).reshape(-1, sizes[i])
+        for ranks in slices.tolist():
+            group = (dist.group.WORLD if len(ranks) == world
+                     else dist.new_group(ranks))
+            if rank in ranks:
+                groups[axis] = (ranks, group)
+    st = _state.state()
+    device = st.device if st.device is not None and \
+        st.device.type == "cuda" else None
+    return Mesh(AXES, sizes, rank, groups, device)
+
+
+def make_mesh_from_axes(axes):
+    """Mesh from an axis-size dict (``{"data": 2, "model": 4}``); unknown
+    axis names are an error, absent axes default to 1."""
+    unknown = sorted(set(axes) - set(AXES))
+    if unknown:
+        raise ValueError(
+            f"unknown mesh axes {unknown}; this runtime's axes are "
+            f"{list(AXES)}")
+    return make_mesh(MeshSpec(**{a: int(axes.get(a, 1)) for a in AXES}))
+
+
+def best_mesh(n_devices, *, model_parallel=1, seq_parallel=1, fsdp=False):
+    """Heuristic spec: give ``model``/``seq`` what was asked, put the rest
+    on ``data`` (or ``fsdp``)."""
+    rest = n_devices // (model_parallel * seq_parallel)
+    if rest * model_parallel * seq_parallel != n_devices:
+        raise ValueError(
+            f"{n_devices} devices not divisible by model_parallel="
+            f"{model_parallel} * seq_parallel={seq_parallel}")
+    if fsdp:
+        return MeshSpec(data=1, fsdp=rest, seq=seq_parallel,
+                        model=model_parallel)
+    return MeshSpec(data=rest, fsdp=1, seq=seq_parallel,
+                    model=model_parallel)
+
+
+def log2_factors(n):
+    """(a, b) with a*b == n, as square as possible (both powers of 2
+    when n is)."""
+    a = 2 ** (int(math.log2(n)) // 2) if n > 1 else 1
+    while n % a:
+        a //= 2
+    return a, n // a

@@ -395,9 +395,25 @@ def test_unported_training_options_raise_by_name():
     with pytest.raises(ValueError, match="attention"):
         pt_llama.LlamaConfig.tiny(attention="ring")
     cfg = pt_llama.LlamaConfig.tiny(n_layers=1)
-    for name in ("attention_fn", "paged_attention_fn"):
-        with pytest.raises(NotImplementedError, match=name):
-            pt_llama.Llama(cfg, device="cpu", **{name: _jax_flash_fn})
+    with pytest.raises(NotImplementedError, match="attention_fn"):
+        pt_llama.Llama(cfg, device="cpu", attention_fn=_jax_flash_fn)
+    # paged_attention_fn is ported: it takes the single-token paged
+    # decode's place (the tensor-parallel binding rides on it)
+    from sparkdl_tpu_torch.ops import paged_attention as pt_paged
+
+    calls = []
+
+    def spy(*args):
+        calls.append(tuple(args[0].shape))
+        return pt_paged.paged_attention_decode(*args)
+
+    paged = pt_llama.init_weights(pt_llama.Llama(
+        dataclasses.replace(cfg, decode=True, page_size=8, n_pages=4),
+        device="cpu", paged_attention_fn=spy), torch.Generator())
+    cache = paged.init_cache()
+    one = torch.zeros((2, 1), dtype=torch.long)
+    paged(one, one, torch.ones((2, 2), dtype=torch.int32), cache)
+    assert calls == [(2, cfg.n_heads, cfg.d_model // cfg.n_heads)]
     model = pt_llama.Llama(cfg, device="cpu")
     with pytest.raises(ValueError, match="adapter_ids requires a multi_lora"):
         model(torch.zeros(1, 4, dtype=torch.long),

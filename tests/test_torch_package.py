@@ -57,6 +57,11 @@ GANG_COUNTERPARTS = {
         "sparkdl_tpu/utils/checkpoint.py",
     "sparkdl_tpu_torch/utils/data.py": "sparkdl_tpu/utils/data.py",
     "sparkdl_tpu_torch/compat/horovod_torch.py": "horovod/torch/__init__.py",
+    # tensor-parallel serving and the fleet
+    "sparkdl_tpu_torch/parallel/mesh.py": "sparkdl_tpu/parallel/mesh.py",
+    "sparkdl_tpu_torch/parallel/sharding.py":
+        "sparkdl_tpu/parallel/sharding.py",
+    "sparkdl_tpu_torch/models/fleet.py": "sparkdl_tpu/models/fleet.py",
 }
 
 
