@@ -11,7 +11,8 @@ shared prefixes), then LoRA-fine-tune it at full width through
 ``make_train_step``, serve the fine-tune's base with 4 stacked adapters
 and speculatively with its int8 weights as the draft, then as
 HorovodRunner gangs (one resumed from a checkpoint after its worker is
-killed), and show every run went through its kernels.
+killed), sequence-parallel over a ring of two ranks and as a two-stage
+pipeline, and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -104,8 +105,11 @@ and on any failed check. Phases:
    2, as phase 4); then the int4 model is freed;
 2b. the three flash-attention kernels (forward, dq, dk/dv) against
    their plain versions at the training shape (B 2, S 2048, H 32,
-   D 128, causal) and at a ragged S of 1000 (causal and not, D 128 and
-   64), timed at the training shape beside their bounds and beside
+   D 128, causal), at a ragged S of 1000 (causal and not, D 128 and
+   64), at phase 15's ring hops (B 1, S 4096, H 32, D 128: the
+   diagonal hop causal, an earlier rank's block not) and at phase 16's
+   stage blocks (B 1, S 2048, H 32, D 128, causal), timed at the
+   training shape beside their bounds and beside
    ``scaled_dot_product_attention`` (forward, and its backward against
    dq + dk/dv), with TFLOP/s, and each kernel's time before its Hopper
    redesign (``old_ms``) beside it;
@@ -170,7 +174,32 @@ and on any failed check. Phases:
    and steps 2-3's losses and the final adapters' sha256 equal to 9a's
    bit for bit; it prints the snapshot and write ms of every save, the
    checkpoint's bytes, the restore ms, the seconds from the kill to the
-   first resumed step, and the run's wall seconds beside 9a's.
+   first resumed step, and the run's wall seconds beside 9a's;
+15. sequence-parallel LoRA fine-tuning: ``HorovodRunner(np=-2)``, two
+   ranks on the one card (gloo), ``make_mesh(MeshSpec(seq=2))``, phase
+   5's configuration at 9b's depth (4) with ``attention_fn`` the mesh's
+   ``make_ring_attention`` (ring-flash on the card: B1-B3 inside a
+   two-ring backward), one sequence of 8192 tokens (4096 a rank at
+   their global positions), the fused loss, 3 steps: step 0's loss
+   (within 1e-2) and adapter gradients (within 2^-5 of each norm)
+   against one process running the whole sequence through
+   ``flash_attention``; step 0 under ``overlap=True`` and ``False``
+   bit-identical; the flash counters at one call a live hop a layer a
+   step (rank 0 one, rank 1 two: the later block is masked and launches
+   nothing); the hops a tensor (a forward n - 1 of K/V, a step n - 1 more
+   of K/V and n of the fp32 dk/dv accumulators, a layer); the adapters
+   the same on both ranks; ms a step, tokens/s, each hop's ms alone,
+   the hops' exposed ms inside the timed steps and their share of the
+   step, peak memory a rank;
+16. the GPipe pipeline: ``HorovodRunner(np=-2)``, a ``stage`` mesh of
+   the two ranks (``make_named_mesh``), the stage function two
+   Llama-3-8B-width decoder blocks (bf16, flash attention, every weight
+   trainable), 8 microbatches of 1 x 2048: the outputs (within one bf16
+   ulp) and every stage weight's gradient of sum(out^2) (within 2^-5 of
+   its norm) against the four blocks in order in one process; both
+   schedules bit-identical in outputs and gradients, 10 and 9 ticks, the
+   flash counters at two calls a tick (forward, dq, dk/dv); ms a
+   pipeline step under each schedule, the bubble share and the hop's ms.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -243,11 +272,17 @@ FLEET_REPLICAS, FLEET_MAX_QUEUE, N_FLEET_REQUESTS = 2, 24, 32
 N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 8, 3
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
-# call; 32 a step), then ragged S (no tile divides 1000), both head dims
+# call; 32 a step), then ragged S (no tile divides 1000), both head dims,
+# then phase 15's ring hops (a rank's 4096 tokens against its own block,
+# causal, and against an earlier rank's, not; kv heads repeated to 32),
+# then phase 16's stage blocks (one microbatch of 2048, causal)
 FLASH_SHAPES = [(2, 2048, 32, 128, True),
                 (1, 1000, 4, 128, True),
                 (1, 1000, 4, 128, False),
-                (1, 1000, 4, 64, True)]
+                (1, 1000, 4, 64, True),
+                (1, 4096, 32, 128, True),
+                (1, 4096, 32, 128, False),
+                (1, 2048, 32, 128, True)]
 
 # the flash kernels' device ms a call at FLASH_SHAPES[0] before their
 # Hopper redesign: the mma.sync kernels, timed by this script's phase 2b
@@ -285,12 +320,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # phases 9a-9c: the np each HorovodRunner takes (a CPU rehearsal runs
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
-GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2}
+GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
 # is killed
 RESUME_KILL_AFTER = 1
+# phase 15: one sequence of Llama-3-8B's published context over the
+# ranks' seq axis (at 9b's depth), its steps; phase 16: the microbatches
+# (1 x PIPE_SEQ tokens each) and the decoder blocks split over the stages
+SEQ_TOKENS, SEQ_STEPS = 8192, 3
+PIPE_MICROBATCHES, PIPE_SEQ, PIPE_BLOCKS = 8, 2048, 4
 
 
 class CheckFailed(RuntimeError):
@@ -837,6 +877,22 @@ def _read_launches():
     return {"quantized_matmul": qmm.quantized_matmul.launches,
             "quantized_matmul_int4": qmm.quantized_matmul_int4.launches,
             "paged_attention_decode": pa.paged_attention_decode.launches}
+
+
+def _flash_launches():
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _zero_flash():
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
 
 
 def serve(torch, model):
@@ -1564,7 +1620,6 @@ def train(torch, gen):
     the trained model (phases 11 and 12 serve its weights)."""
     from sparkdl_tpu_torch.models.llama import Llama, init_weights
     from sparkdl_tpu_torch.models.lora import lora_mask
-    from sparkdl_tpu_torch.ops import flash_attention as fa
     from sparkdl_tpu_torch.parallel.train import (
         global_batch,
         make_lm_loss_fn,
@@ -1594,18 +1649,14 @@ def train(torch, gen):
     t = time.perf_counter()
     losses = [step(batch)["loss"].item()]
     warmup_s = time.perf_counter() - t
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd_dq.launches = 0
-    fa.flash_bwd_dkv.launches = 0
+    _zero_flash()
     times = []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         losses.append(step(batch)["loss"].item())  # waits for the step
         times.append(time.perf_counter() - t)
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_bwd_dq": fa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    launches = _flash_launches()
     peak = torch.cuda.max_memory_allocated()
 
     _require(all(np.isfinite(losses)), f"training losses {losses}")
@@ -2428,7 +2479,6 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
 
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.horovod import log_to_driver
-    from sparkdl_tpu_torch.ops import flash_attention as fa
 
     tr = _gang_trainer(cfg, batch, seed, device)
     ready_s = tr.ready_at - started
@@ -2436,9 +2486,7 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
     named, opt, step, mine = tr.named, tr.opt, tr.step, tr.mine
     device, on_card, sync = tr.device, tr.on_card, tr.sync
     losses = [step(mine)["loss"].item() for _ in range(warmup)]
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd_dq.launches = 0
-    fa.flash_bwd_dkv.launches = 0
+    _zero_flash()
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     times = []
@@ -2447,28 +2495,17 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
         t = time.perf_counter()
         losses.append(step(mine)["loss"].item())  # waits for the step
         times.append(time.perf_counter() - t)
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_bwd_dq": fa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    launches = _flash_launches()
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
 
     # what the wrapped optimizer adds a step: the fused reduction of the
     # adapter gradients (cat, allreduce in place, copy back), then the
     # allreduce alone on a buffer of the same size
-    def host_ms(fn, runs=10):
-        spent = []
-        for _ in range(runs):
-            sync()
-            t = time.perf_counter()
-            fn()
-            sync()
-            spent.append(1e3 * (time.perf_counter() - t))
-        return statistics.median(spent)
-
     numel = sum(p.grad.numel() for _, p in named)
     flat = torch.zeros(numel, device=device)
-    sync_ms = host_ms(opt.synchronize)
-    allreduce_ms = host_ms(lambda: hvd.allreduce_(flat))
+    sync_ms = _host_ms(torch, opt.synchronize, device, warmup=0)
+    allreduce_ms = _host_ms(torch, lambda: hvd.allreduce_(flat), device,
+                            warmup=0)
     synchronized = hvd.check_synchronized([p for _, p in named],
                                           name="adapters")
     report = {
@@ -2676,7 +2713,6 @@ def resume_main(cfg, batch, steps, seed, device, ckpt_dir, kill_after,
 
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.horovod import restart_context
-    from sparkdl_tpu_torch.ops import flash_attention as fa
     from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
 
     tr = _gang_trainer(cfg, batch, seed, device)
@@ -2699,9 +2735,7 @@ def resume_main(cfg, batch, steps, seed, device, ckpt_dir, kill_after,
             tr.opt.state[p][k].device == p.device
             for _, p in tr.named for k in ("exp_avg", "exp_avg_sq"))
         start = ckpt.last_restored_step + 1
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd_dq.launches = 0
-    fa.flash_bwd_dkv.launches = 0
+    _zero_flash()
     losses, times, saves, first_step_at = [], [], [], None
     for s in range(start, steps):
         tr.sync()
@@ -2729,9 +2763,7 @@ def resume_main(cfg, batch, steps, seed, device, ckpt_dir, kill_after,
         "ready_at": tr.ready_at, "built_at": tr.built_at,
         "restored_at": restored_at, "first_step_at": first_step_at,
         "saves": saves,
-        "launches": {"flash_fwd": fa.flash_fwd.launches,
-                     "flash_bwd_dq": fa.flash_bwd_dq.launches,
-                     "flash_bwd_dkv": fa.flash_bwd_dkv.launches},
+        "launches": _flash_launches(),
         "adapter_sha256": (_adapter_digest(tr.named) if hvd.rank() == 0
                            else None),
     }
@@ -2861,6 +2893,524 @@ def gang_resume(torch, gang):
     return report
 
 
+def _gang_device(torch, mesh, device):
+    """The card a gang rank bound (its mesh's), or the device named."""
+    return mesh.device if mesh.device is not None else torch.device(device)
+
+
+def _host_ms(torch, fn, device, runs=10, warmup=2):
+    """Median host ms of ``fn`` between two synchronizes of ``device``,
+    after ``warmup`` calls (every rank of a gang calls it together)."""
+    spent = []
+    for _ in range(runs + warmup):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        spent.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(spent[warmup:])
+
+
+def _count_hops(torch, mesh, device):
+    """Record each neighbour exchange the rings issue on ``mesh`` (its
+    ``ppermute_start`` wrapped): its tensors' dtypes and the host ms
+    spent in it, in the issue and in the wait. Returns the list of
+    records. On the card each part starts and ends with a synchronize,
+    so compute queued before it is not counted; a host-staged hop's
+    copies to and from pageable host memory synchronize the stream
+    anyway, so the step keeps its order. What is counted is the hop's
+    exposed time: staging the blocks to the host, and what is left of
+    the transfer once the compute between issue and wait is done."""
+    calls = []
+    issue = mesh.ppermute_start
+
+    def timed(fn):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def counted(tensors, axis):
+        tensors = tuple(tensors)
+        call = {"dtypes": [str(t.dtype) for t in tensors]}
+        calls.append(call)
+        pending, call["ms"] = timed(lambda: issue(tensors, axis))
+        wait = pending.wait
+
+        def timed_wait():
+            out, ms = timed(wait)
+            call["ms"] += ms
+            return out
+
+        pending.wait = timed_wait
+        return pending
+
+    mesh.ppermute_start = counted
+    return calls
+
+
+def _hops_a_tensor(calls):
+    """Hops a tensor of the recorded exchanges: K/V (the activations'
+    bf16) and the dk/dv accumulators (fp32), each exchanged in pairs."""
+    flat = [d for call in calls for d in call["dtypes"]]
+    return {"kv": flat.count("torch.bfloat16") / 2,
+            "acc": flat.count("torch.float32") / 2}
+
+
+def _hop_ms(calls):
+    """Exposed host ms of the recorded exchanges: those of K/V alone,
+    and those carrying the fp32 accumulators (with or without the next
+    K/V pair)."""
+    acc = [c["ms"] for c in calls if "torch.float32" in c["dtypes"]]
+    return {"kv_only": sum(c["ms"] for c in calls) - sum(acc),
+            "with_acc": sum(acc)}
+
+
+def _seq_weights(torch, model, gen):
+    """Phase 15's weights: ``init_weights`` from ``gen``, then every
+    ``lora_b`` normal(0.02) from it too, so every adapter has a
+    gradient at step 0."""
+    from sparkdl_tpu_torch.models.llama import init_weights
+
+    init_weights(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def seq_main(cfg, batch, steps, seed, device, started):
+    """Every rank of phase 15: ``make_mesh(MeshSpec(seq=size))``, the LoRA
+    Llama of ``cfg`` with ``attention_fn`` the mesh's ring attention
+    (flash on the card), rank 0's weights replicated, AdamW on the
+    adapters in ``hvd.DistributedOptimizer``, the fused loss, this rank's
+    columns of ``batch`` and their positions. Step 0's loss and averaged
+    adapter gradients under both hop schedules (no update); the hops of
+    one forward; then ``steps`` steps, flash counters and hops recorded
+    from zero; the K/V and accumulator hops timed at the ring's shapes.
+    Rank 0 returns every rank's report (its gradients in rank 0's)."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from sparkdl_tpu_torch.parallel.ring_attention import make_ring_attention
+    from sparkdl_tpu_torch.parallel.train import (
+        make_lm_loss_fn,
+        make_train_step,
+        replicate,
+        shard_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    mesh = make_mesh(MeshSpec(seq=size))
+    dev = _gang_device(torch, mesh, device)
+    on_card = dev.type == "cuda"
+    rings = {ov: make_ring_attention(mesh, overlap=ov) for ov in (True, False)}
+    schedule = {"overlap": True}
+    model = Llama(cfg, device=dev, attention_fn=lambda q, k, v: rings[
+        schedule["overlap"]](q, k, v))
+    _seq_weights(torch, model, _seeded(torch, seed + rank, dev))
+    replicate(model)  # rank 0's weights
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=named)
+    loss_fn = make_lm_loss_fn(model, loss="fused")
+    step = make_train_step(loss_fn, opt, param_mask=mask, device=dev)
+    mine = shard_batch(batch, mesh, seq_axis=True)
+    on_dev = {k: torch.as_tensor(v, device=dev) for k, v in mine.items()}
+    hops = _count_hops(torch, mesh, dev)
+
+    # step 0 under both schedules: the loss and the averaged gradients
+    step0 = {}
+    for overlap in (True, False):
+        schedule["overlap"] = overlap
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(on_dev)
+        loss.backward()
+        opt.synchronize()
+        step0[overlap] = (loss.detach().clone(),
+                          {n: p.grad.detach().clone() for n, p in named})
+    schedule["overlap"] = True
+    identical = bool(torch.equal(step0[True][0], step0[False][0])) and all(
+        torch.equal(step0[True][1][n], step0[False][1][n]) for n, _ in named)
+    opt.zero_grad(set_to_none=True)
+    hops.clear()
+    with torch.no_grad():
+        loss_fn(on_dev)
+    forward_hops = _hops_a_tensor(hops)
+
+    hops.clear()
+    _zero_flash()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for _ in range(steps):
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        losses.append(step(mine)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+    launches = _flash_launches()
+    step_hops = _hops_a_tensor(hops)
+    step_hop_ms = {k: ms / steps for k, ms in _hop_ms(hops).items()}
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    synchronized = hvd.check_synchronized([p for _, p in named],
+                                          name="adapters")
+
+    # one hop of each kind at the ring's shapes: the K/V pair (repeated
+    # to the query heads) and the fp32 dk/dv pair
+    hd = cfg.d_model // cfg.n_heads
+    kv = torch.zeros((1, on_dev["inputs"].shape[1], cfg.n_heads, hd),
+                     dtype=cfg.dtype, device=dev)
+    acc = kv.float()
+    hop_ms = {"kv": _host_ms(torch, lambda: mesh.ppermute_start(
+                  (kv, kv), "seq").wait(), dev),
+              "acc": _host_ms(torch, lambda: mesh.ppermute_start(
+                  (acc, acc), "seq").wait(), dev)}
+    report = {
+        "rank": rank, "size": size, "backend": _state.state().backend,
+        "device": str(dev), "ready_s": ready_s,
+        "tokens": int(on_dev["inputs"].numel()),
+        "positions": [int(on_dev["positions"].min()),
+                      int(on_dev["positions"].max())],
+        "step0_loss": step0[True][0].item(),
+        "schedules_bit_identical": identical,
+        "forward_hops": forward_hops, "step_hops": step_hops,
+        "losses": losses, "step_ms": [1e3 * x for x in times],
+        "step_ms_median": 1e3 * statistics.median(times),
+        "launches": launches, "peak_mem_gb": peak / 1e9,
+        "synchronized": synchronized, "adapter_sha256": _adapter_digest(named),
+        "hop_ms": hop_ms, "step_hop_ms": step_hop_ms,
+        "step0_grads": ({n: g.cpu() for n, g in step0[True][1].items()}
+                        if rank == 0 else None)}
+    return hvd.allgather_object(report)
+
+
+def _check_seq_ranks(ranks, cfg, steps):
+    """Phase 15's per-rank checks: each rank's flash counters at one call
+    a live hop a layer a step (rank r has r + 1 live hops: its own block
+    and the earlier ranks'), the hops a tensor (a forward n - 1 of K/V; a
+    step 2(n - 1) of K/V and n of the accumulators, a layer), both
+    schedules bit-identical, finite falling losses, the adapters the same
+    on every rank."""
+    n = len(ranks)
+    for r in ranks:
+        live = cfg.n_layers * (r["rank"] + 1) * steps
+        _require(r["launches"] == dict.fromkeys(r["launches"], live),
+                 f"phase 15 rank {r['rank']}: launches {r['launches']}, want "
+                 f"{live} of each ({r['rank'] + 1} live hops a layer)")
+        want = {"kv": (n - 1) * cfg.n_layers, "acc": 0}
+        _require(r["forward_hops"] == want,
+                 f"phase 15 rank {r['rank']}: a forward's hops "
+                 f"{r['forward_hops']}, want {want}")
+        want = {"kv": 2 * (n - 1) * cfg.n_layers * steps,
+                "acc": n * cfg.n_layers * steps}
+        _require(r["step_hops"] == want,
+                 f"phase 15 rank {r['rank']}: hops in {steps} steps "
+                 f"{r['step_hops']}, want {want}")
+        _require(r["schedules_bit_identical"],
+                 f"phase 15 rank {r['rank']}: overlap=True and False differ")
+        _require(all(np.isfinite(r["losses"]))
+                 and r["losses"][-1] < r["losses"][0],
+                 f"phase 15 rank {r['rank']}: losses {r['losses']}")
+        _require(r["synchronized"] is True
+                 and r["adapter_sha256"] == ranks[0]["adapter_sha256"],
+                 f"phase 15 rank {r['rank']}: adapters differ across ranks")
+
+
+def seq_parallel(torch):
+    """Phase 15: HorovodRunner(np=GANG_NP["15"]) ranks of
+    :func:`seq_main` sharing the card, one sequence of SEQ_TOKENS; step
+    0's loss and adapter gradients against one process running the whole
+    sequence through ``flash_attention`` (B1-B3) on the same weights."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.train import global_batch, make_lm_loss_fn
+
+    cfg = _train_cfg(n_layers=GANG_SHARED_DEPTH)
+    batch = global_batch(np.random.default_rng(SEED + 15), cfg.vocab_size, 1,
+                         SEQ_TOKENS)
+    t = time.perf_counter()
+    ranks = HorovodRunner(np=GANG_NP["15"]).run(
+        seq_main, cfg=cfg, batch=batch, steps=SEQ_STEPS, seed=SEED,
+        device=DEVICE, started=time.time())
+    run_wall_s = time.perf_counter() - t
+    size = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(size))
+             and size == max(-GANG_NP["15"], 1),
+             f"phase 15: ranks {[r['rank'] for r in ranks]}")
+    _require([r["tokens"] for r in ranks] == [SEQ_TOKENS // size] * size,
+             f"phase 15: tokens a rank {[r['tokens'] for r in ranks]}")
+    if GANG_NP["15"] <= -2 and DEVICE == "cuda":
+        _require(all(r["backend"] == "gloo" for r in ranks),
+                 f"phase 15: backends {[r['backend'] for r in ranks]}, "
+                 "want gloo for ranks sharing a card")
+    _check_seq_ranks(ranks, cfg, SEQ_STEPS)
+
+    # the whole sequence in one process, the kernels' attention
+    model = _seq_weights(torch, Llama(cfg, device=DEVICE),
+                         _seeded(torch, SEED))
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    loss = make_lm_loss_fn(model, loss="fused")(
+        {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()})
+    loss.backward()
+    whole = loss.item()
+    # the global loss is the mean of the ranks' (equal shards)
+    ring = float(np.mean([r["step0_loss"] for r in ranks]))
+    # Tolerances, stated before the first run: the loss within 1e-2
+    # absolute, each adapter gradient within 2^-5 of its norm (phase 6's
+    # footing). The ring rounds each hop's partial output to bf16 before
+    # its fp32 merge, where the whole sequence rounds once.
+    report = {"np": GANG_NP["15"], "n_layers": cfg.n_layers,
+              "seq_tokens": SEQ_TOKENS, "size": size, "run_wall_s": run_wall_s,
+              "step0_loss": ring, "whole_loss": whole,
+              "loss_abs_err": abs(ring - whole), "loss_tol": 1e-2,
+              "grads": {}}
+    _require(np.isfinite(ring) and abs(ring - whole) <= 1e-2,
+             f"phase 15: step 0's loss {ring} on the ring vs {whole} whole")
+    got = ranks[0]["step0_grads"]
+    for name, p in named:
+        ref = p.grad.detach().cpu()
+        rel = ((got[name] - ref).norm() / ref.norm()).item()
+        report["grads"][name] = {"rel_norm_err": rel,
+                                 "max_abs_err": (got[name] - ref).abs()
+                                 .max().item()}
+        _require(ref.norm() > 0 and rel <= 2.0 ** -5,
+                 f"phase 15 {name}: ring vs whole, relative error {rel}")
+    del model, named, loss
+    report["worst_grad_rel_norm_err"] = max(
+        g["rel_norm_err"] for g in report["grads"].values())
+    step_s = statistics.median([x for r in ranks for x in r["step_ms"]]) / 1e3
+    report.update({
+        "step_ms_median": 1e3 * step_s,
+        "tokens_per_s": SEQ_TOKENS / step_s,
+        # one hop of a pair timed alone (both ranks hopping, nothing
+        # else running)
+        "hop_ms": ranks[0]["hop_ms"],
+        # the hops' exposed ms inside the timed steps, a rank, and their
+        # share of the rank's median step
+        "step_hop_ms": [r["step_hop_ms"] for r in ranks],
+        "hop_share_of_step": [sum(r["step_hop_ms"].values())
+                              / r["step_ms_median"] for r in ranks],
+        "launches": {k: sum(r["launches"][k] for r in ranks)
+                     for k in ranks[0]["launches"]},
+        "ranks": [{k: v for k, v in r.items() if k != "step0_grads"}
+                  for r in ranks]})
+    _log("seq_parallel " + json.dumps(
+        {k: v for k, v in report.items() if k != "grads"}))
+    return report
+
+
+def _pipe_blocks(torch, cfg, n_blocks, gen, device):
+    """``n_blocks`` decoder blocks of ``cfg`` drawn in order from ``gen``
+    (norm scales ones, every other weight normal(0.02)), every weight
+    trainable."""
+    from sparkdl_tpu_torch.models.llama import Block
+
+    blocks = []
+    for _ in range(n_blocks):
+        block = Block(cfg, device)
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if name.endswith("scale"):
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, 0.02, generator=gen)
+                p.requires_grad_(True)
+        blocks.append(block)
+    return blocks
+
+
+def pipe_main(cfg, n_micro, seq, n_blocks, seed, device, started):
+    """Every rank of phase 16: a ``stage`` mesh over the gang, every
+    block of the model drawn from the shared seed and this rank's stage
+    kept (n_blocks / size blocks, the stage function applying them in
+    order); the microbatches (n_micro, 1, seq, d_model) bf16 from the
+    seed. First the blocks in order on each microbatch in this process
+    (the reference: outputs and this stage's weight gradients of the
+    loss sum(out^2)); then the pipeline under each schedule, counters
+    zeroed just before and read just after; then both timed in turns
+    (True, False, False, True) and one hop timed at the activation's
+    shape. Rank 0 returns every rank's report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.llama import rope_freqs
+    from sparkdl_tpu_torch.parallel.mesh import make_named_mesh
+    from sparkdl_tpu_torch.parallel.pipeline import make_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    mesh = make_named_mesh("stage")
+    dev = _gang_device(torch, mesh, device)
+    on_card = dev.type == "cuda"
+    per = n_blocks // size
+    blocks = _pipe_blocks(torch, cfg, n_blocks, _seeded(torch, seed, dev), dev)
+    mine = blocks[rank * per:(rank + 1) * per]
+    cos, sin = rope_freqs(cfg.d_model // cfg.n_heads, seq, cfg.rope_theta,
+                          cfg.rope_scaling, device=dev)
+    positions = torch.arange(seq, device=dev)[None]
+    micro = torch.randn((n_micro, 1, seq, cfg.d_model),
+                        generator=_seeded(torch, seed + 16, dev),
+                        device=dev).to(cfg.dtype)
+    ticks = [0]
+
+    def stage_fn(stage, x):
+        ticks[0] += 1
+        for block in stage:
+            x = block(x, cos, sin, positions)
+        return x
+
+    def weights():
+        return [p for block in mine for p in block.parameters()]
+
+    def run(fn):
+        for block in blocks:
+            block.zero_grad(set_to_none=True)
+        out = fn()
+        (out.float() ** 2).sum().backward()
+        return out.detach(), [p.grad.detach().clone() for p in weights()]
+
+    def sequential():
+        outs = []
+        for i in range(n_micro):
+            x = micro[i]
+            for block in blocks:
+                x = block(x, cos, sin, positions)
+            outs.append(x)
+        return torch.stack(outs)
+
+    ref_out, ref_grads = run(sequential)
+    del blocks[:rank * per], blocks[per:]  # keep this stage's only
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    pipes = {ov: make_pipeline(mesh, stage_fn, overlap=ov)
+             for ov in (True, False)}
+    got, launches, n_ticks = {}, {}, {}
+    for overlap in (True, False):
+        _zero_flash()
+        ticks[0] = 0
+        got[overlap] = run(lambda: pipes[overlap](mine, micro))
+        if on_card:
+            torch.cuda.synchronize(dev)
+        launches[str(overlap)] = _flash_launches()
+        n_ticks[str(overlap)] = ticks[0]
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    identical = bool(torch.equal(got[True][0], got[False][0])) and all(
+        torch.equal(a, b) for a, b in zip(got[True][1], got[False][1]))
+    out, grads = got[True]
+    # Tolerances, stated before the first run: the same kernels on the
+    # same inputs in one process, so the outputs within one bf16 ulp;
+    # each weight's gradient, a bf16 sum over the microbatches, within
+    # 2^-5 of its norm.
+    ulp = _bf16_ulp(torch, ref_out.float())
+    out_err = (out.float() - ref_out.float()).abs()
+    grad_err = [((g.float() - r.float()).norm()
+                 / r.float().norm().clamp_min(1e-30)).item()
+                for g, r in zip(grads, ref_grads)]
+    step_ms = {"True": [], "False": []}
+    for overlap in (True, False, False, True):
+        step_ms[str(overlap)].append(_host_ms(
+            torch, lambda: run(lambda: pipes[overlap](mine, micro)), dev,
+            runs=1, warmup=0))
+    hop = micro[0].clone()
+    report = {
+        "rank": rank, "size": size, "backend": _state.state().backend,
+        "device": str(dev), "ready_s": ready_s, "ticks": n_ticks,
+        "launches": launches, "schedules_bit_identical": identical,
+        "out_max_abs_err": out_err.max().item(),
+        "out_worst_err_over_ulp": (out_err / ulp).max().item(),
+        "out_bit_identical": bool(torch.equal(out, ref_out)),
+        "grad_rel_norm_err": max(grad_err),
+        "grads_bit_identical": all(torch.equal(g, r)
+                                   for g, r in zip(grads, ref_grads)),
+        "grads_nonzero": all(bool(r.abs().sum() > 0) for r in ref_grads),
+        "n_weights": len(grads), "step_ms": step_ms,
+        "hop_ms": _host_ms(torch, lambda: mesh.ppermute(hop, "stage"), dev),
+        "peak_mem_gb": peak / 1e9}
+    return hvd.allgather_object(report)
+
+
+def pipeline(torch):
+    """Phase 16: HorovodRunner(np=GANG_NP["16"]) ranks of :func:`pipe_main`
+    sharing the card; each rank's outputs and stage gradients against the
+    blocks in order, both schedules bit-identical, the ticks and the
+    flash launches as the schedules predict."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(attention="flash")
+    t = time.perf_counter()
+    ranks = HorovodRunner(np=GANG_NP["16"]).run(
+        pipe_main, cfg=cfg, n_micro=PIPE_MICROBATCHES, seq=PIPE_SEQ,
+        n_blocks=PIPE_BLOCKS, seed=SEED, device=DEVICE, started=time.time())
+    run_wall_s = time.perf_counter() - t
+    n = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(n))
+             and n == max(-GANG_NP["16"], 1),
+             f"phase 16: ranks {[r['rank'] for r in ranks]}")
+    per = PIPE_BLOCKS // n
+    m = PIPE_MICROBATCHES
+    want_ticks = {"True": m + 2 * (n - 1), "False": m + n - 1}
+    for r in ranks:
+        who = f"phase 16 rank {r['rank']}"
+        _require(r["ticks"] == want_ticks,
+                 f"{who}: ticks {r['ticks']}, want {want_ticks}")
+        for overlap, ticks in want_ticks.items():
+            # every tick runs the stage's blocks forward and backward
+            want = per * ticks
+            _require(r["launches"][overlap] == dict.fromkeys(
+                r["launches"][overlap], want),
+                f"{who} overlap={overlap}: launches "
+                f"{r['launches'][overlap]}, want {want} of each")
+        _require(r["schedules_bit_identical"],
+                 f"{who}: overlap=True and False differ")
+        _require(r["out_worst_err_over_ulp"] <= 1.0,
+                 f"{who}: outputs {r['out_worst_err_over_ulp']} bf16 ulps "
+                 "from the blocks in order")
+        _require(r["grads_nonzero"] and r["grad_rel_norm_err"] <= 2.0 ** -5,
+                 f"{who}: stage gradients, relative error "
+                 f"{r['grad_rel_norm_err']}")
+    step_ms = {ov: statistics.median([x for r in ranks
+                                      for x in r["step_ms"][ov]])
+               for ov in ("True", "False")}
+    report = {
+        "np": GANG_NP["16"], "stages": n, "blocks_a_stage": per,
+        "microbatches": m, "seq": PIPE_SEQ, "run_wall_s": run_wall_s,
+        "step_ms_median": step_ms,
+        "bubble_share": {ov: (t - m) / t for ov, t in want_ticks.items()},
+        "hop_ms": statistics.median(r["hop_ms"] for r in ranks),
+        "launches": {k: sum(r["launches"][ov][k] for r in ranks
+                            for ov in ("True", "False"))
+                     for k in ranks[0]["launches"]["True"]},
+        "ranks": ranks}
+    _log("pipeline " + json.dumps(report))
+    return report
+
+
 def _count_collectives(mesh):
     """Count the calls of ``mesh``'s collectives (its instance methods
     wrapped: the model and the engine call them through this mesh);
@@ -2971,7 +3521,7 @@ def tp_main(cfg, n_requests, device, started):
     ready_s = time.time() - started
     rank, size = hvd.rank(), hvd.size()
     mesh = make_mesh(MeshSpec(model=size))
-    dev = mesh.device if mesh.device is not None else torch.device(device)
+    dev = _gang_device(torch, mesh, device)
     t = time.perf_counter()
     full = random_quant_llama(torch, cfg, _seeded(torch, SEED, dev), dev)
     depth2 = _tp_depth2(torch, full, mesh, dev, rank)
@@ -3198,6 +3748,12 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     gang_resumed = gang_resume(torch, gang)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = seq_parallel(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = pipeline(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -3216,7 +3772,9 @@ def main(argv=None):
                     "9a": gang["launches"][name],
                     "9b": sum(r["launches"][name]
                               for r in gang_shared["ranks"]),
-                    "9c": gang_resumed["launches"][name]}
+                    "9c": gang_resumed["launches"][name],
+                    "15": seq["launches"][name],
+                    "16": pipe["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -3311,6 +3869,7 @@ def main(argv=None):
                        "remat": remat_rows, "gang": gang,
                        "gang_shared": gang_shared,
                        "gang_resume": gang_resumed,
+                       "seq_parallel": seq, "pipeline": pipe,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

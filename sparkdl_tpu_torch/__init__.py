@@ -17,7 +17,10 @@ fine-tuning of it
 (``parallel.train.make_train_step`` over ``models.lora``); and the
 HorovodRunner contract over ``torch.distributed`` (``HorovodRunner``,
 the ``hvd`` collectives and ``hvd.DistributedOptimizer``), which runs
-that fine-tuning data-parallel on a gang of workers, with train
+that fine-tuning data-parallel on a gang of workers, or
+sequence-parallel (``parallel.ring_attention``: ring and ring-flash
+attention, a rank a sequence shard) and stage by stage
+(``parallel.pipeline``: the GPipe pipeline), with train
 checkpoints (``utils.checkpoint.TrainCheckpointer``) and supervised
 restarts (``horovod.supervisor``, ``horovod.restart_context``): a gang
 that loses a worker is launched again and resumes from its latest

@@ -9,10 +9,14 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
 - activations and dense weights in ``cfg.dtype`` (bf16), RoPE, norms
   and softmax in fp32, the ``lm_head`` in fp32 over fp32 activations;
 - training (``decode=False``): the whole sequence at positions
-  ``0..S-1``, GQA by repeating each kv head over its query heads, then
-  dense attention (``attention="reference"``) or the flash kernels
+  ``0..S-1`` (or the ``positions`` given: a sequence shard's start at
+  its offset), GQA by repeating each kv head over its query heads, then
+  dense attention (``attention="reference"``), the flash kernels
   (``attention="flash"``,
-  :func:`sparkdl_tpu_torch.ops.attention.flash_attention`);
+  :func:`sparkdl_tpu_torch.ops.attention.flash_attention`) or, when
+  given, ``attention_fn(q, k, v)`` in place of both (ring attention
+  under sequence parallelism,
+  :func:`sparkdl_tpu_torch.parallel.ring_attention.make_ring_attention`);
   LoRA adapters (``lora_rank > 0``) on the ``lora_targets`` projections,
   every other weight frozen; ``remat`` recomputes each block in the
   backward;
@@ -56,9 +60,9 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
   (the engine passes
   :func:`~sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode_sharded`).
 
-MoE and injected attention functions (ring attention) are not ported
-yet: each raises NotImplementedError by name. The TPU's kernel-mode
-fields (``paged_kernel``, ``quant_kernel``) are not fields here.
+MoE is not ported yet: ``n_experts`` raises NotImplementedError by
+name. The TPU's kernel-mode fields (``paged_kernel``, ``quant_kernel``)
+are not fields here.
 """
 
 import dataclasses
@@ -368,6 +372,7 @@ class Attention(nn.Module):
         self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads
         self.tp = None
         self.paged_fn = None
+        self.attention_fn = None
         hd = cfg.d_model // cfg.n_heads
         self.q_proj = _dense(cfg, cfg.d_model, cfg.n_heads * hd, device,
                              "q_proj")
@@ -406,7 +411,9 @@ class Attention(nn.Module):
             if rep > 1:
                 k = k.repeat_interleave(rep, dim=2)
                 v = v.repeat_interleave(rep, dim=2)
-            if cfg.attention == "flash":
+            if self.attention_fn is not None:
+                o = self.attention_fn(q, k, v)
+            elif cfg.attention == "flash":
                 o = _attention.flash_attention(q, k, v, causal=True)
             else:
                 o = _ring.attention_reference(q, k, v, causal=True)
@@ -488,14 +495,12 @@ class Llama(nn.Module):
     ``TRANSFORMER_RULES``; :attr:`tp_specs` after construction), and
     computes on this rank's heads. ``paged_attention_fn(q, k_pool,
     v_pool, tables, lens)`` takes the place of the single-token paged
-    decode call."""
+    decode call; ``attention_fn(q, k, v)`` (B, S, H, D each, kv heads
+    repeated) that of the training forward's attention."""
 
     def __init__(self, cfg, device=None, *, attention_fn=None,
                  paged_attention_fn=None, mesh=None, rules=None):
         super().__init__()
-        if attention_fn is not None:
-            raise NotImplementedError(
-                "attention_fn (ring attention) is not ported yet")
         device = resolve_device(device)
         self.cfg = cfg
         tp = mesh is not None and mesh.axis_size("model") > 1
@@ -519,6 +524,7 @@ class Llama(nn.Module):
             self._shard(mesh, rules, device)
         for layer in self.layers:
             layer.attn.paged_fn = paged_attention_fn
+            layer.attn.attention_fn = attention_fn
         self._rope = {}  # device -> (cos, sin), built at first use
 
     def _shard(self, mesh, rules, device):
@@ -550,7 +556,7 @@ class Llama(nn.Module):
             sharding.split_dims(self.tp_specs["embed.embedding"],
                                  mesh.shape))
         self.mesh = mesh
-        self.tp = _TP(mesh, mesh.axis_rank("model"), size)
+        self.tp = _TP(mesh, mesh.axis_index("model"), size)
         self.n_kv_heads = cfg.n_kv_heads // size
         for layer in self.layers:
             layer.attn.tp = layer.mlp.tp = self.tp
@@ -710,10 +716,15 @@ class Llama(nn.Module):
                     "block_tables and cache belong to the decode path "
                     "(decode=True); the training forward takes tokens "
                     "(and positions) only")
+            # the table covers training (seq s) and cached decoding, and
+            # the largest position asked for: a sequence shard's
+            # positions start at its offset
+            length = max(s, cfg.max_cache_len)
             if positions is None:
                 positions = torch.arange(s, device=tokens.device)
-            # the table covers training (seq s) and cached decoding
-            length = max(s, cfg.max_cache_len)
+            else:
+                positions = torch.as_tensor(positions, device=tokens.device)
+                length = max(length, int(positions.max()) + 1)
         positions = torch.as_tensor(positions, device=tokens.device).long()
         if positions.ndim == 1 and positions.shape[0] == b and s == 1 \
                 and cfg.decode:

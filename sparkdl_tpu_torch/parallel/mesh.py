@@ -15,9 +15,14 @@ initialized default process group (a port gang, ``HorovodRunner``):
 each rank knows its coordinate on every axis and holds one process
 group per axis slice it belongs to, and a layer that needs a collective
 calls it by name on its axis (:meth:`Mesh.all_reduce`,
-:meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`). Ranks are laid out in
-row-major order of :meth:`MeshSpec.axis_sizes`, so the ``model`` axis
-varies fastest: the ranks of one tensor-parallel group are consecutive.
+:meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`, and the neighbour
+exchange of ring attention and the pipeline, :meth:`Mesh.ppermute`, the
+counterpart of ``lax.ppermute(x, axis, [(i, (i + 1) % n)])``). Ranks are
+laid out in row-major order of :meth:`MeshSpec.axis_sizes`, so the
+``model`` axis varies fastest: the ranks of one tensor-parallel group
+are consecutive. :func:`make_named_mesh` lays out one axis of any name (a
+pipeline's ``stage``), as the JAX tests build ``jax.sharding.Mesh(devices,
+("stage",))``.
 
 The collectives follow the gang's wire rule
 (:mod:`sparkdl_tpu_torch.hvd._state`): CUDA tensors go over NCCL when
@@ -31,6 +36,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from sparkdl_tpu_torch.hvd import _collectives, _state
@@ -77,8 +83,8 @@ class Mesh:
     def axis_size(self, axis):
         return self.shape.get(axis, 1)
 
-    def axis_rank(self, axis):
-        """This rank's coordinate on ``axis``."""
+    def axis_index(self, axis):
+        """This rank's coordinate on ``axis`` (``lax.axis_index``)."""
         return self.coords.get(axis, 0)
 
     def _group(self, axis):
@@ -122,6 +128,86 @@ class Mesh:
         dist.broadcast(w, src=ranks[0], group=group)
         return _collectives._off_wire(w, x)
 
+    def ppermute_start(self, tensors, axis):
+        """Issue the neighbour exchange of ``tensors`` on ``axis`` now:
+        each goes to the next coordinate and the previous coordinate's
+        arrive, all in one batch of sends and receives, all posted
+        before any is waited for (at n = 2 the next rank is also the
+        previous one). Returns a :class:`PendingPermute`; a ring
+        computes on the block it holds before it waits. Every rank of
+        the axis must issue the same exchanges in the same order."""
+        return self._exchange(tuple(tensors), axis, 1)
+
+    def ppermute(self, x, axis):
+        """``x`` of the previous coordinate on ``axis``: one hop of the
+        ring, differentiable (the gradient takes the reverse hop)."""
+        return self.ppermute_start((x,), axis).wait()[0]
+
+    def _exchange(self, tensors, axis, step):
+        entry = self.groups.get(axis)
+        if entry is None:
+            return PendingPermute(self, axis, step, tensors, tensors, ())
+        ranks, group = entry
+        n, c = len(ranks), self.coords[axis]
+        dst, src = ranks[(c + step) % n], ranks[(c - step) % n]
+        sent = [_collectives._on_wire(x) for x in tensors]
+        received = [torch.empty_like(w) for w in sent]
+        ops = []
+        for tag, (w, r) in enumerate(zip(sent, received)):
+            ops.append(dist.P2POp(dist.isend, w, dst, group, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, r, src, group, tag=tag))
+        works = dist.batch_isend_irecv(ops)
+        # the send buffers live until the exchange is waited for
+        return PendingPermute(self, axis, step, tensors, received,
+                              (works, sent))
+
+
+class PendingPermute:
+    """A neighbour exchange in flight (:meth:`Mesh.ppermute_start`).
+    :meth:`wait` returns what arrived, one tensor for each sent, in the
+    senders' dtypes and on their devices. When a sent tensor requires a
+    gradient, what arrived carries one back: its gradient takes the
+    reverse hop to the sender."""
+
+    def __init__(self, mesh, axis, step, tensors, received, inflight):
+        self._mesh, self._axis, self._step = mesh, axis, step
+        self._tensors, self._received = tensors, received
+        self._inflight = inflight
+
+    def wait(self):
+        if not self._inflight:
+            return tuple(self._received)  # a mesh of one: the input
+        works, _ = self._inflight
+        for work in works:
+            work.wait()
+        out = [_collectives._off_wire(r, x)
+               for r, x in zip(self._received, self._tensors)]
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in self._tensors):
+            out = _Arrived.apply(self._mesh, self._axis, self._step, out,
+                                 *self._tensors)
+        return tuple(out)
+
+
+class _Arrived(torch.autograd.Function):
+    """The autograd node of a hop: its outputs are what arrived (from
+    the previous coordinate), its inputs what this rank sent; the
+    gradient of an output is sent back to the previous coordinate, and
+    the gradient of an input arrives from the next one. Every rank runs
+    the same graph, so every rank's backward issues these reverse hops
+    in the same order."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, step, arrived, *sent):
+        ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        return tuple(arrived)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = tuple(g.contiguous() for g in grads)
+        back = ctx.mesh._exchange(grads, ctx.axis, -ctx.step).wait()
+        return (None, None, None, None, *back)
+
 
 def make_mesh(spec=None):
     """This rank's :class:`Mesh` over the initialized default process
@@ -130,19 +216,35 @@ def make_mesh(spec=None):
     group must call it, in the same order as its other collectives: each
     axis slice's process group is created collectively. Without a
     process group the world is this one rank."""
-    if dist.is_available() and dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
-    else:
-        world, rank = 1, 0
+    world, rank = _world()
     if spec is None:
         spec = MeshSpec(data=world)
     if spec.size != world:
         raise ValueError(f"MeshSpec {spec} needs {spec.size} ranks, the "
                          f"process group has {world}")
-    sizes = spec.axis_sizes()
+    return _build_mesh(AXES, spec.axis_sizes(), world, rank)
+
+
+def _world():
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def make_named_mesh(name):
+    """This rank's :class:`Mesh` with one axis, of any name, over the
+    whole process group (a pipeline's ``stage`` axis:
+    ``make_named_mesh("stage")``), as the JAX tests build
+    ``jax.sharding.Mesh(devices, ("stage",))``. Every rank must call
+    it, in the same order as its other collectives."""
+    world, rank = _world()
+    return _build_mesh((name,), (world,), world, rank)
+
+
+def _build_mesh(axis_names, sizes, world, rank):
     layout = np.arange(world).reshape(sizes)
     groups = {}
-    for i, axis in enumerate(AXES):
+    for i, axis in enumerate(axis_names):
         if sizes[i] == 1:
             continue
         # every slice along this axis, each its own group; all ranks
@@ -156,7 +258,7 @@ def make_mesh(spec=None):
     st = _state.state()
     device = st.device if st.device is not None and \
         st.device.type == "cuda" else None
-    return Mesh(AXES, sizes, rank, groups, device)
+    return Mesh(axis_names, sizes, rank, groups, device)
 
 
 def make_mesh_from_axes(axes):

@@ -217,7 +217,7 @@ def shard_params(params, specs, mesh):
             n, k = 1, 0
             for a in axes:
                 n *= axis_sizes[a]
-                k = k * axis_sizes[a] + mesh.axis_rank(a)
+                k = k * axis_sizes[a] + mesh.axis_index(a)
             block = leaf.shape[dim] // n
             index[dim] = slice(k * block, (k + 1) * block)
         part = leaf[tuple(index)]

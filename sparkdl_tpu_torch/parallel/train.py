@@ -10,8 +10,11 @@ parallelism is a gang's: :func:`shard_batch` gives each rank its rows of
 the global batch, :func:`replicate` copies the root's weights to every
 rank, and ``hvd.DistributedOptimizer`` averages the gradients at each
 step (the JAX package's mesh sharding and ``psum`` over the data axis).
-The mesh, tensor and sequence sharding and the telemetry wrappers are
-not ported yet.
+Sequence parallelism is a gang's too: :func:`shard_batch` with a mesh
+and ``seq_axis=True`` gives each rank its columns and their global
+positions, and the model attends across ranks through ring attention
+(``Llama(attention_fn=make_ring_attention(mesh))``). Tensor-parallel
+training and the telemetry wrappers are not ported yet.
 
 Usage (LoRA fine-tune)::
 
@@ -33,6 +36,17 @@ HorovodRunner ``main`` (every rank runs it)::
     opt = hvd.DistributedOptimizer(opt)       # before make_train_step
     step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask)
     metrics = step(shard_batch(global_batch(rng, vocab, 8, 2048)))
+
+Sequence-parallel, one sequence of 8192 tokens over two ranks::
+
+    mesh = make_mesh(MeshSpec(seq=2))         # after hvd.init()
+    model = Llama(cfg, attention_fn=make_ring_attention(mesh))
+    ...                                       # replicate, the optimizer
+    step = make_train_step(make_lm_loss_fn(model, loss="fused"), opt,
+                           param_mask=mask)
+    batch = shard_batch(global_batch(rng, vocab, 1, 8192), mesh,
+                        seq_axis=True)        # 4096 tokens and positions
+    metrics = step(batch)
 """
 
 import numpy as np
@@ -212,30 +226,59 @@ def make_lm_loss_fn(model, *, loss="logits", chunk=512, ce_bf16=False):
         device = next(model.parameters()).device
         inputs = torch.as_tensor(batch["inputs"], device=device)
         targets = torch.as_tensor(batch["targets"], device=device)
+        # a sequence shard's global positions (shard_batch(seq_axis=True))
+        positions = batch.get("positions")
         if loss == "fused":
-            hidden = model(inputs, return_hidden=True)
+            hidden = model(inputs, positions, return_hidden=True)
             return fused_cross_entropy(
                 hidden, model.lm_head.kernel, targets, chunk_size=chunk,
                 freeze_head=True,
                 matmul_dtype=torch.bfloat16 if ce_bf16 else None)
-        return cross_entropy_loss(model(inputs), targets)
+        return cross_entropy_loss(model(inputs, positions), targets)
 
     loss_fn.model = model
     return loss_fn
 
 
-def shard_batch(batch, *, rank=None, size=None):
-    """This rank's rows of a host global batch: the ``rank``-th of
-    ``size`` contiguous, equal slices of every array's leading axis
-    (``hvd.rank()`` and ``hvd.size()`` by default). Raises ValueError
-    when the rows do not split evenly. With equal slices and a loss that
-    is a mean over each slice's tokens, the gang's averaged gradient is
-    the global batch's."""
-    if rank is None or size is None:
-        from sparkdl_tpu_torch import hvd
+def shard_batch(batch, mesh=None, *, seq_axis=False, rank=None,
+                size=None):
+    """This rank's block of a host global batch.
 
-        rank = hvd.rank() if rank is None else rank
-        size = hvd.size() if size is None else size
+    Without ``mesh``: the ``rank``-th of ``size`` contiguous, equal
+    slices of every array's leading axis (``hvd.rank()`` and
+    ``hvd.size()`` by default). With ``mesh`` (the JAX package's
+    ``shard_batch(batch, mesh, seq_axis=...)``): the rows of this rank's
+    coordinate on ``data`` x ``fsdp`` (ranks that differ only on ``seq``
+    or ``model`` get the same rows); with ``seq_axis=True`` also the
+    ``seq`` coordinate's contiguous slice of the second axis of every
+    array that has one, and ``positions``, those columns' global
+    positions (rows, S_local) int64, which the model needs for RoPE and
+    ring attention for its causal mask. Raises ValueError when an axis
+    does not split evenly.
+
+    Why the gang's averaged gradient (``hvd.DistributedOptimizer``, a
+    mean over every rank) is the gradient of the global batch's mean
+    loss: the blocks are equal, so that loss is the mean of the ranks'
+    losses, each the mean over its own tokens, and its gradient is the
+    mean of the gradients of the ranks' losses. Each rank's gradient
+    holds every path through its own activations: under ring attention
+    a rank's loss also depends on the other ranks' keys and values, and
+    the ring's backward carries those shares to the rank that holds
+    them before its weights' gradients are formed."""
+    if mesh is None:
+        if seq_axis:
+            raise ValueError("seq_axis=True needs the mesh")
+        if rank is None or size is None:
+            from sparkdl_tpu_torch import hvd
+
+            rank = hvd.rank() if rank is None else rank
+            size = hvd.size() if size is None else size
+    else:
+        if rank is not None or size is not None:
+            raise ValueError("pass mesh or rank and size, not both")
+        rank = (mesh.axis_index("data") * mesh.axis_size("fsdp")
+                + mesh.axis_index("fsdp"))
+        size = mesh.axis_size("data") * mesh.axis_size("fsdp")
     if not 0 <= rank < size:
         raise ValueError(f"rank {rank} outside a gang of {size}")
     rows = {k: v.shape[0] for k, v in batch.items()}
@@ -244,7 +287,21 @@ def shard_batch(batch, *, rank=None, size=None):
         raise ValueError(f"a batch of {rows} rows does not split evenly "
                          f"over {size} ranks")
     per = n // size
-    return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+    out = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+    if not seq_axis:
+        return out
+    n_seq, idx = mesh.axis_size("seq"), mesh.axis_index("seq")
+    cols = {v.shape[1] for v in out.values() if v.ndim >= 2}
+    if len(cols) != 1 or next(iter(cols)) % n_seq:
+        raise ValueError(f"sequence lengths {sorted(cols)} do not split "
+                         f"evenly over seq={n_seq}")
+    s_local = next(iter(cols)) // n_seq
+    cut = slice(idx * s_local, (idx + 1) * s_local)
+    out = {k: v[:, cut] if v.ndim >= 2 else v for k, v in out.items()}
+    out["positions"] = np.broadcast_to(
+        np.arange(idx * s_local, (idx + 1) * s_local, dtype=np.int64),
+        (per, s_local)).copy()
+    return out
 
 
 def replicate(module, root_rank=0):

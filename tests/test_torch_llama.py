@@ -395,8 +395,19 @@ def test_unported_training_options_raise_by_name():
     with pytest.raises(ValueError, match="attention"):
         pt_llama.LlamaConfig.tiny(attention="ring")
     cfg = pt_llama.LlamaConfig.tiny(n_layers=1)
-    with pytest.raises(NotImplementedError, match="attention_fn"):
-        pt_llama.Llama(cfg, device="cpu", attention_fn=_jax_flash_fn)
+    # attention_fn is ported: it takes the training forward's attention,
+    # after the GQA repeat (ring attention rides on it)
+    seen = []
+
+    def attend(q, k, v):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return pt_llama._ring.attention_reference(q, k, v)
+
+    model = pt_llama.init_weights(pt_llama.Llama(
+        cfg, device="cpu", attention_fn=attend), torch.Generator())
+    model(torch.zeros((2, 4), dtype=torch.long))
+    hd = cfg.d_model // cfg.n_heads
+    assert seen == [((2, 4, cfg.n_heads, hd), (2, 4, cfg.n_heads, hd))]
     # paged_attention_fn is ported: it takes the single-token paged
     # decode's place (the tensor-parallel binding rides on it)
     from sparkdl_tpu_torch.ops import paged_attention as pt_paged

@@ -62,6 +62,11 @@ GANG_COUNTERPARTS = {
     "sparkdl_tpu_torch/parallel/sharding.py":
         "sparkdl_tpu/parallel/sharding.py",
     "sparkdl_tpu_torch/models/fleet.py": "sparkdl_tpu/models/fleet.py",
+    # sequence and pipeline parallelism
+    "sparkdl_tpu_torch/parallel/ring_attention.py":
+        "sparkdl_tpu/parallel/ring_attention.py",
+    "sparkdl_tpu_torch/parallel/pipeline.py":
+        "sparkdl_tpu/parallel/pipeline.py",
 }
 
 
@@ -105,6 +110,7 @@ def test_port_files_exist():
                  "sparkdl_tpu_torch/ops/attention.py",
                  "sparkdl_tpu_torch/parallel/train.py",
                  "sparkdl_tpu_torch/parallel/ring_attention.py",
+                 "sparkdl_tpu_torch/parallel/pipeline.py",
                  "sparkdl_tpu_torch/models/server.py",
                  "sparkdl_tpu_torch/models/speculative.py",
                  "sparkdl_tpu_torch/observe/metrics.py",
@@ -199,9 +205,50 @@ def test_training_entry_points_default_to_cuda(no_cuda):
 def test_tpu_and_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="flash_block"):
         pt_llama.LlamaConfig.llama3_8b(attention="flash", flash_block=64)
-    with pytest.raises(NotImplementedError, match="attention_fn"):
-        pt_llama.Llama(pt_llama.LlamaConfig.tiny(), device="cpu",
-                       attention_fn=lambda q, k, v: q)
+    # MoE is the one training option still refused (attention_fn is
+    # ported: ring attention)
+    with pytest.raises(NotImplementedError, match="n_experts"):
+        pt_llama.LlamaConfig.tiny(n_experts=4)
+
+
+def test_parallel_forms_are_ported_under_the_jax_names():
+    import sparkdl_tpu_torch.parallel as pt_parallel
+    from sparkdl_tpu_torch.parallel import pipeline, ring_attention
+
+    jax_names = {"sparkdl_tpu/parallel/ring_attention.py": (
+        "make_ring_attention", "ring_self_attention",
+        "ring_flash_attention"),
+        "sparkdl_tpu/parallel/pipeline.py": ("pipeline_apply",
+                                             "make_pipeline")}
+    for path, names in jax_names.items():
+        source = (REPO / path).read_text()
+        for name in names:
+            assert f"def {name}(" in source, name
+            assert callable(getattr(pt_parallel, name)), name
+    assert pt_parallel.make_pipeline is pipeline.make_pipeline
+    assert pt_parallel.ring_flash_attention is \
+        ring_attention.ring_flash_attention
+
+
+def test_ring_attention_takes_flash_for_cuda_tensors(monkeypatch):
+    """``impl=None`` follows the tensors' device at each call (the JAX
+    package's ``use_pallas()``): the flash ring for CUDA tensors, the
+    dense ring for CPU ones. No CUDA tensor exists here, so the rings
+    are stubbed and a stand-in carries the device."""
+    import types
+
+    from sparkdl_tpu_torch.parallel import ring_attention as ra
+    from sparkdl_tpu_torch.parallel.mesh import make_mesh
+
+    calls = []
+    for name in ("ring_flash_attention", "ring_self_attention"):
+        monkeypatch.setattr(ra, name, lambda q, k, v, _n=name, **kw:
+                            calls.append((_n, kw["axis_name"])))
+    attend = ra.make_ring_attention(make_mesh())
+    attend(*[types.SimpleNamespace(device=torch.device("cuda"))] * 3)
+    attend(*[torch.zeros(1)] * 3)
+    assert calls == [("ring_flash_attention", "seq"),
+                     ("ring_self_attention", "seq")]
 
 
 def test_chip_smoke_exits_nonzero_without_cuda(no_cuda, capsys):
