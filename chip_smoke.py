@@ -12,7 +12,9 @@ shared prefixes), then LoRA-fine-tune it at full width through
 and speculatively with its int8 weights as the draft, then as
 HorovodRunner gangs (one resumed from a checkpoint after its worker is
 killed), sequence-parallel over a ring of two ranks and as a two-stage
-pipeline, and show every run went through its kernels.
+pipeline; then serve and LoRA-fine-tune a Mixtral-8x7B-width mixture of
+experts (cut in depth) and run its expert layer expert-parallel over two
+ranks; and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -199,7 +201,32 @@ and on any failed check. Phases:
    its norm) against the four blocks in order in one process; both
    schedules bit-identical in outputs and gradients, 10 and 9 ticks, the
    flash counters at two calls a tick (forward, dq, dk/dv); ms a
-   pipeline step under each schedule, the bubble share and the hop's ms.
+   pipeline step under each schedule, the bubble share and the hop's ms;
+17. MoE serving: Mixtral-8x7B's widths (MIXTRAL: 8 experts, top-2,
+   vocab 32000, every layer MoE) at depth 16, int8 attention and head,
+   bf16 experts, fp32 routers, through
+   phase 3's paged engine on phase 3's requests; every request on its
+   budget, the paged decode at 16 and the int8 matmul at 65 launches a
+   decode step (and 65 a prefill), counted against the engine's counts;
+   decode ms a step beside the experts' byte bound, prefill ms,
+   tokens/s, peak; the depth-2 logits through the kernels against the
+   plain versions (phase 4's tolerance); phase 2 also times the int8
+   matmul at the head's N = 32000 on fp32 x (M 8 and 512);
+18. MoE LoRA training: the same widths at depth 8, LoRA rank 16 on q
+   and v, flash attention, batch 1 x 2048, CE + 0.01 x ``moe_aux_loss``,
+   AdamW on the adapters, a warm-up and 3 timed steps and one profiled:
+   the losses finite, each layer's load-balance loss in [top_k,
+   E x top_k], each flash counter at 8 x 3; ms a step, tokens/s, peak;
+   the depth-2 loss and adapter gradients through the kernels against
+   the plain versions (phase 6's tolerance);
+19. expert parallelism: ``HorovodRunner(np=-2)``, two ranks on the one
+   card (gloo), ``make_named_mesh("expert")``, one MoE layer at
+   Mixtral's width, 4 experts a rank; the psum form on 2 x 2048
+   replicated tokens and the all-to-all form on 2048 a rank, at no-drop
+   capacity (E / top_k) and at 1.25, forward and backward: outputs and
+   every rank's gradients against the single-process layer on the same
+   tokens within bf16 tolerance (at 1.25 the rows whose experts all won
+   a slot); ms a call by form and the collectives' host ms inside it.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -248,6 +275,9 @@ QMM_TP_SHAPES = [(8, 4096, 2048, "bf16"), (8, 4096, 512, "bf16"),
                  (8, 4096, 7168, "bf16"), (8, 2048, 4096, "bf16"),
                  (8, 7168, 4096, "bf16"), (8, 4096, 64128, "fp32"),
                  (512, 4096, 7168, "bf16"), (512, 7168, 4096, "bf16")]
+# the qmm shapes phase 17 adds: Mixtral's head (4096 -> 32000) on fp32
+# activations at a decode step (8 slots) and a 512-token prefill
+QMM_MOE_SHAPES = [(8, 4096, 32000, "fp32"), (512, 4096, 32000, "fp32")]
 # the paged decode's heads (q, kv) on phase 3's path and on a TP=2 rank
 PAGED_HEADS = [(32, 8), (16, 4)]
 
@@ -320,7 +350,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # phases 9a-9c: the np each HorovodRunner takes (a CPU rehearsal runs
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
-GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2}
+GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
+           "19": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -331,6 +362,19 @@ RESUME_KILL_AFTER = 1
 # (1 x PIPE_SEQ tokens each) and the decoder blocks split over the stages
 SEQ_TOKENS, SEQ_STEPS = 8192, 3
 PIPE_MICROBATCHES, PIPE_SEQ, PIPE_BLOCKS = 8, 2048, 4
+# phases 17-19: Mixtral-8x7B's published widths
+# (mistralai/Mixtral-8x7B-v0.1 config.json; arXiv:2401.04088 Table 1),
+# every layer MoE; 32 layers of bf16 experts (91.5 GB) exceed the card,
+# so phase 17 serves 16 layers and phase 18 trains 8; phase 18's batch
+# and steps; phase 19's tokens a rank (the
+# psum form takes every rank's), its tight capacity factor and timed
+# runs a form
+MIXTRAL = dict(vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+               d_ff=14336, rope_theta=1e6, rms_eps=1e-5, n_experts=8,
+               moe_top_k=2, moe_every=1)
+MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 16, 8
+MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
+EP_TOKENS, EP_CAPACITY, EP_RUNS = 2048, 1.25, 3
 
 
 class CheckFailed(RuntimeError):
@@ -546,36 +590,45 @@ def check_quantized_matmul(torch, timer, gen):
     rows = []
     for (m, k, n, xname, calls, per_layer), old_ms, old_host_us in zip(
             QMM_SHAPES, QMM_OLD_MS, QMM_OLD_HOST_US):
-        x, w_q, scales, checked = _qmm_case(torch, qmm, gen, m, k, n, xname)
-        xb = x.element_size()
-        nbytes = k * n + 4 * n + m * k * xb + m * n * xb
-        flops = 2 * m * k * n
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[xname])
-        row = {
-            **checked,
-            "calls_per_decode_step": calls, "per_layer": per_layer,
-            "ms": timer.ms(lambda: qmm.quantized_matmul(x, w_q, scales)),
-            "plain_ms": timer.ms(
-                lambda: qmm.quantized_matmul_reference(x, w_q, scales)),
-            "old_ms": old_ms,
-            "host_us": timer.host_us(
-                lambda: qmm.quantized_matmul(x, w_q, scales)),
-            "old_host_us": old_host_us,
-            "bound_ms": bound * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / PEAK_FLOPS[xname] else "operations"),
-        }
-        row["library_ms"], row["library_missing"] = int8pack_ms(
-            torch, timer, x, w_q, scales)
+        row = _qmm_timed_row(torch, timer, qmm, gen, m, k, n, xname)
+        row.update({"calls_per_decode_step": calls, "per_layer": per_layer,
+                    "old_ms": old_ms, "old_host_us": old_host_us})
         _log("qmm " + json.dumps(row))
         rows.append(row)
-        del x, w_q, scales
     # a generator of their own: the draws after phase 2 stay as they were
     tp_gen = _seeded(torch, SEED + 3)
     tp_rows = [_qmm_case(torch, qmm, tp_gen, *shape)[3]
                for shape in QMM_TP_SHAPES]
     _log("qmm_tp " + json.dumps(tp_rows))
-    return rows, tp_rows
+    moe_gen = _seeded(torch, SEED + 17)
+    moe_rows = [_qmm_timed_row(torch, timer, qmm, moe_gen, *shape)
+                for shape in QMM_MOE_SHAPES]
+    _log("qmm_moe " + json.dumps(moe_rows))
+    return rows, tp_rows, moe_rows
+
+
+def _qmm_timed_row(torch, timer, qmm, gen, m, k, n, xname):
+    """One int8 matmul case (:func:`_qmm_case`) timed beside its bound,
+    its plain version and the library call."""
+    x, w_q, scales, checked = _qmm_case(torch, qmm, gen, m, k, n, xname)
+    xb = x.element_size()
+    nbytes = k * n + 4 * n + m * k * xb + m * n * xb
+    flops = 2 * m * k * n
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[xname])
+    row = {
+        **checked,
+        "ms": timer.ms(lambda: qmm.quantized_matmul(x, w_q, scales)),
+        "plain_ms": timer.ms(
+            lambda: qmm.quantized_matmul_reference(x, w_q, scales)),
+        "host_us": timer.host_us(
+            lambda: qmm.quantized_matmul(x, w_q, scales)),
+        "bound_ms": bound * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / PEAK_FLOPS[xname] else "operations"),
+    }
+    row["library_ms"], row["library_missing"] = int8pack_ms(
+        torch, timer, x, w_q, scales)
+    return row
 
 
 def int4pack_ms(torch, timer, x, packed, scales, ref, mag):
@@ -797,7 +850,9 @@ def random_quant_llama(torch, cfg, gen, device=None):
     """Llama at ``cfg`` with weights drawn on ``device`` (default the
     card), normal with std 0.02, each projection quantized to int8
     (``cfg.quant="int8"``) or to int4 at ``cfg.quant_group``
-    (``"int4"``) as it is drawn, one matrix at a time. The same
+    (``"int4"``) as it is drawn, one matrix at a time; an MoE model's
+    stacked experts (normal, std 0.02) stay bf16 and its routers
+    (normal 0.02, bias zero) fp32. The same
     generator state on the same card type draws the same weights (phase
     13's ranks rebuild phase 3's)."""
     from sparkdl_tpu_torch.models.llama import Llama
@@ -830,6 +885,12 @@ def random_quant_llama(torch, cfg, gen, device=None):
                 p.copy_(w_q)
                 modules[owner].kernel_scale4.copy_(s)
                 del w, w_q, s
+            elif leaf in ("w_gate", "w_up", "w_down"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif owner.endswith("router") and leaf == "kernel":
+                p.normal_(0.0, 0.02, generator=gen)
+            elif owner.endswith("router") and leaf == "bias":
+                p.zero_()
             elif leaf not in ("kernel_scale", "kernel_scale4"):
                 raise CheckFailed(f"unexpected weight {name}")
     return model
@@ -1583,12 +1644,14 @@ def _train_cfg(**kw):
                                  lora_targets=("q_proj", "v_proj"), **kw)
 
 
-def profile_step(torch, step, batch, step_ms):
+def profile_step(torch, step, batch, step_ms, ops=()):
     """One more training step under ``torch.profiler`` (outside the
     counted window): device time by kernel name and their sum (one
     stream, so the device's busy time), with the idle share of an
     unprofiled step of ``step_ms`` (the profiled step's own wall time
-    carries the profiler's cost)."""
+    carries the profiler's cost); and the device ms of the kernels that
+    each operator named in ``ops`` launched (its calls in the forward
+    and the backward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1605,8 +1668,13 @@ def profile_step(torch, step, batch, step_ms):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    by_op = {e.key: e for e in prof.key_averages() if e.key in ops}
     summary = {"profiled_wall_ms": wall_ms, "step_ms": step_ms,
                "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+               "ops_device_ms": {
+                   k: getattr(e, "device_time_total",
+                              getattr(e, "cuda_time_total", 0)) / 1e3
+                   for k, e in by_op.items()},
                "kernels": [{"name": k[:160], "ms": ms, "count": n}
                            for k, (ms, n) in top]}
     _log("profile " + json.dumps({**summary,
@@ -3639,6 +3707,526 @@ def serve_tp(torch, phase3, phase3_tokens):
     return report
 
 
+def _mixtral_cfg(n_layers, **kw):
+    """Mixtral-8x7B's published widths (``mistralai/Mixtral-8x7B-v0.1``
+    config.json; arXiv:2401.04088 Table 1) as LlamaConfig fields, at a
+    cut depth."""
+    from sparkdl_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(n_layers=n_layers, **MIXTRAL, **kw)
+
+
+def serve_moe(torch):
+    """Phase 17: Mixtral-8x7B widths at depth MOE_SERVE_DEPTH, int8
+    attention and head (B5), bf16 experts, fp32 routers, through phase
+    3's paged engine on phase 3's requests in vocab 32000; launches
+    against the engine's counts, every request on its budget; then the
+    depth-2 logits through the kernels against the plain versions."""
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    cfg = _mixtral_cfg(MOE_SERVE_DEPTH, max_cache_len=2048, quant="int8")
+    t = time.perf_counter()
+    model = random_quant_llama(torch, cfg, _seeded(torch, SEED + 17))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    engine = ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
+                                      chunk=16, page_size=64, device=DEVICE)
+    prompts, budgets = _requests(cfg)
+    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    spent = _time_engine(torch, engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _require(launches.pop("quantized_matmul_int4") == 0,
+             "phase 17: the int8 run launched the int4 matmul")
+    _check_budgets(engine, results, rids, budgets, cfg.vocab_size, "17")
+    stats = dict(engine.stats)
+    L = cfg.n_layers
+    # a decode step: one paged decode a layer; q, k, v, o a layer and
+    # the head in int8 (the experts and the routers stay dense)
+    want = {"paged_attention_decode": L * stats["steps"],
+            "quantized_matmul": (4 * L + 1)
+            * (stats["steps"] + stats["prefill_segments"])}
+    for name, n in launches.items():
+        _require(n > 0 and n == want[name],
+                 f"phase 17 {name}: {n} launches, engine counts predict "
+                 f"{want[name]}")
+    decoded = sum(len(results[r]) for r in rids) - len(rids)
+    # the dense combine reads every expert of every layer each step
+    expert_bytes = (L * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+                    * torch.finfo(cfg.dtype).bits // 8)
+    report = {
+        "n_layers": L, "n_experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+        "vocab": cfg.vocab_size, "requests": len(rids), "n_slots": 8,
+        "page_size": 64, "chunk": 16, "init_s": init_s,
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "generated_tokens": int(decoded + len(rids)), "wall_s": wall,
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "expert_bytes_per_step": expert_bytes,
+        "expert_bound_ms_per_step": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "prefill_s": sum(spent["prefill"]),
+        "prefill_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
+        "prefill_ms_max": 1e3 * max(spent["prefill"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "stats": stats, "launches": launches,
+        "launches_per_decode_step": {"paged_attention_decode": L,
+                                     "quantized_matmul": 4 * L + 1},
+    }
+    # one MoE layer alone at the decode step's shape (8 slots), L2
+    # flushed: the layer's device ms beside its experts' byte bound
+    timer = Timer(torch)
+    x = torch.randn((8, 1, cfg.d_model), generator=_seeded(torch, SEED),
+                    device=DEVICE).to(cfg.dtype)
+    with torch.no_grad():
+        layer_ms = timer.ms(lambda: model.layers[0].moe_mlp(x))
+    report.update({"moe_layer_ms_at_decode": layer_ms,
+                   "moe_layers_ms_per_step": layer_ms * L})
+    del timer
+    _log("moe_serving " + json.dumps(report))
+    del engine
+    gc.collect()
+    report["logits"] = moe_vs_plain_model(torch, model)
+    return report
+
+
+@contextlib.contextmanager
+def _routes(masks, replay=False):
+    """Record every top-k expert choice the MoE code makes (its
+    ``_topk_mask`` calls) into ``masks``, in order; with ``replay``,
+    make each call return the next recorded mask instead, and count the
+    tokens whose own choice differed. The depth-2 checks run the plain
+    versions first, recording, then the kernels replaying: both paths
+    route alike, so the comparison measures the kernels. (A near-tie of
+    the router's top k that bf16 rounding decides otherwise moves a
+    token's whole expert output, and with it every later layer; the
+    package has no such switch.)"""
+    from sparkdl_tpu_torch.models import moe
+
+    own = moe._topk_mask
+    report = {"calls": 0, "tokens": 0, "routed_otherwise": 0}
+
+    def choose(probs, top_k):
+        mask = own(probs, top_k)
+        if not replay:
+            masks.append(mask)
+            return mask
+        want = masks[report["calls"]]
+        report["calls"] += 1
+        _require(want.shape == mask.shape,
+                 f"replayed routes: shape {tuple(mask.shape)}, recorded "
+                 f"{tuple(want.shape)}")
+        differ = (want != mask).any(-1)
+        report["tokens"] += differ.numel()
+        report["routed_otherwise"] += int(differ.sum())
+        return want
+
+    moe._topk_mask = choose
+    try:
+        yield report
+    finally:
+        moe._topk_mask = own
+    if replay:
+        _require(report["calls"] == len(masks),
+                 f"replayed {report['calls']} of {len(masks)} routes")
+
+
+def moe_vs_plain_model(torch, model):
+    """Phase 17's depth-2 check: phase 4's calls through the first two
+    layers of the MoE model, through the plain versions and then
+    through the kernels routed as the plain run routed
+    (:func:`_routes`), held to phase 4's tolerance; the share of tokens
+    whose own route differed is reported."""
+    small = _depth2(model, decode=True, page_size=64, n_pages=8)
+    masks = []
+    with torch.no_grad():
+        with plain_ops(), _routes(masks):
+            ref = _depth2_logits(torch, small, DEVICE, 4, SEED + 1)
+        with _routes(masks, replay=True) as routed:
+            got = _depth2_logits(torch, small, DEVICE, 4, SEED + 1)
+    report = {"calls": [_logits_row(torch, g, r, f"moe {_call_name(i)}")
+                        for i, (g, r) in enumerate(zip(got, ref))],
+              "routed_otherwise_share": routed["routed_otherwise"]
+              / routed["tokens"]}
+    _log("moe " + json.dumps(report))
+    return report
+
+
+def _moe_loss(model, per_layer):
+    """Phase 18's loss over ``model``: cross entropy + 0.01 x
+    ``moe_aux_loss`` of the step's router probabilities (composed by
+    the caller, as tests/models/test_moe_llama.py does), with
+    ``f.model``; each layer's load-balance loss goes to ``per_layer``."""
+    import torch
+
+    from sparkdl_tpu_torch.models.moe import load_balance_loss, moe_aux_loss
+    from sparkdl_tpu_torch.parallel.train import cross_entropy_loss
+
+    k = model.cfg.moe_top_k
+
+    def loss_fn(batch):
+        device = next(model.parameters()).device
+        inputs = torch.as_tensor(batch["inputs"], device=device)
+        targets = torch.as_tensor(batch["targets"], device=device)
+        logits, inter = model(inputs, return_intermediates=True)
+        per_layer[:] = [load_balance_loss(s["moe_mlp"]["router_probs"][0]
+                                          .detach(), k)
+                        for s in inter.values()]
+        return (cross_entropy_loss(logits, targets)
+                + 0.01 * moe_aux_loss(inter, k))
+
+    loss_fn.model = model
+    return loss_fn
+
+
+def train_moe(torch, gen):
+    """Phase 18: LoRA (rank 16 on q and v) on Mixtral-8x7B widths at
+    depth MOE_TRAIN_DEPTH, flash attention (B1-B3), bf16 base and
+    experts, fp32 routers, adapters, norms and head; batch 1 x
+    MOE_TRAIN_SEQ, CE + 0.01 aux, AdamW on the adapters: a warm-up step,
+    then MOE_TRAIN_STEPS timed (flash counters zeroed between) and one
+    profiled; then the depth-2 loss and adapter gradients through the
+    kernels against the plain versions."""
+    from sparkdl_tpu_torch.models.llama import Llama, init_weights
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.train import (
+        global_batch,
+        make_train_step,
+    )
+
+    cfg = _mixtral_cfg(MOE_TRAIN_DEPTH, attention="flash", lora_rank=16,
+                       lora_alpha=16.0, lora_targets=("q_proj", "v_proj"))
+    t = time.perf_counter()
+    model = init_weights(Llama(cfg, device=DEVICE), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    mask = lora_mask(model)
+    lora = [p for n, p in model.named_parameters() if mask[n]]
+    opt = torch.optim.AdamW(lora, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    per_layer = []
+    step = make_train_step(_moe_loss(model, per_layer), opt, param_mask=mask,
+                           device=DEVICE)
+    batch = global_batch(np.random.default_rng(SEED + 18), cfg.vocab_size,
+                         1, MOE_TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batch)["loss"].item()]
+    _zero_flash()
+    times = []
+    for _ in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch)["loss"].item())
+        times.append(time.perf_counter() - t)
+    launches = _flash_launches()
+    peak = torch.cuda.max_memory_allocated()
+    aux = [x.item() for x in per_layer]
+    k, e = cfg.moe_top_k, cfg.n_experts
+    _require(all(np.isfinite(losses)), f"phase 18 losses {losses}")
+    _require(len(aux) == cfg.n_layers and all(k <= a <= e * k for a in aux),
+             f"phase 18: the layers' load-balance losses {aux} outside "
+             f"[top_k, E x top_k] = [{k}, {e * k}]")
+    want = cfg.n_layers * MOE_TRAIN_STEPS
+    for name, n in launches.items():
+        _require(n == want, f"phase 18 {name}: {n} launches in "
+                 f"{MOE_TRAIN_STEPS} steps, want {want}")
+    step_s = statistics.median(times)
+    report = {"n_layers": cfg.n_layers, "n_experts": e, "top_k": k,
+              "batch": 1, "seq": MOE_TRAIN_SEQ, "lora_rank": cfg.lora_rank,
+              "losses": losses, "aux_per_layer": aux, "init_s": init_s,
+              "step_ms": [1e3 * x for x in times],
+              "step_ms_median": 1e3 * step_s,
+              "tokens_per_s": MOE_TRAIN_STEPS * MOE_TRAIN_SEQ / sum(times),
+              "peak_mem_gb": peak / 1e9, "launches": launches}
+    # the experts' einsums are the step's only batched GEMMs (attention
+    # runs in the flash kernels, the projections and the head as mm)
+    report["profile"] = profile_step(torch, step, batch, 1e3 * step_s,
+                                     ops=("aten::bmm",))
+    bmm_ms = report["profile"]["ops_device_ms"].get("aten::bmm", 0.0)
+    report["expert_gemm_share_of_busy"] = (
+        bmm_ms / report["profile"]["device_busy_ms"]
+        if report["profile"]["device_busy_ms"] else None)
+    _log("moe_train " + json.dumps({k_: v for k_, v in report.items()
+                                    if k_ != "profile"}))
+    del step, opt
+    report["vs_plain"] = _moe_train_vs_plain(torch, model, gen)
+    return report
+
+
+def _moe_train_vs_plain(torch, model, gen):
+    """Phase 18's depth-2 check: the first two layers of its model (the
+    same tensors), non-zero ``lora_b``, one batch of 1 x MOE_TRAIN_SEQ:
+    the loss and every adapter gradient through the kernels and through
+    the plain versions, held to phase 6's tolerance."""
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    small = _depth2(model)
+    lora = {n: p for n, p in small.named_parameters() if p.requires_grad}
+    with torch.no_grad():
+        for n, p in lora.items():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    loss_fn = _moe_loss(small, [])
+    batch = global_batch(np.random.default_rng(SEED + 19),
+                         small.cfg.vocab_size, 1, MOE_TRAIN_SEQ)
+
+    def run():
+        for p in lora.values():
+            p.grad = None
+        loss = loss_fn(batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in lora.items()}
+
+    masks = []
+    with plain_ops(), _routes(masks):
+        ref_loss, ref = run()
+    with _routes(masks, replay=True) as routed:
+        got_loss, got = run()
+    # phase 6's tolerance: the paths differ in attention alone, and the
+    # kernels route as the plain run routed (_routes)
+    report = {"loss": got_loss, "plain_loss": ref_loss, "grads": {},
+              "routed_otherwise_share": routed["routed_otherwise"]
+              / routed["tokens"]}
+    _require(np.isfinite(got_loss)
+             and abs(got_loss - ref_loss) <= 2.0 ** -10 * abs(ref_loss),
+             f"phase 18 loss, kernels {got_loss} vs plain {ref_loss}")
+    for name, g in got.items():
+        r = ref[name]
+        rel = ((g - r).norm() / r.norm()).item()
+        report["grads"][name] = rel
+        _require(bool(torch.isfinite(g).all()) and r.norm() > 0
+                 and rel <= 2.0 ** -5,
+                 f"phase 18 {name} gradient, kernels vs plain: relative "
+                 f"error {rel}")
+    report["worst_rel_norm_err"] = max(report["grads"].values())
+    _log("moe_train_vs_plain " + json.dumps(
+        {k: v for k, v in report.items() if k != "grads"}))
+    return report
+
+
+def _ep_close(torch, got, ref):
+    """One tensor against the single-process layer's: the error's norm
+    relative to the reference's, and the worst element against the
+    reference's largest."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    return {"rel_norm_err": ((got - ref).norm() / ref.norm()).item(),
+            "max_abs_err": err.max().item(),
+            "scale": ref.abs().max().item()}
+
+
+def _timed_collectives(torch, mesh, device):
+    """The host ms of every all-reduce and all-to-all ``mesh`` issues,
+    each between two synchronizes (gloo stages through the host, so the
+    card waits for them anyway); returns the list they fill."""
+    spent = []
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(device)
+            spent.append(1e3 * (time.perf_counter() - t))
+            return out
+        return call
+
+    mesh.all_reduce = timed(mesh.all_reduce)
+    mesh._all_to_all = timed(mesh._all_to_all)
+    return spent
+
+
+def ep_main(layer, tokens, capacity, runs, seed, device, started):
+    """Every rank of phase 19: ``make_named_mesh("expert")``, one MoE
+    layer of ``layer`` (MoEConfig fields) drawn from ``seed`` on every
+    rank alike, and held whole once as the single-process oracle on
+    n x ``tokens`` tokens (its loss sum(y * w)); then this rank's
+    experts through the psum form on all the tokens and through the
+    all-to-all form on its ``tokens`` at no-drop capacity (E / top_k)
+    and at ``capacity``, forward and backward, each ``runs`` times
+    after a warm-up, the collectives' host ms recorded. Rank 0 returns
+    every rank's report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models import moe
+    from sparkdl_tpu_torch.parallel.mesh import make_named_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    mesh = make_named_mesh("expert")
+    dev = _gang_device(torch, mesh, device)
+    rank, n = mesh.axis_index("expert"), mesh.axis_size("expert")
+    cfg = moe.MoEConfig(**layer)
+    oracle = moe.MoEMLP(cfg, dev)
+    gen = _seeded(torch, seed, dev)
+    with torch.no_grad():
+        for p in (*(getattr(oracle, k) for k in moe.EXPERT_WEIGHTS),
+                  oracle.router.kernel):
+            p.normal_(0.0, 0.02, generator=gen)
+        oracle.router.bias.zero_()
+    x = torch.randn((n * tokens, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.dtype)
+    w = torch.randn((n * tokens, cfg.d_model), generator=gen, device=dev)
+    e = cfg.n_experts // n
+    mine = slice(rank * e, (rank + 1) * e)
+    rows = slice(rank * tokens, (rank + 1) * tokens)
+    # the oracle: every expert, every token, one process
+    for p in oracle.parameters():
+        p.requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    y_ref = oracle(xr)
+    (y_ref.float() * w).sum().backward()
+    ref = {"router.kernel": oracle.router.kernel.grad,
+           "router.bias": oracle.router.bias.grad,
+           **{k: getattr(oracle, k).grad[mine].clone()
+              for k in moe.EXPERT_WEIGHTS}, "x": xr.grad}
+    y_ref = y_ref.detach()
+    with torch.no_grad():
+        ref_chosen = moe._topk_mask(torch.softmax(oracle.router(x), -1),
+                                    cfg.top_k) > 0
+    local = {"router": {"kernel": oracle.router.kernel.detach().clone(),
+                        "bias": oracle.router.bias.detach().clone()},
+             **{k: getattr(oracle, k).detach()[mine].clone()
+                for k in moe.EXPERT_WEIGHTS}}
+    del oracle, xr
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves = [local["router"]["kernel"], local["router"]["bias"],
+              *(local[k] for k in moe.EXPERT_WEIGHTS)]
+    for p in leaves:
+        p.requires_grad_(True)
+    spent = _timed_collectives(torch, mesh, dev)
+    forms = {"psum": (moe.expert_parallel_moe(mesh, cfg), slice(None)),
+             "a2a": (moe.expert_parallel_moe_a2a(
+                 mesh, cfg, capacity_factor=cfg.n_experts / cfg.top_k), rows),
+             "a2a_tight": (moe.expert_parallel_moe_a2a(
+                 mesh, cfg, capacity_factor=capacity), rows)}
+    report = {"rank": rank, "size": n, "backend": _state.state().backend,
+              "device": str(dev), "ready_s": ready_s, "forms": {}}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, (f, cut) in forms.items():
+        ms, coll = [], []
+        for i in range(runs + 1):
+            for p in leaves:
+                p.grad = None
+            xi = x[cut].clone().requires_grad_(True)
+            torch.cuda.synchronize(dev)
+            spent.clear()
+            t = time.perf_counter()
+            y = f(local, xi)
+            (y.float() * w[cut]).sum().backward()
+            torch.cuda.synchronize(dev)
+            if i:  # the first run warms up
+                ms.append(1e3 * (time.perf_counter() - t))
+                coll.append(sum(spent))
+        # the binder's own routing, replayed: a row whose experts differ
+        # from the oracle's met a near-tie that its fp32 router product
+        # over other rows decided otherwise (counted, left out)
+        with torch.no_grad():
+            sel = moe.moe_gates(xi.float() @ local["router"]["kernel"]
+                                + local["router"]["bias"], cfg.top_k) > 0
+        rows_kept = (sel == ref_chosen[cut]).all(-1)
+        row = {"ms_per_call": ms, "ms_median": statistics.median(ms),
+               "collective_ms": coll,
+               "collective_ms_median": statistics.median(coll),
+               "tokens": int(xi.shape[0]),
+               "routed_alike": rows_kept.float().mean().item()}
+        if name == "a2a_tight":
+            # only the rows whose chosen experts all won a slot
+            c = max(1, int(np.ceil(xi.shape[0] * cfg.top_k / cfg.n_experts
+                                   * capacity)))
+            pos = torch.cumsum(sel.int(), 0) - 1
+            survived = ((~sel) | (pos < c)).all(-1)
+            rows_kept &= survived
+            row.update({"capacity": c, "survivors": int(survived.sum())})
+        else:
+            got = {"router.kernel": local["router"]["kernel"].grad,
+                   "router.bias": local["router"]["bias"].grad,
+                   **{k: local[k].grad for k in moe.EXPERT_WEIGHTS},
+                   "x": xi.grad}
+            row["grads"] = {k: _ep_close(torch, g, ref[k] if k != "x"
+                                         else ref[k][cut])
+                            for k, g in got.items()}
+        row["out"] = _ep_close(torch, y.detach()[rows_kept],
+                               y_ref[cut][rows_kept])
+        report["forms"][name] = row
+        del y, xi
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return hvd.allgather_object(report)
+
+
+def expert_parallel(torch):
+    """Phase 19: HorovodRunner(np=GANG_NP["19"]) ranks of :func:`ep_main`
+    sharing the card over gloo, one MoE layer at Mixtral-8x7B width
+    (E / n experts a rank); both forms against the single-process layer
+    within bf16 tolerance."""
+    from sparkdl_tpu_torch import HorovodRunner
+
+    layer = dict(d_model=MIXTRAL["d_model"], d_ff=MIXTRAL["d_ff"],
+                 n_experts=MIXTRAL["n_experts"], top_k=MIXTRAL["moe_top_k"],
+                 dtype=torch.bfloat16)
+    t = time.perf_counter()
+    ranks = HorovodRunner(np=GANG_NP["19"]).run(
+        ep_main, layer=layer, tokens=EP_TOKENS, capacity=EP_CAPACITY,
+        runs=EP_RUNS, seed=SEED + 19, device=DEVICE, started=time.time())
+    run_wall_s = time.perf_counter() - t
+    size = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(size))
+             and size == max(-GANG_NP["19"], 1),
+             f"phase 19: ranks {[r['rank'] for r in ranks]}")
+    if GANG_NP["19"] <= -2 and DEVICE == "cuda":
+        _require(all(r["backend"] == "gloo" for r in ranks),
+                 f"phase 19: backends {[r['backend'] for r in ranks]}")
+    # bf16 tolerance, stated before the first run (the outputs on the
+    # rows routed as the oracle routes them, at least 99 % of them): the
+    # forms sum the experts' bf16 partial outputs in other orders and
+    # round at other points (a rank's combine, the all-reduce, the
+    # dispatch buffers), one or two bf16 ulps (2^-8 relative) an
+    # element, so the output's error norm within 2^-7 of its norm and
+    # the worst element within 2^-5 of its scale; each gradient within
+    # 2^-5 of its norm (phase 6's footing)
+    worst = {"out": 0.0, "grad": 0.0}
+    for r in ranks:
+        for name, row in r["forms"].items():
+            out = row["out"]
+            worst["out"] = max(worst["out"], out["rel_norm_err"])
+            _require(out["rel_norm_err"] <= 2.0 ** -7
+                     and out["max_abs_err"] <= 2.0 ** -5 * out["scale"],
+                     f"phase 19 rank {r['rank']} {name} output: {out}")
+            for g_name, g in row.get("grads", {}).items():
+                worst["grad"] = max(worst["grad"], g["rel_norm_err"])
+                _require(g["rel_norm_err"] <= 2.0 ** -5,
+                         f"phase 19 rank {r['rank']} {name} {g_name} "
+                         f"gradient: {g}")
+        _require(r["forms"]["a2a_tight"]["survivors"] > 0,
+                 f"phase 19 rank {r['rank']}: no row survived capacity "
+                 f"{EP_CAPACITY}")
+        _require(all(row["routed_alike"] >= 0.99
+                     for row in r["forms"].values()),
+                 f"phase 19 rank {r['rank']}: routed alike "
+                 f"{[row['routed_alike'] for row in r['forms'].values()]}")
+    report = {"np": GANG_NP["19"], "size": size, "run_wall_s": run_wall_s,
+              "worst_out_rel_norm_err": worst["out"],
+              "worst_grad_rel_norm_err": worst["grad"],
+              "ms_per_call": {name: [r["forms"][name]["ms_median"]
+                                     for r in ranks]
+                              for name in ranks[0]["forms"]},
+              "collective_ms_per_call": {
+                  name: [r["forms"][name]["collective_ms_median"]
+                         for r in ranks] for name in ranks[0]["forms"]},
+              "ranks": ranks}
+    _log("expert_parallel " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -3678,7 +4266,8 @@ def main(argv=None):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     timer = Timer(torch)
-    qmm_rows, qmm_tp_rows = check_quantized_matmul(torch, timer, gen)
+    qmm_rows, qmm_tp_rows, qmm_moe_rows = check_quantized_matmul(
+        torch, timer, gen)
     paged_row = check_paged_attention(torch, timer, gen)
     q4_rows = check_quantized_matmul_int4(torch, timer, gen)
     del timer
@@ -3754,6 +4343,16 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     pipe = pipeline(torch)
+    # slice 12: this process holds no model from here on
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_serving = serve_moe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_training = train_moe(torch, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_ep = expert_parallel(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -3774,7 +4373,8 @@ def main(argv=None):
                               for r in gang_shared["ranks"]),
                     "9c": gang_resumed["launches"][name],
                     "15": seq["launches"][name],
-                    "16": pipe["launches"][name]}
+                    "16": pipe["launches"][name],
+                    "18": moe_training["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -3804,7 +4404,8 @@ def main(argv=None):
                               for r in tp["ranks"]),
                     "14_one_replica": fleet["one_replica"]["launches"][
                         "quantized_matmul"],
-                    "14": fleet["launches"]["quantized_matmul"]}
+                    "14": fleet["launches"]["quantized_matmul"],
+                    "17": moe_serving["launches"]["quantized_matmul"]}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
                       "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
@@ -3814,7 +4415,9 @@ def main(argv=None):
                                 for r in tp["ranks"]),
                       "14_one_replica": fleet["one_replica"]["launches"][
                           "paged_attention_decode"],
-                      "14": fleet["launches"]["paged_attention_decode"]}
+                      "14": fleet["launches"]["paged_attention_decode"],
+                      "17": moe_serving["launches"][
+                          "paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
@@ -3822,11 +4425,15 @@ def main(argv=None):
          "launches": sum(qmm_by_phase.values()),
          "launches_by_phase": qmm_by_phase,
          "max_abs_err": max(r["max_abs_err"]
-                            for r in qmm_rows + qmm_tp_rows),
+                            for r in qmm_rows + qmm_tp_rows + qmm_moe_rows),
          "ms": per_step(qmm_rows, "ms"),
          "plain_ms": per_step(qmm_rows, "plain_ms"),
          "bound_ms": per_step(qmm_rows, "bound_ms"),
-         "bound_by": "bytes", "library_ms": per_step(qmm_rows, "library_ms")},
+         "bound_by": "bytes", "library_ms": per_step(qmm_rows, "library_ms"),
+         # Mixtral's head (N = 32000, fp32 x) at decode and prefill M
+         "moe_head_rows": [{k: r[k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+             for r in qmm_moe_rows]},
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/paged_attention.cu",
          "replaces": "sparkdl_tpu/ops/pallas/paged_attention.py:46",
@@ -3857,7 +4464,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"card": card, "kernels": kernels, "qmm": qmm_rows,
-                       "qmm_tp": qmm_tp_rows,
+                       "qmm_tp": qmm_tp_rows, "qmm_moe": qmm_moe_rows,
                        "paged": paged_row, "q4mm": q4_rows,
                        "serving": serving, "model": model_rows,
                        "dense": dense, "fleet": fleet, "tp": tp,
@@ -3870,6 +4477,9 @@ def main(argv=None):
                        "gang_shared": gang_shared,
                        "gang_resume": gang_resumed,
                        "seq_parallel": seq, "pipeline": pipe,
+                       "moe_serving": moe_serving,
+                       "moe_training": moe_training,
+                       "expert_parallel": moe_ep,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

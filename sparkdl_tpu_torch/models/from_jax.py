@@ -8,7 +8,10 @@ the JAX ``stack_lora_adapters`` makes them, loaded into a model built
 with ``multi_lora=N``, so both packages serve the same weights), int8
 (``kernel_q`` +
 ``kernel_scale``) or int4 (``kernel_q4`` + ``kernel_scale4``, loaded
-into a model built with the same ``quant_group``), exactly as
+into a model built with the same ``quant_group``), with Mixtral-style
+expert layers (``moe_mlp``: the router's ``kernel`` and ``bias``, kept
+fp32, and the stacked ``w_gate`` / ``w_up`` / ``w_down``, cast to the
+model dtype; a tensor-parallel model takes its own experts), exactly as
 ``Llama(cfg).init(...)["params"]`` and ``quantize_llama_params`` make
 it. int8 and fp32 leaves arrive untouched. The port keeps the JAX names and
 layouts, so the only renaming is ``layer_<i>`` → ``layers.<i>``. Each

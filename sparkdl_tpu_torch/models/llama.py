@@ -60,9 +60,16 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
   (the engine passes
   :func:`~sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode_sharded`).
 
-MoE is not ported yet: ``n_experts`` raises NotImplementedError by
-name. The TPU's kernel-mode fields (``paged_kernel``, ``quant_kernel``)
-are not fields here.
+- Mixtral-style sparse FFN (``n_experts > 0``): a top-k routed expert
+  MLP (:class:`~sparkdl_tpu_torch.models.moe.MoEMLP`, ``moe_mlp``) in
+  place of the dense MLP on every ``moe_every``-th layer, in every mode
+  above; its router probabilities come back with
+  ``forward(..., return_intermediates=True)`` for
+  :func:`~sparkdl_tpu_torch.models.moe.moe_aux_loss`. Tensor-parallel,
+  each rank holds n_experts/m experts and all-reduces their combine.
+
+The TPU's kernel-mode fields (``paged_kernel``, ``quant_kernel``) are
+not fields here.
 """
 
 import dataclasses
@@ -75,6 +82,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from sparkdl_tpu_torch.models.lora import LoRADense, MultiLoRADense
+from sparkdl_tpu_torch.models.moe import MoEConfig, MoEMLP
 from sparkdl_tpu_torch.ops import attention as _attention
 from sparkdl_tpu_torch.ops import paged_attention as _paged
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
@@ -165,7 +173,13 @@ class LlamaConfig:
     # forward's adapter_ids select one a batch row. Attention targets
     # only.
     multi_lora: int = 0
-    n_experts: int = 0            # not ported yet: 0 only
+    # Mixtral-style sparse FFN: n_experts > 0 replaces the dense MLP
+    # with a top-k routed expert MLP on every moe_every-th layer (1 =
+    # all layers); the router-balance aux loss reads
+    # forward(..., return_intermediates=True) through models.moe
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_every: int = 1
 
     def __post_init__(self):
         if self.quant not in ("", "int8", "int4"):
@@ -193,11 +207,23 @@ class LlamaConfig:
                     "a merged single-adapter tree instead)")
             if not self.lora_rank:
                 raise ValueError("multi_lora requires lora_rank > 0")
-        for name in ("flash_block", "n_experts"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    "(0 only)")
+        if self.n_experts > 0:
+            if not 0 < self.moe_top_k <= self.n_experts:
+                raise ValueError(
+                    f"moe_top_k={self.moe_top_k} must be in "
+                    f"[1, n_experts={self.n_experts}]")
+            if self.moe_every < 1:
+                raise ValueError(
+                    f"moe_every={self.moe_every} must be >= 1")
+        if self.flash_block:
+            raise NotImplementedError(
+                f"flash_block={self.flash_block!r} is not ported yet "
+                "(0 only)")
+
+    def use_moe(self, i):
+        """Whether layer ``i`` carries the expert MLP."""
+        return (self.n_experts > 0
+                and i % self.moe_every == self.moe_every - 1)
 
     @classmethod
     def llama3_8b(cls, **kw):
@@ -469,17 +495,28 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, use_moe=False):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.mlp = MLP(cfg, device)
+        self.use_moe = use_moe
+        if use_moe:
+            self.moe_mlp = MoEMLP(
+                MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                          n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                          dtype=cfg.dtype), device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, cos, sin, positions, block_tables=None, k_cache=None,
-                v_cache=None, adapter_ids=None):
+                v_cache=None, adapter_ids=None, record=None):
+        """``record``: the dict an MoE layer's router probabilities go
+        to (:meth:`MoEMLP.forward`), or None."""
         h = x + self.attn(self.attn_norm(x), cos, sin, positions,
                           block_tables, k_cache, v_cache, adapter_ids)
+        if self.use_moe:
+            return h + self.moe_mlp(self.mlp_norm(h), record)
         return h + self.mlp(self.mlp_norm(h))
 
 
@@ -509,7 +546,7 @@ class Llama(nn.Module):
         build = torch.device("meta") if tp else device
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, build)
         self.layers = nn.ModuleList(
-            Block(cfg, build) for _ in range(cfg.n_layers))
+            Block(cfg, build, cfg.use_moe(i)) for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, build)
         if cfg.quant:
             # quantized head over FP32 activations, as the JAX package
@@ -538,6 +575,11 @@ class Llama(nn.Module):
                 f"n_kv_heads={cfg.n_kv_heads} does not divide over "
                 f"model={size}: the tensor-parallel cache holds each "
                 "rank's kv heads (a replicated pool is not ported)")
+        if cfg.n_experts % size:
+            raise NotImplementedError(
+                f"n_experts={cfg.n_experts} does not divide over "
+                f"model={size}: each rank holds whole experts (replicated "
+                "experts are not ported)")
         full = self.state_dict()
         rules = sharding.TRANSFORMER_RULES if rules is None else rules
         self.tp_specs = sharding.tp_layout(full, rules, mesh)
@@ -559,7 +601,8 @@ class Llama(nn.Module):
         self.tp = _TP(mesh, mesh.axis_index("model"), size)
         self.n_kv_heads = cfg.n_kv_heads // size
         for layer in self.layers:
-            layer.attn.tp = layer.mlp.tp = self.tp
+            layer.attn.tp = self.tp
+            (layer.moe_mlp if layer.use_moe else layer.mlp).tp = self.tp
             layer.attn.n_heads = cfg.n_heads // size
             layer.attn.n_kv_heads = self.n_kv_heads
 
@@ -655,7 +698,8 @@ class Llama(nn.Module):
         return tables
 
     def forward(self, tokens, positions=None, block_tables=None, cache=None,
-                return_hidden=False, adapter_ids=None):
+                return_hidden=False, adapter_ids=None,
+                return_intermediates=False):
         """Logits (B, S, vocab) in fp32 for tokens (B, S).
 
         Training (``cfg.decode`` False): the whole sequence at positions
@@ -672,7 +716,15 @@ class Llama(nn.Module):
         (B, S, d_model) instead, the input of
         :func:`sparkdl_tpu_torch.parallel.train.fused_cross_entropy`.
         ``adapter_ids`` (B,): each row's adapter of a multi-LoRA model
-        (``cfg.multi_lora``); adapter 0 when omitted."""
+        (``cfg.multi_lora``); adapter 0 when omitted.
+
+        ``return_intermediates=True`` returns ``(out, intermediates)``,
+        the counterpart of the JAX ``apply(..., mutable=["intermediates"])``:
+        ``{"layer_<i>": {"moe_mlp": {"router_probs": (probs,)}}}`` for
+        each MoE layer (empty for a dense model), recorded once a layer
+        under ``cfg.remat`` too, with its graph kept, so
+        :func:`~sparkdl_tpu_torch.models.moe.moe_aux_loss` of it
+        reaches the routers."""
         cfg = self.cfg
         b, s = tokens.shape
         if adapter_ids is not None:
@@ -734,28 +786,36 @@ class Llama(nn.Module):
         x = self.embed(tokens.long())
         if self.embed.tp_split:
             x = self.tp.mesh.all_gather(x, "model")
+        intermediates = {}
         for i, layer in enumerate(self.layers):
+            record = None
+            if return_intermediates and layer.use_moe:
+                # the recompute of a checkpointed block finds it filled
+                record = {}
+                intermediates[f"layer_{i}"] = {"moe_mlp": record}
             if cfg.decode:
                 x = layer(x, cos, sin, positions, block_tables, cache.k[i],
-                          cache.v[i], adapter_ids)
+                          cache.v[i], adapter_ids, record)
             elif cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     layer, x, cos, sin, positions, None, None, None,
-                    adapter_ids, use_reentrant=False)
+                    adapter_ids, record, use_reentrant=False)
             else:
-                x = layer(x, cos, sin, positions, adapter_ids=adapter_ids)
+                x = layer(x, cos, sin, positions, adapter_ids=adapter_ids,
+                          record=record)
         x = self.final_norm(x)
-        if return_hidden:
-            return x
-        return _tp_call(self.lm_head, x.to(torch.float32), self.tp)
+        if not return_hidden:
+            x = _tp_call(self.lm_head, x.to(torch.float32), self.tp)
+        return (x, intermediates) if return_intermediates else x
 
 
 def init_weights(model, generator, std=0.02):
     """Fill ``model``'s weights in place with random values drawn from
     ``generator`` (a ``torch.Generator`` on the model's device): every
     projection, the embedding, the head and ``lora_a`` normal(0, std),
-    ``lora_b`` zeros and the norm scales ones (the JAX LoRA init, with
-    normal(std) in place of the base projections' lecun-normal).
+    ``lora_b`` and the MoE routers' ``bias`` zeros and the norm scales
+    ones (the JAX LoRA init, with normal(std) in place of the base
+    projections' and the stacked experts' lecun-normal).
     Returns ``model``. Dense models only: a quantized model is built
     from a dense state dict
     (:func:`~sparkdl_tpu_torch.models.quant.quantize_llama_params`)."""
@@ -767,7 +827,7 @@ def init_weights(model, generator, std=0.02):
             leaf = name.rpartition(".")[2]
             if leaf == "scale":
                 p.fill_(1.0)
-            elif leaf == "lora_b":
+            elif leaf in ("lora_b", "bias"):
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=generator)

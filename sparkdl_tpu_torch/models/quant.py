@@ -8,6 +8,12 @@ group 64). Every projection and the ``lm_head`` run through
 :func:`sparkdl_tpu_torch.ops.quantized_matmul.quantized_matmul` (int8)
 or :func:`~sparkdl_tpu_torch.ops.quantized_matmul.quantized_matmul_int4`.
 
+:func:`quantize_llama_params` takes, by the JAX rule, only 2-D
+``kernel`` leaves whose module name contains a target: an MoE layer's
+stacked (E, d, f) experts and its router stay as they are (dense, in
+the model dtype and fp32), so a quantized MoE model quantizes its
+attention and its head.
+
 Usage (serving)::
 
     cfg_q = dataclasses.replace(cfg, quant="int4", quant_group=64)

@@ -15,9 +15,10 @@ initialized default process group (a port gang, ``HorovodRunner``):
 each rank knows its coordinate on every axis and holds one process
 group per axis slice it belongs to, and a layer that needs a collective
 calls it by name on its axis (:meth:`Mesh.all_reduce`,
-:meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`, and the neighbour
+:meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`, the neighbour
 exchange of ring attention and the pipeline, :meth:`Mesh.ppermute`, the
-counterpart of ``lax.ppermute(x, axis, [(i, (i + 1) % n)])``). Ranks are
+counterpart of ``lax.ppermute(x, axis, [(i, (i + 1) % n)])``, and the
+expert dispatch's :meth:`Mesh.all_to_all`). Ranks are
 laid out in row-major order of :meth:`MeshSpec.axis_sizes`, so the
 ``model`` axis varies fastest: the ranks of one tensor-parallel group
 are consecutive. :func:`make_named_mesh` lays out one axis of any name (a
@@ -128,6 +129,29 @@ class Mesh:
         dist.broadcast(w, src=ranks[0], group=group)
         return _collectives._off_wire(w, x)
 
+    def all_to_all(self, x, axis):
+        """The tiled all-to-all of ``x`` over ``axis``, split and
+        concatenated on dim 0 (``lax.all_to_all(x, axis, split_axis=0,
+        concat_axis=0, tiled=True)``): ``x``'s dim 0 is cut into one
+        block a coordinate, block j goes to coordinate j, and what
+        arrives is concatenated in coordinate order (a dispatch buffer
+        to the ranks that hold its experts). Differentiable: the
+        gradient takes the same all-to-all of the cotangents."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        n = self.axis_size(axis)
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
+                             f"over {axis}={n}")
+        return _AllToAll.apply(self, axis, x)
+
+    def _all_to_all(self, x, axis):
+        w = _collectives._on_wire(x)
+        out = torch.empty_like(w)
+        dist.all_to_all_single(out, w, group=self._group(axis))
+        return _collectives._off_wire(out, x)
+
     def ppermute_start(self, tensors, axis):
         """Issue the neighbour exchange of ``tensors`` on ``axis`` now:
         each goes to the next coordinate and the previous coordinate's
@@ -207,6 +231,21 @@ class _Arrived(torch.autograd.Function):
         grads = tuple(g.contiguous() for g in grads)
         back = ctx.mesh._exchange(grads, ctx.axis, -ctx.step).wait()
         return (None, None, None, None, *back)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The autograd node of :meth:`Mesh.all_to_all`: block j of this
+    rank's input became block r of rank j's output, so the cotangent of
+    block r of rank j's output comes back by the same exchange."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, x):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh._all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, ctx.mesh._all_to_all(grad.contiguous(), ctx.axis)
 
 
 def make_mesh(spec=None):

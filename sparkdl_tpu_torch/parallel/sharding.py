@@ -17,7 +17,9 @@ dimension: None (whole), an axis name, or a tuple of axis names.
   explicit Megatron forward computes with (``models.llama``): each
   projection is column-parallel, row-parallel or whole, and its
   companions (the int8 scale, the int4 scales, the LoRA adapters) take
-  the split that role needs; a split the forward cannot compute raises.
+  the split that role needs; the stacked MoE experts split their expert
+  dim (0) and the router stays whole, with no role (every rank routes
+  over all experts); a split the forward cannot compute raises.
 - :func:`shard_params` slices each leaf to this rank's contiguous part.
 
 There is no GSPMD here: the collectives are the model's own
@@ -48,6 +50,8 @@ TRANSFORMER_RULES = [
 # the weight leaves of a projection, and what rides along with them
 _KERNELS = ("kernel", "kernel_q", "kernel_q4")
 _COMPANIONS = ("kernel_scale", "kernel_scale4", "lora_a", "lora_b")
+# the stacked MoE expert leaves (E, ...), split only on the expert dim
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 def _match(rules, path):
@@ -115,12 +119,14 @@ def projection_roles(specs, mesh):
     projections' weight leaves: "col" splits the output dim over the
     ``model`` axis, "row" the input dim, "rep" neither. Raises
     NotImplementedError for a split the forward cannot compute (another
-    axis of size > 1, both dims, a stacked dim)."""
+    axis of size > 1, both dims, a stacked dim). An MoE router
+    (``...router``) is computed whole outside the projections and takes
+    no role."""
     axis_sizes = dict(mesh.shape)
     roles = {}
     for name, spec in specs.items():
         prefix, _, leaf = name.rpartition(".")
-        if leaf not in _KERNELS:
+        if leaf not in _KERNELS or prefix.rpartition(".")[2] == "router":
             continue
         split = split_dims(spec, axis_sizes)
         if not split:
@@ -147,7 +153,8 @@ def tp_layout(params, rules, mesh):
     the int4 scales' K/g rows with the packed (K/2, N) rows, and splits
     ``lora_a``'s input rows, keeping ``lora_b`` whole (the JAX rule
     splits ``lora_b``'s columns instead). The embedding may split
-    d_model; norms and every other leaf must be whole. A companion is
+    d_model, the stacked experts their expert dim (0) over ``model``;
+    norms, the MoE router and every other leaf must be whole. A companion is
     sliced from the whole leaf as its role needs, whatever its rule
     says, which is exact for each of them. Raises NotImplementedError
     naming the leaf and its spec for any split this design cannot
@@ -160,7 +167,7 @@ def tp_layout(params, rules, mesh):
         prefix, _, leaf = name.rpartition(".")
         ndim = len(params[name].shape)
         split = split_dims(spec, axis_sizes)
-        if leaf in _KERNELS:
+        if leaf in _KERNELS and prefix in roles:
             out[name] = spec
             continue
         if leaf in _COMPANIONS and prefix in roles:
@@ -187,7 +194,8 @@ def tp_layout(params, rules, mesh):
                         "K must hold whole groups)")
             out[name] = want
             continue
-        if leaf == "embedding" and split in ({}, {1: (MODEL,)}):
+        if (leaf == "embedding" and split in ({}, {1: (MODEL,)})) or (
+                leaf in _EXPERTS and split in ({}, {0: (MODEL,)})):
             out[name] = spec
             continue
         if split:

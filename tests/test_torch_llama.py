@@ -384,9 +384,13 @@ def test_init_weights_follows_the_generator():
 
 
 def test_unported_training_options_raise_by_name():
-    for name, value in (("flash_block", 64), ("n_experts", 4)):
-        with pytest.raises(NotImplementedError, match=name):
-            pt_llama.LlamaConfig.tiny(**{name: value})
+    with pytest.raises(NotImplementedError, match="flash_block"):
+        pt_llama.LlamaConfig.tiny(flash_block=64)
+    # n_experts is ported, with the JAX config checks
+    with pytest.raises(ValueError, match="moe_top_k"):
+        pt_llama.LlamaConfig.tiny(n_experts=1)  # default top_k=2 > 1
+    with pytest.raises(ValueError, match="moe_every"):
+        pt_llama.LlamaConfig.tiny(n_experts=2, moe_every=0)
     # multi_lora is ported, with the JAX config checks
     with pytest.raises(ValueError, match="requires lora_rank > 0"):
         pt_llama.LlamaConfig.tiny(multi_lora=2)

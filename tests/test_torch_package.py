@@ -62,6 +62,8 @@ GANG_COUNTERPARTS = {
     "sparkdl_tpu_torch/parallel/sharding.py":
         "sparkdl_tpu/parallel/sharding.py",
     "sparkdl_tpu_torch/models/fleet.py": "sparkdl_tpu/models/fleet.py",
+    # the mixture of experts and its expert parallelism
+    "sparkdl_tpu_torch/models/moe.py": "sparkdl_tpu/models/moe.py",
     # sequence and pipeline parallelism
     "sparkdl_tpu_torch/parallel/ring_attention.py":
         "sparkdl_tpu/parallel/ring_attention.py",
@@ -205,10 +207,12 @@ def test_training_entry_points_default_to_cuda(no_cuda):
 def test_tpu_and_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="flash_block"):
         pt_llama.LlamaConfig.llama3_8b(attention="flash", flash_block=64)
-    # MoE is the one training option still refused (attention_fn is
-    # ported: ring attention)
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        pt_llama.LlamaConfig.tiny(n_experts=4)
+    # MoE is ported (attention_fn too: ring attention): n_experts takes
+    # the JAX config checks
+    with pytest.raises(ValueError, match="moe_top_k"):
+        pt_llama.LlamaConfig.tiny(n_experts=1)
+    with pytest.raises(ValueError, match="moe_every"):
+        pt_llama.LlamaConfig.tiny(n_experts=2, moe_every=0)
 
 
 def test_parallel_forms_are_ported_under_the_jax_names():
