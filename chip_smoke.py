@@ -226,7 +226,31 @@ and on any failed check. Phases:
    capacity (E / top_k) and at 1.25, forward and backward: outputs and
    every rank's gradients against the single-process layer on the same
    tokens within bf16 tolerance (at 1.25 the rows whose experts all won
-   a slot); ms a call by form and the collectives' host ms inside it.
+   a slot); ms a call by form and the collectives' host ms inside it;
+20. tensor-parallel LoRA training: ``HorovodRunner(np=-2)``, two ranks on
+   the one card (gloo), ``make_mesh(MeshSpec(model=2))``, phase 5's
+   configuration (rank 16 on q and v, flash, bf16 base) at depth 8, each
+   rank 16 query heads and 4 kv heads and half the vocabulary 128256,
+   every rank's weights from one seed (every ``lora_b`` non-zero), batch
+   1 x 2048, the vocabulary-parallel fused loss, AdamW on the adapters
+   with no ``DistributedOptimizer``, 3 steps; then a
+   ``TrainCheckpointer.save`` of the adapters with its sharding sidecar
+   (every rank), restored by ``restore(target_mesh=...)`` onto a
+   one-rank mesh in the launching process, into a whole single-card
+   model of the same depth. Gates: step 0's loss within phase 6's tolerance of a
+   single-process run of the same weights and batch, and its adapter
+   gradients (gathered with ``full_host_value``) no farther from the
+   fp32 gradients of the same weights than twice that run's; the
+   adapters after step 1 within 2^-5 of their norms of that run's;
+   both ranks' whole adapters identical; the collectives of a forward
+   and of a backward, and 8 x 3 launches of each flash kernel a rank,
+   as the model predicts; the restored adapters bit-identical to the
+   gathered ones, and the single-card model's loss with them the TP
+   model's at the saved step (phase 6's tolerance). It prints ms a step,
+   tokens/s, the collectives' host ms a step and their share of the
+   step, peak memory a rank, save ms and sidecar bytes, the resharded
+   restore's ms and bytes moved. It bypasses NCCL: the collectives are
+   gloo's host staging.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -305,14 +329,16 @@ N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 8, 3
 # call; 32 a step), then ragged S (no tile divides 1000), both head dims,
 # then phase 15's ring hops (a rank's 4096 tokens against its own block,
 # causal, and against an earlier rank's, not; kv heads repeated to 32),
-# then phase 16's stage blocks (one microbatch of 2048, causal)
+# then phase 16's stage blocks (one microbatch of 2048, causal), then a
+# TP=2 rank of phase 20 (its 16 local heads, kv heads repeated to them)
 FLASH_SHAPES = [(2, 2048, 32, 128, True),
                 (1, 1000, 4, 128, True),
                 (1, 1000, 4, 128, False),
                 (1, 1000, 4, 64, True),
                 (1, 4096, 32, 128, True),
                 (1, 4096, 32, 128, False),
-                (1, 2048, 32, 128, True)]
+                (1, 2048, 32, 128, True),
+                (1, 2048, 16, 128, True)]
 
 # the flash kernels' device ms a call at FLASH_SHAPES[0] before their
 # Hopper redesign: the mma.sync kernels, timed by this script's phase 2b
@@ -351,7 +377,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
-           "19": -2}
+           "19": -2, "20": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -375,6 +401,10 @@ MIXTRAL = dict(vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
 MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 16, 8
 MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
 EP_TOKENS, EP_CAPACITY, EP_RUNS = 2048, 1.25, 3
+# phase 20: tensor-parallel LoRA training at Llama-3-8B width, depth cut
+# to 8 (two ranks share the card, and every layer costs four host-staged
+# 16 MiB all-reduces a step), one row of 2048 tokens, its steps
+TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 8, 2048, 3
 
 
 class CheckFailed(RuntimeError):
@@ -4227,6 +4257,445 @@ def expert_parallel(torch):
     return report
 
 
+def _tp_collectives(torch, mesh, device):
+    """Count and time every all-reduce and all-gather ``mesh`` issues
+    (its instance methods wrapped: the model's differentiable
+    collectives call them), each between two synchronizes of ``device``
+    (gloo stages through the host, so the card waits for them anyway).
+    Returns ``{kind: [host ms of each call]}``, which the calls fill."""
+    calls = {"all_reduce": [], "all_gather": []}
+    on_card = device.type == "cuda"
+    for kind, spent in calls.items():
+        fn = getattr(mesh, kind)
+
+        def call(*a, _fn=fn, _spent=spent, **k):
+            if on_card:
+                torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            if on_card:
+                torch.cuda.synchronize(device)
+            _spent.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        setattr(mesh, kind, call)
+    return calls
+
+
+def _tp_train_collectives(cfg, seq, chunk=512):
+    """Phase 20's collectives on a model axis of two, a forward and a
+    backward, as the model issues them (LoRA on column-parallel
+    targets, the vocabulary-parallel fused loss in chunks of ``chunk``):
+    the forward all-gathers the embedding's d_model once and each
+    chunk's (logsumexp, gold) pairs once, and all-reduces o_proj's and
+    down_proj's partial outputs in every layer (g); the backward
+    all-reduces the gradient of every input that entered through f: the
+    loss's hidden, each layer's MLP input, each layer's attention input
+    but layer 0's (the frozen embedding's output carries no gradient),
+    and each column-parallel target's whole ``lora_a``."""
+    n_layers, n_lora = cfg.n_layers, len(cfg.lora_targets)
+    chunks = -(-seq // chunk)
+    return ({"all_reduce": 2 * n_layers, "all_gather": 1 + chunks},
+            {"all_reduce": 1 + n_layers + (n_layers - 1) + n_lora * n_layers,
+             "all_gather": 0})
+
+
+def _tp_weights(torch, cfg, seed, device):
+    """Phase 20's whole model: :func:`_seq_weights` from a generator of
+    its own seeded with ``seed`` (every rank and the launching process draw the
+    same)."""
+    from sparkdl_tpu_torch.models.llama import Llama
+
+    return _seq_weights(torch, Llama(cfg, device=device),
+                        _seeded(torch, seed, device))
+
+
+def tp_train_main(cfg, batch, steps, seed, device, ckpt_dir, started):
+    """Every rank of phase 20: ``make_mesh(MeshSpec(model=size))``, the
+    whole LoRA Llama of ``cfg`` drawn from ``seed`` and this rank's slice
+    of it kept (``Llama.from_params(..., mesh=mesh)``), AdamW on its
+    adapters, the vocabulary-parallel fused loss. Step 0's loss and its
+    gathered adapter gradients (no update) with the collectives of its
+    forward and of its backward; then ``steps`` timed steps, the flash
+    counters and the collectives recorded from zero, the whole adapters
+    gathered after step 1 and after the last; then a save of the
+    adapters with their specs (every rank; rank 0 writes) and the loss
+    of the saved weights. Rank 0 returns every rank's report (the
+    gathered tensors in rank 0's)."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from sparkdl_tpu_torch.parallel.sharding import full_host_value
+    from sparkdl_tpu_torch.parallel.train import (
+        make_lm_loss_fn,
+        make_train_step,
+    )
+    from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    mesh = make_mesh(MeshSpec(model=size))
+    dev = _gang_device(torch, mesh, device)
+    on_card = dev.type == "cuda"
+    t = time.perf_counter()
+    whole = _tp_weights(torch, cfg, seed, dev)
+    model = Llama.from_params(cfg, whole.state_dict(), device=dev, mesh=mesh)
+    del whole
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t
+    specs = model.tp_specs
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    loss_fn = make_lm_loss_fn(model, loss="fused")
+    step = make_train_step(loss_fn, opt, param_mask=mask, device=dev)
+    on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def gather(tensors):
+        return {n: full_host_value(x, specs.get(n, ()), mesh)
+                for n, x in tensors}
+
+    calls = _tp_collectives(torch, mesh, dev)
+
+    def counted():
+        out = {k: len(v) for k, v in calls.items()}
+        ms = sum(sum(v) for v in calls.values())
+        for v in calls.values():
+            v.clear()
+        return out, ms
+
+    # step 0's loss and gradients, no update
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(on_dev)
+    forward, _ = counted()
+    loss.backward()
+    backward, _ = counted()
+    step0_loss = loss.item()
+    del loss
+    grads = gather((n, p.grad) for n, p in named)
+    opt.zero_grad(set_to_none=True)
+
+    _zero_flash()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, step_calls, step_coll_ms = [], [], [], []
+    after1 = None
+    for i in range(steps):
+        counted()  # drop what a gather between the steps issued
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        losses.append(step(on_dev)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+        n_calls, ms = counted()
+        step_calls.append(n_calls)
+        step_coll_ms.append(ms)
+        if i == 1:
+            after1 = gather(named)
+    launches = _flash_launches()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    final = gather(named)
+
+    ckpt = TrainCheckpointer(ckpt_dir)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    wrote = ckpt.save(steps, dict(named), mesh=mesh, specs=specs)
+    save_ms = 1e3 * (time.perf_counter() - t)
+    hvd.barrier()
+    with torch.no_grad():
+        saved_loss = loss_fn(on_dev).item()
+    report = {
+        "rank": rank, "size": size, "backend": _state.state().backend,
+        "device": str(dev), "ready_s": ready_s, "build_s": build_s,
+        "heads_local": model.layers[0].attn.n_heads,
+        "kv_heads_local": model.n_kv_heads,
+        "vocab_local": int(model.lm_head.kernel.shape[1]),
+        "step0_loss": step0_loss, "forward_collectives": forward,
+        "backward_collectives": backward, "step_collectives": step_calls,
+        "losses": losses, "step_ms": [1e3 * x for x in times],
+        "step_ms_median": 1e3 * statistics.median(times),
+        "collective_ms": step_coll_ms,
+        "collective_ms_median": statistics.median(step_coll_ms),
+        "launches": launches, "peak_mem_gb": peak / 1e9,
+        "adapter_sha256": _adapter_digest(list(final.items())),
+        "saved_loss": saved_loss, "wrote": wrote, "save_ms": save_ms,
+        "save": ckpt.last_save,
+        "step0_grads": grads if rank == 0 else None,
+        "after1": after1 if rank == 0 else None}
+    return hvd.allgather_object(report)
+
+
+def _rel_norm_err(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _fp32_run(torch, model, mask, batch):
+    """``model``'s weights widened to fp32, dense attention, the fused
+    loss in fp32: the step-0 loss and the trained leaves' gradients, then
+    the trained leaves after two AdamW steps of phase 20's settings (on
+    the host). The yardstick of phase 20's bf16 gradients and updates."""
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.parallel.train import make_lm_loss_fn
+
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32,
+                              attention="reference")
+    twin = Llama(cfg, device=model.device)
+    twin.load_state_dict(model.state_dict())
+    for name, p in twin.named_parameters():
+        p.requires_grad_(mask[name])
+    named = [(n, p) for n, p in twin.named_parameters() if mask[n]]
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    loss_fn = make_lm_loss_fn(twin, loss="fused")
+    loss = loss_fn(batch)
+    loss.backward()
+    out = {"loss": loss.item(),
+           "grads": {n: p.grad.detach().cpu() for n, p in named}}
+    del loss
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    loss_fn(batch).backward()
+    opt.step()
+    out["after1"] = {n: p.detach().cpu() for n, p in named}
+    del twin, named, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train(torch):
+    """Phase 20: HorovodRunner(np=GANG_NP["20"]) ranks of
+    :func:`tp_train_main` sharing the card over gloo; then one process
+    holding the whole model of the same depth and weights: its step 0
+    and its steps against the ranks', and the ranks' checkpoint restored
+    onto it through ``restore(target_mesh=...)`` on a one-rank mesh."""
+    import shutil
+    import tempfile
+
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from sparkdl_tpu_torch.parallel.train import (
+        global_batch,
+        make_lm_loss_fn,
+        make_train_step,
+    )
+    from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    cfg = _train_cfg(n_layers=TP_TRAIN_DEPTH)
+    batch = global_batch(np.random.default_rng(SEED + 20), cfg.vocab_size, 1,
+                         TP_TRAIN_SEQ)
+    work = tempfile.mkdtemp(prefix="chip-smoke-20-")
+    ckpt_dir = os.path.join(work, "ckpt")
+    try:
+        t = time.perf_counter()
+        ranks = HorovodRunner(np=GANG_NP["20"]).run(
+            tp_train_main, cfg=cfg, batch=batch, steps=TP_TRAIN_STEPS,
+            seed=SEED + 20, device=DEVICE, ckpt_dir=ckpt_dir,
+            started=time.time())
+        run_wall_s = time.perf_counter() - t
+        size = len(ranks)
+        _require([r["rank"] for r in ranks] == list(range(size))
+                 and size == max(-GANG_NP["20"], 1),
+                 f"phase 20: ranks {[r['rank'] for r in ranks]}")
+        if GANG_NP["20"] <= -2 and DEVICE == "cuda":
+            _require(all(r["backend"] == "gloo" for r in ranks),
+                     f"phase 20: backends {[r['backend'] for r in ranks]}")
+        forward, backward = _tp_train_collectives(cfg, TP_TRAIN_SEQ)
+        tp = size > 1
+        if not tp:
+            forward = backward = {"all_reduce": 0, "all_gather": 0}
+        step_want = {k: forward[k] + backward[k] for k in forward}
+        r0 = ranks[0]
+        for r in ranks:
+            _require(r["heads_local"] * size == cfg.n_heads
+                     and r["kv_heads_local"] * size == cfg.n_kv_heads
+                     and r["vocab_local"] * size == cfg.vocab_size,
+                     f"phase 20 rank {r['rank']}: {r['heads_local']} heads, "
+                     f"{r['kv_heads_local']} kv heads, {r['vocab_local']} "
+                     "vocabulary columns")
+            _require(r["forward_collectives"] == forward
+                     and r["backward_collectives"] == backward,
+                     f"phase 20 rank {r['rank']}: collectives of a forward "
+                     f"{r['forward_collectives']} and a backward "
+                     f"{r['backward_collectives']}, the model predicts "
+                     f"{forward} and {backward}")
+            _require(all(c == step_want for c in r["step_collectives"]),
+                     f"phase 20 rank {r['rank']}: collectives a step "
+                     f"{r['step_collectives']}, want {step_want}")
+            want = cfg.n_layers * TP_TRAIN_STEPS
+            _require(r["launches"] == dict.fromkeys(r["launches"], want),
+                     f"phase 20 rank {r['rank']}: launches {r['launches']}, "
+                     f"want {want} of each")
+            _require(all(np.isfinite(r["losses"])),
+                     f"phase 20 rank {r['rank']}: losses {r['losses']}")
+            # every rank computes the whole loss
+            for key in ("adapter_sha256", "losses", "step0_loss",
+                        "saved_loss"):
+                _require(r[key] == r0[key],
+                         f"phase 20: rank {r['rank']}'s {key} differs "
+                         "from rank 0's")
+        _require([r["wrote"] for r in ranks]
+                 == [True] + [False] * (size - 1),
+                 f"phase 20: writers {[r['wrote'] for r in ranks]}")
+
+        # one process, the whole model of the same weights and batch:
+        # first its fp32 twin (the same bf16 weights widened, dense
+        # attention), whose step-0 gradients and first two updates are
+        # the yardstick of both bf16 runs, then the model itself
+        model = _tp_weights(torch, cfg, SEED + 20, torch.device(DEVICE))
+        mask = lora_mask(model)
+        on_dev = {k: torch.as_tensor(v, device=DEVICE)
+                  for k, v in batch.items()}
+        exact = _fp32_run(torch, model, mask, on_dev)
+        named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+        initial = {n: p.detach().cpu().clone() for n, p in named}
+        opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        loss_fn = make_lm_loss_fn(model, loss="fused")
+        step = make_train_step(loss_fn, opt, param_mask=mask, device=DEVICE)
+        loss = loss_fn(on_dev)
+        loss.backward()
+        whole_loss = loss.item()
+        del loss
+        # Tolerances: the loss within 2^-10 relative (phase 6's), at
+        # step 0 and at every timed step. The step-0 gradients: TP rounds each row-parallel projection's
+        # two partial outputs, and each f's two partial input gradients,
+        # to bf16 before their sum, where one card rounds the whole sum
+        # once, and near-uniform attention makes the q and k gradients
+        # cancel: on one H100 80GB HBM3 at 700 W, TP's were up to 6.0 %
+        # of their norm off one card's (layer 7's q). So each bf16 run is
+        # held against the fp32 gradient of the same weights: TP's error
+        # within twice one card's (a missing f or g halves a gradient: an
+        # error near 50 %). The adapters' update over steps 0 and 1
+        # (after step 1 less the initial weights, each entry about 2e-4
+        # against weights of 0.02: 1 % of their norm): AdamW's first
+        # steps move each entry by about lr times the sign of its
+        # gradient, so the entries whose gradient bf16 rounding flips
+        # move the other way on either run, and TP's update is held
+        # against the fp32 twin's within twice one card's distance or
+        # 2^-5 of its norm, the larger (phase 15's tolerance, applied to
+        # the change; an update lost or of the wrong sign is 100 % or
+        # 200 % off).
+        report = {"np": GANG_NP["20"], "n_layers": cfg.n_layers,
+                  "seq": TP_TRAIN_SEQ, "size": size,
+                  "run_wall_s": run_wall_s, "card": _card_line(torch),
+                  "step0_loss": r0["step0_loss"], "whole_loss": whole_loss,
+                  "fp32_loss": exact["loss"],
+                  "loss_rel_err": abs(r0["step0_loss"] - whole_loss)
+                  / abs(whole_loss), "grads": {}, "update": {}}
+        _require(abs(r0["step0_loss"] - whole_loss)
+                 <= 2.0 ** -10 * abs(whole_loss),
+                 f"phase 20: step 0's loss {r0['step0_loss']} on TP={size} "
+                 f"vs {whole_loss} on one card")
+        for name, p in named:
+            ref = exact["grads"][name]
+            row = {"tp_vs_one_card": _rel_norm_err(r0["step0_grads"][name],
+                                                   p.grad.detach().cpu()),
+                   "tp_vs_fp32": _rel_norm_err(r0["step0_grads"][name], ref),
+                   "one_card_vs_fp32": _rel_norm_err(p.grad.detach().cpu(),
+                                                     ref)}
+            report["grads"][name] = row
+            _require(ref.norm() > 0 and row["tp_vs_fp32"]
+                     <= 2 * row["one_card_vs_fp32"],
+                     f"phase 20 {name}: step 0's gradient on TP={size} "
+                     f"against fp32 {row}")
+        opt.zero_grad(set_to_none=True)
+        single_losses = [step(on_dev)["loss"].item() for _ in range(2)]
+        after1 = {n: p.detach().cpu().clone() for n, p in named}
+        single_losses += [step(on_dev)["loss"].item()
+                          for _ in range(TP_TRAIN_STEPS - 2)]
+        _require(all(abs(a - b) <= 2.0 ** -10 * abs(b)
+                     for a, b in zip(r0["losses"], single_losses, strict=True)),
+                 f"phase 20: losses {r0['losses']} on TP={size} vs "
+                 f"{single_losses} on one card")
+        for name, _ in named:
+            tp_upd = r0["after1"][name] - initial[name]
+            one_upd = after1[name] - initial[name]
+            fp32_upd = exact["after1"][name] - initial[name]
+            row = {"tp_vs_one_card": _rel_norm_err(tp_upd, one_upd),
+                   "tp_vs_fp32": _rel_norm_err(tp_upd, fp32_upd),
+                   "one_card_vs_fp32": _rel_norm_err(one_upd, fp32_upd),
+                   "update_of_weights": (one_upd.norm()
+                                         / initial[name].norm()).item()}
+            report["update"][name] = row
+            _require(fp32_upd.norm() > 0 and row["tp_vs_fp32"]
+                     <= max(2 * row["one_card_vs_fp32"], 2.0 ** -5),
+                     f"phase 20 {name}: the update of steps 0 and 1 on "
+                     f"TP={size} against fp32 {row}")
+        del opt, step, after1, initial, exact
+
+        # the ranks' checkpoint, re-laid onto one rank, into this model
+        ckpt = TrainCheckpointer(ckpt_dir)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored = ckpt.restore(TP_TRAIN_STEPS,
+                                target=dict(named),
+                                target_mesh=make_mesh(MeshSpec()))
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t)
+        reshard = ckpt.last_reshard
+        _require(reshard is not None and reshard["direction"] == "shrink"
+                 and reshard["bytes_moved"] == sum(
+                     p.numel() * p.element_size() for _, p in named),
+                 f"phase 20: last_reshard {reshard}")
+        with torch.no_grad():
+            for name, p in named:
+                p.copy_(restored[name])
+            restored_loss = loss_fn(on_dev).item()
+        _require(_adapter_digest(named) == r0["adapter_sha256"],
+                 "phase 20: the restored adapters differ from the ranks' "
+                 "gathered ones")
+        _require(abs(restored_loss - r0["saved_loss"])
+                 <= 2.0 ** -10 * abs(r0["saved_loss"]),
+                 f"phase 20: the restored single-card model's loss "
+                 f"{restored_loss} vs TP's {r0['saved_loss']} at the save")
+        del model, named, restored
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    step_s = statistics.median([x for r in ranks for x in r["step_ms"]]) / 1e3
+    coll = [r["collective_ms_median"] for r in ranks]
+    report.update({
+        "worst_grad_rel_norm_err": {
+            k: max(g[k] for g in report["grads"].values())
+            for k in ("tp_vs_one_card", "tp_vs_fp32", "one_card_vs_fp32")},
+        "worst_update_rel_norm_err": {
+            k: max(u[k] for u in report["update"].values())
+            for k in ("tp_vs_one_card", "tp_vs_fp32", "one_card_vs_fp32")},
+        "losses": r0["losses"], "single_losses": single_losses,
+        "step_ms_median": 1e3 * step_s,
+        "tokens_per_s": TP_TRAIN_SEQ / step_s,
+        "collectives_per_step": dict(step_want),
+        "collective_ms_per_step": coll,
+        "collective_share_of_step": [c / r["step_ms_median"]
+                                     for c, r in zip(coll, ranks)],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "save_ms": r0["save_ms"],
+        "gather_ms": 1e3 * r0["save"]["gather_s"],
+        "sidecar_bytes": r0["save"]["sidecar_bytes"],
+        "checkpoint_bytes": r0["save"]["bytes"],
+        "restore_ms": restore_ms, "last_reshard": reshard,
+        "restored_loss": restored_loss, "saved_loss": r0["saved_loss"],
+        "launches": {k: sum(r["launches"][k] for r in ranks)
+                     for k in r0["launches"]},
+        "ranks": [{k: v for k, v in r.items()
+                   if k not in ("step0_grads", "after1", "save")}
+                  for r in ranks]})
+    _log("tp_train " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -4353,6 +4822,10 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     moe_ep = expert_parallel(torch)
+    # slice 13: tensor-parallel training; this process holds no model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_training = tp_train(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -4374,7 +4847,8 @@ def main(argv=None):
                     "9c": gang_resumed["launches"][name],
                     "15": seq["launches"][name],
                     "16": pipe["launches"][name],
-                    "18": moe_training["launches"][name]}
+                    "18": moe_training["launches"][name],
+                    "20": tp_training["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -4480,6 +4954,7 @@ def main(argv=None):
                        "moe_serving": moe_serving,
                        "moe_training": moe_training,
                        "expert_parallel": moe_ep,
+                       "tp_train": tp_training,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -44,18 +44,27 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
 - multi-LoRA serving (``multi_lora = N``): N adapters stacked on one
   frozen base, on attention projections only, selected per batch row by
   ``adapter_ids`` (adapter 0 when omitted);
-- tensor-parallel serving (``Llama(cfg, mesh=...)``, a mesh whose
-  ``model`` axis is > 1): Megatron, done explicitly, as there is no
-  GSPMD here. Each rank of a port gang holds its slice of every split
-  weight (:func:`sparkdl_tpu_torch.parallel.sharding.tp_layout` of the
-  rules, default ``TRANSFORMER_RULES``), computes attention on its own
-  n_heads/m query heads and n_kv_heads/m kv heads (its cache holds only
-  those), and calls each collective by name on the mesh's ``model``
+- tensor parallelism (``Llama(cfg, mesh=...)``, a mesh whose ``model``
+  axis is > 1), in training and serving: Megatron, done explicitly, as
+  there is no GSPMD here. Each rank of a port gang holds its slice of
+  every split weight (:func:`sparkdl_tpu_torch.parallel.sharding.tp_layout`
+  of the rules, default ``TRANSFORMER_RULES``), computes attention on its
+  own n_heads/m query heads and n_kv_heads/m kv heads (its cache holds
+  only those), and calls each collective by name on the mesh's ``model``
   group: an all-reduce after each row-parallel projection (o_proj,
-  down_proj), an all-gather where a split output must be whole (the
-  embedding's d_model, the head's vocabulary). A projection the rules
-  leave whole (divisibility) computes whole, with no collective. Every
-  rank must run the same forwards in the same order.
+  down_proj; Megatron's g), an all-gather where a split output must be
+  whole (the embedding's d_model, the head's vocabulary). A projection
+  the rules leave whole (divisibility) computes whole, with no
+  collective. When gradients are recorded the collectives are the
+  differentiable ones of :mod:`sparkdl_tpu_torch.parallel.mesh`, and
+  each column-parallel input enters through Megatron's f (Q, K and V
+  share one, gate and up another), as does a whole trained leaf that a
+  split projection uses (``lora_a`` of a column-parallel target,
+  ``lora_b`` of a row-parallel one), so its gradient is summed over
+  ``model`` as GSPMD sums it. Every rank must run the same forwards and
+  backwards in the same order (``cfg.remat``'s recompute re-issues a
+  block's all-reduces on every rank alike). A mesh with ``fsdp > 1``
+  raises NotImplementedError.
   ``paged_attention_fn`` replaces the single-token paged decode call
   (the engine passes
   :func:`~sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode_sharded`).
@@ -87,13 +96,15 @@ from sparkdl_tpu_torch.ops import attention as _attention
 from sparkdl_tpu_torch.ops import paged_attention as _paged
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
 from sparkdl_tpu_torch.parallel import ring_attention as _ring
+from sparkdl_tpu_torch.parallel.mesh import axis_sum, gathered, replicated
 
 NEG_INF = -1e30
 
 # the last-dim layout of a projection's input and output by its
-# tensor-parallel role: "full" (whole), "split" (this rank's block),
-# "partial" (a summand of the whole)
-_IN = {"col": "full", "row": "split", "rep": "full"}
+# tensor-parallel role: "full" (whole, every rank alike), "shared" (whole,
+# entered through Megatron's f for a per-rank use), "split" (this rank's
+# block), "partial" (a summand of the whole)
+_IN = {"col": "shared", "row": "split", "rep": "full"}
 _OUT = {"col": "split", "row": "partial", "rep": "full"}
 
 
@@ -108,18 +119,43 @@ class _TP:
 
 def _relayout(x, have, want, tp):
     """``x``'s last dim moved from layout ``have`` to ``want`` on the
-    ``model`` axis: a partial sum is all-reduced, a split made whole by
-    an all-gather, a whole one split by taking this rank's block."""
+    ``model`` axis, differentiably: a partial sum is all-reduced (g), a
+    split made whole by an all-gather, a whole one entered through f for
+    a per-rank use ("shared") and split by taking this rank's block. A
+    shared tensor never goes back to "full": its gradient is a rank's
+    share."""
     if have == want:
         return x
     if have == "partial":
-        x, have = tp.mesh.all_reduce(x, "model"), "full"
-        if want == "full":
-            return x
-    if have == "split":
-        return tp.mesh.all_gather(x, "model")
+        x, have = axis_sum(x, tp.mesh, "model"), "full"
+    elif have == "split":
+        x, have = gathered(x, tp.mesh, "model"), "full"
+    if have == want:
+        return x
+    if have == "full":
+        x = replicated(x, tp.mesh, "model")
+    if want == "shared":
+        return x
     n = x.shape[-1] // tp.size
     return x[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def _fan_in(x, modules, tp):
+    """``(input, layout)`` of each of ``modules`` fed the whole ``x``:
+    the column-parallel ones share one f (one all-reduce of their summed
+    input gradients in the backward), the others take ``x``."""
+    if tp is None:
+        return [(x, "full")] * len(modules)
+    shared = None
+    out = []
+    for module in modules:
+        if _IN[module.tp_role] == "shared":
+            if shared is None:
+                shared = _relayout(x, "full", "shared", tp)
+            out.append((shared, "shared"))
+        else:
+            out.append((x, "full"))
+    return out
 
 
 def _tp_call(module, x, tp, have="full", want="full", adapter_ids=None):
@@ -422,12 +458,15 @@ class Attention(nn.Module):
         n_heads, hkv = self.n_heads, self.n_kv_heads
         rep = n_heads // hkv
         b, s, _ = x.shape
-        # under tensor parallelism: this rank's heads ("split")
-        q = self._proj(self.q_proj, x, adapter_ids, want="split").reshape(
+        # under tensor parallelism: this rank's heads ("split"), Q, K
+        # and V behind one f
+        (xq, lq), (xk, lk), (xv, lv) = _fan_in(
+            x, (self.q_proj, self.k_proj, self.v_proj), self.tp)
+        q = self._proj(self.q_proj, xq, adapter_ids, lq, "split").reshape(
             b, s, n_heads, hd)
-        k = self._proj(self.k_proj, x, adapter_ids, want="split").reshape(
+        k = self._proj(self.k_proj, xk, adapter_ids, lk, "split").reshape(
             b, s, hkv, hd)
-        v = self._proj(self.v_proj, x, adapter_ids, want="split").reshape(
+        v = self._proj(self.v_proj, xv, adapter_ids, lv, "split").reshape(
             b, s, hkv, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
@@ -489,8 +528,9 @@ class MLP(nn.Module):
         # the hidden in the layout down_proj takes: no collective between
         # the three when down_proj is row-parallel
         mid = "full" if tp is None else _IN[self.down_proj.tp_role]
-        g = _tp_call(self.gate_proj, x, tp, want=mid)
-        u = _tp_call(self.up_proj, x, tp, want=mid)
+        (xg, lg), (xu, lu) = _fan_in(x, (self.gate_proj, self.up_proj), tp)
+        g = _tp_call(self.gate_proj, xg, tp, have=lg, want=mid)
+        u = _tp_call(self.up_proj, xu, tp, have=lu, want=mid)
         return _tp_call(self.down_proj, F.silu(g) * u, tp, have=mid)
 
 
@@ -540,6 +580,11 @@ class Llama(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        if mesh is not None and mesh.axis_size("fsdp") > 1:
+            raise NotImplementedError(
+                f"a mesh with fsdp={mesh.axis_size('fsdp')} > 1 is not "
+                "ported (ZeRO-3 parameter sharding); put the ranks on "
+                "'model', 'seq' or 'data'")
         tp = mesh is not None and mesh.axis_size("model") > 1
         # a tensor-parallel model is laid out on the full shapes first,
         # with no memory behind them, then given its local weights
@@ -594,6 +639,10 @@ class Llama(nn.Module):
         for prefix, role in sharding.projection_roles(
                 self.tp_specs, mesh).items():
             modules[prefix].tp_role = role
+            if isinstance(modules[prefix], LoRADense) and role != "rep":
+                # the adapter leaf a split projection holds whole
+                modules[prefix].tp_whole = (
+                    mesh, "lora_a" if role == "col" else "lora_b")
         self.embed.tp_split = bool(
             sharding.split_dims(self.tp_specs["embed.embedding"],
                                  mesh.shape))
@@ -608,7 +657,7 @@ class Llama(nn.Module):
 
     @classmethod
     def from_params(cls, cfg, params, device=None, *, mesh=None, rules=None,
-                    paged_attention_fn=None):
+                    paged_attention_fn=None, attention_fn=None):
         """A model whose weights ARE the tensors of ``params`` (a state
         dict with this model's keys), moved to ``device`` and cast to
         each weight's dtype where they differ — no other copy. Raises
@@ -618,7 +667,8 @@ class Llama(nn.Module):
         (:func:`~sparkdl_tpu_torch.parallel.sharding.shard_params`)."""
         device = resolve_device(device)
         model = cls(cfg, device="meta", mesh=mesh, rules=rules,
-                    paged_attention_fn=paged_attention_fn)
+                    paged_attention_fn=paged_attention_fn,
+                    attention_fn=attention_fn)
         if model.tp is not None:
             params = model.local_params(params)
         expected = model.state_dict()
@@ -785,7 +835,7 @@ class Llama(nn.Module):
         cos, sin = self._rope_tables(tokens.device, length)
         x = self.embed(tokens.long())
         if self.embed.tp_split:
-            x = self.tp.mesh.all_gather(x, "model")
+            x = gathered(x, self.tp.mesh, "model")
         intermediates = {}
         for i, layer in enumerate(self.layers):
             record = None

@@ -17,6 +17,8 @@ from collections.abc import Mapping
 import torch
 from torch import nn
 
+from sparkdl_tpu_torch.parallel.mesh import replicated
+
 
 class LoRADense(nn.Module):
     """Bias-free projection with a low-rank residual adapter,
@@ -40,10 +42,21 @@ class LoRADense(nn.Module):
         self.lora_b = nn.Parameter(
             torch.empty((rank, features), dtype=torch.float32,
                         device=device))
+        # (mesh, leaf name): the adapter leaf this rank holds whole while
+        # the projection is split over ``model`` (set by a tensor-parallel
+        # model); it enters through f, so its gradient sums every rank's
+        self.tp_whole = None
 
     def forward(self, x):
         x = x.to(self.dtype)
-        delta = (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)
+        a, b = self.lora_a, self.lora_b
+        if self.tp_whole is not None:
+            mesh, leaf = self.tp_whole
+            if leaf == "lora_a":
+                a = replicated(a, mesh, "model")
+            else:
+                b = replicated(b, mesh, "model")
+        delta = (x @ a.to(self.dtype)) @ b.to(self.dtype)
         return x @ self.kernel + (self.alpha / self.rank) * delta
 
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
+from sparkdl_tpu_torch.parallel.mesh import axis_sum, replicated
 
 # the expert weights, stacked on a leading expert dim
 EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
@@ -122,9 +123,13 @@ class MoEMLP(nn.Module):
         tp, e_local = self.tp, self.w_gate.shape[0]
         if tp is None or e_local == cfg.n_experts:
             return moe_apply(x, gates, *weights)
+        # the tokens and the gates, whole on every rank, enter this
+        # rank's experts through f: their gradients sum every rank's
+        axis = (tp.mesh, "model")
         lo = tp.rank * e_local
-        return moe_apply(x, gates[..., lo:lo + e_local], *weights,
-                         axis=(tp.mesh, "model"))
+        return moe_apply(replicated(x, *axis),
+                         replicated(gates, *axis)[..., lo:lo + e_local],
+                         *weights, axis=axis)
 
 
 def _topk_mask(probs, top_k):
@@ -191,42 +196,6 @@ def moe_aux_loss(intermediates, top_k):
     return torch.stack(losses).sum()
 
 
-class _AxisSum(torch.autograd.Function):
-    """The sum over an axis of partial outputs that every rank then
-    uses alike: every rank's loss is the same function of the sum, so
-    each rank's cotangent is handed back once (Megatron's g)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return mesh.all_reduce(x, axis)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None, None
-
-
-class _Replicated(torch.autograd.Function):
-    """A replicated input that every rank uses for its own share: the
-    identity forward, its gradient summed over the axis (Megatron's f),
-    so each rank holds the whole gradient."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.mesh.all_reduce(grad.contiguous(), ctx.axis), None, None
-
-
-def _replicated(x, axis):
-    mesh, name = axis
-    if mesh.axis_size(name) == 1:
-        return x
-    return _Replicated.apply(x, mesh, name)
-
-
 def moe_apply(x, gates, w_gate, w_up, w_down, axis=None):
     """Gate-weighted expert combine: every expert of the stacked weights
     computes every token of ``x`` (..., d), and ``gates`` (..., E_here)
@@ -240,8 +209,8 @@ def moe_apply(x, gates, w_gate, w_up, w_down, axis=None):
     h = F.silu(h_gate) * h_up
     out_e = torch.einsum("e...f,efd->e...d", h, w_down.to(dt))
     combined = torch.einsum("e...d,...e->...d", out_e, gates.to(dt))
-    if axis is not None and axis[0].axis_size(axis[1]) > 1:
-        combined = _AxisSum.apply(combined, *axis)
+    if axis is not None:
+        combined = axis_sum(combined, *axis)
     return combined
 
 
@@ -258,14 +227,14 @@ def _expert_axis_size(mesh, cfg, axis_name):
 
 def _local_router(params, e_local, axis):
     """The replicated router's (kernel, bias), each entering through
-    :class:`_Replicated`; checks that ``params`` holds ``e_local``
-    experts."""
+    :func:`~sparkdl_tpu_torch.parallel.mesh.replicated`; checks that
+    ``params`` holds ``e_local`` experts."""
     got = params["w_gate"].shape[0]
     if got != e_local:
         raise ValueError(f"params hold {got} experts; this rank's share "
                          f"is {e_local} (pass the local experts)")
-    return (_replicated(params["router"]["kernel"], axis),
-            _replicated(params["router"]["bias"], axis))
+    return (replicated(params["router"]["kernel"], *axis),
+            replicated(params["router"]["bias"], *axis))
 
 
 def expert_parallel_moe(mesh, cfg, *, axis_name="expert"):
@@ -285,7 +254,7 @@ def expert_parallel_moe(mesh, cfg, *, axis_name="expert"):
     def f(params, x):
         shard = mesh.axis_index(axis_name)
         kernel, bias = _local_router(params, e_local, axis)
-        x = _replicated(x, axis)
+        x = replicated(x, *axis)
         logits = x.to(torch.float32) @ kernel + bias
         gates = moe_gates(logits, cfg.top_k).to(x.dtype)
         # local expert slice of the gates

@@ -2,10 +2,9 @@
 helpers of a HorovodRunner gang (``shard_batch``, ``replicate``), the
 parallel forms of a gang's ranks (ring and ring-flash attention over a
 sharded sequence, the GPipe pipeline over a ``stage`` axis) and the
-dense attention oracle; the mesh of a gang (``parallel.mesh``) and the
-sharding rules (``parallel.sharding``) of tensor-parallel serving,
-imported by path. Tensor-parallel training of the JAX package's
-``parallel`` is not ported yet."""
+dense attention oracle; the mesh of a gang (``parallel.mesh``, with the
+differentiable Megatron collectives of tensor-parallel training) and the
+sharding rules and helpers (``parallel.sharding``), imported by path."""
 
 from sparkdl_tpu_torch.parallel.pipeline import (  # noqa: F401
     make_pipeline,

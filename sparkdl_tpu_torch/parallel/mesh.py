@@ -25,6 +25,16 @@ are consecutive. :func:`make_named_mesh` lays out one axis of any name (a
 pipeline's ``stage``), as the JAX tests build ``jax.sharding.Mesh(devices,
 ("stage",))``.
 
+The collectives above cut the autograd graph (the serving path runs
+under ``no_grad``). Training through a mesh takes the differentiable
+forms, Megatron's f and g, done explicitly as there is no GSPMD here:
+:func:`axis_sum` (g: the sum of partial outputs, its cotangent handed
+back once), :func:`replicated` (f: a replicated input used for a
+per-rank share, the identity with its gradient summed over the axis)
+and :func:`gathered` (a split output made whole, its gradient this
+rank's block). Each takes the plain collective when no gradient is
+being recorded.
+
 The collectives follow the gang's wire rule
 (:mod:`sparkdl_tpu_torch.hvd._state`): CUDA tensors go over NCCL when
 every rank has a card of its own, and are staged through host memory
@@ -102,21 +112,21 @@ class Mesh:
         dist.all_reduce(w, group=group)
         return _collectives._off_wire(w, x)
 
-    def all_gather(self, x, axis):
-        """The ``axis`` slice's ``x`` concatenated along the last
-        dimension, in coordinate order (a column-parallel output made
-        whole)."""
+    def all_gather(self, x, axis, dim=-1):
+        """The ``axis`` slice's ``x`` concatenated along ``dim`` (the
+        last by default), in coordinate order (a column-parallel output
+        made whole)."""
         group = self._group(axis)
         if group is None:
             return x
         n = self.axis_size(axis)
-        w = _collectives._on_wire(x)
+        w = _collectives._on_wire(x.movedim(dim, -1))
         # gathered along dim 0 (gloo takes no other output shape)
         out = w.new_empty((n * w.shape[0],) + tuple(w.shape[1:]))
         dist.all_gather_into_tensor(out, w, group=group)
         out = out.view((n,) + tuple(w.shape)).movedim(0, -2).reshape(
             *w.shape[:-1], n * w.shape[-1])
-        return _collectives._off_wire(out, x)
+        return _collectives._off_wire(out, x).movedim(-1, dim)
 
     def broadcast(self, x, axis):
         """The ``axis`` slice's first rank's ``x`` on every rank of the
@@ -246,6 +256,87 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return None, None, ctx.mesh._all_to_all(grad.contiguous(), ctx.axis)
+
+
+class _AxisSum(torch.autograd.Function):
+    """The sum over an axis of partial outputs that every rank then
+    uses alike: every rank's loss is the same function of the sum, so
+    each rank's cotangent is handed back once (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Replicated(torch.autograd.Function):
+    """A replicated input that every rank uses for its own share: the
+    identity forward, its gradient summed over the axis (Megatron's f),
+    so each rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous(), ctx.axis), None, None
+
+
+class _Gathered(torch.autograd.Function):
+    """The all-gather of split blocks along ``dim`` into a whole that
+    every rank uses alike: the cotangent of the whole is the same on
+    every rank, and this rank's block of it is its block's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.width = x.shape[dim]
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.mesh.axis_index(ctx.axis) * ctx.width
+        return grad.narrow(ctx.dim, lo, ctx.width), None, None, None
+
+
+def _recording(x):
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def axis_sum(x, mesh, axis):
+    """``mesh.all_reduce(x, axis)``, differentiable as Megatron's g: the
+    partial outputs of a row-parallel projection summed, the cotangent
+    of the sum each partial's."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    if _recording(x):
+        return _AxisSum.apply(x, mesh, axis)
+    return mesh.all_reduce(x, axis)
+
+
+def replicated(x, mesh, axis):
+    """``x``, a tensor every rank of ``axis`` holds alike, entered for a
+    per-rank share (Megatron's f): the identity, its gradient summed
+    over the axis. Apply it once to an input that several per-rank uses
+    share (Q, K and V; gate and up)."""
+    if mesh.axis_size(axis) == 1 or not _recording(x):
+        return x
+    return _Replicated.apply(x, mesh, axis)
+
+
+def gathered(x, mesh, axis, dim=-1):
+    """``mesh.all_gather(x, axis, dim)``, differentiable: the gradient of
+    this rank's block is its block of the whole's cotangent."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    if _recording(x):
+        return _Gathered.apply(x, mesh, axis, dim)
+    return mesh.all_gather(x, axis, dim)
 
 
 def make_mesh(spec=None):

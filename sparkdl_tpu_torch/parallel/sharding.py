@@ -21,12 +21,20 @@ dimension: None (whole), an axis name, or a tuple of axis names.
   dim (0) and the router stays whole, with no role (every rank routes
   over all experts); a split the forward cannot compute raises.
 - :func:`shard_params` slices each leaf to this rank's contiguous part.
+- :func:`constrain` re-lays an activation to a spec (the JAX
+  ``with_sharding_constraint``), :func:`full_host_value` gathers a leaf
+  whole, :func:`named_sharding_for` re-lays a recorded spec onto another
+  mesh, and :func:`sharding_tree_info` / :func:`tp_param_info` give the
+  sharding tree as data (the reshard plan's and the checkpoint
+  sidecar's input).
 
 There is no GSPMD here: the collectives are the model's own
 (:class:`sparkdl_tpu_torch.parallel.mesh.Mesh`).
 """
 
 import re
+
+from sparkdl_tpu_torch.parallel.mesh import gathered, replicated
 
 MODEL = "model"
 
@@ -236,3 +244,101 @@ def shard_params(params, specs, mesh):
         else:
             out[name] = part.contiguous()
     return out
+
+
+def constrain(x, spec, mesh, have=()):
+    """``x``, laid out on ``mesh`` by ``have`` (default whole), re-laid
+    to ``spec``: the counterpart of the JAX package's ``constrain``
+    (``with_sharding_constraint``), done here by the rank itself. Each
+    dim whose split changes is gathered whole over its ``have`` axes and
+    then sliced to this rank's block of its ``spec`` axes (row-major
+    over the named axes, as :func:`shard_params` slices). Differentiable:
+    a gather's gradient is this rank's block, and a whole tensor enters
+    a slice through f (its gradient summed over the axis). Every rank of
+    the axes must call it together."""
+    axis_sizes = dict(mesh.shape)
+    have_split = split_dims(have, axis_sizes)
+    want_split = split_dims(spec, axis_sizes)
+    for dim in sorted(set(have_split) | set(want_split)):
+        old, new = have_split.get(dim, ()), want_split.get(dim, ())
+        if old == new:
+            continue
+        for axis in reversed(old):  # the minor axis first
+            x = gathered(x, mesh, axis, dim)
+        for axis in new:
+            x = replicated(x, mesh, axis)
+            n = x.shape[dim] // axis_sizes[axis]
+            x = x.narrow(dim, mesh.axis_index(axis) * n, n)
+    return x
+
+
+def full_host_value(x, spec, mesh):
+    """The whole leaf of which ``x`` is this rank's block by ``spec`` on
+    ``mesh``, on the host (a CPU tensor): gathered over every split dim.
+    A collective: every rank of the split axes calls it, in the same
+    order (the checkpoint's gather before a save). A whole leaf is
+    copied to the host as it is."""
+    import torch
+
+    with torch.no_grad():
+        for dim, axes in split_dims(spec, dict(mesh.shape)).items():
+            for axis in reversed(axes):
+                x = mesh.all_gather(x, axis, dim)
+        return x.detach().to("cpu", copy=True)
+
+
+def named_sharding_for(mesh, spec_dims):
+    """A recorded per-dim spec (lists of axis names, the sharding tree
+    as data) re-laid onto ``mesh``: names the mesh does not have are
+    dropped (that dim goes whole), the others keep their split. Returns
+    the spec as this package holds one (an entry a dim: None, a name or
+    a tuple of names); the port has no ``NamedSharding``."""
+    have = {str(a) for a in mesh.axis_names}
+    entries = []
+    for dims in (spec_dims or ()):
+        kept = tuple(str(n) for n in (dims or ()) if str(n) in have)
+        if not kept:
+            entries.append(None)
+        elif len(kept) == 1:
+            entries.append(kept[0])
+        else:
+            entries.append(kept)
+    return tuple(entries)
+
+
+def sharding_tree_info(params, specs, mesh):
+    """The sharding tree as data: one
+    :class:`~sparkdl_tpu_torch.analysis.core.ParamInfo` a leaf of
+    ``params`` (this rank's leaves, a tensor-parallel model's state
+    dict), with the whole leaf's shape (the local one times each dim's
+    split) and dtype, the per-dim axis names of its spec in ``specs``
+    (absent: whole), the axes of size > 1 that split it, and ``mesh``'s
+    axis sizes. What the reshard plan and the checkpoint's sidecar
+    read; no live object, so it pickles and diffs."""
+    from sparkdl_tpu_torch.analysis.core import ParamInfo
+
+    sizes = {str(a): int(n) for a, n in dict(mesh.shape).items()}
+    mesh_axes = tuple(sorted(sizes.items()))
+    out = []
+    for name, leaf in params.items():
+        shape = [int(d) for d in leaf.shape]
+        spec = tuple(specs.get(name, ()) or ())
+        dims = [tuple(str(a) for a in _names(entry)) for entry in spec]
+        dims = (dims + [()] * len(shape))[:len(shape)]
+        for dim, axes in enumerate(dims):
+            for a in axes:
+                shape[dim] *= sizes.get(a, 1)
+        out.append(ParamInfo(
+            path=name, shape=tuple(shape),
+            dtype=str(leaf.dtype).rpartition(".")[2],  # "bfloat16"
+            sharded_axes=tuple(a for axes in dims for a in axes
+                               if sizes.get(a, 2) > 1),
+            spec=tuple(dims), mesh_axes=mesh_axes))
+    return out
+
+
+def tp_param_info(params, specs, mesh):
+    """Which leaves ``specs`` split on ``mesh``: the same list as
+    :func:`sharding_tree_info` (the JAX package's two names for it); an
+    entry with empty ``sharded_axes`` is whole."""
+    return sharding_tree_info(params, specs, mesh)

@@ -13,8 +13,15 @@ step (the JAX package's mesh sharding and ``psum`` over the data axis).
 Sequence parallelism is a gang's too: :func:`shard_batch` with a mesh
 and ``seq_axis=True`` gives each rank its columns and their global
 positions, and the model attends across ranks through ring attention
-(``Llama(attention_fn=make_ring_attention(mesh))``). Tensor-parallel
-training and the telemetry wrappers are not ported yet.
+(``Llama(attention_fn=make_ring_attention(mesh))``). Tensor
+parallelism is the model's (``Llama(cfg, mesh=mesh)``, Megatron's f and
+g done explicitly through the differentiable collectives of
+:mod:`~sparkdl_tpu_torch.parallel.mesh`): :func:`make_train_step`
+reads the model's mesh, averages the gradients over its data-like axes
+(``data``, ``seq``) and never over ``model``, whose ranks hold different
+shards, and :func:`fused_cross_entropy` takes the head's vocabulary
+shard (the vocabulary-parallel loss). The telemetry wrappers
+(``instrument_step``, ``lower_train_step``) are not ported.
 
 Usage (LoRA fine-tune)::
 
@@ -47,6 +54,23 @@ Sequence-parallel, one sequence of 8192 tokens over two ranks::
     batch = shard_batch(global_batch(rng, vocab, 1, 8192), mesh,
                         seq_axis=True)        # 4096 tokens and positions
     metrics = step(batch)
+
+Tensor-parallel, dp x sp x tp as the JAX package's ``('data','seq',
+'model')`` mesh, every rank building the model from the same whole
+state dict (each keeps its slice)::
+
+    mesh = make_mesh(MeshSpec(data=2, seq=2, model=2))
+    model = Llama.from_params(cfg, params, mesh=mesh,
+                              attention_fn=make_ring_attention(mesh))
+    opt = torch.optim.AdamW(...)              # no DistributedOptimizer
+    step = make_train_step(make_lm_loss_fn(model, loss="fused"), opt,
+                           param_mask=lora_mask(model))
+    metrics = step(shard_batch(batch, mesh, seq_axis=True))
+
+``sharding.full_host_value`` gathers a split leaf whole, and
+``TrainCheckpointer.save(..., specs=model.tp_specs, mesh=mesh)`` writes
+the whole tree with its sharding sidecar, which
+``restore(target_mesh=...)`` re-lays onto another mesh.
 """
 
 import numpy as np
@@ -54,6 +78,13 @@ import torch
 import torch.utils.checkpoint
 
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
+from sparkdl_tpu_torch.parallel.mesh import gathered, replicated
+from sparkdl_tpu_torch.parallel.sharding import MODEL
+
+# the mesh axes whose ranks see different rows or columns of the batch:
+# a tensor-parallel step averages its gradients over them (a model with
+# fsdp > 1 is refused when it is built)
+DATA_AXES = ("data", "seq")
 
 
 def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
@@ -85,9 +116,25 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
         Activation gradients still flow through frozen weights.
     :param device: where each batch goes (CUDA unless named; raises
         without it). Must be the model's device.
+
+    A tensor-parallel model (``loss_fn.model.mesh``, a ``Llama`` built
+    with a mesh) makes the step mesh-aware: after the backward it
+    averages every gradient over the mesh's data-like axes (``data``,
+    ``seq``; one fused all-reduce per axis and dtype), never over
+    ``model``, whose ranks hold different shards. Wrapping its optimizer
+    in ``hvd.DistributedOptimizer`` (a mean over the whole world) raises
+    ValueError.
     """
     device = resolve_device(device)
     model = getattr(loss_fn, "model", None)
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and hasattr(optimizer, "_hvd_op"):
+        raise ValueError(
+            "hvd.DistributedOptimizer averages every gradient over the "
+            "whole gang, which under tensor parallelism mixes shards of "
+            "different ranks (rank 0's lora_b columns with rank 1's); "
+            "pass the plain optimizer: the step averages over the mesh's "
+            "data-like axes itself")
     if model is not None:
         model_device = next(model.parameters()).device
         if model_device.type != device.type:
@@ -136,10 +183,41 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
                 (loss / grad_accum).backward()
                 total = total + loss.detach()
             total = total / grad_accum
+        if mesh is not None:
+            _average_grads(optimizer, mesh)
         optimizer.step()
         return {"loss": total}
 
     return step
+
+
+def _average_grads(optimizer, mesh):
+    """Average the optimizer's gradients in place over the data-like
+    axes of ``mesh`` of size > 1: one flat buffer per (dtype, device),
+    all-reduced over each axis in turn, then divided by their product.
+    Every rank holds the same parameters with gradients, in the same
+    order."""
+    axes = [a for a in DATA_AXES if mesh.axis_size(a) > 1]
+    if not axes:
+        return
+    n = int(np.prod([mesh.axis_size(a) for a in axes]))
+    by_kind = {}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is not None:
+                by_kind.setdefault((p.grad.dtype, p.grad.device),
+                                   []).append(p)
+    with torch.no_grad():
+        for params in by_kind.values():
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            for axis in axes:
+                flat = mesh.all_reduce(flat, axis)
+            flat /= n
+            offset = 0
+            for p in params:
+                size = p.grad.numel()
+                p.grad.copy_(flat[offset:offset + size].view_as(p.grad))
+                offset += size
 
 
 def cross_entropy_loss(logits, labels, *, ignore_index=None):
@@ -155,25 +233,41 @@ def cross_entropy_loss(logits, labels, *, ignore_index=None):
     return (nll * keep).sum() / keep.sum().clamp_min(1)
 
 
-def _chunk_nll(h, w, labels, matmul_dtype):
+def _chunk_lse_gold(h, w, labels, lo, matmul_dtype):
+    """One chunk's logsumexp over the vocabulary block ``w`` holds,
+    whose first column is token ``lo``, and the gold logit of each label
+    that falls in the block (0 for the others)."""
     if matmul_dtype is not None:
         h, w = h.to(matmul_dtype), w.to(matmul_dtype)
     # operands rounded to matmul_dtype, products summed in fp32 (the JAX
     # package's preferred_element_type=float32)
     logits = h.float() @ w.float()
-    gold = logits.gather(-1, labels[..., None])[..., 0]
-    return torch.logsumexp(logits, dim=-1) - gold
+    local = labels - lo
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+    return (torch.logsumexp(logits, dim=-1),
+            torch.where(mine, gold[..., 0], 0.0))
 
 
 def fused_cross_entropy(hidden, w_head, labels, *, chunk_size=256,
                         ignore_index=None, matmul_dtype=None,
-                        freeze_head=False):
+                        freeze_head=False, mesh=None):
     """Chunked linear + softmax cross entropy: ``CE(hidden @ w_head,
     labels)`` without the (B, S, V) logits of the whole sequence.
 
     The sequence is cut in slices of ``chunk_size`` tokens (the last may
     be shorter); each slice's logits are recomputed in the backward
     (``torch.utils.checkpoint``) instead of being kept.
+
+    Vocabulary-parallel with ``mesh`` whose ``model`` axis is > 1
+    (Megatron's split head): ``w_head`` is this rank's (D, V/m) block of
+    columns, at coordinate ``mesh.axis_index("model")``, and ``hidden``
+    is whole on every rank of the axis. Each rank computes its chunk logits on its
+    columns only; the per-row logsumexps and the gold logit (from the
+    rank whose block holds the label, 0 from the others) travel in one
+    differentiable all-gather a chunk and are merged on every rank, so
+    every rank returns the whole loss. ``hidden`` enters through f: its
+    gradient sums every rank's share (one all-reduce in the backward).
 
     :param hidden: (B, S, D) final hidden states.
     :param w_head: (D, V) unembedding.
@@ -191,12 +285,24 @@ def fused_cross_entropy(hidden, w_head, labels, *, chunk_size=256,
     labels = labels.masked_fill(~keep, 0)
     if freeze_head:
         w_head = w_head.detach()
+    split = mesh is not None and mesh.axis_size(MODEL) > 1
+    lo = 0
+    if split:
+        hidden = replicated(hidden, mesh, MODEL)
+        lo = mesh.axis_index(MODEL) * w_head.shape[-1]
     loss_sum = hidden.new_zeros((), dtype=torch.float32)
     for start in range(0, s, chunk):
         sl = slice(start, start + chunk)
-        nll = torch.utils.checkpoint.checkpoint(
-            _chunk_nll, hidden[:, sl], w_head, labels[:, sl], matmul_dtype,
-            use_reentrant=False)
+        lse, gold = torch.utils.checkpoint.checkpoint(
+            _chunk_lse_gold, hidden[:, sl], w_head, labels[:, sl], lo,
+            matmul_dtype, use_reentrant=False)
+        if split:
+            # (..., 2m): every rank's (logsumexp, gold) pair
+            both = gathered(torch.stack([lse, gold], dim=-1), mesh, MODEL)
+            both = both.unflatten(-1, (-1, 2))
+            lse, gold = (torch.logsumexp(both[..., 0], dim=-1),
+                         both[..., 1].sum(dim=-1))
+        nll = lse - gold
         loss_sum = loss_sum + (nll * keep[:, sl]).sum()
     return loss_sum / keep.sum().clamp_min(1)
 
@@ -218,6 +324,11 @@ def make_lm_loss_fn(model, *, loss="logits", chunk=512, ce_bf16=False):
     (chunks of ``chunk`` tokens, frozen head, the unembedding operands
     rounded to bf16 with ``ce_bf16``): the (B, S, V) logits never exist
     whole.
+
+    A tensor-parallel model whose head is split over the vocabulary takes
+    the vocabulary-parallel fused loss (``mesh=model.mesh``); its logits
+    path gathers the head's shards through the differentiable
+    all-gather.
     """
     if loss not in ("logits", "fused"):
         raise ValueError(f"unknown loss path {loss!r}")
@@ -230,10 +341,13 @@ def make_lm_loss_fn(model, *, loss="logits", chunk=512, ce_bf16=False):
         positions = batch.get("positions")
         if loss == "fused":
             hidden = model(inputs, positions, return_hidden=True)
+            split = (getattr(model, "tp", None) is not None
+                     and model.lm_head.tp_role == "col")
             return fused_cross_entropy(
                 hidden, model.lm_head.kernel, targets, chunk_size=chunk,
                 freeze_head=True,
-                matmul_dtype=torch.bfloat16 if ce_bf16 else None)
+                matmul_dtype=torch.bfloat16 if ce_bf16 else None,
+                mesh=model.mesh if split else None)
         return cross_entropy_loss(model(inputs, positions), targets)
 
     loss_fn.model = model

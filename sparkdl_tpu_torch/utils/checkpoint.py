@@ -23,14 +23,33 @@ tensors or plain Python values: a module's (adapter) ``state_dict``
 and ``optimizer.state_dict()`` for instance. It is read back with
 ``torch.load(weights_only=True)``.
 
-Not ported, and why: the orbax regime latch (a data-parallel gang has
-no cross-process barrier here to deadlock in, so there is one regime);
-the cross-process gather before a save (data-parallel state is
-replicated, so rank 0 holds all of it); the sharding-tree sidecar and
-the resharded restore of ``target_mesh`` (a gang has no mesh until
-tensor parallelism is ported); the observe spans and counters.
+Tensor-parallel state (elastic resume): ``save(step, state, mesh=mesh,
+specs=specs)`` on a gang laid out on a mesh (``specs`` maps a leaf's
+path, the nest's keys joined by ``.``, to its spec:
+``model.tp_specs`` for ``model.state_dict()``) is called by every rank.
+Each split leaf is gathered whole
+(:func:`~sparkdl_tpu_torch.parallel.sharding.full_host_value`, a
+collective), rank 0 writes the whole tree, and before the step's commit
+rename it writes the step's **sharding-tree sidecar**
+(``sharding_tree-<step>.json`` beside the step: the JAX package's
+schema and JSON layout, the port's paths), pruned with its step.
+``restore(step, target_mesh=mesh)`` re-lays the saved tree onto another
+mesh: the reshard plan is computed again from the sidecar
+(:func:`~sparkdl_tpu_torch.analysis.comms.reshard_plan`), an infeasible
+target raises :class:`~sparkdl_tpu_torch.analysis.comms.ReshardPreflightError`
+(never a fallback, never a quarantine), and each leaf is placed, one at
+a time from the host copy, as this rank's slice of its recorded layout
+on the target mesh; :attr:`TrainCheckpointer.last_reshard` holds the
+accounting. A step without a sidecar restores whole, with a warning.
+
+Not ported, and why: the orbax regime latch (no cross-process barrier
+here to deadlock in, so there is one regime); orbax's direct restore
+into sharded targets (every restore takes the host path of the JAX
+gang ranks) and the group-size knob ``SPARKDL_TPU_RESHARD_GROUPED``
+(placement is always leaf by leaf); the observe spans and counters.
 """
 
+import json
 import logging
 import os
 import shutil
@@ -40,6 +59,9 @@ import time
 logger = logging.getLogger("HorovodRunner")
 
 STATE_FILE = "state.pt"
+
+# the sidecar's schema: the JAX package's, so either package reads it
+SHARDING_TREE_SCHEMA = "sparkdl_tpu.checkpoint.sharding_tree/1"
 
 
 def should_save():
@@ -69,6 +91,83 @@ def latest_complete_step(directory):
     or None, by a directory scan alone (no torch import): the gang
     supervisor calls it on the driver between attempts."""
     return max(_committed_steps(directory), default=None)
+
+
+def sharding_sidecar_path(directory, step):
+    """Path of one step's sharding-tree sidecar under a checkpoint root:
+    beside the step's directory, written before its commit rename, so a
+    committed step saved on a mesh always has its sidecar."""
+    return os.path.join(directory, f"sharding_tree-{int(step)}.json")
+
+
+def load_sharding_tree(directory, step):
+    """One step's sharding-tree sidecar, or None (absent, torn, or of
+    another schema: the step restores without resharding). No torch
+    import."""
+    try:
+        with open(sharding_sidecar_path(directory, step)) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(doc, dict) or doc.get("schema") != SHARDING_TREE_SCHEMA:
+        return None
+    return doc
+
+
+def sidecar_mesh_axes(doc):
+    """The sidecar's recorded mesh axis sizes as ``{name: size}``."""
+    return {str(k): int(v)
+            for k, v in ((doc or {}).get("mesh_axes") or {}).items()}
+
+
+def _leaves(state, prefix=""):
+    """``(path, tensor)`` of every tensor leaf of a nest, in order; a path
+    is the keys and indices from the root joined by ``.`` (a flat
+    ``state_dict``'s names as they are)."""
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return [(prefix, state)]
+    items = (state.items() if isinstance(state, dict)
+             else enumerate(state) if isinstance(state, (list, tuple))
+             else ())
+    out = []
+    for k, v in items:
+        out += _leaves(v, f"{prefix}.{k}" if prefix else str(k))
+    return out
+
+
+def _replace_leaves(state, new, prefix=""):
+    """``state`` with each tensor leaf whose path is in ``new`` replaced
+    by ``new[path]``."""
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return new.get(prefix, state)
+    if isinstance(state, dict):
+        return {k: _replace_leaves(v, new, f"{prefix}.{k}" if prefix
+                                   else str(k)) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_replace_leaves(v, new, f"{prefix}.{i}" if prefix
+                                           else str(i))
+                           for i, v in enumerate(state))
+    return state
+
+
+def _sharding_tree_doc(step, leaves, specs, mesh):
+    """The sidecar of one save: every tensor leaf's whole shape, dtype
+    and per-dim axis names (``[]``: whole), and the mesh's axis sizes."""
+    from sparkdl_tpu_torch.parallel.sharding import sharding_tree_info
+
+    infos = sharding_tree_info(dict(leaves), specs, mesh)
+    return {
+        "schema": SHARDING_TREE_SCHEMA,
+        "step": int(step),
+        "mesh_axes": {str(a): int(n) for a, n in dict(mesh.shape).items()},
+        "params": [{"path": i.path, "shape": list(i.shape),
+                    "dtype": i.dtype, "spec": [list(d) for d in i.spec]}
+                   for i in infos],
+    }
 
 
 def _fsync_dir(path):
@@ -159,17 +258,40 @@ class TrainCheckpointer:
         # the step the last restore() loaded: on a fallback, earlier than
         # the one asked for, and the step a resumed run continues after
         self.last_restored_step = None
-        # the last save: {"step", "bytes", "snapshot_s", "write_s"}
-        # (write_s once the write has finished)
+        # the last save: {"step", "bytes", "snapshot_s", "write_s",
+        # "gather_s", "sidecar_bytes"} (write_s once the write has
+        # finished; the last two for a save on a mesh)
         self.last_save = None
+        # the accounting of the last resharded restore (None when the
+        # last restore re-laid nothing): the JAX package's keys
+        self.last_reshard = None
 
-    def save(self, step, state, force=False):
+    def save(self, step, state, force=False, *, mesh=None, specs=None):
         """Write ``state`` as step ``step``; True when written. False on a
         gang rank other than 0, and (unless ``force``) when a committed
         step at or after ``step`` exists, as orbax's manager decides;
         with ``force``, raises ValueError when ``step`` itself is
         committed. Blocks until the step is committed unless
-        ``async_save`` was set."""
+        ``async_save`` was set.
+
+        ``mesh`` (the gang's :class:`~sparkdl_tpu_torch.parallel.mesh.Mesh`)
+        and ``specs`` (``{leaf path: spec}``; a leaf without one is
+        whole): ``state`` holds this rank's blocks. Every rank must call
+        it, in the same order as its other collectives: the split
+        leaves are gathered whole first, then rank 0 writes them with
+        the step's sharding-tree sidecar."""
+        sidecar = None
+        if mesh is not None:
+            from sparkdl_tpu_torch.parallel.sharding import full_host_value
+
+            specs = dict(specs or {})
+            t = time.perf_counter()
+            leaves = _leaves(state)
+            sidecar = _sharding_tree_doc(step, leaves, specs, mesh)
+            state = _replace_leaves(state, {
+                path: full_host_value(x, specs.get(path, ()), mesh)
+                for path, x in leaves if specs.get(path)})
+            gather_s = time.perf_counter() - t
         if not should_save():
             return False
         self.wait_until_finished()
@@ -186,25 +308,41 @@ class TrainCheckpointer:
         self.last_save = {"step": step, "bytes": None,
                           "snapshot_s": time.perf_counter() - t,
                           "write_s": None}
+        if sidecar is not None:
+            self.last_save.update(gather_s=gather_s, sidecar_bytes=None)
         if not self._async:
-            self._write(step, snapshot)
+            self._write(step, snapshot, sidecar)
             return True
         self._writer = threading.Thread(
-            target=self._write_async, args=(step, snapshot),
+            target=self._write_async, args=(step, snapshot, sidecar),
             name=f"checkpoint-write-{step}", daemon=True)
         self._writer.start()
         return True
 
-    def _write_async(self, step, snapshot):
+    def _write_async(self, step, snapshot, sidecar):
         try:
-            self._write(step, snapshot)
+            self._write(step, snapshot, sidecar)
         except BaseException as e:  # noqa: BLE001 - raised again at the join
             self._write_error = e
 
-    def _write(self, step, snapshot):
+    def _write_sidecar(self, step, doc):
+        """Atomic (temp file, fsync, rename) before the step's commit
+        rename: a committed step saved on a mesh has its sidecar."""
+        path = sharding_sidecar_path(self._dir, step)
+        tmp = f"{path}.tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        self.last_save["sidecar_bytes"] = os.path.getsize(path)
+
+    def _write(self, step, snapshot, sidecar=None):
         import torch
 
         t = time.perf_counter()
+        if sidecar is not None:
+            self._write_sidecar(step, sidecar)
         final = os.path.join(self._dir, str(step))
         tmp = f"{final}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -223,11 +361,18 @@ class TrainCheckpointer:
         self._prune()
 
     def _prune(self):
-        if self._max_to_keep is None:
-            return
+        """Remove the steps beyond ``max_to_keep``, then every sidecar
+        whose step is not committed (pruned, or quarantined)."""
         steps = _committed_steps(self._dir)
-        for s in steps[:max(len(steps) - self._max_to_keep, 0)]:
-            shutil.rmtree(os.path.join(self._dir, str(s)))
+        if self._max_to_keep is not None:
+            for s in steps[:max(len(steps) - self._max_to_keep, 0)]:
+                shutil.rmtree(os.path.join(self._dir, str(s)))
+        live = set(_committed_steps(self._dir))
+        for name in os.listdir(self._dir):
+            stem = name[len("sharding_tree-"):-len(".json")]
+            if (name.startswith("sharding_tree-") and name.endswith(".json")
+                    and stem.isdigit() and int(stem) not in live):
+                os.unlink(os.path.join(self._dir, name))
 
     def wait_until_finished(self):
         """Join the async write in flight (none: no-op); raise its error."""
@@ -259,14 +404,29 @@ class TrainCheckpointer:
         for exactly ``step``. Raises FileNotFoundError when no step is
         committed.
 
-        ``target_mesh`` (a resharded restore onto another mesh) is not
-        ported and raises NotImplementedError.
+        ``target_mesh`` (a :class:`~sparkdl_tpu_torch.parallel.mesh.Mesh`,
+        this rank's view of the mesh to restore onto): every tensor leaf
+        the step's sidecar records comes back as this rank's slice of
+        its recorded layout re-laid onto ``target_mesh`` (axes the
+        target lacks go whole), placed one leaf at a time from the host
+        copy; with ``target``, each target leaf is the local slice's
+        shape. The reshard plan is recomputed from the sidecar
+        (``state_multiplier=1.0``, the tree is the state) first: an
+        infeasible target raises ReshardPreflightError, which neither
+        falls back nor quarantines.
+        :attr:`last_reshard` holds the accounting (None when the
+        target's axes are the recorded ones). A step without a sidecar
+        restores whole, with a warning.
         """
-        if target_mesh is not None:
-            raise NotImplementedError(
-                "TrainCheckpointer.restore(target_mesh=...) (a resharded "
-                "restore) is not ported: a data-parallel gang has no mesh")
+        from sparkdl_tpu_torch.parallel.mesh import Mesh
+
+        if target_mesh is not None and not isinstance(target_mesh, Mesh):
+            raise TypeError(
+                "target_mesh must be a sparkdl_tpu_torch.parallel.mesh.Mesh"
+                f", got {type(target_mesh).__name__}")
         import torch
+
+        from sparkdl_tpu_torch.analysis.comms import ReshardPreflightError
 
         self.wait_until_finished()
         if step is None:
@@ -278,11 +438,18 @@ class TrainCheckpointer:
             candidates += [s for s in reversed(_committed_steps(self._dir))
                            if s < int(step)]
         first_error = None
+        self.last_reshard = None
         for i, cand in enumerate(candidates):
             path = os.path.join(self._dir, str(cand), STATE_FILE)
             try:
+                plan = (None if target_mesh is None
+                        else self._reshard_plan(cand, target_mesh))
                 state = torch.load(path, map_location="cpu",
                                    weights_only=True)
+            except ReshardPreflightError:
+                # a deterministic refusal, not a torn step: every earlier
+                # step would fail alike, and none may be quarantined
+                raise
             except Exception as e:  # noqa: BLE001 - every way a torn
                 # step fails to load (truncated zip, missing file, a
                 # foreign pickle) must reach the fallback
@@ -295,11 +462,109 @@ class TrainCheckpointer:
                     self._dir, type(e).__name__, e, candidates[i + 1])
                 self._quarantine_step(cand)
                 continue
+            if plan is not None:
+                state = self._resharded(cand, state, target_mesh, *plan)
             self.last_restored_step = cand
             if target is None:
                 return state
             return _place(state, target, "state")
         raise first_error
+
+    def _reshard_plan(self, step, target_mesh):
+        """``(doc, plan)`` for re-laying ``step`` onto ``target_mesh``, or
+        None without a sidecar (a warning: the step restores whole).
+        Raises ReshardPreflightError when the plan is infeasible."""
+        from sparkdl_tpu_torch.analysis.comms import (
+            ReshardPreflightError,
+            param_info_from_sidecar,
+            reshard_plan,
+        )
+
+        doc = load_sharding_tree(self._dir, step)
+        if doc is None:
+            logger.warning(
+                "no sharding sidecar for step %d under %s; restoring "
+                "without resharding", step, self._dir)
+            return None
+        target_axes = {str(a): int(n)
+                       for a, n in dict(target_mesh.shape).items()}
+        plan = reshard_plan(param_info_from_sidecar(doc),
+                            sidecar_mesh_axes(doc) or target_axes,
+                            target_axes, state_multiplier=1.0)
+        if not plan.feasible:
+            raise ReshardPreflightError(plan.problems, plan=plan)
+        return doc, plan
+
+    def _resharded(self, step, state, target_mesh, doc, plan):
+        """``state`` (the whole tree on the host) with every leaf the
+        sidecar records replaced by this rank's slice of it on
+        ``target_mesh``, one leaf at a time; the accounting of the JAX
+        package's host-mediated placement with groups of one leaf: the
+        new slices accumulate and one leaf's old shard is in flight, the
+        high water within the plan's whole-tree bound."""
+        from sparkdl_tpu_torch.parallel.sharding import (
+            named_sharding_for,
+            shard_params,
+        )
+
+        source_axes = sidecar_mesh_axes(doc) or dict(plan.target_axes)
+        target_axes = dict(plan.target_axes)
+        spec_by_path = {p["path"]: p.get("spec") or []
+                        for p in doc["params"]}
+
+        def factor(spec_dims, axes):
+            f = 1
+            for dims in spec_dims or ():
+                for name in dims or ():
+                    f *= int(axes.get(name, 1))
+            return f
+
+        placed = {}
+        resident_new = high_water = bytes_moved = 0
+        for path, host in _leaves(state):
+            if path not in spec_by_path:
+                continue
+            spec = spec_by_path[path]
+            nbytes = host.numel() * host.element_size()
+            # at most all the new shards and the largest old one: never
+            # above the plan's bound (all new and all old)
+            high_water = max(high_water,
+                             resident_new + nbytes // factor(spec,
+                                                             source_axes))
+            placed[path] = shard_params(
+                {path: host},
+                {path: named_sharding_for(target_mesh, spec)},
+                target_mesh)[path]
+            new = nbytes // factor(spec, target_axes)
+            resident_new += new
+            bytes_moved += new
+        state = _replace_leaves(state, placed)
+        if source_axes == target_axes:
+            return state  # the recorded layout: a resume, not a reshard
+
+        def world(axes):
+            n = 1
+            for v in axes.values():
+                n *= int(v)
+            return n
+
+        src, tgt = world(source_axes), world(target_axes)
+        self.last_reshard = {
+            "mode": "grouped", "params": len(placed), "groups": len(placed),
+            "bytes_moved": int(bytes_moved),
+            "high_water_accounted_bytes": int(high_water),
+            "step": int(step),
+            "direction": ("grow" if tgt > src else "shrink" if tgt < src
+                          else "relayout"),
+            "source_axes": source_axes, "target_axes": target_axes,
+            "restore_high_water_bytes": plan.restore_high_water_bytes,
+            "hbm_bytes": plan.hbm_bytes,
+        }
+        logger.info(
+            "resharded restore of step %d: %s %s -> %s (%d leaves, "
+            "%.1f MiB placed)", step, self.last_reshard["direction"],
+            source_axes, target_axes, len(placed), bytes_moved / 2**20)
+        return state
 
     def _quarantine_step(self, step):
         """Move a torn step out of the numeric namespace, so that

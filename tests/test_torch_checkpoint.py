@@ -160,7 +160,8 @@ def test_target_sets_dtype_and_device_and_checks_shape(tmp_path):
 def test_target_mesh_raises_and_forced_resave_of_a_committed_step(tmp_path):
     ckpt = pt_ckpt.TrainCheckpointer(str(tmp_path))
     ckpt.save(0, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="target_mesh"):
+    # a resharded restore takes the port's Mesh, nothing else
+    with pytest.raises(TypeError, match="target_mesh"):
         ckpt.restore(target_mesh=object())
     with pytest.raises(ValueError, match="already exists"):
         ckpt.save(0, {"w": torch.ones(2)}, force=True)

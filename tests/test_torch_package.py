@@ -69,6 +69,9 @@ GANG_COUNTERPARTS = {
         "sparkdl_tpu/parallel/ring_attention.py",
     "sparkdl_tpu_torch/parallel/pipeline.py":
         "sparkdl_tpu/parallel/pipeline.py",
+    # the reshard plan of the resharded restore
+    "sparkdl_tpu_torch/analysis/core.py": "sparkdl_tpu/analysis/core.py",
+    "sparkdl_tpu_torch/analysis/comms.py": "sparkdl_tpu/analysis/comms.py",
 }
 
 
