@@ -14,7 +14,9 @@ HorovodRunner gangs (one resumed from a checkpoint after its worker is
 killed), sequence-parallel over a ring of two ranks and as a two-stage
 pipeline; then serve and LoRA-fine-tune a Mixtral-8x7B-width mixture of
 experts (cut in depth) and run its expert layer expert-parallel over two
-ranks; and show every run went through its kernels.
+ranks; train Llama-3-8B tensor-parallel and ZeRO-3 (``fsdp``) and serve
+it ZeRO-3 on two ranks sharing the card; and show every run went through
+its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -250,7 +252,30 @@ and on any failed check. Phases:
    tokens/s, the collectives' host ms a step and their share of the
    step, peak memory a rank, save ms and sidecar bytes, the resharded
    restore's ms and bytes moved. It bypasses NCCL: the collectives are
-   gloo's host staging.
+   gloo's host staging;
+21. ZeRO-3 (``fsdp``), run last, two ranks on the one card over gloo
+   (``HorovodRunner(np=-2)``, ``make_mesh(MeshSpec(fsdp=2))``), each
+   rank storing half of every weight the rules split over ``fsdp`` and
+   gathering each decoder block whole before its forward and again in
+   its backward. 21a, LoRA training: phase 20's model at depth 4, a
+   global batch of 2 x 2048 (one row a rank through ``shard_batch``),
+   the fused loss, AdamW, 1 untimed and 3 timed steps; gates: each
+   rank's losses within phase 6's tolerance of one process running the
+   same weights on the same 2 rows, both ranks' losses equal, step 0's
+   averaged adapter gradients and the update of steps 0-1 held against
+   an fp32 twin as phase 20 holds them, both ranks' adapters identical,
+   each rank's resident parameter bytes what ``param_sharding`` gives,
+   the gathers, reduce-scatters and all-reduces a step as
+   ``PERF.md`` predicts, and 4 x 3 launches of each flash kernel a
+   rank; it prints ms a step, tokens/s, the gathers' host ms inside the
+   timed steps and their share, peak memory a rank beside the whole
+   model's weight bytes. 21b, int8 serving: phase 3's weights rebuilt
+   by each rank from the shared seed at depth 2, phase 3's first 4
+   requests with budgets of 16; gates: both ranks' tokens identical and
+   equal to a single-rank engine's on the same weights in the launching
+   process, the B4 and B5 launches and the collectives as the engine's
+   counts predict; it prints ms a decode step, prefill ms and the
+   gathers' share of a decode step.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -377,7 +402,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
-           "19": -2, "20": -2}
+           "19": -2, "20": -2, "21a": -2, "21b": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -405,6 +430,13 @@ EP_TOKENS, EP_CAPACITY, EP_RUNS = 2048, 1.25, 3
 # to 8 (two ranks share the card, and every layer costs four host-staged
 # 16 MiB all-reduces a step), one row of 2048 tokens, its steps
 TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 8, 2048, 3
+# phase 21: ZeRO-3 on two ranks sharing the card, depth cut to 4 (21a:
+# every block is gathered twice a step over gloo's host staging) and to
+# 2 (21b, int8 serving); 21a's global batch of 2 x 2048, one row a rank;
+# 21b's requests (phase 3's first) and their budget
+FSDP_TRAIN_DEPTH, FSDP_TRAIN_ROWS, FSDP_TRAIN_SEQ = 4, 2, 2048
+FSDP_TRAIN_STEPS = 3
+FSDP_SERVE_DEPTH, FSDP_SERVE_REQUESTS, FSDP_SERVE_BUDGET = 2, 4, 16
 
 
 class CheckFailed(RuntimeError):
@@ -4696,6 +4728,474 @@ def tp_train(torch):
     return report
 
 
+def _timed_calls(torch, mesh, device, kinds):
+    """Count and time every call of ``mesh``'s collectives ``kinds``
+    (its instance methods wrapped: the model's autograd nodes and the
+    engine call them), each between two synchronizes of ``device``.
+    Returns ``{kind: [host ms of each call]}``, which the calls fill."""
+    calls = {kind: [] for kind in kinds}
+    on_card = device.type == "cuda"
+    for kind, spent in calls.items():
+        fn = getattr(mesh, kind)
+
+        def call(*a, _fn=fn, _spent=spent, **k):
+            if on_card:
+                torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            if on_card:
+                torch.cuda.synchronize(device)
+            _spent.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        setattr(mesh, kind, call)
+    return calls
+
+
+def _fsdp_train_collectives(cfg):
+    """Phase 21a's collectives a step on each rank (LoRA, the fused
+    loss, no ignored labels): every block gathered in the forward and
+    again when the backward reaches it (its weights are not kept), the
+    head once (kept into the backward), one gather each (one dtype); no
+    reduce-scatter (the split base is frozen); one all-reduce of the
+    adapters' gradients and one of the loss."""
+    return {"all_gather": 2 * cfg.n_layers + 1, "reduce_scatter": 0,
+            "all_reduce": 2}
+
+
+def _resident_bytes(cfg, mesh):
+    """The parameter bytes a rank of ``mesh`` stores by
+    ``param_sharding``: every leaf whole, over the product of the axes
+    that split it."""
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.parallel.sharding import (
+        TRANSFORMER_RULES,
+        param_sharding,
+        split_dims,
+    )
+
+    whole = Llama(cfg, device="meta").state_dict()
+    specs = param_sharding(whole, TRANSFORMER_RULES, mesh)
+    total = 0
+    for name, t in whole.items():
+        n = 1
+        for axes in split_dims(specs[name], mesh.shape).values():
+            for a in axes:
+                n *= mesh.axis_size(a)
+        total += t.numel() * t.element_size() // n
+    return total
+
+
+def fsdp_train_main(cfg, batch, steps, seed, device, started):
+    """Every rank of phase 21a: ``make_mesh(MeshSpec(fsdp=size))``, the
+    whole LoRA Llama of ``cfg`` drawn from ``seed`` (phase 20's
+    weights) and this rank's fsdp blocks kept
+    (``Llama.from_params(..., mesh=mesh)``), AdamW on its adapters, the
+    fused loss, this rank's rows of ``batch``. One untimed step (its
+    averaged adapter gradients kept), then ``steps`` timed steps, the
+    flash counters and the collectives recorded from zero, the adapters
+    after the first timed step and after the last. Returns every rank's
+    report (the tensors in rank 0's)."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from sparkdl_tpu_torch.parallel.train import (
+        make_lm_loss_fn,
+        make_train_step,
+        shard_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    mesh = make_mesh(MeshSpec(fsdp=size))
+    dev = _gang_device(torch, mesh, device)
+    on_card = dev.type == "cuda"
+    t = time.perf_counter()
+    whole = _tp_weights(torch, cfg, seed, dev)
+    whole_bytes = sum(p.numel() * p.element_size()
+                      for p in whole.parameters())
+    model = Llama.from_params(cfg, whole.state_dict(), device=dev, mesh=mesh)
+    del whole
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t
+    resident = sum(p.numel() * p.element_size() for p in model.parameters())
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(make_lm_loss_fn(model, loss="fused"), opt,
+                           param_mask=mask, device=dev)
+    mine = {k: torch.as_tensor(v, device=dev)
+            for k, v in shard_batch(batch, mesh).items()}
+
+    def host(tensors):
+        return {n: x.detach().cpu().clone() for n, x in tensors}
+
+    calls = _timed_calls(torch, mesh, dev,
+                         ("all_gather", "reduce_scatter", "all_reduce"))
+
+    def counted():
+        out = {k: len(v) for k, v in calls.items()}
+        ms = {k: sum(v) for k, v in calls.items()}
+        for v in calls.values():
+            v.clear()
+        return out, ms
+
+    # the untimed step 0: its loss, its averaged adapter gradients
+    initial = host(named)
+    step0_loss = step(mine)["loss"].item()
+    step0_calls, _ = counted()
+    grads = host((n, p.grad) for n, p in named)
+
+    _zero_flash()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, step_calls, gather_ms = [], [], [], []
+    after1 = None
+    for i in range(steps):
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        losses.append(step(mine)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+        n_calls, ms = counted()
+        step_calls.append(n_calls)
+        gather_ms.append(ms["all_gather"])
+        if i == 0:
+            after1 = host(named)
+    launches = _flash_launches()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    final = host(named)
+    step_ms = [1e3 * x for x in times]
+    report = {
+        "rank": rank, "size": size, "backend": _state.state().backend,
+        "device": str(dev), "ready_s": ready_s, "build_s": build_s,
+        "resident_bytes": resident,
+        "resident_bytes_by_rules": _resident_bytes(cfg, mesh),
+        "whole_bytes": whole_bytes,
+        "step0_loss": step0_loss, "step0_collectives": step0_calls,
+        "step_collectives": step_calls, "losses": losses,
+        "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+        "gather_ms": gather_ms,
+        "gather_share": [g / s for g, s in zip(gather_ms, step_ms)],
+        "launches": launches, "peak_mem_gb": peak / 1e9,
+        "adapter_sha256": _adapter_digest(list(final.items())),
+        "initial": initial if rank == 0 else None,
+        "step0_grads": grads if rank == 0 else None,
+        "after1": after1 if rank == 0 else None}
+    return hvd.allgather_object(report)
+
+
+def fsdp_train(torch):
+    """Phase 21a: HorovodRunner(np=GANG_NP["21a"]) ranks of
+    :func:`fsdp_train_main` sharing the card over gloo; then one process
+    holding the whole model of the same depth and weights on the same
+    global batch: its losses, step-0 gradients and first update, and
+    an fp32 twin's, against the ranks'."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.train import (
+        global_batch,
+        make_lm_loss_fn,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(n_layers=FSDP_TRAIN_DEPTH)
+    batch = global_batch(np.random.default_rng(SEED + 21), cfg.vocab_size,
+                         FSDP_TRAIN_ROWS, FSDP_TRAIN_SEQ)
+    t = time.perf_counter()
+    ranks = HorovodRunner(np=GANG_NP["21a"]).run(
+        fsdp_train_main, cfg=cfg, batch=batch, steps=FSDP_TRAIN_STEPS,
+        seed=SEED + 21, device=DEVICE, started=time.time())
+    run_wall_s = time.perf_counter() - t
+    size = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(size))
+             and size == max(-GANG_NP["21a"], 1),
+             f"phase 21a: ranks {[r['rank'] for r in ranks]}")
+    if GANG_NP["21a"] <= -2 and DEVICE == "cuda":
+        _require(all(r["backend"] == "gloo" for r in ranks),
+                 f"phase 21a: backends {[r['backend'] for r in ranks]}")
+    want = (_fsdp_train_collectives(cfg) if size > 1 else
+            {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0})
+    r0 = ranks[0]
+    for r in ranks:
+        _require(r["resident_bytes"] == r["resident_bytes_by_rules"],
+                 f"phase 21a rank {r['rank']}: {r['resident_bytes']} "
+                 "parameter bytes resident, param_sharding gives "
+                 f"{r['resident_bytes_by_rules']}")
+        _require(all(c == want for c in r["step_collectives"]
+                     + [r["step0_collectives"]]),
+                 f"phase 21a rank {r['rank']}: collectives a step "
+                 f"{r['step0_collectives']} then {r['step_collectives']}, "
+                 f"PERF.md predicts {want}")
+        n = cfg.n_layers * FSDP_TRAIN_STEPS
+        _require(r["launches"] == dict.fromkeys(r["launches"], n),
+                 f"phase 21a rank {r['rank']}: launches {r['launches']}, "
+                 f"want {n} of each")
+        _require(all(np.isfinite([r["step0_loss"]] + r["losses"])),
+                 f"phase 21a rank {r['rank']}: losses {r['losses']}")
+        # C7: every rank returns the global batch's loss
+        for key in ("adapter_sha256", "losses", "step0_loss"):
+            _require(r[key] == r0[key],
+                     f"phase 21a: rank {r['rank']}'s {key} differs from "
+                     "rank 0's")
+
+    # one process, the whole model of the same weights on the same
+    # global batch: its fp32 twin first, then the model itself
+    model = _tp_weights(torch, cfg, SEED + 21, torch.device(DEVICE))
+    mask = lora_mask(model)
+    on_dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    exact = _fp32_run(torch, model, mask, on_dev)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    initial = {n: p.detach().cpu().clone() for n, p in named}
+    _require(all(torch.equal(initial[n], r0["initial"][n]) for n in initial),
+             "phase 21a: the ranks' adapters before step 0 differ from "
+             "the whole model's")
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(make_lm_loss_fn(model, loss="fused"), opt,
+                           param_mask=mask, device=DEVICE)
+    single_losses = [step(on_dev)["loss"].item()]
+    one_grads = {n: p.grad.detach().cpu().clone() for n, p in named}
+    single_losses.append(step(on_dev)["loss"].item())
+    after1 = {n: p.detach().cpu().clone() for n, p in named}
+    single_losses += [step(on_dev)["loss"].item()
+                      for _ in range(FSDP_TRAIN_STEPS - 1)]
+    del opt, step, model, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 20's tolerances: the losses within 2^-10 relative, at step 0
+    # and at every timed step; each averaged step-0 gradient no farther
+    # from the fp32 twin's than twice the one process's; the update of
+    # steps 0-1 within twice the one process's distance from the fp32
+    # update or 2^-5 of its norm, the larger
+    ours = [r0["step0_loss"]] + r0["losses"]
+    _require(all(abs(a - b) <= 2.0 ** -10 * abs(b)
+                 for a, b in zip(ours, single_losses, strict=True)),
+             f"phase 21a: losses {ours} on fsdp={size} vs {single_losses} "
+             "on one process")
+    report = {"np": GANG_NP["21a"], "n_layers": cfg.n_layers,
+              "rows": FSDP_TRAIN_ROWS, "seq": FSDP_TRAIN_SEQ, "size": size,
+              "run_wall_s": run_wall_s, "card": _card_line(torch),
+              "losses": ours, "single_losses": single_losses,
+              "loss_rel_err": max(abs(a - b) / abs(b)
+                                  for a, b in zip(ours, single_losses)),
+              "grads": {}, "update": {}}
+    for name in initial:
+        ref = exact["grads"][name]
+        got = r0["step0_grads"][name]
+        row = {"fsdp_vs_one_process": _rel_norm_err(got, one_grads[name]),
+               "fsdp_vs_fp32": _rel_norm_err(got, ref),
+               "one_process_vs_fp32": _rel_norm_err(one_grads[name], ref)}
+        report["grads"][name] = row
+        _require(ref.norm() > 0 and row["fsdp_vs_fp32"]
+                 <= 2 * row["one_process_vs_fp32"],
+                 f"phase 21a {name}: step 0's gradient on fsdp={size} "
+                 f"against fp32 {row}")
+        ours_upd = r0["after1"][name] - initial[name]
+        one_upd = after1[name] - initial[name]
+        fp32_upd = exact["after1"][name] - initial[name]
+        row = {"fsdp_vs_one_process": _rel_norm_err(ours_upd, one_upd),
+               "fsdp_vs_fp32": _rel_norm_err(ours_upd, fp32_upd),
+               "one_process_vs_fp32": _rel_norm_err(one_upd, fp32_upd)}
+        report["update"][name] = row
+        _require(fp32_upd.norm() > 0 and row["fsdp_vs_fp32"]
+                 <= max(2 * row["one_process_vs_fp32"], 2.0 ** -5),
+                 f"phase 21a {name}: the update of steps 0 and 1 on "
+                 f"fsdp={size} against fp32 {row}")
+    del exact, initial, after1, one_grads
+    step_s = statistics.median([x for r in ranks for x in r["step_ms"]]) / 1e3
+    report.update({
+        "worst_grad_rel_norm_err": {
+            k: max(g[k] for g in report["grads"].values())
+            for k in ("fsdp_vs_one_process", "fsdp_vs_fp32",
+                      "one_process_vs_fp32")},
+        "worst_update_rel_norm_err": {
+            k: max(u[k] for u in report["update"].values())
+            for k in ("fsdp_vs_one_process", "fsdp_vs_fp32",
+                      "one_process_vs_fp32")},
+        "step_ms_median": 1e3 * step_s,
+        "tokens_per_s": FSDP_TRAIN_ROWS * FSDP_TRAIN_SEQ / step_s,
+        "collectives_per_step": want,
+        "gather_ms_per_step": [statistics.median(r["gather_ms"])
+                               for r in ranks],
+        "gather_share_of_step": [statistics.median(r["gather_share"])
+                                 for r in ranks],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "resident_gb": [r["resident_bytes"] / 1e9 for r in ranks],
+        "whole_weights_gb": r0["whole_bytes"] / 1e9,
+        "launches": {k: sum(r["launches"][k] for r in ranks)
+                     for k in r0["launches"]},
+        "ranks": [{k: v for k, v in r.items()
+                   if k not in ("step0_grads", "after1", "initial")}
+                  for r in ranks]})
+    _log("fsdp_train " + json.dumps(report))
+    return report
+
+
+def fsdp_serve_main(cfg, n_requests, budget, device, started):
+    """Every rank of phase 21b: ``make_mesh(MeshSpec(fsdp=size))``,
+    phase 3's weights at ``cfg``'s depth rebuilt on this rank's card from
+    the shared seed (int8), an int8 paged engine (8 slots, pages of 64,
+    chunk 16) with ``mesh=``, which keeps this rank's fsdp blocks, and
+    the whole model freed; phase 3's first ``n_requests`` requests at
+    ``budget`` tokens, counters zeroed just before the run, the
+    collectives counted and timed inside it. Returns every rank's
+    report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    mesh = make_mesh(MeshSpec(fsdp=size))
+    dev = _gang_device(torch, mesh, device)
+    on_card = dev.type == "cuda"
+    full = random_quant_llama(torch, cfg, _seeded(torch, SEED, dev), dev)
+    engine = ContinuousBatchingEngine(full, full.state_dict(), n_slots=8,
+                                      chunk=16, page_size=64, mesh=mesh,
+                                      device=dev)
+    del full
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    resident = sum(p.numel() * p.element_size()
+                   for p in engine._model.parameters())
+    prompts, _ = _requests(cfg, n_requests)
+    rids = [engine.submit(p, budget) for p in prompts]
+    spent = _time_engine(torch, engine)
+    calls = _timed_calls(torch, mesh, dev,
+                         ("all_gather", "all_reduce", "broadcast"))
+    # the gathers' host ms inside the timed decode chunks
+    decode_fn, decode_gather_ms = engine._decode_chunk, [0.0]
+
+    def decode_chunk(*a, **k):
+        before = sum(calls["all_gather"])
+        out = decode_fn(*a, **k)
+        decode_gather_ms[0] += sum(calls["all_gather"]) - before
+        return out
+
+    engine._decode_chunk = decode_chunk
+    if on_card:
+        torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    stats = dict(engine.stats)
+    forwards = stats["steps"] + stats["prefill_segments"]
+    report = {
+        "rank": rank, "size": size, "backend": _state.state().backend,
+        "device": str(dev), "ready_s": ready_s, "resident_bytes": resident,
+        "tokens": [results[r].tolist() for r in rids],
+        "finish_reasons": [engine.finish_reasons[r] for r in rids],
+        "stats": stats, "launches": launches,
+        "collectives": {k: len(v) for k, v in calls.items()},
+        "gather_ms": sum(calls["all_gather"]),
+        "collective_ms": sum(sum(v) for v in calls.values()),
+        "wall_s": wall, "forwards": forwards,
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "prefill_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
+        "gather_ms_per_forward": sum(calls["all_gather"]) / forwards,
+        "gather_share_of_decode": decode_gather_ms[0]
+        / (1e3 * spent["decode"])}
+    return hvd.allgather_object(report)
+
+
+def fsdp_serve(torch):
+    """Phase 21b: HorovodRunner(np=GANG_NP["21b"]) ranks of
+    :func:`fsdp_serve_main`, two on the one card (gloo); then a
+    single-rank engine in this process on the same weights (phase 3's,
+    rebuilt from the seed at the same depth) and requests: the ranks'
+    tokens must be identical to each other and to its own (the gathered
+    weights are the whole ones bit for bit, and the kernels see the
+    same shapes)."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models.llama import LlamaConfig
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    cfg = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int8",
+                                n_layers=FSDP_SERVE_DEPTH)
+    t = time.perf_counter()
+    ranks = HorovodRunner(np=GANG_NP["21b"]).run(
+        fsdp_serve_main, cfg=cfg, n_requests=FSDP_SERVE_REQUESTS,
+        budget=FSDP_SERVE_BUDGET, device=DEVICE, started=time.time())
+    run_wall_s = time.perf_counter() - t
+    size = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(size))
+             and size == max(-GANG_NP["21b"], 1),
+             f"phase 21b: ranks {[r['rank'] for r in ranks]}")
+    r0 = ranks[0]
+    for r in ranks:
+        stats, forwards = r["stats"], r["forwards"]
+        want = {"paged_attention_decode": cfg.n_layers * stats["steps"],
+                "quantized_matmul": (7 * cfg.n_layers + 1) * forwards,
+                "quantized_matmul_int4": 0}
+        _require(r["launches"] == want,
+                 f"phase 21b rank {r['rank']}: launches {r['launches']}, "
+                 f"the engine's counts predict {want}")
+        # a forward: one gather a block and one of the head (int8, one
+        # dtype each), and the sampled tokens broadcast over fsdp
+        fsdp = size > 1
+        want = {"all_gather": (cfg.n_layers + 1) * forwards * fsdp,
+                "all_reduce": 0, "broadcast": forwards * fsdp}
+        _require(r["collectives"] == want,
+                 f"phase 21b rank {r['rank']}: collectives "
+                 f"{r['collectives']}, want {want}")
+        for key in ("tokens", "finish_reasons", "stats"):
+            _require(r[key] == r0[key],
+                     f"phase 21b: rank {r['rank']}'s {key} differ from "
+                     "rank 0's")
+    model = random_quant_llama(torch, cfg, _seeded(torch, SEED))
+    engine = ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
+                                      chunk=16, page_size=64, device=DEVICE)
+    prompts, _ = _requests(cfg, FSDP_SERVE_REQUESTS)
+    rids = [engine.submit(p, FSDP_SERVE_BUDGET) for p in prompts]
+    spent = _time_engine(torch, engine)
+    results = engine.run()
+    single = [results[r].tolist() for r in rids]
+    single_decode_ms = 1e3 * spent["decode"] / engine.stats["steps"]
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (toks, reason) in enumerate(zip(r0["tokens"],
+                                           r0["finish_reasons"])):
+        _require(len(toks) == FSDP_SERVE_BUDGET and reason == "length"
+                 and all(0 <= t < cfg.vocab_size for t in toks),
+                 f"phase 21b request {i}: {len(toks)} tokens on {reason}")
+    _require(r0["tokens"] == single,
+             f"phase 21b: the fsdp={size} engine's tokens differ from a "
+             f"single-rank engine's: {_agreement(r0['tokens'], single)}")
+    report = {k: v for k, v in r0.items()
+              if k not in ("tokens", "finish_reasons")}
+    report.update({
+        "np": GANG_NP["21b"], "n_layers": cfg.n_layers,
+        "requests": FSDP_SERVE_REQUESTS, "budget": FSDP_SERVE_BUDGET,
+        "run_wall_s": run_wall_s, "card": _card_line(torch),
+        "single_rank_decode_ms_per_step": single_decode_ms,
+        "gather_share_of_decode_step": [r["gather_share_of_decode"]
+                                        for r in ranks],
+        "ranks": [{k: r[k] for k in (
+            "rank", "backend", "device", "resident_bytes",
+            "decode_ms_per_step", "prefill_ms_mean", "gather_ms_per_forward",
+            "launches", "collectives")} for r in ranks]})
+    _log("fsdp_serve " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -4826,6 +5326,13 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     tp_training = tp_train(torch)
+    # slice 14: ZeRO-3 training and serving; this process holds no model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_training = fsdp_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_serving = fsdp_serve(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -4848,7 +5355,8 @@ def main(argv=None):
                     "15": seq["launches"][name],
                     "16": pipe["launches"][name],
                     "18": moe_training["launches"][name],
-                    "20": tp_training["launches"][name]}
+                    "20": tp_training["launches"][name],
+                    "21a": fsdp_training["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -4879,7 +5387,9 @@ def main(argv=None):
                     "14_one_replica": fleet["one_replica"]["launches"][
                         "quantized_matmul"],
                     "14": fleet["launches"]["quantized_matmul"],
-                    "17": moe_serving["launches"]["quantized_matmul"]}
+                    "17": moe_serving["launches"]["quantized_matmul"],
+                    "21b": sum(r["launches"]["quantized_matmul"]
+                               for r in fsdp_serving["ranks"])}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
                       "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
@@ -4891,7 +5401,9 @@ def main(argv=None):
                           "paged_attention_decode"],
                       "14": fleet["launches"]["paged_attention_decode"],
                       "17": moe_serving["launches"][
-                          "paged_attention_decode"]}
+                          "paged_attention_decode"],
+                      "21b": sum(r["launches"]["paged_attention_decode"]
+                                 for r in fsdp_serving["ranks"])}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
@@ -4955,6 +5467,8 @@ def main(argv=None):
                        "moe_training": moe_training,
                        "expert_parallel": moe_ep,
                        "tp_train": tp_training,
+                       "fsdp_train": fsdp_training,
+                       "fsdp_serve": fsdp_serving,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

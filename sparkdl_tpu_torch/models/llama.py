@@ -81,6 +81,7 @@ The TPU's kernel-mode fields (``paged_kernel``, ``quant_kernel``) are
 not fields here.
 """
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -96,7 +97,12 @@ from sparkdl_tpu_torch.ops import attention as _attention
 from sparkdl_tpu_torch.ops import paged_attention as _paged
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
 from sparkdl_tpu_torch.parallel import ring_attention as _ring
-from sparkdl_tpu_torch.parallel.mesh import axis_sum, gathered, replicated
+from sparkdl_tpu_torch.parallel.mesh import (
+    axis_sum,
+    gather_shards,
+    gathered,
+    replicated,
+)
 
 NEG_INF = -1e30
 
@@ -172,6 +178,109 @@ def _tp_call(module, x, tp, have="full", want="full", adapter_ids=None):
     if tp is not None:
         y = _relayout(y, _OUT[module.tp_role], want, tp)
     return y
+
+
+@contextlib.contextmanager
+def _bound(weights):
+    """Each ``(module, leaf)`` of ``weights`` reads as the given tensor
+    (an instance attribute shadows the parameter) for the ``with``
+    body; the module's parameters stay as they are."""
+    for (owner, leaf), w in weights.items():
+        owner.__dict__[leaf] = w
+    try:
+        yield
+    finally:
+        for owner, leaf in weights:
+            owner.__dict__.pop(leaf, None)
+
+
+class _Regather:
+    """The note a gathered weight is saved as in the graph: its unit,
+    its leaf and the saved view's geometry."""
+
+    __slots__ = ("unit", "key", "geometry")
+
+    def __init__(self, unit, key, t):
+        self.unit, self.key = unit, key
+        self.geometry = (t.size(), t.stride(), t.storage_offset())
+
+
+class _Zero3:
+    """A model's ZeRO-3 storage on its mesh's ``fsdp`` axis: the split
+    leaves of each unit (``layers.<i>`` a block, ``"top"`` the rest),
+    with the dim each is cut along, gathered whole on demand. Every rank
+    issues the same gathers in the same order: the units' leaves are
+    taken in state-dict order, grouped by (dtype, trained)."""
+
+    def __init__(self, model, mesh, dims):
+        self.mesh = mesh
+        modules = dict(model.named_modules())
+        self.units = {}
+        for name, dim in dims.items():
+            owner, _, leaf = name.rpartition(".")
+            parts = name.split(".")
+            unit = int(parts[1]) if parts[0] == "layers" else "top"
+            self.units.setdefault(unit, []).append(
+                (modules[owner], leaf, dim))
+        self._again = None  # (unit, weights) gathered again in a backward
+
+    def has(self, unit, module=None):
+        return any(module is None or owner is module
+                   for owner, _, _ in self.units.get(unit, ()))
+
+    def gather(self, unit):
+        """``{(module, leaf): whole}`` of ``unit``: one gather a (dtype,
+        trained) group; differentiable when gradients are recorded."""
+        groups = {}
+        for owner, leaf, dim in self.units.get(unit, ()):
+            p = owner._parameters[leaf]
+            groups.setdefault((p.dtype, p.requires_grad), []).append(
+                ((owner, leaf), p, dim))
+        out = {}
+        for items in groups.values():
+            wholes = gather_shards([p for _, p, _ in items],
+                                   [d for _, _, d in items], self.mesh,
+                                   "fsdp")
+            out.update(zip((k for k, _, _ in items), wholes))
+        return out
+
+    def release(self):
+        self._again = None
+
+    def _gathered_again(self, unit):
+        if self._again is None or self._again[0] != unit:
+            if self._again is None:
+                # dropped when this backward ends
+                torch.autograd.Variable._execution_engine.queue_callback(
+                    self.release)
+            self._again = None
+            with torch.no_grad():
+                self._again = (unit, self.gather(unit))
+        return self._again[1]
+
+    def run(self, unit, fn, *args, hooks=True):
+        """``fn(*args)`` with ``unit``'s leaves gathered whole; with
+        ``hooks`` and gradients recorded, the gathered weights the graph
+        saves are noted, not kept, and gathered again in the backward."""
+        weights = self.gather(unit)
+        with _bound(weights):
+            if not (hooks and torch.is_grad_enabled()):
+                return fn(*args)
+            ptrs = {w.untyped_storage().data_ptr(): k
+                    for k, w in weights.items() if w.numel()}
+
+            def pack(t):
+                key = ptrs.get(t.untyped_storage().data_ptr())
+                return t if key is None else _Regather(unit, key, t)
+
+            def unpack(saved):
+                if not isinstance(saved, _Regather):
+                    return saved
+                whole = self._gathered_again(saved.unit)[saved.key]
+                return whole.as_strided(*saved.geometry)
+
+            with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+                return fn(*args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -570,25 +679,24 @@ class Llama(nn.Module):
     ``model`` axis > 1 makes the model tensor-parallel: it holds only
     this rank's slice of each weight, laid out by ``rules`` (default
     ``TRANSFORMER_RULES``; :attr:`tp_specs` after construction), and
-    computes on this rank's heads. ``paged_attention_fn(q, k_pool,
-    v_pool, tables, lens)`` takes the place of the single-token paged
-    decode call; ``attention_fn(q, k, v)`` (B, S, H, D each, kv heads
-    repeated) that of the training forward's attention."""
+    computes on this rank's heads. An ``fsdp`` axis > 1 shards the
+    weights the rules split over it (ZeRO-3), gathered whole before each
+    use; :attr:`mesh` is set when either axis is > 1.
+    ``paged_attention_fn(q, k_pool, v_pool, tables, lens)`` takes the
+    place of the single-token paged decode call; ``attention_fn(q, k,
+    v)`` (B, S, H, D each, kv heads repeated) that of the training
+    forward's attention."""
 
     def __init__(self, cfg, device=None, *, attention_fn=None,
                  paged_attention_fn=None, mesh=None, rules=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        if mesh is not None and mesh.axis_size("fsdp") > 1:
-            raise NotImplementedError(
-                f"a mesh with fsdp={mesh.axis_size('fsdp')} > 1 is not "
-                "ported (ZeRO-3 parameter sharding); put the ranks on "
-                "'model', 'seq' or 'data'")
-        tp = mesh is not None and mesh.axis_size("model") > 1
-        # a tensor-parallel model is laid out on the full shapes first,
-        # with no memory behind them, then given its local weights
-        build = torch.device("meta") if tp else device
+        sharded = mesh is not None and (mesh.axis_size("model") > 1
+                                        or mesh.axis_size("fsdp") > 1)
+        # a sharded model is laid out on the full shapes first, with no
+        # memory behind them, then given its local weights
+        build = torch.device("meta") if sharded else device
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, build)
         self.layers = nn.ModuleList(
             Block(cfg, build, cfg.use_moe(i)) for i in range(cfg.n_layers))
@@ -601,8 +709,9 @@ class Llama(nn.Module):
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size,
                                  torch.float32, build)
         self.tp, self.tp_specs, self.mesh = None, None, None
+        self.zero3 = None  # the ZeRO-3 units (fsdp > 1)
         self.n_kv_heads = cfg.n_kv_heads  # this rank's, in the cache
-        if tp:
+        if sharded:
             self._shard(mesh, rules, device)
         for layer in self.layers:
             layer.attn.paged_fn = paged_attention_fn
@@ -611,7 +720,8 @@ class Llama(nn.Module):
 
     def _shard(self, mesh, rules, device):
         """Give every weight its local shape on ``device`` by the rules'
-        layout, and each projection its role."""
+        layout, the ZeRO-3 units their split leaves, and each projection
+        its role."""
         from sparkdl_tpu_torch.parallel import sharding
 
         cfg, size = self.cfg, mesh.axis_size("model")
@@ -636,6 +746,12 @@ class Llama(nn.Module):
             setattr(modules[owner], leaf, nn.Parameter(
                 torch.empty(t.shape, dtype=old.dtype, device=device),
                 requires_grad=old.requires_grad))
+        self.mesh = mesh
+        dims = sharding.fsdp_dims(self.tp_specs, mesh)
+        if dims:
+            self.zero3 = _Zero3(self, mesh, dims)
+        if size == 1:
+            return
         for prefix, role in sharding.projection_roles(
                 self.tp_specs, mesh).items():
             modules[prefix].tp_role = role
@@ -643,10 +759,8 @@ class Llama(nn.Module):
                 # the adapter leaf a split projection holds whole
                 modules[prefix].tp_whole = (
                     mesh, "lora_a" if role == "col" else "lora_b")
-        self.embed.tp_split = bool(
-            sharding.split_dims(self.tp_specs["embed.embedding"],
-                                 mesh.shape))
-        self.mesh = mesh
+        self.embed.tp_split = "model" in sharding.split_dims(
+            self.tp_specs["embed.embedding"], mesh.shape).get(1, ())
         self.tp = _TP(mesh, mesh.axis_index("model"), size)
         self.n_kv_heads = cfg.n_kv_heads // size
         for layer in self.layers:
@@ -662,14 +776,15 @@ class Llama(nn.Module):
         dict with this model's keys), moved to ``device`` and cast to
         each weight's dtype where they differ — no other copy. Raises
         on a missing, unexpected or mis-shaped entry. With a
-        tensor-parallel ``mesh``, ``params`` is the whole state dict and
-        the model takes this rank's slice of it
+        tensor-parallel or ZeRO-3 ``mesh``, ``params`` is the whole state
+        dict and the model takes this rank's slice of it, its ``model``
+        and its ``fsdp`` block alike
         (:func:`~sparkdl_tpu_torch.parallel.sharding.shard_params`)."""
         device = resolve_device(device)
         model = cls(cfg, device="meta", mesh=mesh, rules=rules,
                     paged_attention_fn=paged_attention_fn,
                     attention_fn=attention_fn)
-        if model.tp is not None:
+        if model.mesh is not None:
             params = model.local_params(params)
         expected = model.state_dict()
         missing = sorted(set(expected) - set(params))
@@ -692,8 +807,8 @@ class Llama(nn.Module):
     def local_params(self, params):
         """This rank's slice of the whole state dict (or flat JAX tree)
         ``params`` by :attr:`tp_specs`; ``params`` itself for a model
-        that is not tensor-parallel."""
-        if self.tp is None:
+        that is neither tensor-parallel nor ZeRO-3."""
+        if self.mesh is None:
             return params
         from sparkdl_tpu_torch.parallel import sharding
 
@@ -705,6 +820,19 @@ class Llama(nn.Module):
     @property
     def device(self):
         return self.embed.embedding.device
+
+    def head_kernel(self):
+        """The head's (d_model, V) kernel as this rank computes with it
+        (its vocabulary block under tensor parallelism), gathered whole
+        over ``fsdp`` under ZeRO-3 (the top-level unit, differentiable)."""
+        if self.zero3 is not None and self.zero3.has("top", self.lm_head):
+            return self.zero3.gather("top")[self.lm_head, "kernel"]
+        return self.lm_head.kernel
+
+    def _block(self, i, layer, *args, hooks=True):
+        if self.zero3 is None:
+            return layer(*args)
+        return self.zero3.run(i, layer, *args, hooks=hooks)
 
     def init_cache(self, batch=None):
         """A zeroed cache for this decode config, on the model's device:
@@ -833,7 +961,13 @@ class Llama(nn.Module):
             positions = positions[:, None]  # slot-mapped (B,): one a row
         positions = positions.expand(b, s)
         cos, sin = self._rope_tables(tokens.device, length)
-        x = self.embed(tokens.long())
+        zero3, top = self.zero3, {}
+        if zero3 is not None:
+            zero3.release()
+            if zero3.has("top", self.embed):
+                top = zero3.gather("top")
+        with _bound(top):
+            x = self.embed(tokens.long())
         if self.embed.tp_split:
             x = gathered(x, self.tp.mesh, "model")
         intermediates = {}
@@ -844,18 +978,25 @@ class Llama(nn.Module):
                 record = {}
                 intermediates[f"layer_{i}"] = {"moe_mlp": record}
             if cfg.decode:
-                x = layer(x, cos, sin, positions, block_tables, cache.k[i],
-                          cache.v[i], adapter_ids, record)
+                x = self._block(i, layer, x, cos, sin, positions,
+                                block_tables, cache.k[i], cache.v[i],
+                                adapter_ids, record)
             elif cfg.remat and torch.is_grad_enabled():
+                # the recompute gathers the block's weights again
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, cos, sin, positions, None, None, None,
-                    adapter_ids, record, use_reentrant=False)
+                    self._block, i, layer, x, cos, sin, positions, None,
+                    None, None, adapter_ids, record, hooks=False,
+                    use_reentrant=False)
             else:
-                x = layer(x, cos, sin, positions, adapter_ids=adapter_ids,
-                          record=record)
-        x = self.final_norm(x)
-        if not return_hidden:
-            x = _tp_call(self.lm_head, x.to(torch.float32), self.tp)
+                x = self._block(i, layer, x, cos, sin, positions, None,
+                                None, None, adapter_ids, record)
+        if zero3 is not None and not top and zero3.has("top") and (
+                not return_hidden or zero3.has("top", self.final_norm)):
+            top = zero3.gather("top")
+        with _bound(top):
+            x = self.final_norm(x)
+            if not return_hidden:
+                x = _tp_call(self.lm_head, x.to(torch.float32), self.tp)
         return (x, intermediates) if return_intermediates else x
 
 

@@ -56,6 +56,15 @@ eos, stops, budgets) because each sampled token, with its logprob, is
 broadcast from the group's first rank once a decode step and once a
 prefill.
 
+ZeRO-3 serving (a ``mesh`` whose ``fsdp`` axis is > 1, alone or with
+``model``): each rank stores its ``fsdp`` block of the weights and every
+forward gathers each block's whole before it runs (``models.llama``),
+under ``no_grad`` in prefill and decode alike. Slots are not split over
+``fsdp``, as in the JAX engine, whose cache splits only kv heads over
+``model``: every ``fsdp`` rank decodes every slot, and each sampled
+token is broadcast over ``model`` and then over ``fsdp``, so every rank
+of the mesh takes the same host decisions.
+
 ``telemetry``: an object with the JAX engine's hooks
 (``request_admitted(rid)``, ``request_pages(rid, pages)`` when it has
 one, ``admission_deferred(reason)``, ``decode_chunk(active, n_slots,
@@ -63,8 +72,7 @@ n_tokens, free_pages=, n_pages=)``), each called behind one ``is not
 None`` test; None by default.
 
 Not ported yet, and refused by name: kernel-mode routing
-(``quant_kernel``) and a mesh with ``fsdp > 1`` (ZeRO-3 serving
-params).
+(``quant_kernel``).
 """
 
 import dataclasses
@@ -189,11 +197,6 @@ class ContinuousBatchingEngine:
                     f"TP serving needs mesh axes 'model' and 'fsdp' "
                     f"(missing {sorted(missing)}); build the mesh with "
                     "sparkdl_tpu_torch.parallel.mesh.make_mesh")
-            if axis_sizes["fsdp"] > 1:
-                raise NotImplementedError(
-                    f"a mesh with fsdp={axis_sizes['fsdp']} > 1 is not "
-                    "ported (ZeRO-3 serving params); put the ranks on "
-                    "'model' or 'data'")
             if device is None:
                 device = mesh.device
         self.device = resolve_device(device)
@@ -253,9 +256,9 @@ class ContinuousBatchingEngine:
         self._model = Llama.from_params(self.cfg, params, self.device,
                                         mesh=mesh, rules=rules,
                                         paged_attention_fn=paged_fn)
-        # under tensor parallelism this rank's slice (the model's own
-        # tensors): the whole dict is the caller's to free
-        self.params = (params if self._model.tp is None
+        # under tensor parallelism or ZeRO-3 this rank's slice (the
+        # model's own tensors): the whole dict is the caller's to free
+        self.params = (params if self._model.mesh is None
                        else self._model.state_dict())
         self._queue = []     # (rid, prompt, max_new, prefix_id, adapter_id)
         self._prefixes = {}  # prefix_id -> (tokens, pool pages | dense
@@ -465,14 +468,17 @@ class ContinuousBatchingEngine:
         tok, lp = sample_logits_with_lp(
             logits, self._generator, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p)
-        tp = self._model.tp
-        if tp is None:
+        mesh = self._model.mesh
+        if mesh is None:
             return tok, lp
-        # one broadcast from the model group's first rank: every rank
-        # then takes the same host decisions on the same tokens
-        both = tp.mesh.broadcast(
-            torch.stack([tok.to(torch.int32),
-                         lp.to(torch.float32).view(torch.int32)]), "model")
+        # one broadcast from the model group's first rank, then one from
+        # the fsdp group's: every rank of the mesh then takes the same
+        # host decisions on the same tokens
+        both = torch.stack([tok.to(torch.int32),
+                            lp.to(torch.float32).view(torch.int32)])
+        for axis in ("model", "fsdp"):
+            if mesh.axis_size(axis) > 1:
+                both = mesh.broadcast(both, axis)
         return both[0], both[1].view(torch.float32)
 
     def _worst_case_tokens(self, p_len, max_new):

@@ -17,8 +17,9 @@ group per axis slice it belongs to, and a layer that needs a collective
 calls it by name on its axis (:meth:`Mesh.all_reduce`,
 :meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`, the neighbour
 exchange of ring attention and the pipeline, :meth:`Mesh.ppermute`, the
-counterpart of ``lax.ppermute(x, axis, [(i, (i + 1) % n)])``, and the
-expert dispatch's :meth:`Mesh.all_to_all`). Ranks are
+counterpart of ``lax.ppermute(x, axis, [(i, (i + 1) % n)])``, the
+expert dispatch's :meth:`Mesh.all_to_all`, and ZeRO-3's
+:meth:`Mesh.reduce_scatter`). Ranks are
 laid out in row-major order of :meth:`MeshSpec.axis_sizes`, so the
 ``model`` axis varies fastest: the ranks of one tensor-parallel group
 are consecutive. :func:`make_named_mesh` lays out one axis of any name (a
@@ -33,7 +34,11 @@ back once), :func:`replicated` (f: a replicated input used for a
 per-rank share, the identity with its gradient summed over the axis)
 and :func:`gathered` (a split output made whole, its gradient this
 rank's block). Each takes the plain collective when no gradient is
-being recorded.
+being recorded. ZeRO-3 (``fsdp``) takes :func:`gather_shards` /
+:func:`sharded_param`: parameter shards made whole for a use that
+differs by rank (each rank's own rows of the batch), so the gradient of
+a shard is the sum of every rank's gradient of the whole, reduce-
+scattered.
 
 The collectives follow the gang's wire rule
 (:mod:`sparkdl_tpu_torch.hvd._state`): CUDA tensors go over NCCL when
@@ -127,6 +132,24 @@ class Mesh:
         out = out.view((n,) + tuple(w.shape)).movedim(0, -2).reshape(
             *w.shape[:-1], n * w.shape[-1])
         return _collectives._off_wire(out, x).movedim(-1, dim)
+
+    def reduce_scatter(self, x, axis, dim=0):
+        """The sum of ``x`` over the ranks of this rank's ``axis`` slice,
+        cut along ``dim`` into one block a coordinate, in coordinate
+        order: this rank's block of the sum
+        (``lax.psum_scatter(x, axis, scatter_dimension=dim,
+        tiled=True)``)."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        n = self.axis_size(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {axis}={n}")
+        w = _collectives._on_wire(x.movedim(dim, 0))
+        out = w.new_empty((w.shape[0] // n,) + tuple(w.shape[1:]))
+        dist.reduce_scatter_tensor(out, w, group=group)
+        return _collectives._off_wire(out, x).movedim(0, dim)
 
     def broadcast(self, x, axis):
         """The ``axis`` slice's first rank's ``x`` on every rank of the
@@ -302,6 +325,89 @@ class _Gathered(torch.autograd.Function):
     def backward(ctx, grad):
         lo = ctx.mesh.axis_index(ctx.axis) * ctx.width
         return grad.narrow(ctx.dim, lo, ctx.width), None, None, None
+
+
+def _whole_of(flat, shards, dims, n):
+    """The whole tensors of an all-gathered flat buffer ``flat`` (n
+    coordinates' concatenated shards, coordinate-major): each shard's n
+    blocks concatenated along its ``dim``, a fresh tensor each."""
+    rows = flat.view(n, -1)
+    out, offset = [], 0
+    for s, dim in zip(shards, dims):
+        blocks = rows[:, offset:offset + s.numel()].view(n, *s.shape)
+        offset += s.numel()
+        shape = list(s.shape)
+        shape[dim] *= n
+        out.append(blocks.movedim(0, dim).reshape(shape))
+    return out
+
+
+def _gather_flat(shards, dims, mesh, axis):
+    n = mesh.axis_size(axis)
+    flat = torch.cat([s.detach().reshape(-1) for s in shards])
+    return _whole_of(mesh.all_gather(flat, axis, dim=0), shards, dims, n)
+
+
+class _GatheredShards(torch.autograd.Function):
+    """ZeRO-3's gather of trained parameter shards: the forward one
+    all-gather of their flat concatenation, the backward one summed
+    reduce-scatter of the wholes' cotangents laid out the same way, so
+    each rank's shard receives the sum of every rank's gradient of its
+    block (each rank used the whole on its own rows of the batch)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dims, *shards):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, dims
+        ctx.shapes = [s.shape for s in shards]
+        return tuple(_gather_flat(shards, dims, mesh, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.mesh.axis_size(ctx.axis)
+        like = next(g for g in grads if g is not None)
+        rows = []
+        for g, shape, dim in zip(grads, ctx.shapes, ctx.dims):
+            whole = list(shape)
+            whole[dim] *= n
+            if g is None:  # a whole this rank's loss did not use
+                g = like.new_zeros(whole)
+            # (n, shard) blocks in coordinate order, one row a rank
+            rows.append(g.unflatten(dim, (n, shape[dim])).movedim(dim, 0)
+                        .reshape(n, -1))
+        mine = ctx.mesh.reduce_scatter(torch.cat(rows, dim=1).reshape(-1),
+                                       ctx.axis, dim=0)
+        out, offset = [], 0
+        for shape in ctx.shapes:
+            size = math.prod(shape)
+            out.append(mine[offset:offset + size].view(shape))
+            offset += size
+        return (None, None, None, *out)
+
+
+def gather_shards(shards, dims, mesh, axis):
+    """The whole tensors of which ``shards`` are this rank's blocks along
+    ``dims`` (one a shard) on ``axis``, in one all-gather of their flat
+    concatenation (one dtype and device). Differentiable for ZeRO-3:
+    when a shard requires a gradient, the backward reduce-scatters the
+    wholes' cotangents (summed over the axis), so every rank must use the
+    wholes in its own loss. Do not use :func:`gathered` for that: its
+    backward takes this rank's block of the cotangent, right only when
+    every rank's cotangent of the whole is the same (tensor
+    parallelism)."""
+    shards, dims = list(shards), tuple(dims)
+    if mesh.axis_size(axis) == 1:
+        return shards
+    if torch.is_grad_enabled() and any(s.requires_grad for s in shards):
+        return list(_GatheredShards.apply(mesh, axis, dims, *shards))
+    with torch.no_grad():
+        return _gather_flat(shards, dims, mesh, axis)
+
+
+def sharded_param(x, mesh, axis, dim=0):
+    """The whole parameter of which ``x`` is this rank's ``dim`` block
+    on ``axis`` (:func:`gather_shards` of one shard): the all-gather
+    forward, the reduce-scatter of the cotangent backward."""
+    return gather_shards((x,), (dim,), mesh, axis)[0]
 
 
 def _recording(x):

@@ -15,11 +15,13 @@ dimension: None (whole), an axis name, or a tuple of axis names.
   left-padded so their trailing dims keep the 2-D rule.
 - :func:`tp_layout` turns those specs into the layout the port's
   explicit Megatron forward computes with (``models.llama``): each
-  projection is column-parallel, row-parallel or whole, and its
-  companions (the int8 scale, the int4 scales, the LoRA adapters) take
-  the split that role needs; the stacked MoE experts split their expert
-  dim (0) and the router stays whole, with no role (every rank routes
-  over all experts); a split the forward cannot compute raises.
+  projection is column-parallel, row-parallel or whole on ``model``, and
+  its companions (the int8 scale, the int4 scales, the LoRA adapters)
+  take the split that role needs; the stacked MoE experts split their
+  expert dim (0) and the router stays whole, with no role (every rank
+  routes over all experts); the rules' ``fsdp`` entries stay, as the
+  ZeRO-3 storage split (:func:`fsdp_dims` lists each leaf's dim); a
+  split the forward cannot compute raises.
 - :func:`shard_params` slices each leaf to this rank's contiguous part.
 - :func:`constrain` re-lays an activation to a spec (the JAX
   ``with_sharding_constraint``), :func:`full_host_value` gathers a leaf
@@ -37,6 +39,7 @@ import re
 from sparkdl_tpu_torch.parallel.mesh import gathered, replicated
 
 MODEL = "model"
+FSDP = "fsdp"
 
 # Megatron-style rules for the transformer models: column-parallel
 # up-projections, row-parallel down-projections, replicated norms.
@@ -122,14 +125,35 @@ def _padded(ndim, spec):
     return (None,) * (ndim - len(spec)) + tuple(spec)
 
 
+def _check_axes(name, spec, split):
+    """Raise for a split the port cannot compute: an axis other than
+    ``model`` and ``fsdp``, or one dim over both."""
+    for dim, axes in split.items():
+        other = sorted(set(axes) - {MODEL, FSDP})
+        if other:
+            raise NotImplementedError(
+                f"{name}: spec {spec} splits dim {dim} over {other}; a "
+                "parameter splits over 'model' (tensor parallelism) and "
+                "'fsdp' (ZeRO-3 storage) only")
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"{name}: spec {spec} splits dim {dim} over both "
+                f"{list(axes)}; each axis must split a dim of its own")
+
+
+def _model_split(split):
+    return {d: a for d, a in split.items() if MODEL in a}
+
+
 def projection_roles(specs, mesh):
     """{projection prefix: "col" | "row" | "rep"} from the specs of the
     projections' weight leaves: "col" splits the output dim over the
-    ``model`` axis, "row" the input dim, "rep" neither. Raises
-    NotImplementedError for a split the forward cannot compute (another
-    axis of size > 1, both dims, a stacked dim). An MoE router
-    (``...router``) is computed whole outside the projections and takes
-    no role."""
+    ``model`` axis, "row" the input dim, "rep" neither. An ``fsdp``
+    split is storage (ZeRO-3: gathered whole before each use) and gives
+    no role. Raises NotImplementedError for a split the forward cannot
+    compute (another axis of size > 1, both dims or a stacked dim over
+    ``model``, one dim over two axes). An MoE router (``...router``) is
+    computed whole outside the projections and takes no role."""
     axis_sizes = dict(mesh.shape)
     roles = {}
     for name, spec in specs.items():
@@ -137,10 +161,12 @@ def projection_roles(specs, mesh):
         if leaf not in _KERNELS or prefix.rpartition(".")[2] == "router":
             continue
         split = split_dims(spec, axis_sizes)
-        if not split:
+        _check_axes(name, spec, split)
+        model = _model_split(split)
+        if not model:
             roles[prefix] = "rep"
-        elif split in ({0: (MODEL,)}, {1: (MODEL,)}):
-            roles[prefix] = "row" if 0 in split else "col"
+        elif model in ({0: (MODEL,)}, {1: (MODEL,)}):
+            roles[prefix] = "row" if 0 in model else "col"
         else:
             raise NotImplementedError(
                 f"{name}: spec {spec} splits in a way the tensor-parallel "
@@ -149,24 +175,46 @@ def projection_roles(specs, mesh):
     return roles
 
 
+def _with_fsdp(name, want, spec, ndim, axis_sizes):
+    """``want`` (a spec of ``model`` entries) with the ``fsdp`` entries
+    of the rules' ``spec`` added: the ZeRO-3 storage split."""
+    dims = [d for d, e in enumerate(spec) if FSDP in _names(e)]
+    if not dims:
+        return want
+    out = list(want) + [None] * (ndim - len(want))
+    for d in dims:
+        if out[d] is None:
+            out[d] = FSDP
+        elif axis_sizes.get(FSDP, 1) > 1:
+            raise NotImplementedError(
+                f"{name}: its role splits dim {d} over {out[d]!r}, where "
+                f"the rules put 'fsdp' ({spec}); each axis must split a "
+                "dim of its own")
+    return tuple(out)
+
+
 def tp_layout(params, rules, mesh):
-    """The specs the port's tensor-parallel forward computes with:
-    :func:`param_sharding`'s, with each projection's companions set by
-    its role. A column-parallel projection takes the slice of its
-    output columns of every companion: the int8 ``kernel_scale`` (N,),
-    which the JAX rules replicate by the ``ndim`` rule, the int4
-    ``kernel_scale4`` (K/g, N) and ``lora_b``; ``lora_a`` stays whole. A
-    row-parallel one keeps the int8 scale whole (it scales the partial
-    product before the all-reduce, exact for a per-column scale), splits
-    the int4 scales' K/g rows with the packed (K/2, N) rows, and splits
-    ``lora_a``'s input rows, keeping ``lora_b`` whole (the JAX rule
-    splits ``lora_b``'s columns instead). The embedding may split
-    d_model, the stacked experts their expert dim (0) over ``model``;
-    norms, the MoE router and every other leaf must be whole. A companion is
-    sliced from the whole leaf as its role needs, whatever its rule
-    says, which is exact for each of them. Raises NotImplementedError
-    naming the leaf and its spec for any split this design cannot
-    compute."""
+    """The specs the port's forward computes with: :func:`param_sharding`'s,
+    with each projection's companions set by its role on ``model``
+    (tensor parallelism) and every ``fsdp`` entry of the rules kept (the
+    ZeRO-3 storage split, gathered whole before each use). A
+    column-parallel projection takes the slice of its output columns of
+    every companion: the int8 ``kernel_scale`` (N,), which the JAX rules
+    replicate by the ``ndim`` rule, the int4 ``kernel_scale4`` (K/g, N)
+    and ``lora_b``; ``lora_a`` stays whole. A row-parallel one keeps the
+    int8 scale whole (it scales the partial product before the
+    all-reduce, exact for a per-column scale), splits the int4 scales'
+    K/g rows with the packed (K/2, N) rows, and splits ``lora_a``'s
+    input rows, keeping ``lora_b`` whole (the JAX rule splits
+    ``lora_b``'s columns instead). The embedding may split d_model, the
+    stacked experts their expert dim (0) over ``model``; norms, the MoE
+    router and every other leaf must be whole on ``model``. A companion
+    is sliced from the whole leaf as its role needs, whatever its rule
+    says, which is exact for each of them. The ``fsdp`` entries are the
+    rules' (dim 0 of the q/k/v/gate/up/head kernels, dim 1 of o/down,
+    the int4 scales' by the same patterns, dim 1 of the stacked
+    experts). Raises NotImplementedError naming the leaf and its spec
+    for any split this design cannot compute."""
     specs = param_sharding(params, rules, mesh)
     axis_sizes = dict(mesh.shape)
     roles = projection_roles(specs, mesh)
@@ -175,6 +223,8 @@ def tp_layout(params, rules, mesh):
         prefix, _, leaf = name.rpartition(".")
         ndim = len(params[name].shape)
         split = split_dims(spec, axis_sizes)
+        _check_axes(name, spec, split)
+        model = _model_split(split)
         if leaf in _KERNELS and prefix in roles:
             out[name] = spec
             continue
@@ -200,17 +250,30 @@ def tp_layout(params, rules, mesh):
                         f"over model={size} as its {role}-parallel "
                         "projection needs (int4 row-parallel: the local "
                         "K must hold whole groups)")
-            out[name] = want
+            out[name] = _with_fsdp(name, want, spec, ndim, axis_sizes)
             continue
-        if (leaf == "embedding" and split in ({}, {1: (MODEL,)})) or (
-                leaf in _EXPERTS and split in ({}, {0: (MODEL,)})):
+        if (leaf == "embedding" and model in ({}, {1: (MODEL,)})) or (
+                leaf in _EXPERTS and model in ({}, {0: (MODEL,)})):
             out[name] = spec
             continue
-        if split:
+        if model:
             raise NotImplementedError(
                 f"{name}: spec {spec} splits a leaf the tensor-parallel "
                 "forward computes whole")
-        out[name] = ()
+        out[name] = _with_fsdp(name, (), spec, ndim, axis_sizes)
+    return out
+
+
+def fsdp_dims(specs, mesh):
+    """{leaf: dim} of every leaf that ``specs`` split over ``fsdp`` on
+    ``mesh`` (size > 1): the dim its ZeRO-3 shard is cut along, which a
+    gather makes whole again. Empty when ``fsdp`` is 1."""
+    axis_sizes = dict(mesh.shape)
+    out = {}
+    for name, spec in specs.items():
+        for dim, axes in split_dims(spec, axis_sizes).items():
+            if FSDP in axes:
+                out[name] = dim
     return out
 
 

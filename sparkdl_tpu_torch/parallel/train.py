@@ -14,13 +14,14 @@ Sequence parallelism is a gang's too: :func:`shard_batch` with a mesh
 and ``seq_axis=True`` gives each rank its columns and their global
 positions, and the model attends across ranks through ring attention
 (``Llama(attention_fn=make_ring_attention(mesh))``). Tensor
-parallelism is the model's (``Llama(cfg, mesh=mesh)``, Megatron's f and
-g done explicitly through the differentiable collectives of
-:mod:`~sparkdl_tpu_torch.parallel.mesh`): :func:`make_train_step`
-reads the model's mesh, averages the gradients over its data-like axes
-(``data``, ``seq``) and never over ``model``, whose ranks hold different
-shards, and :func:`fused_cross_entropy` takes the head's vocabulary
-shard (the vocabulary-parallel loss). The telemetry wrappers
+parallelism and ZeRO-3 are the model's (``Llama(cfg, mesh=mesh)``,
+Megatron's f and g and the ``fsdp`` gathers done explicitly through the
+differentiable collectives of :mod:`~sparkdl_tpu_torch.parallel.mesh`):
+:func:`make_train_step` reads the model's mesh, averages the gradients
+and the loss over its data-like axes (``data``, ``fsdp``, ``seq``) and
+never over ``model``, whose ranks hold different shards, and
+:func:`fused_cross_entropy` takes the head's vocabulary shard (the
+vocabulary-parallel loss). The telemetry wrappers
 (``instrument_step``, ``lower_train_step``) are not ported.
 
 Usage (LoRA fine-tune)::
@@ -67,6 +68,10 @@ state dict (each keeps its slice)::
                            param_mask=lora_mask(model))
     metrics = step(shard_batch(batch, mesh, seq_axis=True))
 
+ZeRO-3, with or without ``model``: the same, on a mesh with ``fsdp > 1``
+(``MeshSpec(fsdp=2)``, ``MeshSpec(data=2, fsdp=2)``); ``shard_batch``
+gives each rank its rows of ``data`` x ``fsdp``.
+
 ``sharding.full_host_value`` gathers a split leaf whole, and
 ``TrainCheckpointer.save(..., specs=model.tp_specs, mesh=mesh)`` writes
 the whole tree with its sharding sidecar, which
@@ -82,9 +87,8 @@ from sparkdl_tpu_torch.parallel.mesh import gathered, replicated
 from sparkdl_tpu_torch.parallel.sharding import MODEL
 
 # the mesh axes whose ranks see different rows or columns of the batch:
-# a tensor-parallel step averages its gradients over them (a model with
-# fsdp > 1 is refused when it is built)
-DATA_AXES = ("data", "seq")
+# a mesh-aware step averages its loss and gradients over them
+DATA_AXES = ("data", "fsdp", "seq")
 
 
 def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
@@ -117,13 +121,25 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
     :param device: where each batch goes (CUDA unless named; raises
         without it). Must be the model's device.
 
-    A tensor-parallel model (``loss_fn.model.mesh``, a ``Llama`` built
-    with a mesh) makes the step mesh-aware: after the backward it
-    averages every gradient over the mesh's data-like axes (``data``,
-    ``seq``; one fused all-reduce per axis and dtype), never over
-    ``model``, whose ranks hold different shards. Wrapping its optimizer
-    in ``hvd.DistributedOptimizer`` (a mean over the whole world) raises
-    ValueError.
+    A tensor-parallel or ZeRO-3 model (``loss_fn.model.mesh``, a
+    ``Llama`` built with a mesh whose ``model`` or ``fsdp`` axis is > 1)
+    makes the step mesh-aware: after the backward it averages every
+    gradient over the mesh's data-like axes (``data``, ``fsdp``,
+    ``seq``; one fused all-reduce per axis and kind), never over
+    ``model``, whose ranks hold different shards. A leaf split over
+    ``fsdp`` arrives summed over ``fsdp`` already (its gather's backward
+    reduce-scatters), so it is all-reduced over ``data`` and ``seq``
+    only; every gradient is then divided by ``data x fsdp x seq``. The
+    returned loss is likewise the mean over those axes: the global
+    batch's loss on every rank. That is the global batch's mean when
+    each rank's loss is the mean over equally many tokens
+    (:func:`make_lm_loss_fn`), or when a loss that ignores labels takes
+    the model's mesh (:func:`cross_entropy_loss` and
+    :func:`fused_cross_entropy` with ``ignore_index`` and
+    ``mesh=model.mesh``); a user loss that ignores labels and takes no
+    mesh gives the mean of the ranks' means. Wrapping its
+    optimizer in ``hvd.DistributedOptimizer`` (a mean over the whole
+    world) raises ValueError.
     """
     device = resolve_device(device)
     model = getattr(loss_fn, "model", None)
@@ -131,10 +147,10 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
     if mesh is not None and hasattr(optimizer, "_hvd_op"):
         raise ValueError(
             "hvd.DistributedOptimizer averages every gradient over the "
-            "whole gang, which under tensor parallelism mixes shards of "
-            "different ranks (rank 0's lora_b columns with rank 1's); "
-            "pass the plain optimizer: the step averages over the mesh's "
-            "data-like axes itself")
+            "whole gang, which under tensor parallelism or ZeRO-3 mixes "
+            "shards of different ranks (rank 0's lora_b columns with "
+            "rank 1's); pass the plain optimizer: the step averages over "
+            "the mesh's data-like axes itself")
     if model is not None:
         model_device = next(model.parameters()).device
         if model_device.type != device.type:
@@ -184,34 +200,64 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
                 total = total + loss.detach()
             total = total / grad_accum
         if mesh is not None:
-            _average_grads(optimizer, mesh)
+            _average_grads(optimizer, mesh, _fsdp_split(model))
+            total = _data_mean(total, mesh)
         optimizer.step()
         return {"loss": total}
 
     return step
 
 
-def _average_grads(optimizer, mesh):
-    """Average the optimizer's gradients in place over the data-like
-    axes of ``mesh`` of size > 1: one flat buffer per (dtype, device),
-    all-reduced over each axis in turn, then divided by their product.
-    Every rank holds the same parameters with gradients, in the same
-    order."""
+def _data_axes(mesh):
+    """The data-like axes of ``mesh`` of size > 1 and their product."""
     axes = [a for a in DATA_AXES if mesh.axis_size(a) > 1]
+    return axes, int(np.prod([mesh.axis_size(a) for a in axes]))
+
+
+def _data_mean(x, mesh):
+    """The mean of the detached scalar ``x`` over the data-like axes."""
+    axes, n = _data_axes(mesh)
+    if not axes:
+        return x
+    x = x.detach().reshape(1)
+    for axis in axes:
+        x = mesh.all_reduce(x, axis)
+    return x[0] / n
+
+
+def _fsdp_split(model):
+    """The ids of ``model``'s parameters split over ``fsdp``."""
+    zero3 = getattr(model, "zero3", None)
+    if zero3 is None:
+        return frozenset()
+    return frozenset(id(owner._parameters[leaf])
+                     for entries in zero3.units.values()
+                     for owner, leaf, _ in entries)
+
+
+def _average_grads(optimizer, mesh, fsdp_split=frozenset()):
+    """Average the optimizer's gradients in place over the data-like
+    axes of ``mesh`` of size > 1: one flat buffer per (dtype, device,
+    split over ``fsdp`` or not), all-reduced over each axis in turn
+    (a parameter of ``fsdp_split``, whose gradient the reduce-scatter
+    summed over ``fsdp``, skips that axis), then divided by their
+    product. Every rank holds the same parameters with gradients, in
+    the same order."""
+    axes, n = _data_axes(mesh)
     if not axes:
         return
-    n = int(np.prod([mesh.axis_size(a) for a in axes]))
     by_kind = {}
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is not None:
-                by_kind.setdefault((p.grad.dtype, p.grad.device),
-                                   []).append(p)
+                by_kind.setdefault((p.grad.dtype, p.grad.device,
+                                    id(p) in fsdp_split), []).append(p)
     with torch.no_grad():
-        for params in by_kind.values():
+        for (_, _, split), params in by_kind.items():
             flat = torch.cat([p.grad.reshape(-1) for p in params])
             for axis in axes:
-                flat = mesh.all_reduce(flat, axis)
+                if not (split and axis == "fsdp"):
+                    flat = mesh.all_reduce(flat, axis)
             flat /= n
             offset = 0
             for p in params:
@@ -220,17 +266,38 @@ def _average_grads(optimizer, mesh):
                 offset += size
 
 
-def cross_entropy_loss(logits, labels, *, ignore_index=None):
+def _kept_divisor(keep, mesh):
+    """What a loss with ``ignore_index`` divides its summed NLL by: the
+    kept count, or, on a mesh whose data-like axes (size > 1, product
+    R) split the batch, the whole batch's kept count over R (one scalar
+    all-reduce, no gradient), so that the step's mean over the ranks is
+    the whole batch's mean however unequally the ranks keep."""
+    if mesh is not None:
+        axes, n = _data_axes(mesh)
+        if axes:
+            count = keep.sum().to(torch.float32).reshape(1)
+            for axis in axes:
+                count = mesh.all_reduce(count, axis)
+            return count[0].clamp_min(1) / n
+    return keep.sum().clamp_min(1)
+
+
+def cross_entropy_loss(logits, labels, *, ignore_index=None, mesh=None):
     """Token-level softmax cross entropy with fp32 accumulation: the mean
     negative log-likelihood of ``labels`` (B, S) under ``logits``
-    (B, S, V), over the tokens whose label is not ``ignore_index``."""
+    (B, S, V), over the tokens whose label is not ``ignore_index``.
+
+    ``mesh``: the model's mesh. With ``ignore_index`` and data-like axes
+    (``data``, ``fsdp``, ``seq``) > 1, this rank's summed NLL times their
+    rank count over the whole batch's kept count, whose mean over the
+    ranks (the step's) is the whole batch's loss."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = labels.long()
     if ignore_index is None:
         return -logp.gather(-1, labels[..., None])[..., 0].mean()
     keep = labels != ignore_index
     nll = -logp.gather(-1, labels.masked_fill(~keep, 0)[..., None])[..., 0]
-    return (nll * keep).sum() / keep.sum().clamp_min(1)
+    return (nll * keep).sum() / _kept_divisor(keep, mesh)
 
 
 def _chunk_lse_gold(h, w, labels, lo, matmul_dtype):
@@ -272,7 +339,9 @@ def fused_cross_entropy(hidden, w_head, labels, *, chunk_size=256,
     :param hidden: (B, S, D) final hidden states.
     :param w_head: (D, V) unembedding.
     :param labels: (B, S) int targets.
-    :param ignore_index: label value left out of the mean.
+    :param ignore_index: label value left out of the mean; with
+        ``mesh``, the mean of the whole batch as :func:`cross_entropy_loss`
+        takes it.
     :param matmul_dtype: round both matmul operands to this dtype first
         (fp32 accumulation either way).
     :param freeze_head: no gradient to ``w_head`` (LoRA's frozen head).
@@ -304,7 +373,9 @@ def fused_cross_entropy(hidden, w_head, labels, *, chunk_size=256,
                          both[..., 1].sum(dim=-1))
         nll = lse - gold
         loss_sum = loss_sum + (nll * keep[:, sl]).sum()
-    return loss_sum / keep.sum().clamp_min(1)
+    if ignore_index is None:
+        return loss_sum / keep.numel()
+    return loss_sum / _kept_divisor(keep, mesh)
 
 
 def global_batch(rng, vocab, batch, seq):
@@ -325,10 +396,13 @@ def make_lm_loss_fn(model, *, loss="logits", chunk=512, ce_bf16=False):
     rounded to bf16 with ``ce_bf16``): the (B, S, V) logits never exist
     whole.
 
-    A tensor-parallel model whose head is split over the vocabulary takes
+    The logits path takes the model's mesh (``model.mesh``). A
+    tensor-parallel model whose head is split over the vocabulary takes
     the vocabulary-parallel fused loss (``mesh=model.mesh``); its logits
     path gathers the head's shards through the differentiable
-    all-gather.
+    all-gather. A ZeRO-3 head comes whole over ``fsdp``
+    (``model.head_kernel()``). Neither path ignores labels, so the
+    mean over the ranks is the global batch's mean (C8 needs no count).
     """
     if loss not in ("logits", "fused"):
         raise ValueError(f"unknown loss path {loss!r}")
@@ -339,16 +413,18 @@ def make_lm_loss_fn(model, *, loss="logits", chunk=512, ce_bf16=False):
         targets = torch.as_tensor(batch["targets"], device=device)
         # a sequence shard's global positions (shard_batch(seq_axis=True))
         positions = batch.get("positions")
+        mesh = getattr(model, "mesh", None)
         if loss == "fused":
             hidden = model(inputs, positions, return_hidden=True)
             split = (getattr(model, "tp", None) is not None
                      and model.lm_head.tp_role == "col")
             return fused_cross_entropy(
-                hidden, model.lm_head.kernel, targets, chunk_size=chunk,
+                hidden, model.head_kernel(), targets, chunk_size=chunk,
                 freeze_head=True,
                 matmul_dtype=torch.bfloat16 if ce_bf16 else None,
-                mesh=model.mesh if split else None)
-        return cross_entropy_loss(model(inputs, positions), targets)
+                mesh=mesh if split else None)
+        return cross_entropy_loss(model(inputs, positions), targets,
+                                  mesh=mesh)
 
     loss_fn.model = model
     return loss_fn

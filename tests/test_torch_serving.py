@@ -16,7 +16,7 @@ from sparkdl_tpu.models import serving as jax_serving
 from sparkdl_tpu_torch.models import llama as pt_llama
 from sparkdl_tpu_torch.models.from_jax import load_jax_params
 from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
-from sparkdl_tpu_torch.parallel.mesh import AXES, Mesh
+from sparkdl_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(2)
 
@@ -117,13 +117,10 @@ def test_engine_token_exact_with_stop(models):
 
 
 @pytest.mark.parametrize("kwargs,exc,name", [
-    # mesh and rules are ported: the JAX engine's axes check, and a mesh
-    # with fsdp > 1 refused by name
+    # mesh and rules are ported: the JAX engine's axes check
     (dict(mesh=Mesh(("data", "seq"), (1, 1))), ValueError,
      r"TP serving needs mesh axes 'model' and 'fsdp' \(missing \['fsdp', "
      r"'model'\]\)"),
-    (dict(mesh=Mesh(AXES, (1, 2, 1, 1)), rules=[]), NotImplementedError,
-     "fsdp=2"),
     (dict(quant="int8", quant_kernel="off"), NotImplementedError,
      "quant_kernel"),
     (dict(quant="int4", quant_kernel="force_interpret"), NotImplementedError,

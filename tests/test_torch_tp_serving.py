@@ -265,17 +265,11 @@ def _dense_model():
 
 
 @pytest.mark.parametrize("case", [
-    "fsdp", "kv_heads", "data_split", "vocab_split", "int4_groups",
-    "fleet"])
+    "kv_heads", "data_split", "vocab_split", "int4_groups", "fleet"])
 def test_refusals_name_what_is_not_ported(case):
     model = _dense_model()
     tp2 = _pt_mesh(jax_mesh.MeshSpec(model=2))
-    if case == "fsdp":
-        with pytest.raises(NotImplementedError, match="fsdp=2"):
-            ContinuousBatchingEngine(
-                model, model.state_dict(), page_size=8, device="cpu",
-                mesh=_pt_mesh(jax_mesh.MeshSpec(fsdp=2, model=2)))
-    elif case == "kv_heads":
+    if case == "kv_heads":
         # tiny has 2 kv heads: 4 ranks cannot hold whole ones
         with pytest.raises(NotImplementedError, match="n_kv_heads=2"):
             ContinuousBatchingEngine(

@@ -9,10 +9,10 @@ and takes 2 steps of ``make_train_step`` on each, with LoRA on q, v and o
 and with every weight trained; the JAX ``make_train_step`` takes the same
 steps from the same weights and batch under GSPMD on the same meshes
 (the first 4 of ``tests/conftest.py``'s 8 CPU devices). The same gang
-checks ``cfg.remat``, the vocabulary-parallel fused loss, the
-differentiable relayouts, and saves a ``data=2 x model=2`` checkpoint
-with its sharding sidecar, restored inside the gang onto ``model=4``
-and here onto one rank. The reshard plan, ``shrink_mesh`` and the
+checks ``cfg.remat``, the vocabulary-parallel fused loss, the losses
+with unequally ignored labels, the differentiable relayouts, and saves
+a ``data=2 x model=2`` checkpoint with its sharding sidecar, restored
+inside the gang onto ``model=4`` and here onto one rank. The reshard plan, ``shrink_mesh`` and the
 sidecar reader are held against the JAX functions on the JAX tests'
 cases, with no gang.
 
@@ -68,6 +68,7 @@ MESHES = {"model4": dict(model=4), "data2_model2": dict(data=2, model=2),
 MODES = ("lora", "full")
 ROWS, SEQ, STEPS, LR = 4, 16, 2, 1e-3
 CKPT_STEP = 7
+IGNORE = -100
 # the fused loss's case (tests/parallel/test_fused_ce.py): 37 columns and
 # one large-negative pad column, so that model=2 divides the vocabulary
 FB, FS, FD, FV = 4, 12, 16, 38
@@ -77,6 +78,16 @@ CHUNKS = (5, 8, 64)
 def _batch():
     return pt_train.global_batch(np.random.default_rng(2), CFG["vocab_size"],
                                  ROWS, SEQ)
+
+
+def _ignored_batch():
+    """The batch with the first data rank's two rows a quarter ignored
+    and the last row an eighth: the ranks keep unequal counts."""
+    batch = _batch()
+    targets = batch["targets"].copy()
+    targets[:2, ::4] = IGNORE
+    targets[3, 3::8] = IGNORE
+    return {"inputs": batch["inputs"], "targets": targets}
 
 
 def _jax_tree():
@@ -167,11 +178,38 @@ def _port_steps(flat, mesh, mode, batch, remat=False, **step_kw):
     return losses, whole, model, mine
 
 
-def _port_grads(flat, mesh, mode, batch):
+def _ignoring_loss(kind):
+    """The LM loss with labels ``IGNORE`` left out, over the model's mesh:
+    the logits path or the vocabulary-parallel fused one."""
+    from sparkdl_tpu_torch.parallel.train import (
+        cross_entropy_loss,
+        fused_cross_entropy,
+    )
+
+    def make(model):
+        def loss_fn(batch):
+            inputs = torch.as_tensor(batch["inputs"])
+            targets = torch.as_tensor(batch["targets"])
+            if kind == "fused":
+                hidden = model(inputs, return_hidden=True)
+                return fused_cross_entropy(
+                    hidden, model.head_kernel(), targets, chunk_size=5,
+                    ignore_index=IGNORE, mesh=model.mesh)
+            return cross_entropy_loss(model(inputs), targets,
+                                      ignore_index=IGNORE, mesh=model.mesh)
+
+        loss_fn.model = model
+        return loss_fn
+
+    return make
+
+
+def _port_grads(flat, mesh, mode, batch, loss_fn=None):
     """One step of the mesh-aware step with plain SGD (whose update is
     the gradient's scale, where AdamW's is not): this rank's loss, the
     averaged gradient of every trained leaf still on ``p.grad`` and the
-    whole leaves after the update, both gathered."""
+    whole leaves after the update, both gathered. ``loss_fn(model)``
+    makes the loss (default ``make_lm_loss_fn``)."""
     from sparkdl_tpu_torch.models.lora import lora_mask
     from sparkdl_tpu_torch.parallel.sharding import full_host_value
     from sparkdl_tpu_torch.parallel.train import (
@@ -185,8 +223,8 @@ def _port_grads(flat, mesh, mode, batch):
             else dict.fromkeys(model.state_dict(), True))
     trained = [(n, p) for n, p in model.named_parameters() if mask[n]]
     step = make_train_step(
-        make_lm_loss_fn(model), torch.optim.SGD([p for _, p in trained],
-                                                lr=LR),
+        make_lm_loss_fn(model) if loss_fn is None else loss_fn(model),
+        torch.optim.SGD([p for _, p in trained], lr=LR),
         param_mask=mask, device="cpu")
     loss = step(shard_batch(batch, mesh,
                             seq_axis=mesh.axis_size("seq") > 1))["loss"]
@@ -268,7 +306,7 @@ def _checkpoint_main(flat, batch, ckpt_dir):
             "save": ckpt.last_save}
 
 
-def _gang_main(flat_lora, flat_base, batch, ckpt_dir):
+def _gang_main(flat_lora, flat_base, batch, ignored, ckpt_dir):
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 
@@ -294,6 +332,10 @@ def _gang_main(flat_lora, flat_base, batch, ckpt_dir):
             for kw, v in (("grad_accum", 2), ("remat", True))}
         if name == "data2_model2":
             out["fused"] = _fused_main(mesh)
+            out["ignored"] = {
+                (mode, kind): _port_grads(flats[mode], mesh, mode, ignored,
+                                          loss_fn=_ignoring_loss(kind))[:2]
+                for mode in MODES for kind in ("logits", "fused")}
             out["coords"] = (mesh.axis_index("data"),
                              mesh.axis_index("model"))
         if name == "model4":
@@ -324,7 +366,7 @@ def gang(tree, ckpt_dir):
         return HorovodRunner(np=-4).run(
             _gang_main, flat_lora=flatten_jax_tree(tree),
             flat_base=flatten_jax_tree(_base(tree)), batch=_batch(),
-            ckpt_dir=ckpt_dir)
+            ignored=_ignored_batch(), ckpt_dir=ckpt_dir)
     finally:
         (launcher.START_TIMEOUT_S, launcher.JOB_TIMEOUT_S,
          launcher.ABORT_GRACE_S) = saved
@@ -337,12 +379,12 @@ def _jax_mesh(kw):
                               devices=jax.devices()[:4])
 
 
-def _jax_cases(tree):
+def _jax_cases(tree, batch=None, meshes=MESHES):
     """For each mesh and mode: the JAX mesh, the model (ring attention
     under ``seq``), its params placed by ``TRANSFORMER_RULES``, the LoRA
     mask (None for full fine-tuning) and the sharded batch."""
-    batch = _batch()
-    for name, kw in MESHES.items():
+    batch = _batch() if batch is None else batch
+    for name, kw in meshes.items():
         mesh = _jax_mesh(kw)
         seq = kw.get("seq", 1) > 1
         attention_fn = None
@@ -409,13 +451,14 @@ def jax_grads(tree):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_tp_steps_match_jax(gang, jax_runs, tree, mesh_name, mode):
-    """Losses within 1e-5 relative and every leaf after 2 steps within
-    1e-5 of the JAX step's on the same mesh; every rank gathers the same
-    whole leaves; a LoRA run leaves the base untouched."""
+    """Each rank's losses within 1e-5 relative of the JAX step's global
+    loss and every leaf after 2 steps within 1e-5 of the JAX step's on
+    the same mesh; every rank gathers the same whole leaves; a LoRA run
+    leaves the base untouched."""
     ref_losses, ref_params = jax_runs[mesh_name, mode]
     got = [r["steps"][mesh_name, mode] for r in gang]
-    losses = np.mean([g[0] for g in got], axis=0)
-    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    for losses, _, _ in got:
+        np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
     whole = got[0][1]
     assert sorted(whole) == sorted(ref_params)
     start = flatten_jax_tree(tree if mode == "lora" else _base(tree))
@@ -439,8 +482,8 @@ def test_tp_averaged_grads_match_jax(gang, jax_grads, tree, mesh_name,
     every trained leaf moves by ``-LR`` times its gradient."""
     ref_loss, ref_grads = jax_grads[mesh_name, mode]
     got = [r["grads"][mesh_name, mode] for r in gang]
-    np.testing.assert_allclose(np.mean([g[0] for g in got]), ref_loss,
-                               rtol=1e-5)
+    for loss, _, _ in got:
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
     grads, whole = got[0][1]
     trained = sorted(n for n in ref_grads
                      if mode == "full" or n.endswith(("lora_a", "lora_b")))
@@ -480,6 +523,58 @@ def test_tp_step_options_keep_their_meaning(gang, option):
                 for leaf, value in whole.items():
                     np.testing.assert_allclose(value, ref[leaf], atol=1e-5,
                                                err_msg=f"{name} {leaf}")
+
+
+@pytest.fixture(scope="module")
+def jax_ignored(tree):
+    """The loss and gradients of the global batch with ignored labels:
+    JAX's ``cross_entropy_loss(ignore_index=)`` and
+    ``fused_cross_entropy(ignore_index=)`` under GSPMD on data=2 x
+    model=2."""
+    out = {}
+    meshes = {"data2_model2": MESHES["data2_model2"]}
+    for (_, mode), (mesh, model, params, _, data) in _jax_cases(
+            tree, _ignored_batch(), meshes):
+
+        def logits_loss(p, b, model=model):
+            return jax_train.cross_entropy_loss(
+                model.apply({"params": p}, b["inputs"]), b["targets"],
+                ignore_index=IGNORE)
+
+        def fused_loss(p, b, model=model):
+            hidden = model.apply({"params": p}, b["inputs"],
+                                 return_hidden=True)
+            return jax_train.fused_cross_entropy(
+                hidden, p["lm_head"]["kernel"], b["targets"], chunk_size=5,
+                ignore_index=IGNORE)
+
+        for kind, fn in (("logits", logits_loss), ("fused", fused_loss)):
+            with mesh:
+                loss, grads = jax.jit(jax.value_and_grad(fn))(params, data)
+            out[mode, kind] = (float(loss), flatten_jax_tree(
+                jax.tree.map(np.asarray, grads)))
+    return out
+
+
+@pytest.mark.gang
+@pytest.mark.parametrize("kind", ["logits", "fused"])
+@pytest.mark.parametrize("mode", MODES)
+def test_unequally_ignored_labels_match_jax(gang, jax_ignored, mode, kind):
+    """The first data rank's rows a quarter ignored, the last row an
+    eighth: every rank's loss is the global batch's kept mean and the
+    averaged gradients are its gradients, as JAX computes them (a mean
+    of the two data ranks' means would be off by a few percent)."""
+    ref_loss, ref_grads = jax_ignored[mode, kind]
+    got = [r["ignored"][mode, kind] for r in gang]
+    for loss, _ in got:
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    grads = got[0][1]
+    trained = sorted(n for n in ref_grads
+                     if mode == "full" or n.endswith(("lora_a", "lora_b")))
+    assert sorted(grads) == trained
+    for name in trained:
+        np.testing.assert_allclose(grads[name], ref_grads[name], rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
 
 
 # -- the vocabulary-parallel fused loss ---------------------------------------
@@ -827,10 +922,3 @@ def test_a_distributed_optimizer_over_a_tp_model_is_refused():
     with pytest.raises(ValueError, match="DistributedOptimizer"):
         pt_train.make_train_step(pt_train.make_lm_loss_fn(model), opt,
                                  device="cpu")
-
-
-def test_fsdp_is_refused_by_name():
-    cfg = pt_llama.LlamaConfig.tiny(dtype=torch.float32, **CFG)
-    for sizes in ((1, 2, 1, 2), (2, 2, 1, 1)):
-        with pytest.raises(NotImplementedError, match="fsdp=2"):
-            pt_llama.Llama(cfg, device="cpu", mesh=Mesh(AXES, sizes))
