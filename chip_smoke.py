@@ -275,7 +275,32 @@ and on any failed check. Phases:
    equal to a single-rank engine's on the same weights in the launching
    process, the B4 and B5 launches and the collectives as the engine's
    counts predict; it prints ms a decode step, prefill ms and the
-   gathers' share of a decode step.
+   gathers' share of a decode step;
+22. HorovodRunner on Spark, run last, through the repo's pyspark double
+   (``tests/minispark/shim``: the card machine has no pyspark; it runs
+   real executor processes and a real barrier, and bypasses real
+   Spark's scheduler) with a session of one slot active. 22a:
+   ``HorovodRunner(np=1)`` runs phase 9a's configuration as a barrier
+   job (one executor process, a NCCL group of one on ``cuda:0``); gates:
+   9a's rank checks (losses falling, 32 x 3 launches of each flash
+   kernel, adapters synchronized, the collective battery, the
+   ``log_to_driver`` line on this stdout) and the losses within phase
+   6's tolerance of 9a's; it prints whether they are bit-identical, ms a
+   step and ``ready_s`` beside 9a's, peak memory and the run's wall
+   seconds. 22b: ``np=2`` on the one-slot session raises
+   ``SlotExhaustionError`` before any barrier job starts. 22c: this
+   process claims the host's card slots, a timer releases them after
+   3 s, and a local ``HorovodRunner(np=1)`` meanwhile runs one
+   ``hvd.allreduce_`` of a CUDA tensor and one flash forward against its
+   plain version (B 1, S 256, H 8, D 128, causal); gates: its slot
+   claim waited at least 3 s, the results are right. 22d: the same main
+   as one rank on ``fakeremote.invalid`` through a fake remote shell
+   that records its argv and runs the rest here; gates: the rank read
+   its secret from standard input, the argv holds neither the secret
+   nor the payload, the rank's backend is ``cpu:gloo,cuda:nccl``, the
+   flash forward matches its plain version. This machine has no
+   network, so phase 22 resolves no name: the routable address is
+   loopback and ``.invalid`` names are remote.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -290,6 +315,8 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -402,7 +429,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
-           "19": -2, "20": -2, "21a": -2, "21b": -2}
+           "19": -2, "20": -2, "21a": -2, "21b": -2, "22a": 1}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -437,6 +464,11 @@ TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 8, 2048, 3
 FSDP_TRAIN_DEPTH, FSDP_TRAIN_ROWS, FSDP_TRAIN_SEQ = 4, 2, 2048
 FSDP_TRAIN_STEPS = 3
 FSDP_SERVE_DEPTH, FSDP_SERVE_REQUESTS, FSDP_SERVE_BUDGET = 2, 4, 16
+# phase 22: how long 22c's competing claim holds the card's slots, and
+# the flash forward that 22c's and 22d's rank holds against its plain
+# version (B, S, H, D, causal)
+SLOT_HOLD_S = 3.0
+SLOT_FLASH_SHAPE = (1, 256, 8, 128, True)
 
 
 class CheckFailed(RuntimeError):
@@ -5196,6 +5228,295 @@ def fsdp_serve(torch):
     return report
 
 
+@contextlib.contextmanager
+def _no_name_lookups():
+    """Phase 22 on a machine without a network: the routable address of
+    this one host is loopback, and a ``.invalid`` host is remote, so no
+    name is resolved (a lookup would ask a name server)."""
+    from sparkdl_tpu_torch.horovod import control_plane, topology
+
+    routable, is_local = control_plane.routable_host_ip, \
+        topology.is_local_host
+    control_plane.routable_host_ip = lambda: "127.0.0.1"
+    topology.is_local_host = lambda host: (not host.endswith(".invalid")
+                                           and is_local(host))
+    topology._addressable.cache_clear()
+    try:
+        yield
+    finally:
+        control_plane.routable_host_ip = routable
+        topology.is_local_host = is_local
+        topology._addressable.cache_clear()
+
+
+@contextlib.contextmanager
+def _launcher_settings(**settings):
+    """The launcher's module settings for the length of the block, the
+    ranks' device the card's (or the CPU in a rehearsal)."""
+    from sparkdl_tpu_torch.horovod import launcher
+
+    settings.setdefault("WORKER_DEVICE", None if DEVICE == "cuda" else "cpu")
+    saved = {k: getattr(launcher, k) for k in settings}
+    for k, v in settings.items():
+        setattr(launcher, k, v)
+    try:
+        yield launcher
+    finally:
+        for k, v in saved.items():
+            setattr(launcher, k, v)
+
+
+@contextlib.contextmanager
+def _minispark(slots):
+    """The repo's pyspark double as ``pyspark`` with a session of
+    ``slots`` active; it counts its barrier jobs (``.jobs``). Afterwards
+    the session, the double's modules, the port's Spark backend and the
+    executors' path are gone."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    shim = os.path.join(root, "tests", "minispark", "shim")
+    _require(os.path.isdir(shim), f"phase 22: no pyspark double at {shim}")
+    path = os.environ.get("PYTHONPATH")
+    # the executors import the port from this checkout
+    os.environ["PYTHONPATH"] = root if not path else root + os.pathsep + path
+    sys.path.insert(0, shim)
+    try:
+        import pyspark
+        from pyspark.sql import SparkSession
+
+        collect = pyspark._BarrierJob.collect
+        session = SparkSession._activate(n_slots=slots)
+        session.jobs = 0
+
+        def counted(job):
+            session.jobs += 1
+            return collect(job)
+
+        pyspark._BarrierJob.collect = counted
+        yield session
+    finally:
+        sys.path.remove(shim)
+        if path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = path
+        for mod in list(sys.modules):
+            if (mod == "pyspark" or mod.startswith("pyspark.")
+                    or mod == "sparkdl_tpu_torch.horovod.spark_backend"):
+                del sys.modules[mod]
+
+
+def _noop_main():
+    return None
+
+
+def spark_gang(torch, gang):
+    """Phases 22a and 22b: 9a's configuration as a barrier job of the
+    one-slot session, then np beyond its slots."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = _train_cfg()
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    np_arg = GANG_NP["22a"]
+    with _no_name_lookups(), _launcher_settings() as launcher, \
+            _minispark(np_arg) as session:
+        ranks, wall_s, seen = _gang_run(
+            np_arg, cfg, batch, steps=GANG_STEPS, warmup=1, seed=SEED,
+            adapters=False)
+        _require(session.jobs == 1,
+                 f"phase 22a ran {session.jobs} barrier jobs, want 1")
+        try:
+            HorovodRunner(np=np_arg + 1).run(_noop_main)
+            refused = None
+        except launcher.SlotExhaustionError as e:
+            refused = str(e)
+        _require(refused is not None and session.jobs == 1,
+                 f"phase 22b: np={np_arg + 1} on {np_arg} slot(s) gave "
+                 f"{refused!r} after {session.jobs} barrier job(s)")
+    _check_gang_ranks(torch, ranks, cfg, GANG_STEPS, seen, "22a")
+    r0 = ranks[0]
+    _require(len(ranks) == np_arg and r0["rank"] == 0,
+             f"phase 22a: rank 0's result did not reach the driver: {ranks}")
+    if DEVICE == "cuda":
+        _require(r0["backend"] == "cpu:gloo,cuda:nccl"
+                 and r0["device"] == "cuda:0",
+                 f"phase 22a: {r0['backend']} on {r0['device']}, want NCCL "
+                 "on cuda:0")
+    # phase 6's tolerance: each loss within 2^-10 relative of 9a's
+    got, want = r0["losses"], gang["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    _require(len(got) == len(want) and max(rel) <= 2.0 ** -10,
+             f"phase 22a losses {got} vs 9a's {want}")
+    report = {k: v for k, v in r0.items() if k not in ("battery",
+                                                       "adapters")}
+    report.update({
+        "np": np_arg, "n_layers": cfg.n_layers, "run_wall_s": wall_s,
+        "bypasses": "real Spark's scheduler (the minispark double)",
+        "losses_bit_identical_to_9a": got == want,
+        "loss_rel_err_vs_9a": max(rel),
+        "phase9a_step_ms_median": gang["step_ms_median"],
+        "phase9a_ready_s": gang["ready_s"],
+        "phase9a_run_wall_s": gang["run_wall_s"],
+        "step_ms_over_9a": r0["step_ms_median"] / gang["step_ms_median"],
+        "refused_22b": refused})
+    _log("spark " + json.dumps(report))
+    return report
+
+
+def _flash_fwd_check(torch, fa, q, k, v, o, lse, causal):
+    """Phase 2b's forward tolerance for the kernel's (o, lse) on q, k, v:
+    ({"o": max abs err, "lse": ...}, whether every element is within it
+    and finite)."""
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+    weighted = fa.flash_attention_reference(q.float(), k.float(),
+                                            v.float().abs(), causal)[0]
+    ro = ro.float()
+    err_o = (o.float() - ro).abs()
+    err_lse = (lse - rlse.float()).abs()
+    tol_o = 2.0 ** -7 * weighted + _bf16_ulp(torch, ro) + 1e-6
+    ok = (bool((err_o <= tol_o).all()) and bool((err_lse <= 1e-4).all())
+          and bool(torch.isfinite(o).all()))
+    return {"o": err_o.max().item(), "lse": err_lse.max().item()}, ok
+
+
+def slot_main(shape, seed, device):
+    """The rank of phases 22c and 22d: one ``hvd.allreduce_`` of a
+    tensor on its device, and one flash forward against its plain
+    version at ``shape``."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod.control_plane import CONTROL_SECRET_ENV
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    hvd.init()
+    st = _state.state()
+    dev = st.device if device == "cuda" else torch.device(device)
+    x = torch.arange(4, dtype=torch.float32, device=dev) + hvd.rank()
+    hvd.allreduce_(x, op=hvd.Sum)
+    b, s, h, d, causal = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .bfloat16() for _ in range(3))
+    _zero_flash()
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    launches = _flash_launches()
+    errs, ok = _flash_fwd_check(torch, fa, q, k, v, o, lse, causal)
+    with open("/proc/self/environ", "rb") as f:
+        started_with = f.read()  # the environment the rank started with
+    return {"size": hvd.size(), "backend": st.backend, "device": str(dev),
+            "allreduce": x.tolist(), "allreduce_on": x.device.type,
+            "launches": launches, "max_abs_err": errs, "within_tol": ok,
+            "secret_at_exec": CONTROL_SECRET_ENV.encode() in started_with}
+
+
+def _check_slot_rank(r, phase):
+    _require(r["size"] == 1 and r["allreduce"] == [0.0, 1.0, 2.0, 3.0]
+             and r["allreduce_on"] == DEVICE,
+             f"phase {phase}: allreduce gave {r['allreduce']} on "
+             f"{r['allreduce_on']} in a gang of {r['size']}")
+    _require(r["within_tol"] and r["launches"]["flash_fwd"] == 1,
+             f"phase {phase}: flash forward {r['max_abs_err']}, launches "
+             f"{r['launches']}")
+    if DEVICE == "cuda":
+        _require(r["backend"] == "cpu:gloo,cuda:nccl",
+                 f"phase {phase}: backend {r['backend']}, want NCCL")
+
+
+def slot_wait(torch):
+    """Phase 22c: a local HorovodRunner(np=1) waits for the card slots
+    that this process holds, and runs when a timer releases them."""
+    from sparkdl_tpu_torch import HorovodRunner
+
+    with _launcher_settings() as launcher:
+        total = launcher.available_slots()
+        _require(total >= 1, f"phase 22c: {total} slots on this host")
+        held = launcher.claim_slots(total, total, timeout=1)
+        claim, waits = launcher.claim_slots, []
+
+        def timed_claim(n, total, timeout=None):
+            t = time.perf_counter()
+            c = claim(n, total, timeout)
+            waits.append(time.perf_counter() - t)
+            return c
+
+        launcher.claim_slots = timed_claim
+        timer = threading.Timer(SLOT_HOLD_S, held.release)
+        t = time.perf_counter()
+        timer.start()
+        try:
+            r = HorovodRunner(np=1).run(slot_main, shape=SLOT_FLASH_SHAPE,
+                                        seed=SEED, device=DEVICE)
+        finally:
+            timer.cancel()
+            held.release()
+            launcher.claim_slots = claim
+        wall_s = time.perf_counter() - t
+    _require(len(waits) == 1 and waits[0] >= SLOT_HOLD_S,
+             f"phase 22c: the slot claim waited {waits} s, want >= "
+             f"{SLOT_HOLD_S}")
+    _check_slot_rank(r, "22c")
+    report = dict(r, slots=total, hold_s=SLOT_HOLD_S, claim_wait_s=waits[0],
+                  run_wall_s=wall_s)
+    _log("slot_wait " + json.dumps(report))
+    return report
+
+
+def remote_rank(torch):
+    """Phase 22d: one rank on ``fakeremote.invalid`` through a fake remote
+    shell, which records its argv, drops the host and runs the rest
+    here."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.horovod import control_plane
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-22d-")
+    argv_log = os.path.join(work, "argv.log")
+    shell = os.path.join(work, "fakessh")
+    with open(shell, "w") as f:
+        f.write("#!/bin/sh\n"
+                f"printf '%s\\n' \"$*\" >> {argv_log}\n"
+                "shift\n"
+                "exec sh -c \"$*\"\n")
+    os.chmod(shell, 0o755)
+    token_hex, secrets = control_plane._secrets.token_hex, []
+
+    def recorded(n):
+        secrets.append(token_hex(n))
+        return secrets[-1]
+
+    control_plane._secrets.token_hex = recorded
+    try:
+        with _no_name_lookups(), _launcher_settings(
+                HOSTS=[("fakeremote.invalid", 1)], REMOTE_SHELL=shell,
+                REMOTE_PYTHON=sys.executable):
+            t = time.perf_counter()
+            r = HorovodRunner(np=1).run(slot_main, shape=SLOT_FLASH_SHAPE,
+                                        seed=SEED, device=DEVICE)
+            wall_s = time.perf_counter() - t
+    finally:
+        control_plane._secrets.token_hex = token_hex
+    with open(argv_log) as f:
+        argv = f.read().splitlines()
+    _require(len(argv) == 1 and argv[0].startswith("fakeremote.invalid "),
+             f"phase 22d: the shell was called as {argv}")
+    _require(len(secrets) == 1 and secrets[0] not in argv[0]
+             and "SECRET" not in argv[0],
+             "phase 22d: the control plane's secret is on the command line")
+    _require("payload" not in argv[0] and len(argv[0]) < 1000,
+             f"phase 22d: the payload is on the command line: {argv[0]}")
+    _require(not r["secret_at_exec"],
+             "phase 22d: the rank was started with the secret in its "
+             "environment")
+    _check_slot_rank(r, "22d")
+    report = dict(r, argv=argv[0], argv_bytes=len(argv[0]),
+                  run_wall_s=wall_s)
+    _log("remote_rank " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -5333,6 +5654,12 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     fsdp_serving = fsdp_serve(torch)
+    # slice 15: HorovodRunner on Spark, the slot registry, a remote rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    spark = spark_gang(torch, gang)
+    slots = slot_wait(torch)
+    remote = remote_rank(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -5356,7 +5683,10 @@ def main(argv=None):
                     "16": pipe["launches"][name],
                     "18": moe_training["launches"][name],
                     "20": tp_training["launches"][name],
-                    "21a": fsdp_training["launches"][name]}
+                    "21a": fsdp_training["launches"][name],
+                    "22a": spark["launches"][name],
+                    "22c": slots["launches"][name],
+                    "22d": remote["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -5469,6 +5799,8 @@ def main(argv=None):
                        "tp_train": tp_training,
                        "fsdp_train": fsdp_training,
                        "fsdp_serve": fsdp_serving,
+                       "spark": spark, "slot_wait": slots,
+                       "remote_rank": remote,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

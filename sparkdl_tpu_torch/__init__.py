@@ -28,14 +28,17 @@ checkpoint. Hand-written CUDA
 kernels (``ops/csrc/``) do the paged decode attention, the int8 and int4
 matmuls and flash attention (forward, dq, dk/dv). Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``;
-``HorovodRunner(np>=1)`` runs one worker a card, and a gang's
-``import horovod.torch as hvd`` is the port's
-(``compat.horovod_torch``).
+``HorovodRunner(np>=1)`` runs one worker a card, as a Spark barrier
+job under an active SparkSession or from this host, waiting while other
+gangs hold its cards and starting the ranks of other hosts of a hosts
+spec through a remote shell; a gang's ``import horovod.torch as hvd``
+is the port's (``compat.horovod_torch``).
 
 Public surface as ``sparkdl_tpu/__init__.py``: ``HorovodRunner`` at the
 package root.
 """
 
 from sparkdl_tpu_torch.horovod.runner_base import HorovodRunner
+from sparkdl_tpu_torch.version import __version__
 
-__all__ = ["HorovodRunner"]
+__all__ = ["HorovodRunner", "__version__"]

@@ -58,7 +58,7 @@ from sparkdl_tpu_torch.hvd import (  # noqa: F401  (re-exported names)
 )
 
 # the framework version the JAX shim's package reports
-__version__ = "0.1.0"
+from sparkdl_tpu_torch.version import __version__  # noqa: E402
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",

@@ -1,6 +1,7 @@
 """Worker-side utilities of HorovodRunner jobs, and the runner itself
-(:mod:`sparkdl_tpu_torch.horovod.runner_base`, the launcher, the
-supervisor, the control plane and the worker bootstrap).
+(:mod:`sparkdl_tpu_torch.horovod.runner_base`, the launcher with its
+slot registry and remote transport, the Spark barrier backend, the
+supervisor, the control plane and the rank bootstrap).
 
 Counterpart of ``sparkdl_tpu/horovod/__init__.py``: ``log_to_driver``
 sends a string from a worker to the driver, which prints it;

@@ -27,12 +27,14 @@ except RESULT's raw bytes.
 The driver unpickles RESULT, so whoever can deliver frames can run code
 on the driver. Every connection must therefore open with an AUTH frame,
 an HMAC of its rank under the per-job secret, which the launcher hands
-its workers in their environment and never sends over the wire; and a
+a worker as the first line of its standard input and a Spark task in
+its closure, and which never crosses the wire of this channel; and a
 frame's length is capped before anything is allocated. Threat model:
 peers without the secret. Workers hold it and are trusted.
 """
 
 import collections
+import contextlib
 import hashlib
 import hmac
 import json
@@ -100,6 +102,21 @@ def auth_frame(secret, rank):
 _AUTH_PAYLOAD_LEN = len(auth_token("", 0))
 
 
+def routable_host_ip():
+    """Best-effort routable IP of this host (the UDP-connect trick, which
+    sends no packet: ``gethostbyname(gethostname())`` gives 127.0.1.1 on
+    a stock Debian ``/etc/hosts``, which would point remote workers at
+    their own loopback)."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.connect(("10.255.255.255", 1))
+        return s.getsockname()[0]
+    except OSError:
+        return socket.gethostbyname(socket.gethostname())
+    finally:
+        s.close()
+
+
 def _recv_exact(sock, n):
     buf = b""
     while len(buf) < n:
@@ -111,10 +128,15 @@ def _recv_exact(sock, n):
 
 
 class ControlPlaneServer:
-    """The driver's end: a TCP server on an ephemeral loopback port that
-    merges the workers' log lines (and their BYEs) into ``log_path``,
-    prints them per ``verbosity``, and collects READY, EXC and rank 0's
-    RESULT.
+    """The driver's end: a TCP server on an ephemeral port that merges
+    the workers' log lines (and their BYEs) into ``log_path``, prints
+    them per ``verbosity``, and collects READY, EXC and rank 0's RESULT.
+
+    ``bind_host="127.0.0.1"`` (the default) serves the workers of this
+    host; a gang with ranks on other machines (a Spark barrier job,
+    remote ranks of a hosts spec) binds ``"0.0.0.0"``, and ``address``
+    then advertises this host's routable IP. The per-job secret
+    authenticates every connection either way.
 
     ``verbosity="all"`` prints every worker line to the driver's stdout
     as ``[rank] line``; ``"log_callback_only"`` prints only the
@@ -123,7 +145,7 @@ class ControlPlaneServer:
     """
 
     def __init__(self, num_workers, verbosity="log_callback_only",
-                 log_path=None):
+                 log_path=None, bind_host="127.0.0.1"):
         self.verbosity = verbosity
         self.secret = _secrets.token_hex(32)  # the workers get it
         self._log_file = open(log_path, "a", buffering=1) if log_path \
@@ -147,9 +169,11 @@ class ControlPlaneServer:
         self._closed = False
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._srv.bind(("127.0.0.1", 0))
+        self._srv.bind((bind_host, 0))
         self._srv.listen(max(num_workers, 8))
-        self.address = f"127.0.0.1:{self._srv.getsockname()[1]}"
+        advertise = routable_host_ip() if bind_host == "0.0.0.0" \
+            else bind_host
+        self.address = f"{advertise}:{self._srv.getsockname()[1]}"
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="hvd-control-accept",
             daemon=True)
@@ -516,6 +540,22 @@ class ControlPlaneClient:
 
 _worker_client = None
 _worker_client_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def worker_client(client):
+    """``client`` as this process's client (what :func:`get_worker_client`
+    and ``log_to_driver`` use) for the length of the block: a process
+    that runs one rank after another (a reused Spark worker) sends each
+    rank's frames to its own job's driver."""
+    global _worker_client
+    with _worker_client_lock:
+        _worker_client = client
+    try:
+        yield client
+    finally:
+        with _worker_client_lock:
+            _worker_client = None
 
 
 def get_worker_client():

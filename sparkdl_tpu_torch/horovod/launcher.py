@@ -1,20 +1,45 @@
-"""Gang launcher: starts a HorovodRunner gang of worker processes on this
-host and returns rank 0's result.
+"""Gang launcher: starts a HorovodRunner gang of worker processes and
+returns rank 0's result.
 
-Counterpart of the local half of ``sparkdl_tpu/horovod/launcher.py``:
+Counterpart of ``sparkdl_tpu/horovod/launcher.py``:
 
+- ``np >= 0`` under an active SparkSession runs the gang as a Spark
+  barrier job, "the 2nd spark job started by HorovodRunner" (reference
+  ``runner_base.py:54-61``; :mod:`sparkdl_tpu_torch.horovod.spark_backend`),
+  tried before anything of this host is counted: the slots are the
+  executors', and a driver in front of a GPU cluster often has no card;
 - ``np <= -2`` spawns ``-np`` workers on this host (several may share a
-  card, or there is none: a CPU gang);
-- ``np >= 1`` spawns one worker a CUDA card, and fails fast, before
-  spawning anything, when ``np`` exceeds ``torch.cuda.device_count()``
-  (reference ``runner_base.py:54-58``); ``np = 0`` is deprecated and
-  takes every card;
-- ``(main, kwargs)`` go to the workers cloudpickled, as the JAX package
-  ships them;
+  card, or there is none: a CPU gang), reads no hosts spec and claims no
+  slot;
+- ``np >= 1`` otherwise runs one worker a task slot: a CUDA card of this
+  host (a core under ``WORKER_DEVICE = "cpu"``), ``NUM_SLOTS`` of them
+  when that is set, or the slots a ``HOSTS`` spec declares; ``np`` above
+  the total fails fast, before anything is spawned (reference
+  ``runner_base.py:54-58``); ``np = 0`` is deprecated and takes every
+  slot;
+- busy slots are waited for (reference ``runner_base.py:56-58``): every
+  such gang claims its ranks on this host in a registry of claim files
+  under ``fcntl.flock`` that the drivers of this host share
+  (:func:`claim_slots`), waits while other live gangs hold them, and
+  raises :class:`SlotWaitTimeout` after ``SLOT_WAIT_TIMEOUT_S``; the
+  claims of dead drivers are reaped;
+- a ``HOSTS`` spec that places ranks on other machines starts them
+  through ``REMOTE_SHELL`` (``ssh``), or raises
+  :class:`RemoteTransportError` before anything is spawned; a multi-host
+  spec never collapses onto this host. Only the ``torch.distributed``
+  names, the control plane's address, ``PYTHONPATH`` and the device
+  cross the remote command line;
+- every worker, local or remote, reads the control plane's secret and
+  then ``(main, kwargs)``, cloudpickled as the JAX package ships them,
+  from its standard input: neither is on a command line or in an
+  environment;
 - the rendezvous is a ``torch.distributed.TCPStore`` that the driver
-  opens on port 0, so concurrent gangs never race for a port; each
-  worker gets ``MASTER_ADDR``/``MASTER_PORT`` (that store), ``RANK``,
-  ``WORLD_SIZE``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``;
+  opens on port 0, so concurrent gangs never race for a port, at this
+  host's routable address when a rank is on another machine (the store
+  listens on every interface); each worker gets ``MASTER_ADDR`` /
+  ``MASTER_PORT`` (that store), ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``
+  and ``LOCAL_WORLD_SIZE``, and a rank of a one-card-a-slot gang binds
+  ``cuda:LOCAL_RANK``;
 - the gang starts together: a worker that dies before READY fails it at
   once, and all must be READY within ``START_TIMEOUT_S``; after a worker
   fails, the others get ``ABORT_GRACE_S`` to end before they are killed
@@ -23,25 +48,31 @@ Counterpart of the local half of ``sparkdl_tpu/horovod/launcher.py``:
   :class:`~sparkdl_tpu_torch.horovod.supervisor.GangFailure` (a
   RuntimeError) with its kind, every rank's exit code and the tracebacks
   of the ranks that raised; no worker outlives the launch: every process
-  is killed and reaped when the launch ends, however it ends;
-- :func:`launch_gang` runs each launch under the supervisor
-  (:data:`sparkdl_tpu_torch.horovod.supervisor.policy`, read at call
-  time): a transient failure is launched again with a fresh job dir,
-  rendezvous store and control plane, and its attempt number and resume
-  step reach the workers on their command line (``--attempt``,
-  ``--resume-step``).
+  is killed and reaped, and the slot claim released, when the launch
+  ends, however it ends;
+- :func:`launch_gang` runs each launch, a Spark barrier job included,
+  under the supervisor (:data:`sparkdl_tpu_torch.horovod.supervisor.
+  policy`, read at call time): a transient failure is launched again
+  with a fresh job dir, rendezvous store and control plane, and its
+  attempt number and resume step reach the workers.
 
-Spark, ssh and multi-host specs, the slot registry, telemetry, the hang
-detector, elastic resizing and the pre-flight lint of the JAX launcher
-are not ported.
+The port reads no ``SPARKDL_TPU_*`` environment variable: each knob of
+the JAX launcher is a module setting here, read at call time (set it as
+``launcher.HOSTS = "h1:4,h2:4"``).
+
+Telemetry, the hang detector, elastic resizing, per-rank kwargs and the
+pre-flight lint of the JAX launcher are not ported.
 """
 
 import logging
 import os
+import shlex
 import subprocess
 import sys
 import tempfile
 import time
+
+from sparkdl_tpu_torch.horovod.control_plane import CONTROL_ADDR_ENV
 
 logger = logging.getLogger("HorovodRunner")
 
@@ -49,50 +80,233 @@ START_TIMEOUT_S = 300.0  # every worker READY within this
 JOB_TIMEOUT_S = None  # the whole gang within this (None: no limit)
 ABORT_GRACE_S = 30.0  # survivors of a failed worker, before the kill
 LARGE_PAYLOAD_BYTES = 10 << 20
+# the module settings that replace the JAX launcher's environment knobs
+# (SPARKDL_TPU_HOSTS, _NUM_SLOTS, _SLOT_DIR, _SLOT_WAIT_TIMEOUT,
+# _REMOTE_SHELL, _REMOTE_PYTHON, _WORKER_PLATFORM):
+# a cluster gang's hosts x slots, "h1:4,h2:4" or [("h1", 4), ...];
+# None: this host alone
+HOSTS = None
+# this host's task slots, in place of counting its cards (None: count)
+NUM_SLOTS = None
+# the slot registry's directory (None: <tempdir>/sparkdl-torch-slots,
+# apart from the JAX package's registry)
+SLOT_DIR = None
+# how long a gang waits for busy slots before SlotWaitTimeout
+SLOT_WAIT_TIMEOUT_S = 600.0
+# the remote shell: None is ssh -o BatchMode=yes, "none" refuses remote
+# ranks, a string is split as a shell would, a list is taken as tokens
+REMOTE_SHELL = None
+# the Python a remote rank runs (None: this driver's)
+REMOTE_PYTHON = None
+# None: a rank of a one-card-a-slot gang (a Spark task, a remote rank)
+# binds cuda:LOCAL_RANK and raises without it; "cpu": every rank runs on
+# the CPU over gloo, and the slots are this host's cores
+WORKER_DEVICE = None
 
 # the directory that holds sparkdl_tpu_torch, for the workers' imports
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+_WORKER_MODULE = "sparkdl_tpu_torch.horovod._worker"
+# what crosses a remote rank's command line: the torch.distributed names,
+# the control plane's address and the package's path (the device is a
+# worker argument; the secret and the payload go over standard input)
+_REMOTE_NAMES = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT", CONTROL_ADDR_ENV,
+                 "PYTHONPATH")
 
 
 class SlotExhaustionError(RuntimeError):
-    """``np`` exceeds the host's CUDA cards (reference
+    """``np`` exceeds the task slots in total (reference
     ``runner_base.py:56-58``). Never retried: a relaunch cannot create
-    cards."""
+    slots."""
 
 
-def _resolve_num_workers(np_arg):
-    """(number of workers, per_card) for ``HorovodRunner(np=np_arg)``,
-    ``np_arg != -1``; raises before anything is spawned when a
-    one-card-a-rank gang asks for more cards than the host has."""
-    if np_arg <= -2:
-        return -np_arg, False
+class SlotWaitTimeout(RuntimeError):
+    """Gave up waiting for busy slots to free. Never retried: a relaunch
+    would wait the whole period again right after giving up."""
+
+
+class RemoteTransportError(RuntimeError):
+    """A placement on other hosts cannot be honored: the remote shell is
+    refused or missing. Raised instead of launching every rank on this
+    host."""
+
+
+def _worker_device():
+    """``WORKER_DEVICE``, checked."""
+    if WORKER_DEVICE not in (None, "cpu"):
+        raise ValueError(f"launcher.WORKER_DEVICE is None or 'cpu', not "
+                         f"{WORKER_DEVICE!r}")
+    return WORKER_DEVICE
+
+
+def rank_device(mode):
+    """The driver's decision for a gang's ranks, which it ships to them:
+    ``"cpu"`` under ``WORKER_DEVICE = "cpu"``; ``"cuda"`` for a
+    one-card-a-slot gang (``mode`` ``"cluster"``: local, remote or Spark);
+    None for a local gang, whose ranks take the backend rule of
+    :mod:`sparkdl_tpu_torch.hvd._state`."""
+    if _worker_device() == "cpu":
+        return "cpu"
+    return "cuda" if mode == "cluster" else None
+
+
+def available_slots():
+    """This host's task slots: ``NUM_SLOTS`` when set, else its cores
+    under ``WORKER_DEVICE = "cpu"``, else its CUDA cards, counted without
+    creating a CUDA context (the driver must not hold the card that its
+    worker binds)."""
+    if NUM_SLOTS is not None:
+        return int(NUM_SLOTS)
+    if _worker_device() == "cpu":
+        return os.cpu_count() or 1
     import torch
 
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if np_arg == 0:
-        logger.warning("HorovodRunner(np=0) is deprecated (reference "
-                       "README.md:57-61); using every CUDA card.")
-        np_arg = cards
-    if cards == 0 or np_arg > cards:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+# -- slot registry ----------------------------------------------------------
+#
+# The contract tells BUSY slots from MISSING ones: a job whose np fits
+# the total "will wait until np task slots are available", and fails only
+# when np exceeds the total (reference runner_base.py:56-58). Concurrent
+# gangs on one host coordinate through a directory of claim files: each
+# gang claims its slot count under an flock, and the claims of dead
+# processes are reaped, so a crashed driver never leaks slots.
+
+
+def _slot_dir():
+    d = SLOT_DIR or os.path.join(tempfile.gettempdir(),
+                                 "sparkdl-torch-slots")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True  # exists, owned by someone else
+
+
+def _busy_slots_locked(d):
+    """The live claims' slots in the registry (the caller holds its
+    lock); reaps the claims of dead processes and drops corrupt files."""
+    busy = 0
+    for name in os.listdir(d):
+        if not name.endswith(".claim"):
+            continue
+        path = os.path.join(d, name)
+        try:
+            with open(path) as f:
+                pid_s, count_s = f.read().split()
+            if _pid_alive(int(pid_s)):
+                busy += int(count_s)
+            else:
+                os.unlink(path)  # its owner died without releasing it
+        except (OSError, ValueError):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+    return busy
+
+
+class SlotClaim:
+    def __init__(self, path):
+        self._path = path
+
+    def release(self):
+        try:
+            os.unlink(self._path)
+        except OSError:
+            pass
+
+
+def claim_slots(n, total, timeout=None):
+    """Claim ``n`` of this host's ``total`` slots, waiting while other
+    live gangs hold them; raises :class:`SlotWaitTimeout` after
+    ``timeout`` seconds (None: ``SLOT_WAIT_TIMEOUT_S``). ``n > total``
+    fails fast before this, in :func:`_resolve_num_workers`."""
+    import fcntl
+    import uuid
+
+    if timeout is None:
+        timeout = float(SLOT_WAIT_TIMEOUT_S)
+    d = _slot_dir()
+    lock_path = os.path.join(d, ".lock")
+    deadline = time.monotonic() + timeout
+    logged_waiting = False
+    while True:
+        with open(lock_path, "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            busy = _busy_slots_locked(d)
+            if total - busy >= n:
+                path = os.path.join(d, f"{uuid.uuid4().hex}.claim")
+                tmp = path + ".tmp"
+                with open(tmp, "w") as f:
+                    f.write(f"{os.getpid()} {n}")
+                os.replace(tmp, path)
+                return SlotClaim(path)
+        if time.monotonic() > deadline:
+            raise SlotWaitTimeout(
+                f"HorovodRunner waited {timeout:.0f}s for {n} of {total} "
+                f"task slots ({busy} busy in other jobs) without success; "
+                "giving up. Raise launcher.SLOT_WAIT_TIMEOUT_S or stop the "
+                "competing jobs.")
+        if not logged_waiting:
+            logger.info(
+                "HorovodRunner: %d/%d task slots busy; waiting for %d to "
+                "free up (the contract: wait while busy, fail only when np "
+                "exceeds the total).", busy, total, n)
+            logged_waiting = True
+        time.sleep(0.2)
+
+
+def _hosts_placement():
+    """The ``HOSTS`` spec as a Placement, or None."""
+    from sparkdl_tpu_torch.horovod.topology import Placement, parse_hosts
+
+    if HOSTS is None:
+        return None
+    spec = HOSTS if isinstance(HOSTS, str) else ",".join(
+        f"{host}:{slots}" for host, slots in HOSTS)
+    return Placement(parse_hosts(spec))
+
+
+def _resolve_num_workers(np_arg, placement=None):
+    """(number of workers, mode, total slots) for ``HorovodRunner(np=
+    np_arg)``, ``np_arg != -1``: ``"local"`` (``np <= -2``, no slot
+    accounting, total None) or ``"cluster"`` (one worker a slot). The
+    total is the ``HOSTS`` spec's (``placement``), trusted as declared,
+    or :func:`available_slots`; raises before anything is spawned when
+    ``np`` asks for more."""
+    if np_arg <= -2:
+        return -np_arg, "local", None
+    slots = (placement.total_slots if placement is not None
+             else available_slots())
+    n = slots if np_arg == 0 else np_arg
+    if n == 0 or n > slots:
+        where = (f"the HOSTS spec declares {slots}" if placement is not None
+                 else f"this host has {slots} (launcher.NUM_SLOTS "
+                      "overrides the count)")
         raise SlotExhaustionError(
-            f"HorovodRunner(np={np_arg}) runs one worker a CUDA card, and "
-            f"this host has {cards}; the job fails fast rather than wait "
-            "(np <= -2 runs a gang of -np local workers, which may share a "
-            "card or run on the CPU).")
-    return np_arg, True
+            f"HorovodRunner(np={np_arg}) runs one worker a task slot (one "
+            "worker a CUDA card, or a core under WORKER_DEVICE='cpu'), and "
+            f"{where}; the job fails fast rather than wait (np <= -2 runs "
+            "a gang of -np local workers, which may share a card or run "
+            "on the CPU).")
+    return n, "cluster", slots
 
 
 def _worker_env(base_env, *, rank, size, placement, master_addr,
-                master_port, control_addr, control_secret):
+                master_port, control_addr):
     """A worker's environment: the driver's, with the names
-    ``torch.distributed`` reads, the control plane's address and secret
-    (never on the command line), and the package on ``PYTHONPATH``."""
-    from sparkdl_tpu_torch.horovod.control_plane import (
-        CONTROL_ADDR_ENV,
-        CONTROL_SECRET_ENV,
-    )
-
+    ``torch.distributed`` reads, the control plane's address, and the
+    package on ``PYTHONPATH``."""
     env = dict(base_env)
     env.update({
         "RANK": str(rank),
@@ -102,12 +316,59 @@ def _worker_env(base_env, *, rank, size, placement, master_addr,
         "MASTER_ADDR": master_addr,
         "MASTER_PORT": str(master_port),
         CONTROL_ADDR_ENV: control_addr,
-        CONTROL_SECRET_ENV: control_secret,
     })
     path = env.get("PYTHONPATH")
     env["PYTHONPATH"] = (_PACKAGE_ROOT if not path
                          else _PACKAGE_ROOT + os.pathsep + path)
     return env
+
+
+# -- remote exec transport --------------------------------------------------
+#
+# A hosts spec naming other machines (reference runner_base.py:54-55:
+# the slots live on the task nodes) starts those ranks through a remote
+# shell, mpirun-style: ``ssh <host> env K=V ... python -m
+# sparkdl_tpu_torch.horovod._worker ...``, the boot stream on the
+# connection's standard input. It assumes a
+# homogeneous cluster: the same Python (REMOTE_PYTHON overrides) and the
+# same package path. There is no fallback to this host.
+
+
+def _resolve_remote_shell():
+    """The remote shell's tokens (``["ssh", "-o", "BatchMode=yes"]``), or
+    raises :class:`RemoteTransportError`."""
+    import shutil
+
+    spec = REMOTE_SHELL
+    if isinstance(spec, (list, tuple)):
+        if not spec:
+            raise RemoteTransportError("launcher.REMOTE_SHELL is an empty "
+                                       "token list")
+        return [str(t) for t in spec]
+    if spec is not None and spec.strip():
+        if spec.strip().lower() == "none":
+            raise RemoteTransportError(
+                "launcher.REMOTE_SHELL = 'none' refuses remote ranks")
+        return shlex.split(spec)
+    if shutil.which("ssh") is None:
+        raise RemoteTransportError(
+            "no `ssh` on PATH and no launcher.REMOTE_SHELL")
+    # BatchMode: a gang launch fails fast, never waits at a password
+    # prompt inside its start timeout
+    return ["ssh", "-o", "BatchMode=yes"]
+
+
+def _remote_worker_cmd(shell_tokens, host, env, python, worker_args):
+    """The remote launch's argv: ``shell host env K=V ... python -m
+    sparkdl_tpu_torch.horovod._worker worker_args``. Of the worker's
+    environment ``env`` only ``_REMOTE_NAMES`` cross. The remote shell
+    joins and parses what follows the host, so every token after it is
+    shell-quoted."""
+    names = [k for k in _REMOTE_NAMES if k in env]
+    return (list(shell_tokens) + [host, "env"]
+            + [f"{k}={shlex.quote(env[k])}" for k in names]
+            + [shlex.quote(t) for t in [python, "-m", _WORKER_MODULE,
+                                        *worker_args]])
 
 
 def _tail(path, n=40):
@@ -125,8 +386,10 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
     gang that fails transiently as the supervisor's policy allows.
     Raises :class:`~sparkdl_tpu_torch.horovod.supervisor.GangFailure`
     when a worker fails (with its traceback), when the gang does not
-    start within ``START_TIMEOUT_S`` or runs past ``JOB_TIMEOUT_S``, and
-    :class:`SlotExhaustionError` when ``np`` exceeds the card count."""
+    start within ``START_TIMEOUT_S`` or runs past ``JOB_TIMEOUT_S``;
+    :class:`SlotExhaustionError` when ``np`` exceeds the slots,
+    :class:`SlotWaitTimeout` when busy slots do not free in time and
+    :class:`RemoteTransportError` when remote ranks cannot be started."""
     import cloudpickle
 
     from sparkdl_tpu_torch.horovod import supervisor
@@ -146,53 +409,130 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
 def _launch_gang_once(np, payload, driver_log_verbosity, restart):
     """One launch attempt of the cloudpickled ``(main, kwargs)``, its
     workers told ``restart`` (a RestartContext); rank 0's result."""
+    from sparkdl_tpu_torch.horovod.topology import (
+        Placement,
+        _addressable,
+        is_local_host,
+    )
+
+    if np == 0:
+        logger.warning("HorovodRunner(np=0) is deprecated (reference "
+                       "README.md:57-61); using every task slot.")
+    if np >= 0:
+        try:
+            from sparkdl_tpu_torch.horovod.spark_backend import (
+                maybe_launch_on_spark,
+            )
+        except ImportError:
+            pass  # no pyspark: the gang runs from this host
+        else:
+            ran = maybe_launch_on_spark(
+                np, payload, driver_log_verbosity, restart,
+                rank_device("cluster"))
+            if ran is not None:
+                return ran.value
+
+    spec = _hosts_placement()
+    # local mode reads no spec; one argument when there is none
+    num_workers, mode, total = (
+        _resolve_num_workers(np) if spec is None or np <= -2
+        else _resolve_num_workers(np, spec))
+    placement = (spec.first(num_workers) if spec is not None
+                 and mode == "cluster" else Placement.single_host(num_workers))
+    remote = sorted({h for h, _ in placement.hosts if not is_local_host(h)})
+    shell = None
+    if remote:
+        # before the slot claim, which may wait for minutes
+        try:
+            shell = _resolve_remote_shell()
+        except RemoteTransportError as e:
+            raise RemoteTransportError(
+                f"the HOSTS spec places ranks on remote host(s) {remote}, "
+                f"but remote exec is unavailable ({e}). Refusing to launch "
+                "the whole gang on this host: that would oversubscribe its "
+                "cards. Fix the transport or launcher.HOSTS.") from None
+    claim = None
+    if mode == "cluster":
+        # this host's ranks claim this host's slots; remote ranks take
+        # their hosts' slots, not ours
+        n_here = sum(n for h, n in placement.hosts if h not in remote)
+        here_total = total if spec is None else sum(
+            n for h, n in spec.hosts if is_local_host(h))
+        if n_here:
+            claim = claim_slots(n_here, here_total)
+    try:
+        master_addr = _addressable("localhost") if remote else "127.0.0.1"
+        return _run_gang(num_workers, mode, placement, remote, shell,
+                         master_addr, payload, driver_log_verbosity, restart)
+    finally:
+        if claim is not None:
+            claim.release()
+
+
+def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
+              payload, driver_log_verbosity, restart):
+    """Spawn the workers (``remote`` hosts' through ``shell``), wait for
+    them and return rank 0's unpickled result."""
     import cloudpickle
     import torch.distributed as dist
 
     from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
     from sparkdl_tpu_torch.horovod.supervisor import GangFailure
-    from sparkdl_tpu_torch.horovod.topology import Placement
 
-    num_workers, per_card = _resolve_num_workers(np)
     job_dir = tempfile.mkdtemp(prefix="sparkdl-torch-job-")
-    payload_path = os.path.join(job_dir, "payload.pkl")
-    with open(payload_path, "wb") as f:
-        f.write(payload)
-    placement = Placement.single_host(num_workers)
-    # local gangs stream their workers' output to the driver (reference
-    # README.md:44-47); one-card-a-rank gangs honor driver_log_verbosity
-    server = ControlPlaneServer(
-        num_workers,
-        verbosity=driver_log_verbosity if per_card else "all",
-        log_path=os.path.join(job_dir, "job.log"))
-    store = None
+    boot_path = os.path.join(job_dir, "boot.bin")
+    store = server = None
     procs, boot_logs = [], []
     try:
-        store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+        # local gangs stream their workers' output to the driver
+        # (reference README.md:44-47); one-worker-a-slot gangs honor
+        # driver_log_verbosity
+        server = ControlPlaneServer(
+            num_workers,
+            verbosity=driver_log_verbosity if mode == "cluster" else "all",
+            log_path=os.path.join(job_dir, "job.log"),
+            bind_host="0.0.0.0" if remote else "127.0.0.1")
+        # the store's server listens on every interface; master_addr is
+        # what the workers dial, a routable one when a rank is remote
+        store = dist.TCPStore(master_addr, 0, is_master=True,
                               wait_for_workers=False)
         logger.info("Launching HorovodRunner gang: %d worker(s), %s, "
                     "attempt %d, job_dir=%s", num_workers,
-                    "one card a rank" if per_card else "local",
+                    "one a slot" if mode == "cluster" else "local",
                     restart.attempt, job_dir)
-        cmd = [sys.executable, "-m", "sparkdl_tpu_torch.horovod._worker",
-               "--job-dir", job_dir, "--payload", payload_path,
-               "--attempt", str(restart.attempt)]
+        args = ["--job-dir", job_dir, "--attempt", str(restart.attempt)]
         if restart.resume_step is not None:
-            cmd += ["--resume-step", str(restart.resume_step)]
-        if per_card:
-            cmd.append("--per-card")
+            args += ["--resume-step", str(restart.resume_step)]
+        device = rank_device(mode)
+        if device is not None:
+            args += ["--device", device]
+        python = REMOTE_PYTHON or sys.executable
+        # the workers' boot stream: the secret's line, then the payload;
+        # each worker's stdin opens it anew, and it is unlinked once they
+        # are spawned
+        with open(boot_path, "wb") as f:
+            f.write(server.secret.encode() + b"\n" + payload)
         for r in range(num_workers):
             env = _worker_env(
                 os.environ, rank=r, size=num_workers, placement=placement,
-                master_addr="127.0.0.1", master_port=store.port,
-                control_addr=server.address, control_secret=server.secret)
+                master_addr=master_addr, master_port=store.port,
+                control_addr=server.address)
+            if placement.host(r) in remote:
+                cmd = _remote_worker_cmd(shell, placement.host(r), env,
+                                         python, args)
+                env = None  # the shell's own: what crosses is in cmd
+            else:
+                cmd = [sys.executable, "-m", _WORKER_MODULE, *args]
             # output from before the worker's tee (an import error) lands
             # in its per-rank log too
             boot_log = open(os.path.join(job_dir, f"rank-{r}.log"), "ab",
                             buffering=0)
             boot_logs.append(boot_log)
-            procs.append(subprocess.Popen(
-                cmd, env=env, stdout=boot_log, stderr=subprocess.STDOUT))
+            with open(boot_path, "rb") as boot_in:
+                procs.append(subprocess.Popen(
+                    cmd, env=env, stdin=boot_in, stdout=boot_log,
+                    stderr=subprocess.STDOUT))
+        os.unlink(boot_path)
 
         def fail(reason, codes, kind):
             excs = server.exceptions
@@ -261,5 +601,8 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart):
             p.wait()
         for f in boot_logs:
             f.close()
-        server.close()
+        if os.path.exists(boot_path):
+            os.unlink(boot_path)  # the secret outlives no launch
+        if server is not None:
+            server.close()
         del store  # closes the rendezvous store's server

@@ -11,9 +11,13 @@ constructor is keyword-only ``(*, np, driver_log_verbosity=
   reference's own local mode);
 - ``np <= -2``: ``-np`` worker processes on this host; they may share a
   card (then over gloo) or run on the CPU where there is none;
-- ``np >= 1``: ``np`` workers, one a CUDA card (NCCL for CUDA tensors);
-  fails fast when ``np`` exceeds the card count;
-- ``np == 0``: deprecated, every card.
+- ``np >= 1``: ``np`` workers, one a task slot: a Spark barrier job of
+  ``np`` tasks when a SparkSession is active, else one worker a CUDA
+  card of this host or of the hosts of ``launcher.HOSTS`` (remote ones
+  through a remote shell); NCCL for CUDA tensors. Fails fast when
+  ``np`` exceeds the slots in total, and waits while other jobs' gangs
+  hold them (:mod:`sparkdl_tpu_torch.horovod.launcher`);
+- ``np == 0``: deprecated, every slot.
 
 In every mode ``main`` may ``import horovod.torch as hvd`` (the
 reference's headline use): inside the run that name is
@@ -53,9 +57,11 @@ class HorovodRunner:
 
             - If np >= 1, launch np workers, each bound to its own CUDA
               card (one task slot <-> one card, reference
-              ``runner_base.py:44-45``). They start all together; if np
-              is greater than the number of cards, the job fails fast
-              (reference ``runner_base.py:54-58``). np = 0 (every card)
+              ``runner_base.py:44-45``): as a Spark barrier job under an
+              active SparkSession, else from this host. They start all
+              together; if np is greater than the slots in total, the
+              job fails fast, and while slots are busy it waits
+              (reference ``runner_base.py:54-58``). np = 0 (every slot)
               is deprecated (reference ``README.md:57-61``).
             - If np < 0, spawn ``-np`` subprocesses on this host
               (reference ``runner_base.py:48-53``); np = -1 runs

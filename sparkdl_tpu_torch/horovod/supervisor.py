@@ -169,7 +169,8 @@ def classify_failure(exc, extra_patterns=()):
     """(verdict, cause) of a failed launch; a *permanent* one is never
     relaunched.
 
-    - Slot exhaustion and bad arguments: permanent.
+    - Slot exhaustion, a slot wait that timed out, remote ranks that
+      cannot be started, and bad arguments: permanent.
     - A worker EXC frame that is not infrastructure: permanent (user
       code raised; running it again reproduces the bug).
     - A rendezvous timeout, a lost result, ranks killed by signals, EXC
@@ -181,9 +182,14 @@ def classify_failure(exc, extra_patterns=()):
     ``extra_patterns``: more infrastructure signatures
     (:attr:`RetryPolicy.extra_patterns`).
     """
-    from sparkdl_tpu_torch.horovod.launcher import SlotExhaustionError
+    from sparkdl_tpu_torch.horovod.launcher import (
+        RemoteTransportError,
+        SlotExhaustionError,
+        SlotWaitTimeout,
+    )
 
-    if isinstance(exc, SlotExhaustionError):
+    if isinstance(exc, (SlotExhaustionError, SlotWaitTimeout,
+                        RemoteTransportError)):
         return PERMANENT, f"{type(exc).__name__} (cannot self-heal)"
     if isinstance(exc, (ValueError, TypeError)):
         return PERMANENT, f"bad arguments ({type(exc).__name__})"

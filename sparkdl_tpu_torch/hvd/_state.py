@@ -12,6 +12,14 @@ world size, one included. Without them it is rank 0 of 1 with no group.
 In local mode (``HorovodRunner(np=-1)``) the runner enters
 :func:`local_mode`, which pins rank 0 of 1 without any rendezvous.
 
+The launcher decides the device of a rank that has a card of its own
+(a one-card-a-slot gang, a Spark task, a remote rank) and hands it to
+:func:`init` as ``device``: ``"cuda"`` binds ``cuda:LOCAL_RANK`` and
+raises when this host has no such card; ``"cpu"`` runs the rank on the
+CPU over gloo (the launcher's ``WORKER_DEVICE = "cpu"``). A rank never
+decides it from its own environment. Without a decision (a local gang,
+``np <= -2``) the backend rule below applies.
+
 Backend rule (a declared rule, not a fallback):
 
 - every local rank has a CUDA card of its own: ``"cpu:gloo,cuda:nccl"``.
@@ -53,6 +61,7 @@ class _HvdState:
         self.group = None  # the default process group, in a gang
         self.backend = None  # PER_CARD_BACKEND or SHARED_BACKEND
         self.device = None  # the card this rank binds, or the CPU
+        self.master = None  # (address, port) of the store the group joined
         self.local = False  # inside local_mode(): no environment, no group
 
     @property
@@ -63,12 +72,12 @@ class _HvdState:
     def snapshot(self):
         return (self.initialized, self.rank, self.size, self.local_rank,
                 self.local_size, self.group, self.backend,
-                self.device, self.local)
+                self.device, self.master, self.local)
 
     def restore(self, snap):
         (self.initialized, self.rank, self.size, self.local_rank,
          self.local_size, self.group, self.backend,
-         self.device, self.local) = snap
+         self.device, self.master, self.local) = snap
 
 
 _state = _HvdState()
@@ -78,9 +87,23 @@ def state():
     return _state
 
 
-def backend_for(local_rank, local_size):
-    """(backend, device) of a gang rank by the rule in the module
-    docstring."""
+def backend_for(local_rank, local_size, device=None):
+    """(backend, device) of a gang rank: the launcher's decision
+    ``device`` (``"cuda"``, ``"cpu"``), or the rule in the module
+    docstring when it is None."""
+    if device == "cpu":
+        return SHARED_BACKEND, torch.device("cpu")
+    if device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < local_size:
+            raise RuntimeError(
+                f"local rank {local_rank} of {local_size} of a gang with a "
+                f"card a rank finds {cards} CUDA device(s) on this host; "
+                "no such rank moves to the CPU or to a shared card")
+        return PER_CARD_BACKEND, torch.device("cuda", local_rank)
+    if device is not None:
+        raise ValueError(f"a rank's device is 'cuda' or 'cpu', not "
+                         f"{device!r}")
     if not torch.cuda.is_available():
         return SHARED_BACKEND, torch.device("cpu")
     cards = torch.cuda.device_count()
@@ -89,11 +112,12 @@ def backend_for(local_rank, local_size):
     return SHARED_BACKEND, torch.device("cuda", local_rank % cards)
 
 
-def init():
+def init(device=None):
     """Resolve rank and size; in a gang, bind the card and join the
     process group (the counterpart of the JAX package's
     ``jax.distributed.initialize`` against the launcher's coordinator).
-    A second call is a no-op."""
+    ``device``: the launcher's decision for this rank (module
+    docstring). A second call is a no-op until :func:`shutdown`."""
     with _state.lock:
         if _state.initialized:
             return
@@ -107,7 +131,7 @@ def init():
         local_size = int(env.get("LOCAL_WORLD_SIZE", str(size)))
         addr, port = env.get("MASTER_ADDR"), env.get("MASTER_PORT")
         if addr and port:
-            backend, device = backend_for(local_rank, local_size)
+            backend, device = backend_for(local_rank, local_size, device)
             if device.type == "cuda":
                 # before the group exists, so NCCL binds this card
                 torch.cuda.set_device(device)
@@ -117,6 +141,7 @@ def init():
                                     world_size=size, timeout=TIMEOUT)
             _state.group = dist.group.WORLD
             _state.backend, _state.device = backend, device
+            _state.master = (addr, int(port))
             logger.info("hvd rank %d of %d (local %d of %d): backend %s on "
                         "%s", rank, size, local_rank, local_size, backend,
                         device)

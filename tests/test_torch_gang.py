@@ -295,24 +295,30 @@ def _lora_main(tree, batch, steps):
             "params": {n: p.detach().numpy() for n, p in named}}
 
 
-def test_data_parallel_lora_step_matches_the_jax_step(lora_tree):
-    batch = global_batch(np.random.default_rng(2), VOCAB, ROWS, SEQ)
-
+def jax_lora_reference(tree, batch, steps=STEPS):
+    """The JAX package's single-process masked-AdamW LoRA steps on the
+    whole ``batch`` from ``tree``: (losses, the flattened trained
+    tree)."""
     cfg = jax_llama.LlamaConfig.tiny(dtype=jnp.float32, lora_rank=4,
                                      attention="flash")
-    params = jax.tree.map(jnp.asarray, lora_tree)
+    params = jax.tree.map(jnp.asarray, tree)
     mask = jax_lora.lora_mask(params)
     opt = optax.masked(optax.adamw(1e-3), mask)
     step = jax.jit(jax_train.make_train_step(
         jax_train.make_lm_loss_fn(jax_llama.Llama(cfg)), opt,
         param_mask=mask))
     state = opt.init(params)
-    ref_losses = []
-    for _ in range(STEPS):
+    losses = []
+    for _ in range(steps):
         params, state, metrics = step(params, state,
                                       jax.tree.map(jnp.asarray, batch))
-        ref_losses.append(float(metrics["loss"]))
-    ref = flatten_jax_tree(jax.tree.map(np.asarray, params))
+        losses.append(float(metrics["loss"]))
+    return losses, flatten_jax_tree(jax.tree.map(np.asarray, params))
+
+
+def test_data_parallel_lora_step_matches_the_jax_step(lora_tree):
+    batch = global_batch(np.random.default_rng(2), VOCAB, ROWS, SEQ)
+    ref_losses, ref = jax_lora_reference(lora_tree, batch)
 
     got = HorovodRunner(np=-2).run(
         _lora_main, tree=flatten_jax_tree(lora_tree), batch=batch,

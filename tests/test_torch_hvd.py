@@ -200,7 +200,7 @@ def test_worker_env_carries_the_torch_distributed_names():
     env = launcher._worker_env(
         {"PYTHONPATH": "elsewhere"}, rank=2, size=3,
         placement=Placement.single_host(3), master_addr="127.0.0.1",
-        master_port=1234, control_addr="127.0.0.1:5", control_secret="s")
+        master_port=1234, control_addr="127.0.0.1:5")
     assert {k: env[k] for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
                                 "LOCAL_WORLD_SIZE", "MASTER_ADDR",
                                 "MASTER_PORT")} == {

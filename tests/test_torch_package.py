@@ -53,6 +53,10 @@ GANG_COUNTERPARTS = {
         "sparkdl_tpu/horovod/runner_base.py",
     "sparkdl_tpu_torch/horovod/supervisor.py":
         "sparkdl_tpu/horovod/supervisor.py",
+    # HorovodRunner on Spark
+    "sparkdl_tpu_torch/horovod/spark_backend.py":
+        "sparkdl_tpu/horovod/spark_backend.py",
+    "sparkdl_tpu_torch/version.py": "sparkdl_tpu/version.py",
     "sparkdl_tpu_torch/utils/checkpoint.py":
         "sparkdl_tpu/utils/checkpoint.py",
     "sparkdl_tpu_torch/utils/data.py": "sparkdl_tpu/utils/data.py",
