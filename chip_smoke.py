@@ -15,8 +15,10 @@ killed), sequence-parallel over a ring of two ranks and as a two-stage
 pipeline; then serve and LoRA-fine-tune a Mixtral-8x7B-width mixture of
 experts (cut in depth) and run its expert layer expert-parallel over two
 ranks; train Llama-3-8B tensor-parallel and ZeRO-3 (``fsdp``) and serve
-it ZeRO-3 on two ranks sharing the card; and show every run went through
-its kernels.
+it ZeRO-3 on two ranks sharing the card; run HorovodRunner on Spark;
+train the model zoo (the MNIST CNN, ResNet-50 and BERT-base SQuAD) through
+HorovodRunner and convert a HuggingFace Llama-3-8B state dict into the
+int8 serving path; and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -301,6 +303,36 @@ and on any failed check. Phases:
    flash forward matches its plain version. This machine has no
    network, so phase 22 resolves no name: the routable address is
    loopback and ``.invalid`` names are remote.
+23. the model zoo, BASELINE.json configs 1-3 at full width, run last,
+   each trained through ``HorovodRunner`` on seed-made data with
+   seed-made weights (flax's initialisers). 23a: ``MnistCNN`` (fp32),
+   ``np=-1`` (in-process on the card), batch 64, Adam 1e-3, a warm-up
+   and 20 timed steps; gate: the losses finite and falling. 23b:
+   ``ResNet50()`` (bf16 convolutions through cuDNN, fp32 batch norms,
+   1000 classes), ``np=1`` (a NCCL group of one) with
+   ``hvd.DistributedOptimizer`` over SGD 0.1, momentum 0.9, 128 x 224 x
+   224 x 3 NHWC images, 2 warm-up and 5 timed steps. 23c:
+   ``BertForQuestionAnswering(BertConfig.base())`` (bf16, vocab
+   30522), ``np=1``, AdamW 3e-5 with weight decay 1e-4 (optax's
+   default, set explicitly), 32 x 384 tokens with padding masks of
+   lengths 128-384 (the masked attention path), start CE + end CE, as
+   23b's steps. Gates of 23b and 23c: the gang's losses within 2^-10 of
+   the same steps run in this process; every running statistic moved
+   (23b); the bf16 logits of 4 samples within ZOO_BF16_TOL of an fp32
+   twin of the same weights (the largest error over the largest
+   logit; TF32 off). Each prints ms a step, samples/s, model TFLOP/s
+   (``benchmarks/model_bench.py``'s counts), peak memory, and one more
+   step of the in-process run under ``torch.profiler``. 23d: an HF
+   ``LlamaForCausalLM`` state dict at Llama-3-8B's widths and depth
+   (bf16 on the card, normal(0.02), norms 1 + normal(0.02), its own
+   ``lm_head.weight``; the config a plain object with HF's attribute
+   names: the card machine has no ``transformers``) through
+   ``params_from_hf``, the port's ``Llama`` and ``params_to_hf``:
+   bit-identical to the input; then ``quantize_llama_params`` to int8
+   and phase 3's first 4 requests through the paged engine; gates:
+   every request on its budget, the B4 and B5 launches, zeroed just
+   before the run, what the engine's counts predict. It prints the
+   conversion's seconds each way and the peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -469,6 +501,29 @@ FSDP_SERVE_DEPTH, FSDP_SERVE_REQUESTS, FSDP_SERVE_BUDGET = 2, 4, 16
 # version (B, S, H, D, causal)
 SLOT_HOLD_S = 3.0
 SLOT_FLASH_SHAPE = (1, 256, 8, 128, True)
+# phase 23: BASELINE.json configs 1-3 at full width: 23a the MNIST CNN
+# (batch 64, a warm-up and 20 timed Adam steps), 23b ResNet-50 (128 x 224 x 224 x 3), 23c
+# BERT-base SQuAD (32 x 384, padded lengths from BERT_MIN_LEN); the
+# warm-up and timed steps of 23b and 23c; the np of each; and the
+# tolerance of 23b's and 23c's bf16 logits against an fp32 twin, over
+# the largest fp32 logit: the CPU tests saw 2.9e-3 (ResNet18Thin) and
+# up to 8.8e-3 (tiny BERT) between each package's bf16 and fp32 models,
+# and full depth compounds the rounding, so 2^-4. 23d: the requests
+# (phase 3's first) the HF-converted int8 engine serves
+MNIST_BATCH, MNIST_STEPS = 64, 20
+RESNET_BATCH, RESNET_IMAGE = 128, 224
+BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 32, 384, 128
+ZOO_WARMUP, ZOO_STEPS = 2, 5
+ZOO_NP = {"23a": -1, "23b": 1, "23c": 1}
+ZOO_BF16_TOL = 2.0 ** -4
+HF_REQUESTS = 4
+# Meta's Llama-3-8B config.json values under HF's attribute names (no
+# transformers on the card machine: a plain object carries them)
+HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
+                    num_hidden_layers=32, num_attention_heads=32,
+                    num_key_value_heads=8, intermediate_size=14336,
+                    rope_theta=500000.0, rms_norm_eps=1e-5,
+                    max_position_embeddings=8192, rope_scaling=None)
 
 
 class CheckFailed(RuntimeError):
@@ -5517,6 +5572,400 @@ def remote_rank(torch):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the model zoo (BASELINE.json configs 1-3) through HorovodRunner,
+# and the HF Llama conversion into the int8 serving path
+
+
+def _zoo_model(torch, family, device, gen=None, dtype=None):
+    """Phase 23's model of ``family`` (``"mnist"``, ``"resnet50"``,
+    ``"bert"``) at full width on ``device``, its weights drawn from
+    ``gen`` (flax's initialisers); ``dtype`` overrides the compute type
+    (the fp32 twin)."""
+    from sparkdl_tpu_torch.models import (
+        BertConfig,
+        BertForQuestionAnswering,
+        MnistCNN,
+        ResNet50,
+    )
+
+    kw = {} if dtype is None else {"dtype": dtype}
+    if family == "mnist":
+        return MnistCNN(device=device, generator=gen, **kw)
+    if family == "resnet50":
+        return ResNet50(device=device, generator=gen, **kw)
+    return BertForQuestionAnswering(BertConfig.base(**kw), device=device,
+                                    generator=gen)
+
+
+def _zoo_batch(torch, family, device):
+    """Phase 23's global batch of ``family``, drawn on ``device`` from
+    the seed (every rank and the in-process twin draw the same): MNIST
+    64 x 28 x 28 x 1 images and 10 classes; ResNet-50 128 x 224 x 224 x
+    3 NHWC images and 1000 classes; BERT SQuAD 32 x 384 tokens with
+    padding masks of lengths 128-384, a 64-token question (type 0)
+    before the context (type 1), start <= end inside each length."""
+    gen = _seeded(torch, SEED + 23, device)
+    if family in ("mnist", "resnet50"):
+        b, hw, c, classes = ((MNIST_BATCH, 28, 1, 10) if family == "mnist"
+                             else (RESNET_BATCH, RESNET_IMAGE, 3, 1000))
+        return {"x": torch.randn((b, hw, hw, c), generator=gen,
+                                 device=device),
+                "y": torch.randint(0, classes, (b,), generator=gen,
+                                   device=device)}
+    from sparkdl_tpu_torch.models import BertConfig
+
+    b, s = BERT_BATCH, BERT_SEQ
+    lengths = torch.randint(BERT_MIN_LEN, s + 1, (b,), generator=gen,
+                            device=device)
+    pos = torch.arange(s, device=device)
+    mask = pos[None, :] < lengths[:, None]
+    starts = (torch.rand((b,), generator=gen, device=device)
+              * lengths).long()
+    ends = starts + (torch.rand((b,), generator=gen, device=device)
+                     * (lengths - starts)).long()
+    return {"ids": torch.randint(0, BertConfig.base().vocab_size, (b, s),
+                                 generator=gen, device=device),
+            "types": ((pos[None, :] >= 64) & mask).long(),
+            "mask": mask, "starts": starts, "ends": ends}
+
+
+def _zoo_logits(model, family, batch):
+    if family == "bert":
+        return model(batch["ids"], batch["types"], batch["mask"])
+    return model(batch["x"])
+
+
+def _zoo_loss_fn(family, model):
+    """Cross entropy (MNIST, ResNet-50) or SQuAD's start CE + end CE."""
+    from sparkdl_tpu_torch.parallel.train import cross_entropy_loss
+
+    def loss_fn(batch):
+        out = _zoo_logits(model, family, batch)
+        if family == "bert":
+            return (cross_entropy_loss(out[0], batch["starts"])
+                    + cross_entropy_loss(out[1], batch["ends"]))
+        return cross_entropy_loss(out, batch["y"])
+
+    loss_fn.model = model
+    return loss_fn
+
+
+def _zoo_optimizer(torch, family, model):
+    """MNIST: Adam 1e-3; ResNet-50: SGD 0.1, momentum 0.9
+    (benchmarks/model_bench.py's recipe); BERT: AdamW 3e-5 with optax's
+    default weight decay 1e-4 set explicitly (torch's default is 1e-2)."""
+    params = model.parameters()
+    if family == "mnist":
+        return torch.optim.Adam(params, lr=1e-3)
+    if family == "resnet50":
+        return torch.optim.SGD(params, lr=0.1, momentum=0.9)
+    return torch.optim.AdamW(params, lr=3e-5, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def zoo_main(family, steps, warmup, seed, device, started, gang=True):
+    """One training run of phase 23a-23c: ``family``'s model drawn from
+    ``seed`` on this rank's card, rank 0's weights and running
+    statistics (``replicate``), its optimizer wrapped in
+    ``hvd.DistributedOptimizer``, this rank's rows of the seed's global
+    batch (``shard_batch``); ``warmup`` steps, then ``steps`` timed ones.
+    With ``gang=False`` the same run in this process with the plain
+    optimizer (the in-process twin), which also returns the model.
+    Returns every rank's report (``allgather_object``)."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.horovod import log_to_driver
+    from sparkdl_tpu_torch.parallel.train import (
+        make_train_step,
+        param_count,
+        replicate,
+        shard_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, size, backend = 0, 1, None
+    if gang:
+        hvd.init()
+        rank, size = hvd.rank(), hvd.size()
+        st = _state.state()
+        backend = st.backend
+        if device == "cuda" and st.device is not None:
+            device = st.device  # a gang rank's card; local mode: the current
+    ready_s = time.time() - started
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    model = _zoo_model(torch, family, device,
+                       _seeded(torch, seed + rank, device)).train()
+    opt = _zoo_optimizer(torch, family, model)
+    batch = _zoo_batch(torch, family, device)
+    if gang:
+        replicate(model)
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+        hvd.broadcast_optimizer_state(opt)
+        batch = shard_batch(batch)
+    step = make_train_step(_zoo_loss_fn(family, model), opt, device=device)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    losses = [step(batch)["loss"].item() for _ in range(warmup)]
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(steps):
+        sync()
+        t = time.perf_counter()
+        losses.append(step(batch)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+    rows = next(iter(batch.values())).shape[0]
+    report = {
+        "family": family, "rank": rank, "size": size, "backend": backend,
+        "device": str(device), "ready_s": ready_s, "rows": int(rows),
+        "params": param_count(model), "losses": losses,
+        "step_ms": [1e3 * x for x in times],
+        "step_ms_median": 1e3 * statistics.median(times),
+        "samples_per_s": steps * rows / sum(times),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if on_card else 0.0),
+        "buffers": len(stats0),
+        "buffers_moved": sum(not torch.equal(b, stats0[n])
+                             for n, b in model.named_buffers())}
+    if not gang:
+        return report, model, step, batch
+    log_to_driver(f"zoo {family} rank {rank} of {size}: loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f}, "
+                  f"{report['step_ms_median']:.1f} ms a step")
+    return hvd.allgather_object(report)
+
+
+def _zoo_flops_per_sample(family):
+    """Model FLOPs a trained sample, as benchmarks/model_bench.py counts
+    them: ResNet-50 3 x 4.09 GFLOP; BERT-base 3 x (2 x 85.1M matmul
+    parameters + 12 x 4 x seq x d_model) a token, x seq."""
+    if family == "resnet50":
+        return 3 * 4.09e9
+    if family == "bert":
+        return 3 * (2 * 85.1e6 + 12 * 4 * BERT_SEQ * 768) * BERT_SEQ
+    return None
+
+
+def _zoo_bf16_err(torch, family, model, batch):
+    """The bf16 model's logits on the batch's first 4 samples against an
+    fp32 twin of the same weights (eval mode: the running statistics),
+    as the largest error over the largest fp32 logit."""
+    few = {k: v[:4] for k, v in batch.items()}
+    twin = _zoo_model(torch, family, next(model.parameters()).device,
+                      dtype=torch.float32)
+    twin.load_state_dict(model.state_dict())
+    model.eval()
+    twin.eval()
+    with torch.no_grad():
+        got, ref = _zoo_logits(model, family, few), _zoo_logits(
+            twin, family, few)
+    if family != "bert":
+        got, ref = (got,), (ref,)
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    scale = max(r.abs().max().item() for r in ref)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return {"max_abs_err": err, "logit_scale": scale,
+            "rel_err": err / scale, "finite": finite}
+
+
+def zoo(torch, phase, family):
+    """Phase 23a-23c: ``family`` trained under ``HorovodRunner(np=
+    ZOO_NP[phase])`` with ``hvd.DistributedOptimizer``; 23b and 23c also
+    against the same steps in this process (the losses within 2^-10),
+    the running statistics moved (ResNet-50), the bf16 logits of 4
+    samples against an fp32 twin within ZOO_BF16_TOL, and one more step
+    of the in-process run profiled."""
+    from sparkdl_tpu_torch import HorovodRunner
+
+    steps, warmup = ((MNIST_STEPS, 1) if family == "mnist"
+                     else (ZOO_STEPS, ZOO_WARMUP))
+    with _launcher_settings(), _StdoutCopy() as out:
+        t = time.perf_counter()
+        ranks = HorovodRunner(np=ZOO_NP[phase]).run(
+            zoo_main, family=family, steps=steps, warmup=warmup, seed=SEED,
+            device=DEVICE, started=time.time())
+        wall_s = time.perf_counter() - t
+    r0 = ranks[0]
+    _require(len(ranks) == max(ZOO_NP[phase], 1) and r0["rank"] == 0,
+             f"phase {phase}: rank 0's result did not reach the driver")
+    _require(f"zoo {family} rank 0 of " in out.seen(),
+             f"phase {phase}: no log_to_driver line on the driver's stdout")
+    losses = r0["losses"]
+    _require(all(np.isfinite(losses)), f"phase {phase}: losses {losses}")
+    report = dict(r0)
+    report.update({"phase": phase, "np": ZOO_NP[phase], "warmup": warmup,
+                   "steps": steps, "run_wall_s": wall_s})
+    flops = _zoo_flops_per_sample(family)
+    if flops is not None:
+        report["model_tflops_per_s"] = flops * r0["samples_per_s"] / 1e12
+        report["share_of_989_tflops"] = (flops * r0["samples_per_s"]
+                                         / PEAK_FLOPS["bf16"])
+    if family == "mnist":
+        _require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                 f"phase {phase}: the loss did not fall: {losses}")
+        _log(f"zoo_{phase} " + json.dumps(report))
+        return report
+
+    twin, model, step, batch = zoo_main(family, steps, warmup, SEED, DEVICE,
+                                        time.time(), gang=False)
+    diff = max(abs(a - b) for a, b in zip(losses, twin["losses"]))
+    report["twin_losses"] = twin["losses"]
+    report["twin_step_ms_median"] = twin["step_ms_median"]
+    report["twin_max_loss_diff"] = diff
+    _require(diff <= 2.0 ** -10,
+             f"phase {phase}: the gang's losses {losses} are not within "
+             f"2^-10 of the in-process run's {twin['losses']}")
+    if family == "resnet50":
+        _require(r0["buffers"] == 2 * 53 and r0["buffers_moved"]
+                 == r0["buffers"],
+                 f"phase {phase}: {r0['buffers_moved']} of "
+                 f"{r0['buffers']} running statistics moved")
+    report["profile"] = profile_step(torch, step, batch,
+                                     twin["step_ms_median"])
+    bf16 = _zoo_bf16_err(torch, family, model, batch)
+    report["bf16_vs_fp32"] = bf16
+    _require(bf16["finite"] and bf16["rel_err"] <= ZOO_BF16_TOL,
+             f"phase {phase}: bf16 logits against the fp32 twin: {bf16}")
+    del model, step, batch
+    _log(f"zoo_{phase} " + json.dumps({k: v for k, v in report.items()
+                                       if k != "profile"}))
+    return report
+
+
+def _hf_llama_state_dict(torch, hf, gen):
+    """An HF ``LlamaForCausalLM`` state dict at ``hf``'s widths on the
+    card in bf16, drawn from ``gen``: every matrix normal(0.02), the norm
+    weights 1 + normal(0.02), ``lm_head.weight`` its own."""
+    d, f = hf.hidden_size, hf.intermediate_size
+    kv = hf.num_key_value_heads * (d // hf.num_attention_heads)
+
+    def normal(*shape, mean=0.0):
+        t = torch.empty(shape, dtype=torch.bfloat16, device=DEVICE)
+        return t.normal_(mean, 0.02, generator=gen)
+
+    sd = {"model.embed_tokens.weight": normal(hf.vocab_size, d)}
+    for i in range(hf.num_hidden_layers):
+        p = f"model.layers.{i}"
+        sd.update({f"{p}.self_attn.q_proj.weight": normal(d, d),
+                   f"{p}.self_attn.k_proj.weight": normal(kv, d),
+                   f"{p}.self_attn.v_proj.weight": normal(kv, d),
+                   f"{p}.self_attn.o_proj.weight": normal(d, d),
+                   f"{p}.mlp.gate_proj.weight": normal(f, d),
+                   f"{p}.mlp.up_proj.weight": normal(f, d),
+                   f"{p}.mlp.down_proj.weight": normal(d, f),
+                   f"{p}.input_layernorm.weight": normal(d, mean=1.0),
+                   f"{p}.post_attention_layernorm.weight":
+                       normal(d, mean=1.0)})
+    sd["model.norm.weight"] = normal(d, mean=1.0)
+    sd["lm_head.weight"] = normal(hf.vocab_size, d)
+    return sd
+
+
+def hf_convert(torch):
+    """Phase 23d: an HF Llama state dict at Llama-3-8B's widths (bf16, on
+    the card) through ``params_from_hf``, the port's ``Llama`` and
+    ``params_to_hf`` (bit-identical to the input), then
+    ``quantize_llama_params`` to int8 and phase 3's first HF_REQUESTS
+    requests through the paged engine, counters zeroed just before the
+    run."""
+    import types
+
+    from sparkdl_tpu_torch.models.convert import (
+        config_from_hf,
+        params_from_hf,
+        params_to_hf,
+    )
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.models.quant import quantize_llama_params
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    hf = types.SimpleNamespace(**HF_LLAMA3_8B)
+    cfg = config_from_hf(hf, max_cache_len=2048)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sd = _hf_llama_state_dict(torch, hf, _seeded(torch, SEED + 23))
+    hf_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = params_from_hf(sd, cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    from_s = time.perf_counter() - t
+    t = time.perf_counter()
+    model = Llama.from_params(cfg, params, device=DEVICE)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = params_to_hf(model.state_dict(), cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    to_s = time.perf_counter() - t
+    _require(set(back) == set(sd),
+             f"phase 23d: params_to_hf gave {sorted(set(back) ^ set(sd))}")
+    differ = [k for k in sd if back[k].dtype != sd[k].dtype
+              or not torch.equal(back[k], sd[k])]
+    _require(not differ, f"phase 23d: the round trip changed {differ[:6]}")
+    del back, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    convert_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    t = time.perf_counter()
+    q = quantize_llama_params(model.state_dict(), device=DEVICE)
+    del model
+    cfg_q = dataclasses.replace(cfg, quant="int8")
+    model = Llama.from_params(cfg_q, q, device=DEVICE)
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    engine = ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
+                                      chunk=16, page_size=64, device=DEVICE)
+    prompts, budgets = _requests(cfg_q, HF_REQUESTS)
+    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    spent = _time_engine(torch, engine)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t
+    launches = _read_launches()
+    _check_budgets(engine, results, rids, budgets, cfg_q.vocab_size, "23d")
+    want = _engines_launches(cfg_q, [engine])
+    _require(launches == want and launches["quantized_matmul"] > 0
+             and launches["paged_attention_decode"] > 0,
+             f"phase 23d: launches {launches}, the engine's counts "
+             f"predict {want}")
+    stats = dict(engine.stats)
+    decoded = sum(len(results[r]) for r in rids) - len(rids)
+    report = {
+        "n_layers": cfg.n_layers, "hf_bytes": hf_bytes,
+        "from_hf_s": from_s, "llama_from_params_s": build_s,
+        "to_hf_s": to_s, "round_trip_bit_identical": True,
+        "convert_peak_gb": convert_peak, "quantize_s": quant_s,
+        "requests": len(rids), "budgets": budgets,
+        "serve_wall_s": wall,
+        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+        "decode_tokens_per_s": decoded / spent["decode"],
+        "prefill_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "stats": stats, "launches": launches}
+    del engine, model
+    _log("hf_convert " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -5660,6 +6109,16 @@ def main(argv=None):
     spark = spark_gang(torch, gang)
     slots = slot_wait(torch)
     remote = remote_rank(torch)
+    # slice 16: the model zoo through HorovodRunner, the HF conversion
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_runs = {}
+    for phase, family in (("23a", "mnist"), ("23b", "resnet50"),
+                          ("23c", "bert")):
+        zoo_runs[phase] = zoo(torch, phase, family)
+        gc.collect()
+        torch.cuda.empty_cache()
+    hf = hf_convert(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -5719,7 +6178,8 @@ def main(argv=None):
                     "14": fleet["launches"]["quantized_matmul"],
                     "17": moe_serving["launches"]["quantized_matmul"],
                     "21b": sum(r["launches"]["quantized_matmul"]
-                               for r in fsdp_serving["ranks"])}
+                               for r in fsdp_serving["ranks"]),
+                    "23d": hf["launches"]["quantized_matmul"]}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
                       "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
@@ -5733,7 +6193,8 @@ def main(argv=None):
                       "17": moe_serving["launches"][
                           "paged_attention_decode"],
                       "21b": sum(r["launches"]["paged_attention_decode"]
-                                 for r in fsdp_serving["ranks"])}
+                                 for r in fsdp_serving["ranks"]),
+                      "23d": hf["launches"]["paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
@@ -5800,7 +6261,8 @@ def main(argv=None):
                        "fsdp_train": fsdp_training,
                        "fsdp_serve": fsdp_serving,
                        "spark": spark, "slot_wait": slots,
-                       "remote_rank": remote,
+                       "remote_rank": remote, "zoo": zoo_runs,
+                       "hf_convert": hf,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -18,6 +18,12 @@ layouts, so the only renaming is ``layer_<i>`` → ``layers.<i>``. Each
 value is cast to its weight's dtype: the JAX init's fp32 base kernels
 become ``cfg.dtype`` (the value the JAX forward computes with, since it
 casts them per call), while adapters, norms and the head stay fp32.
+
+:func:`load_jax_variables` loads the model zoo's families (``MnistCNN``,
+``ResNet``, the BERT models) from their flax variables: ``params`` and,
+for a ResNet, ``batch_stats`` onto the batch norms' ``mean`` and ``var``
+buffers, each convolution kernel transposed from flax's (kh, kw, in,
+out) to torch's (out, in, kh, kw).
 """
 
 import re
@@ -48,6 +54,26 @@ def flatten_jax_tree(tree, prefix=""):
     return flat
 
 
+def _copy_into(state, flat, what):
+    """Copy ``flat`` ({name: numpy array}) into the tensors of ``state``
+    in place, each cast to its tensor's dtype; raises on a missing,
+    unexpected or mis-shaped entry."""
+    missing = sorted(set(state) - set(flat))
+    unexpected = sorted(set(flat) - set(state))
+    if missing or unexpected:
+        raise ValueError(
+            f"{what} does not match the model: missing {missing}, "
+            f"unexpected {unexpected}")
+    with torch.no_grad():
+        for name, weight in state.items():
+            src = torch.from_numpy(np.array(flat[name]))
+            if tuple(src.shape) != tuple(weight.shape):
+                raise ValueError(
+                    f"{name}: JAX shape {tuple(src.shape)}, model "
+                    f"expects {tuple(weight.shape)}")
+            weight.copy_(src)
+
+
 def load_jax_params(model, tree):
     """Copy a JAX Llama param tree into ``model``'s weights in place
     (cast to each weight's dtype, on its device); returns ``model``.
@@ -59,19 +85,23 @@ def load_jax_params(model, tree):
     flat = flatten_jax_tree(tree)
     if getattr(model, "tp", None) is not None:
         flat = model.local_params(flat)
-    state = model.state_dict()
-    missing = sorted(set(state) - set(flat))
-    unexpected = sorted(set(flat) - set(state))
-    if missing or unexpected:
-        raise ValueError(
-            f"JAX tree does not match the model: missing {missing}, "
-            f"unexpected {unexpected}")
-    with torch.no_grad():
-        for name, weight in state.items():
-            src = torch.from_numpy(np.array(flat[name]))
-            if tuple(src.shape) != tuple(weight.shape):
-                raise ValueError(
-                    f"{name}: JAX shape {tuple(src.shape)}, model "
-                    f"expects {tuple(weight.shape)}")
-            weight.copy_(src)
+    _copy_into(model.state_dict(), flat, "JAX tree")
+    return model
+
+
+def load_jax_variables(model, variables):
+    """Copy the flax variables of a model-zoo family (``{"params": ...,
+    "batch_stats": ...}``, nested dicts of arrays, as ``model.init``
+    returns them) into ``model``'s parameters and buffers in place;
+    returns ``model``. A 4-D ``kernel`` (a convolution's) is transposed
+    (kh, kw, in, out) → (out, in, kh, kw); ``batch_stats``' ``mean`` and
+    ``var`` land on the buffers of the same names. Raises on a missing,
+    unexpected or mis-shaped entry (a BERT tree initialised without
+    ``token_type_ids`` lacks ``type_embed``)."""
+    flat = flatten_jax_tree(variables.get("params", {}))
+    for name, arr in flat.items():
+        if name.endswith("kernel") and arr.ndim == 4:
+            flat[name] = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+    flat.update(flatten_jax_tree(variables.get("batch_stats", {})))
+    _copy_into(model.state_dict(), flat, "flax variables")
     return model

@@ -76,6 +76,12 @@ GANG_COUNTERPARTS = {
     # the reshard plan of the resharded restore
     "sparkdl_tpu_torch/analysis/core.py": "sparkdl_tpu/analysis/core.py",
     "sparkdl_tpu_torch/analysis/comms.py": "sparkdl_tpu/analysis/comms.py",
+    # the model zoo and the HF Llama conversion
+    "sparkdl_tpu_torch/models/mnist_cnn.py":
+        "sparkdl_tpu/models/mnist_cnn.py",
+    "sparkdl_tpu_torch/models/resnet.py": "sparkdl_tpu/models/resnet.py",
+    "sparkdl_tpu_torch/models/bert.py": "sparkdl_tpu/models/bert.py",
+    "sparkdl_tpu_torch/models/convert.py": "sparkdl_tpu/models/convert.py",
 }
 
 
@@ -141,6 +147,21 @@ def test_gang_module_docstrings_name_their_jax_counterpart(module,
     doc = ast.get_docstring(ast.parse((REPO / module).read_text()))
     assert doc and f"``{counterpart}``" in doc, module
     assert (REPO / counterpart).exists(), counterpart
+
+
+def test_model_zoo_exports_the_names_the_jax_package_locks():
+    """``tests/test_api_lock.py``'s model-zoo names, on the port."""
+    import sparkdl_tpu_torch.models as pt_models
+
+    for name in ("Llama", "LlamaConfig", "Bert", "BertConfig",
+                 "BertForQuestionAnswering",
+                 "BertForSequenceClassification", "ResNet", "ResNet50",
+                 "MnistCNN", "lora_mask"):
+        assert name in pt_models.__all__ and hasattr(pt_models, name), name
+    from sparkdl_tpu_torch.models import convert
+
+    for name in ("config_from_hf", "params_from_hf", "params_to_hf"):
+        assert callable(getattr(convert, name)), name
 
 
 def test_a_port_gangs_horovod_torch_is_the_port():
