@@ -18,7 +18,8 @@ ranks; train Llama-3-8B tensor-parallel and ZeRO-3 (``fsdp``) and serve
 it ZeRO-3 on two ranks sharing the card; run HorovodRunner on Spark;
 train the model zoo (the MNIST CNN, ResNet-50 and BERT-base SQuAD) through
 HorovodRunner and convert a HuggingFace Llama-3-8B state dict into the
-int8 serving path; and show every run went through its kernels.
+int8 serving path; serve and fine-tune with the telemetry on and
+diagnose a hung gang; and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -333,6 +334,39 @@ and on any failed check. Phases:
    every request on its budget, the B4 and B5 launches, zeroed just
    before the run, what the engine's counts predict. It prints the
    conversion's seconds each way and the peak memory.
+24. gang and serving telemetry, the port's module settings switched on
+   (``observe.TELEMETRY_DIR`` a temporary root; no environment
+   variable). 24c, right after phase 14 on phase 3's int8 model: phase
+   3's engine behind the HTTP ``ServingFrontend``, phase 3's first 8
+   requests from 8 urllib clients started together (odd ones streamed;
+   the engine's first burst waits for all 8, so its steps depend on the
+   requests alone), first with the switch off, then on; gates: every
+   request's ``request`` span and its instants ``submit <= admit <=
+   first_token <= done`` on its own track, ``server_ttft_seconds``
+   counting 8, ``engine_decode_chunks_total`` equal to the chunks the
+   engine ran, ``mem`` category ``kv_pages`` equal to the pools' bytes,
+   a flight-recorder ring in the run dir, and the B4 and B5 launches
+   (zeroed before each run) equal on and off. 24a, after 23d: 9a's
+   fine-tune (``np=1``, NCCL group of one) with its step in
+   ``instrument_step`` (phase 5's FLOPs a step registered), heartbeat
+   ``TELEMETRY_HEARTBEAT_S``, 2 warm-up and 5 timed steps, a
+   ``TrainCheckpointer`` save after step 2; gates: the run dir's
+   ``timeline.json`` (1 compile and 6 execute ``train_step`` spans,
+   ``checkpoint.save``, ``worker.start`` and ``worker.exit`` on rank 0's
+   lane, ``gang.attempt`` on the driver's), ``metrics.prom``,
+   ``metrics.json`` and ``perf.json`` (each step's components summing
+   to its span), ``train_step_total{phase="execute"}`` 6, the MFU gauge
+   in (0, 1.05] against the H100's peak, ``mem_bytes`` of ``params`` and
+   ``opt_state`` equal to the tensors' bytes, ``device_hbm_bytes``
+   ``limit`` the card's memory, a heartbeat received, no stall, and
+   each flash kernel's launches a layer a step. 24b: the same model at
+   depth 2 under one retry (heartbeat 0.5 s, stall window 5 s);
+   attempt 0 takes a step and wedges inside an allreduce that no peer
+   joins; gates: one hang verdict, a stack dump naming the wedged
+   frame, the ``hang`` failure classified transient, one restart,
+   attempt 1's two steps, both attempts' lanes and attempt 0's step in
+   the recovered flight-recorder tail. Each prints its numbers on a
+   line of its own.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -461,7 +495,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # them in-process with -1), 9a's and 9b's timed steps, and 9b's depth
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
-           "19": -2, "20": -2, "21a": -2, "21b": -2, "22a": 1}
+           "19": -2, "20": -2, "21a": -2, "21b": -2, "22a": 1, "24a": 1,
+           "24b": 1}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -517,6 +552,14 @@ ZOO_WARMUP, ZOO_STEPS = 2, 5
 ZOO_NP = {"23a": -1, "23b": 1, "23c": 1}
 ZOO_BF16_TOL = 2.0 ** -4
 HF_REQUESTS = 4
+# phase 24: 24a's warm-up and timed steps (9a's model and batch), the
+# step after which it saves, its heartbeat; 24b's depth, heartbeat and
+# stall window (the hang's verdict comes a window after the wedge);
+# 24c's requests (phase 3's first)
+TELEMETRY_WARMUP, TELEMETRY_STEPS, TELEMETRY_SAVE_AFTER = 2, 5, 2
+TELEMETRY_HEARTBEAT_S = 1.0
+HANG_DEPTH, HANG_HEARTBEAT_S, HANG_STALL_S = 2, 0.5, 5.0
+TELEMETRY_REQUESTS = 8
 # Meta's Llama-3-8B config.json values under HF's attribute names (no
 # transformers on the card machine: a plain object carries them)
 HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
@@ -2669,7 +2712,8 @@ def _gang_trainer(cfg, batch, seed, device):
     step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask,
                            device=device)
     return types.SimpleNamespace(
-        named=named, opt=opt, step=step, mine=shard_batch(batch),
+        model=model, named=named, opt=opt, step=step,
+        mine=shard_batch(batch),
         device=device, on_card=on_card, sync=sync, init_s=init_s,
         opt_s=opt_s, ready_at=ready_at, built_at=time.time(),
         backend=st.backend)
@@ -5966,6 +6010,492 @@ def hf_convert(torch):
     return report
 
 
+# -- phase 24: gang and serving telemetry ------------------------------------
+
+
+@contextlib.contextmanager
+def _telemetry_on(**settings):
+    """The port's telemetry on for the block: ``observe.TELEMETRY_DIR`` a
+    fresh temporary root (yielded), and ``settings`` (``{"health.STALL_S":
+    5.0, ...}``, module settings, never an environment variable) in
+    force; every one put back after."""
+    from sparkdl_tpu_torch import observe
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-telemetry-")
+    with observe.applied_settings(dict(settings,
+                                       **{"observe.TELEMETRY_DIR": root})):
+        yield root
+
+
+def _one_run_dir(root):
+    dirs = [os.path.join(root, d) for d in os.listdir(root)
+            if d.startswith("run-")]
+    _require(len(dirs) == 1, f"{len(dirs)} run dirs under {root}, want 1")
+    return dirs[0]
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _lanes(run_dir):
+    """The run dir's timeline events by lane (0 the driver or the
+    server, rank + 1 a rank)."""
+    with open(os.path.join(run_dir, "timeline.json")) as f:
+        doc = json.load(f)
+    lanes = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] != "M":
+            lanes.setdefault(e["pid"], []).append(e)
+    return lanes
+
+
+def _series(run_dir):
+    """``metrics.json``'s series: (name, labels with the extra ones,
+    the series dict)."""
+    with open(os.path.join(run_dir, "metrics.json")) as f:
+        doc = json.load(f)
+    return [(m["name"], {**m["labels"], **s["labels"]}, m)
+            for s in doc["series"]
+            for kind in ("counters", "gauges", "histograms")
+            for m in s[kind]]
+
+
+def _metric(series, name, **labels):
+    """The one series ``name`` whose labels include ``labels``."""
+    hits = [m for n, lab, m in series if n == name and all(
+        lab.get(k) == str(v) for k, v in labels.items())]
+    _require(len(hits) == 1, f"{len(hits)} series {name}{labels} in the "
+             "run dir, want 1")
+    return hits[0]
+
+
+def _hist_quantile(h, q):
+    """Quantile ``q`` of a histogram series, interpolated inside its
+    bucket (Prometheus' ``histogram_quantile``)."""
+    target, seen, lo = q * h["count"], 0, 0.0
+    for upper, n in zip(h["buckets"], h["counts"]):
+        if n and seen + n >= target:
+            return lo + (upper - lo) * (target - seen) / n
+        seen, lo = seen + n, upper
+    return h["buckets"][-1]
+
+
+def _lora_step_flops(model, named, cfg, tokens, seq):
+    """Model FLOPs of one LoRA step, phase 5's count: forward 2N,
+    backward dX 2N, dW 2N_train, attention 3 x 4 S d_model / 2 a layer
+    (causal), a token."""
+    from sparkdl_tpu_torch.parallel.train import param_count
+
+    n_matmul = param_count(model) - cfg.vocab_size * cfg.d_model
+    n_train = sum(p.numel() for _, p in named)
+    attn = 3 * (4 * seq * cfg.d_model) / 2 * cfg.n_layers
+    return (4 * n_matmul + 2 * n_train + attn) * tokens
+
+
+def telemetry_main(cfg, batch, warmup, steps, save_after, seed, device,
+                   ckpt_dir):
+    """Every rank of phase 24a: 9a's trainer (:func:`_gang_trainer`), its
+    step in ``instrument_step`` with phase 5's FLOPs a step registered,
+    the model and AdamW's state registered with ``mem``; ``warmup`` +
+    ``steps`` steps, a ``TrainCheckpointer`` save of the adapters after
+    step ``save_after``. Rank 0 returns every rank's report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.observe import mem, perf
+    from sparkdl_tpu_torch.parallel.train import instrument_step
+    from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    tr = _gang_trainer(cfg, batch, seed, device)
+    mem.register_tree("params", tr.model)
+    mem.register_tree("opt_state", tr.opt)
+    rows, seq = tr.mine["inputs"].shape
+    flops = _lora_step_flops(tr.model, tr.named, cfg, rows * seq, seq)
+    perf.register_step_cost("train_step", flops=flops)
+    step = instrument_step(tr.step)
+    ckpt = TrainCheckpointer(ckpt_dir)
+    _zero_flash()
+    losses, times = [], []
+    for s in range(warmup + steps):
+        tr.sync()
+        t = time.perf_counter()
+        losses.append(step(tr.mine)["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t)
+        if s == save_after:
+            ckpt.save(s, {"adapters": dict(tr.named)})
+    launches = _flash_launches()
+    mem.sample_now()  # the categories' last gauges, for the last flush
+
+    def nbytes(tensors):
+        seen = {id(t): t for t in tensors if isinstance(t, torch.Tensor)}
+        return sum(t.numel() * t.element_size() for t in seen.values())
+
+    return hvd.allgather_object({
+        "rank": hvd.rank(), "losses": losses,
+        "step_ms": [1e3 * x for x in times[warmup:]],
+        "step_ms_median": 1e3 * statistics.median(times[warmup:]),
+        "flops_per_step": flops, "launches": launches,
+        "params_bytes": nbytes(list(tr.model.parameters())
+                               + list(tr.model.buffers())),
+        "opt_state_bytes": nbytes(t for st in tr.opt.state.values()
+                                  for t in st.values())})
+
+
+def telemetry_gang(torch, gang):
+    """Phase 24a: 9a's fine-tune with the telemetry on."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.observe import health, perf
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = _train_cfg()
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    beats = []
+    observe_beat = health.HangDetector.observe_beat
+
+    def counted(self, rank, payload):
+        beats.append(rank)
+        return observe_beat(self, rank, payload)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-24a-")
+    health.HangDetector.observe_beat = counted
+    try:
+        with _telemetry_on(**{"health.HEARTBEAT_S":
+                              TELEMETRY_HEARTBEAT_S}) as root, \
+                _launcher_settings():
+            t = time.perf_counter()
+            ranks = HorovodRunner(np=GANG_NP["24a"]).run(
+                telemetry_main, cfg=cfg, batch=batch,
+                warmup=TELEMETRY_WARMUP, steps=TELEMETRY_STEPS,
+                save_after=TELEMETRY_SAVE_AFTER, seed=SEED, device=DEVICE,
+                ckpt_dir=ckpt_dir)
+            wall_s = time.perf_counter() - t
+    finally:
+        health.HangDetector.observe_beat = observe_beat
+        import shutil
+
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run_dir = _one_run_dir(root)
+    r0 = ranks[0]
+    n_steps = TELEMETRY_WARMUP + TELEMETRY_STEPS
+    names = set(os.listdir(run_dir))
+    want = {"timeline.json", "metrics.prom", "metrics.json", "perf.json",
+            "health.json"}
+    _require(want <= names, f"phase 24a: the run dir lacks "
+             f"{sorted(want - names)}")
+    lanes = _lanes(run_dir)
+    lane = lanes.get(1, [])
+    phases = [e["args"]["phase"] for e in lane
+              if e["name"] == "train_step" and e["ph"] == "X"]
+    _require(phases == ["compile"] + ["execute"] * (n_steps - 1),
+             f"phase 24a: rank 0's train_step spans {phases}")
+    lane_names = [e["name"] for e in lane]
+    for name, n in (("checkpoint.save", 1), ("worker.start", 1),
+                    ("worker.exit", 1)):
+        _require(lane_names.count(name) == n, f"phase 24a: {name} "
+                 f"{lane_names.count(name)} times on rank 0's lane")
+    _require("gang.attempt" in [e["name"] for e in lanes.get(0, [])],
+             "phase 24a: no gang.attempt on the driver's lane")
+    series = _series(run_dir)
+    total = _metric(series, "train_step_total", phase="execute", rank=0)
+    _require(total["value"] == n_steps - 1,
+             f"phase 24a: train_step_total {total['value']}")
+    with open(os.path.join(run_dir, "perf.json")) as f:
+        rows = json.load(f)["ranks"]["0"]
+    for row in rows["per_step"]:
+        gap = abs(sum(row["components"].values()) - row["dur_s"])
+        _require(gap <= 1e-6 * len(row["components"]),
+                 f"phase 24a: a step's components miss its span by {gap} s")
+    kind = (perf.normalize_device_kind(torch.cuda.get_device_name(0))
+            if DEVICE == "cuda" else "cpu")
+    mfu = _metric(series, "mfu", fn="train_step", device_kind=kind,
+                  rank=0)["value"]
+    _require(0 < mfu <= 1.05, f"phase 24a: MFU {mfu} against {kind}")
+    for cat, key in (("params", "params_bytes"),
+                     ("opt_state", "opt_state_bytes")):
+        got = _metric(series, "mem_bytes", category=cat, rank=0)["value"]
+        _require(got == r0[key], f"phase 24a: mem_bytes{{{cat}}} {got}, "
+                 f"the tensors hold {r0[key]}")
+    limit = None
+    if DEVICE == "cuda":
+        limit = _metric(series, "device_hbm_bytes", kind="limit",
+                        rank=0)["value"]
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        _require(limit == total_mem, f"phase 24a: device_hbm_bytes limit "
+                 f"{limit}, the card holds {total_mem}")
+    with open(os.path.join(run_dir, "health.json")) as f:
+        attempt = json.load(f)["attempts"][0]
+    _require(beats and attempt["hang_verdict"] is None
+             and not attempt["stalled"],
+             f"phase 24a: {len(beats)} beats, verdict "
+             f"{attempt['hang_verdict']}, stalled {attempt['stalled']}")
+    for name, n in r0["launches"].items():
+        _require(n == cfg.n_layers * n_steps, f"phase 24a: {name} {n} "
+                 f"launches in {n_steps} steps, want {cfg.n_layers} a step")
+    report = {
+        "np": GANG_NP["24a"], "n_layers": cfg.n_layers, "steps": n_steps,
+        "step_ms": r0["step_ms"], "step_ms_median": r0["step_ms_median"],
+        "phase9a_step_ms_median": gang["step_ms_median"],
+        "step_ms_over_9a": r0["step_ms_median"] / gang["step_ms_median"],
+        "mfu": mfu, "mfu_device_kind": kind,
+        "flops_per_step": r0["flops_per_step"],
+        "fractions": rows["fractions"], "perf_steps": rows["steps"],
+        "beats": len(beats), "hbm_limit": limit,
+        "params_bytes": r0["params_bytes"],
+        "opt_state_bytes": r0["opt_state_bytes"],
+        "run_dir_bytes": _dir_bytes(run_dir), "run_wall_s": wall_s,
+        "launches": r0["launches"]}
+    _log("telemetry_gang " + json.dumps(report))
+    return report
+
+
+def _hang_wedge():
+    """Phase 24b's wedge, user code of ``main``: the rank enters an
+    allreduce (as the hang detector sees it) that no peer ever joins."""
+    from sparkdl_tpu_torch.observe import health
+
+    health.note_collective("allreduce")
+    threading.Event().wait()
+
+
+def hang_main(cfg, batch, seed, device):
+    """Every rank of phase 24b: the instrumented step of
+    :func:`_gang_trainer`'s model; attempt 0 takes one step and wedges
+    (:func:`_hang_wedge`), attempt 1 takes two."""
+    from sparkdl_tpu_torch import horovod, hvd
+    from sparkdl_tpu_torch.parallel.train import instrument_step
+
+    tr = _gang_trainer(cfg, batch, seed, device)
+    ctx = horovod.restart_context()
+    step = instrument_step(tr.step)
+    _zero_flash()
+    if ctx.attempt == 0:
+        step(tr.mine)["loss"].item()
+        _hang_wedge()
+    losses = [step(tr.mine)["loss"].item() for _ in range(2)]
+    return hvd.allgather_object({"attempt": ctx.attempt, "losses": losses,
+                                 "launches": _flash_launches()})
+
+
+def hang_gang(torch):
+    """Phase 24b: a hang diagnosed and relaunched on the card."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.horovod import supervisor
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = _train_cfg(n_layers=HANG_DEPTH)
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    policy = supervisor.policy
+    supervisor.policy = supervisor.RetryPolicy(max_retries=1,
+                                               backoff_base=0.5, jitter=0.0)
+    try:
+        with _telemetry_on(**{"health.HEARTBEAT_S": HANG_HEARTBEAT_S,
+                              "health.STALL_S": HANG_STALL_S,
+                              "observe.FLUSH_S": 1.0}) as root, \
+                _launcher_settings():
+            t = time.perf_counter()
+            ranks = HorovodRunner(np=GANG_NP["24b"]).run(
+                hang_main, cfg=cfg, batch=batch, seed=SEED, device=DEVICE)
+            wall_s = time.perf_counter() - t
+    finally:
+        supervisor.policy = policy
+    run_dir = _one_run_dir(root)
+    r0 = ranks[0]
+    _require(r0["attempt"] == 1 and len(r0["losses"]) == 2
+             and all(np.isfinite(r0["losses"])),
+             f"phase 24b: the relaunch returned {r0}")
+    with open(os.path.join(run_dir, "health.json")) as f:
+        attempts = json.load(f)["attempts"]
+    verdicts = [a["hang_verdict"] for a in attempts]
+    _require(len(verdicts) == 2 and verdicts[0] is not None
+             and verdicts[1] is None, f"phase 24b: verdicts {verdicts}")
+    with open(os.path.join(run_dir, "stack-rank-0.txt")) as f:
+        dump = f.read()
+    _require("_hang_wedge" in dump,
+             "phase 24b: the stack dump does not name the wedged frame")
+    lanes = _lanes(run_dir)
+    driver = lanes.get(0, [])
+    failures = [e["args"] for e in driver if e["name"] == "gang.failure"]
+    _require([(a["kind"], a["verdict"]) for a in failures]
+             == [("hang", "transient")], f"phase 24b: failures {failures}")
+    restarts = _metric(_series(run_dir), "gang_restarts_total",
+                       rank="driver")["value"]
+    _require(restarts == 1, f"phase 24b: gang_restarts_total {restarts}")
+    lane = lanes.get(1, [])
+    starts = [e for e in lane if e["name"] == "worker.start"]
+    _require(len(starts) == 2, f"phase 24b: {len(starts)} worker.start "
+             "on rank 0's lane, want one an attempt")
+    with open(os.path.join(run_dir, "flightrec-rank-0.json")) as f:
+        tail = json.load(f)["events"]
+    hang_ts = next(e["ts"] for e in driver if e["name"] == "health.hang")
+    wedged_steps = [e for e in tail if e["name"] == "train_step"
+                    and e["ph"] == "X" and e["ts"] < hang_ts]
+    _require(wedged_steps, "phase 24b: attempt 0's train_step span is not "
+             "in the recovered flight-recorder tail")
+    wedge_at = max(e["ts"] + e["dur"] for e in wedged_steps)
+    relaunch_at = [e["ts"] for e in driver
+                   if e["name"] == "gang.attempt"][1]
+    resumed_at = min(e["ts"] for e in lane if e["name"] == "train_step"
+                     and e["ph"] == "X" and e["ts"] > hang_ts)
+    wedge_to_verdict = (hang_ts - wedge_at) / 1e6
+    _require(wedge_to_verdict >= HANG_STALL_S, f"phase 24b: the verdict "
+             f"came {wedge_to_verdict} s after the wedge, inside the "
+             f"{HANG_STALL_S} s window")
+    want = HANG_DEPTH * 2
+    for name, n in r0["launches"].items():
+        _require(n == want, f"phase 24b: {name} {n} launches, want {want}")
+    report = {
+        "np": GANG_NP["24b"], "n_layers": HANG_DEPTH, "verdict": verdicts[0],
+        "stall_s": HANG_STALL_S, "heartbeat_s": HANG_HEARTBEAT_S,
+        "wedge_to_verdict_s": wedge_to_verdict,
+        "verdict_to_relaunch_s": (relaunch_at - hang_ts) / 1e6,
+        "wedge_to_resumed_step_s": (resumed_at - wedge_at) / 1e6,
+        "run_wall_s": wall_s, "losses": r0["losses"],
+        "run_dir_bytes": _dir_bytes(run_dir), "launches": r0["launches"]}
+    _log("hang_gang " + json.dumps(report))
+    return report
+
+
+def _serve_gathered(torch, model, prompts, budgets):
+    """Phase 24c's run: phase 3's engine behind the HTTP frontend, one
+    urllib client a request (odd ones streamed), started together; the
+    engine's first burst waits until every request has arrived, so a
+    run's steps (and launches) depend on the requests alone. Counters
+    zeroed just before the clients start. Returns what it measured, the
+    engine and the frontend (closed)."""
+    from sparkdl_tpu_torch.models.server import ServingFrontend
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+
+    n = len(prompts)
+    engine = ContinuousBatchingEngine(model, model.state_dict(), n_slots=8,
+                                      chunk=16, page_size=64, device=DEVICE)
+    spent = _time_engine(torch, engine)
+    chunks = []
+    decode, run = engine._decode_chunk, engine.run
+
+    def counted(*a, **k):
+        chunks.append(1)
+        return decode(*a, **k)
+
+    fe = ServingFrontend(engine)
+
+    def gathered_run(*a, **k):
+        deadline = time.monotonic() + 60
+        while (len(fe._live) + fe._arrivals.qsize() < n
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        fe._poll_queue(engine)
+        return run(*a, **k)
+
+    engine._decode_chunk, engine.run = counted, gathered_run
+    fe.start()
+    replies, errors = [None] * n, []
+
+    def client(i):
+        payload = {"tokens": prompts[i].tolist(),
+                   "max_new_tokens": budgets[i], "stream": bool(i % 2)}
+        t = time.perf_counter()
+        try:
+            replies[i] = (t, _http(fe, "/generate", payload))
+        except Exception as e:  # reported below as a failed request
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        launches = _read_launches()
+    finally:
+        fe.close()
+    _require(not errors and all(r is not None for r in replies),
+             f"phase 24c: HTTP requests failed: {errors}")
+    ttft = []
+    for i, (t_sent, reply) in enumerate(replies):
+        toks = ([e["token"] for _, e in reply[:-1]] if i % 2
+                else reply["tokens"])
+        _require(len(toks) == budgets[i], f"phase 24c: request {i} "
+                 f"returned {len(toks)} tokens, budget {budgets[i]}")
+        if i % 2:
+            ttft.append(reply[0][0] - t_sent)
+    stats = dict(engine.stats)
+    want = {"paged_attention_decode": model.cfg.n_layers * stats["steps"],
+            "quantized_matmul": (7 * model.cfg.n_layers + 1)
+            * (stats["steps"] + stats["prefill_segments"])}
+    for name, k in want.items():
+        _require(k > 0 and launches[name] == k, f"phase 24c: {name} "
+                 f"{launches[name]} launches, engine counts predict {k}")
+    return {"launches": launches, "stats": stats, "chunks": len(chunks),
+            "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
+            "ttft_streamed_s": ttft}, engine, fe
+
+
+def serve_telemetry(torch, model):
+    """Phase 24c: ServingTelemetry on phase 3's int8 engine behind HTTP,
+    beside the same requests with the switch off."""
+    from sparkdl_tpu_torch.observe import mem
+
+    prompts, budgets = _requests(model.cfg, TELEMETRY_REQUESTS)
+    off, _, _ = _serve_gathered(torch, model, prompts, budgets)
+    with _telemetry_on():
+        on, engine, fe = _serve_gathered(torch, model, prompts, budgets)
+        kv_pages = mem.category_bytes()["kv_pages"]
+    run_dir = fe.request_telemetry.run_dir
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in (engine._cache.k, engine._cache.v))
+    _require(kv_pages == pool_bytes, f"phase 24c: mem kv_pages {kv_pages}, "
+             f"the pools hold {pool_bytes}")
+    _require(on["launches"] == off["launches"], f"phase 24c: launches "
+             f"{on['launches']} with the telemetry on, {off['launches']} "
+             "off")
+    tracks = {}
+    for e in _lanes(run_dir).get(0, []):
+        if e["cat"] == "serving":
+            tracks.setdefault(e["tid"], []).append(e)
+    _require(len(tracks) == TELEMETRY_REQUESTS,
+             f"phase 24c: {len(tracks)} request tracks")
+    order = ("request.submit", "request.admit", "request.first_token",
+             "request.done")
+    for tid, events in tracks.items():
+        ts = {e["name"]: e["ts"] for e in events if e["ph"] == "i"}
+        _require(all(k in ts for k in order)
+                 and [ts[k] for k in order] == sorted(ts[k] for k in order)
+                 and any(e["name"] == "request" and e["ph"] == "X"
+                         for e in events),
+                 f"phase 24c: request {tid}'s span tree {sorted(ts)}")
+    series = _series(run_dir)
+    ttft = _metric(series, "server_ttft_seconds", rank="server")
+    _require(ttft["count"] == TELEMETRY_REQUESTS,
+             f"phase 24c: server_ttft_seconds counts {ttft['count']}")
+    chunks = _metric(series, "engine_decode_chunks_total",
+                     rank="server")["value"]
+    _require(chunks == on["chunks"], f"phase 24c: engine_decode_chunks_total"
+             f" {chunks}, the engine ran {on['chunks']}")
+    _require(os.path.exists(os.path.join(run_dir, "flightrec-rank-0.ring")),
+             "phase 24c: no flight-recorder ring in the run dir")
+    report = {
+        "requests": TELEMETRY_REQUESTS, "n_slots": 8, "page_size": 64,
+        "chunk": 16, "launches": on["launches"],
+        "launches_off": off["launches"], "decode_chunks": on["chunks"],
+        "ttft_p50_s": _hist_quantile(ttft, 0.5),
+        "ttft_p95_s": _hist_quantile(ttft, 0.95),
+        "ttft_streamed_clients_s": {
+            "median": statistics.median(on["ttft_streamed_s"]),
+            "max": max(on["ttft_streamed_s"])},
+        "decode_ms_per_step": on["decode_ms_per_step"],
+        "decode_ms_per_step_off": off["decode_ms_per_step"],
+        "kv_pages_bytes": kv_pages, "run_dir_bytes": _dir_bytes(run_dir)}
+    _log("serve_telemetry " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -6024,6 +6554,10 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     fleet = serve_fleet(torch, model, serving)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # slice 17, on phase 3's int8 model: ServingTelemetry behind HTTP
+    telemetry_serving = serve_telemetry(torch, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6119,6 +6653,13 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
     hf = hf_convert(torch)
+    # slice 17: 9a's fine-tune with the telemetry on, then a hang
+    gc.collect()
+    torch.cuda.empty_cache()
+    telemetry = telemetry_gang(torch, gang)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hang = hang_gang(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -6145,7 +6686,9 @@ def main(argv=None):
                     "21a": fsdp_training["launches"][name],
                     "22a": spark["launches"][name],
                     "22c": slots["launches"][name],
-                    "22d": remote["launches"][name]}
+                    "22d": remote["launches"][name],
+                    "24a": telemetry["launches"][name],
+                    "24b": hang["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -6179,7 +6722,11 @@ def main(argv=None):
                     "17": moe_serving["launches"]["quantized_matmul"],
                     "21b": sum(r["launches"]["quantized_matmul"]
                                for r in fsdp_serving["ranks"]),
-                    "23d": hf["launches"]["quantized_matmul"]}
+                    "23d": hf["launches"]["quantized_matmul"],
+                    "24c_off": telemetry_serving["launches_off"][
+                        "quantized_matmul"],
+                    "24c": telemetry_serving["launches"][
+                        "quantized_matmul"]}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
                       "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
@@ -6194,7 +6741,11 @@ def main(argv=None):
                           "paged_attention_decode"],
                       "21b": sum(r["launches"]["paged_attention_decode"]
                                  for r in fsdp_serving["ranks"]),
-                      "23d": hf["launches"]["paged_attention_decode"]}
+                      "23d": hf["launches"]["paged_attention_decode"],
+                      "24c_off": telemetry_serving["launches_off"][
+                          "paged_attention_decode"],
+                      "24c": telemetry_serving["launches"][
+                          "paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
@@ -6263,6 +6814,8 @@ def main(argv=None):
                        "spark": spark, "slot_wait": slots,
                        "remote_rank": remote, "zoo": zoo_runs,
                        "hf_convert": hf,
+                       "telemetry_serving": telemetry_serving,
+                       "telemetry_gang": telemetry, "hang_gang": hang,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -32,11 +32,14 @@ size, which is not ported; always None."""
 # this process's context: the worker bootstrap sets it from its command
 # line before main runs; outside a relaunch it stays the first attempt's
 _context = RestartContext(0, None)
+# the gang.resume instant goes once a context, however often main asks
+_resume_noted = False
 
 
 def _set_restart_context(context):
-    global _context
+    global _context, _resume_noted
     _context = context
+    _resume_noted = False
 
 
 def restart_context():
@@ -55,8 +58,19 @@ def restart_context():
 
     Outside a supervised relaunch (the first attempt, a gang without
     retries, local ``np=-1`` mode) it is ``RestartContext(0, None)``, so
-    calling it unconditionally is always safe.
+    calling it unconditionally is always safe. With telemetry on, a
+    relaunched worker's first call marks the ``gang.resume`` instant on
+    its timeline.
     """
+    global _resume_noted
+    if _context.attempt > 0 and not _resume_noted:
+        _resume_noted = True
+        from sparkdl_tpu_torch import observe
+
+        observe.instant("gang.resume", cat="supervisor",
+                        attempt=_context.attempt,
+                        resume_step=_context.resume_step,
+                        source_axes=None, target_axes=None)
     return _context
 
 

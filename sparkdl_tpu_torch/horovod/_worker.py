@@ -2,7 +2,7 @@
 
 Counterpart of ``sparkdl_tpu/horovod/_worker.py``. The launcher runs
 ``python -m sparkdl_tpu_torch.horovod._worker --job-dir D --attempt A
-[--resume-step S] [--device cuda|cpu]`` once for each rank, on this
+[--resume-step S] [--device cuda|cpu] [--telemetry JSON]`` once for each rank, on this
 host or through the remote shell, with the rank's ``torch.distributed``
 environment and the control plane's address. Its standard input is the
 boot stream: the control plane's secret on the first line, then the
@@ -12,7 +12,9 @@ on both hosts); the worker then puts the secret in its own environment
 for the processes it starts.
 ``--device``: the launcher's decision
 (:func:`sparkdl_tpu_torch.hvd._state.init`); without it the local
-gang's backend rule applies.
+gang's backend rule applies. ``--telemetry``: the driver's
+:func:`sparkdl_tpu_torch.observe.worker_settings` when its telemetry is
+on (the rank applies them; it reads none from its environment).
 
 :func:`run_rank` is the bootstrap of every rank, a worker process's and
 a Spark barrier task's alike. It:
@@ -37,13 +39,27 @@ a Spark barrier task's alike. It:
 A failure anywhere sends the traceback (EXC); BYE ends every run. Then
 the rank leaves its process group and its restart context is reset, so
 that a process which runs another rank afterwards (a Python worker that
-Spark reuses for the next job) joins that job's group, on its card. The
-JAX worker's fault injection, compile cache and profiler are not ported.
+Spark reuses for the next job) joins that job's group, on its card.
+
+With the driver's telemetry on, step 1 also sets the control plane as
+the telemetry sink and starts the flusher, opens the rank's flight
+recorder in its job dir (none for a Spark barrier task, which has no job
+dir the driver reads), starts the heartbeat and the memory sampler, and
+emits ``worker.start``; at the end it emits ``worker.exit``, stops them
+and flushes once more, before BYE (the driver takes BYE as the rank's
+last word). The heartbeat and the sampler start before ``hvd.init``:
+they read no card until it is bound (:mod:`sparkdl_tpu_torch.observe.
+health`). Before them the bootstrap imports ``torch._dynamo``, which a
+process's first optimizer imports otherwise (seconds of host time): in
+``main``, after its first observed collective, that gap would count
+against ``health.STALL_S``. The JAX worker's fault injection, compile cache, profiler and
+capture service are not ported.
 """
 
 import argparse
 import contextlib
 import io
+import json
 import os
 import sys
 import traceback
@@ -93,13 +109,63 @@ def _set_parent_death_signal():
     libc.prctl(pr_set_pdeathsig, signal.SIGTERM)
 
 
+def _start_telemetry(client, rank, job_dir):
+    """The rank's telemetry (the module docstring's list); returns what
+    :func:`_stop_telemetry` stops."""
+    from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.observe import flightrec, mem
+    from sparkdl_tpu_torch.observe.health import HeartbeatSender
+
+    # the first optimizer's import, taken before the hang window opens
+    import torch._dynamo  # noqa: F401
+
+    observe.set_sink(client.send_telemetry)
+    observe.start_flusher()
+    recorder = None
+    if job_dir:
+        mem.set_job_dir(job_dir)
+        try:
+            recorder = flightrec.FlightRecorder(
+                flightrec.ring_path(job_dir, rank))
+            observe.set_flight_recorder(recorder)
+        except OSError:
+            recorder = None  # an unwritable dir: the rest still works
+    heartbeat = HeartbeatSender(client, rank)
+    heartbeat.start()
+    mem.maybe_start_sampler()
+    observe.instant("worker.start", cat="worker", rank=rank)
+    return heartbeat, recorder
+
+
+def _stop_telemetry(started, rank, exit_code):
+    """Stop the rank's telemetry and flush its tail, before BYE."""
+    from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.observe import mem
+
+    heartbeat, recorder = started
+    heartbeat.stop()
+    mem.stop_sampler()
+    observe.instant("worker.exit", cat="worker", rank=rank,
+                    exit_code=exit_code)
+    observe.stop_flusher()
+    observe.flush()
+    observe.set_sink(None)
+    mem.set_job_dir(None)
+    if recorder is not None:
+        observe.set_flight_recorder(None)
+        recorder.close()
+
+
 @contextlib.contextmanager
-def worker_io(client, local_log_path, parent_death=True):
+def worker_io(client, local_log_path, parent_death=True, job_dir=None):
     """The rank's I/O for the length of its run: the driver watchdog,
     the parent-death signal (``parent_death``: a worker process, not a
-    Spark task, whose process Spark owns), and stdout/stderr teed to the
-    driver; on an exception, its traceback to the log and as an EXC
-    frame; BYE last."""
+    Spark task, whose process Spark owns), stdout/stderr teed to the
+    driver, and, with telemetry on, the rank's telemetry (its flight
+    recorder in ``job_dir``); on an exception, its traceback to the log
+    and as an EXC frame; the last telemetry flush, then BYE, last."""
+    from sparkdl_tpu_torch import observe
+
     client.start_driver_watchdog()
     if parent_death:
         _set_parent_death_signal()
@@ -107,6 +173,8 @@ def worker_io(client, local_log_path, parent_death=True):
     orig_stdout, orig_stderr = sys.stdout, sys.stderr
     sys.stdout = _TeeStream("stdout", local_log, client)
     sys.stderr = _TeeStream("stderr", local_log, client)
+    telemetry = (_start_telemetry(client, client.rank, job_dir)
+                 if observe.enabled() else None)
     exit_code = 0
     try:
         yield
@@ -120,13 +188,16 @@ def worker_io(client, local_log_path, parent_death=True):
         sys.stdout.flush()
         sys.stderr.flush()
         sys.stdout, sys.stderr = orig_stdout, orig_stderr
+        if telemetry is not None:
+            _stop_telemetry(telemetry, client.rank, exit_code)
         client.send_bye(exit_code)
         client.close()
         local_log.close()
 
 
 def run_rank(client, *, log_path, device, restart, load_payload,
-             send_result=True, parent_death=True):
+             send_result=True, parent_death=True, telemetry=None,
+             job_dir=None):
     """Run this rank (the module docstring's steps) and return rank 0's
     cloudpickled result (None on the other ranks). ``client``: a
     :class:`~sparkdl_tpu_torch.horovod.control_plane.ControlPlaneClient`
@@ -134,18 +205,21 @@ def run_rank(client, *, log_path, device, restart, load_payload,
     decision (``"cuda"``, ``"cpu"`` or None); ``restart``: the
     :class:`~sparkdl_tpu_torch.horovod.RestartContext`;
     ``load_payload()``: ``(main, kwargs)``; ``send_result``: rank 0
-    sends its result as RESULT too. Raises what ``main`` raised, after
-    its EXC frame."""
+    sends its result as RESULT too; ``telemetry``: the driver's
+    :func:`~sparkdl_tpu_torch.observe.worker_settings` (None: off),
+    in force for the run; ``job_dir``: where the rank's flight recorder
+    and OOM report go. Raises what ``main`` raised, after its EXC
+    frame."""
     import cloudpickle
 
-    from sparkdl_tpu_torch import horovod, hvd
+    from sparkdl_tpu_torch import horovod, hvd, observe
     from sparkdl_tpu_torch.compat import horovod_torch
     from sparkdl_tpu_torch.horovod.control_plane import worker_client
     from sparkdl_tpu_torch.hvd import _state
 
     try:
-        with worker_client(client), worker_io(client, log_path,
-                                              parent_death):
+        with observe.applied_settings(telemetry), worker_client(client), \
+                worker_io(client, log_path, parent_death, job_dir):
             # the payload may name horovod modules: bound before it is
             # unpickled
             with horovod_torch.bound():
@@ -180,6 +254,7 @@ def main(argv=None):
     parser.add_argument("--attempt", type=int, default=0)
     parser.add_argument("--resume-step", type=int, default=None)
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None)
+    parser.add_argument("--telemetry", type=json.loads, default=None)
     args = parser.parse_args(argv)
     rank = int(os.environ["RANK"])
     # before the tee exists, stdout is the launcher's per-rank boot log
@@ -204,7 +279,8 @@ def main(argv=None):
                  device=args.device,
                  restart=RestartContext(args.attempt, args.resume_step),
                  load_payload=lambda: cloudpickle.loads(
-                     sys.stdin.buffer.read()))
+                     sys.stdin.buffer.read()),
+                 telemetry=args.telemetry, job_dir=args.job_dir)
     except BaseException:
         sys.exit(1)  # worker_io logged the traceback and sent it
     sys.exit(0)

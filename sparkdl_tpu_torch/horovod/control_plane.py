@@ -4,8 +4,15 @@ Counterpart of ``sparkdl_tpu/horovod/control_plane.py``, with the frames
 this port uses: AUTH, READY, LOG (a worker's streamed stdout and stderr
 lines), USERLOG (``log_to_driver``), RESULT (rank 0's cloudpickled return
 value, in parts when it is larger than one frame), EXC (a rank's
-traceback) and BYE. The frame numbers and layout are the JAX package's.
-No telemetry, heartbeat, stack-dump or profile frames.
+traceback), BYE, and the telemetry frames: TELEMETRY (a flush of the
+rank's metric snapshot and timeline events) and HEARTBEAT (its liveness
+beacon), worker to driver, which the server hands to its
+:class:`~sparkdl_tpu_torch.observe.aggregate.GangTelemetry` and
+:class:`~sparkdl_tpu_torch.observe.health.HangDetector`; DUMP_REQ, driver
+to worker on the rank's guaranteed socket, which the worker's watchdog
+thread answers with a STACK_DUMP of every thread, however wedged its
+training thread is. The frame numbers and layout are the JAX package's.
+The profile frames (14, 15) are not ported.
 
 Log volume never blocks training (reference ``runner_base.py:65-68``):
 LOG frames go into a bounded drop-oldest ring (:class:`LogRing`, 4 MiB)
@@ -57,6 +64,10 @@ MSG_BYE = 6
 MSG_AUTH = 7
 MSG_RESULT_PART = 8  # a part of a RESULT larger than one frame
 MSG_RESULT_END = 9  # ends a RESULT sent in parts
+MSG_TELEMETRY = 10  # a metric snapshot and timeline events
+MSG_HEARTBEAT = 11  # a rank's liveness beacon
+MSG_DUMP_REQ = 12  # driver to worker: send every thread's stack
+MSG_STACK_DUMP = 13  # worker to driver: the faulthandler dump text
 
 _HEADER = struct.Struct(">IBI")  # length (of type+rank+payload), type, rank
 
@@ -145,8 +156,17 @@ class ControlPlaneServer:
     """
 
     def __init__(self, num_workers, verbosity="log_callback_only",
-                 log_path=None, bind_host="127.0.0.1"):
+                 log_path=None, bind_host="127.0.0.1", telemetry=None,
+                 health=None):
         self.verbosity = verbosity
+        # the telemetry sinks (a GangTelemetry, a HangDetector): without
+        # them, TELEMETRY and HEARTBEAT frames are dropped
+        self._telemetry = telemetry
+        self._health = health
+        # rank -> its guaranteed socket (the one READY and HEARTBEAT come
+        # on, which the worker's watchdog reads): where DUMP_REQ goes
+        self._conns = {}
+        self._stack_dumps = {}  # rank -> [dump text, ...]
         self.secret = _secrets.token_hex(32)  # the workers get it
         self._log_file = open(log_path, "a", buffering=1) if log_path \
             else None
@@ -230,9 +250,13 @@ class ControlPlaneServer:
                     self._log(f"[control-plane] rank-{auth_rank} connection"
                               f" sent a frame of rank {rank}; closing")
                     return
+                if mtype in (MSG_READY, MSG_HEARTBEAT):
+                    with self._lock:
+                        self._conns[rank] = conn
                 try:
                     self._handle(mtype, rank, payload)
-                except (ValueError, UnicodeError, AttributeError):
+                except (ValueError, UnicodeError, AttributeError, TypeError,
+                        KeyError):
                     # a malformed frame must not close the connection
                     # that READY, RESULT and BYE still need
                     self._log(f"[control-plane] bad frame from rank "
@@ -240,6 +264,9 @@ class ControlPlaneServer:
         except OSError:
             pass
         finally:
+            with self._lock:
+                if self._conns.get(auth_rank) is conn:
+                    del self._conns[auth_rank]
             conn.close()
             if auth_rank is not None:
                 with self._conn_ended:
@@ -270,6 +297,28 @@ class ControlPlaneServer:
             with self._lock:
                 self._exceptions[rank] = tb
             self._log(f"[rank {rank} EXCEPTION]\n{tb}")
+        elif mtype == MSG_TELEMETRY:
+            if self._telemetry is not None:
+                # ingest() shape-checks and raises on a malformed flush,
+                # which costs that frame only
+                self._telemetry.ingest(
+                    rank, json.loads(payload.decode("utf-8", "replace")))
+        elif mtype == MSG_HEARTBEAT:
+            if self._health is not None:
+                self._health.observe_beat(
+                    rank, json.loads(payload.decode("utf-8", "replace")))
+        elif mtype == MSG_STACK_DUMP:
+            msg = json.loads(payload.decode("utf-8", "replace"))
+            dump = str(msg.get("dump", ""))
+            with self._lock:
+                self._stack_dumps.setdefault(rank, []).append(dump)
+            self._log(f"[rank {rank} STACK DUMP "
+                      f"({msg.get('reason', 'requested')})]\n{dump}")
+            if self._telemetry is not None:
+                self._telemetry.add_stack_dump(rank, dump,
+                                               reason=msg.get("reason"))
+            if self._health is not None:
+                self._health.note_stack_dump(rank)
         elif mtype == MSG_BYE:
             with self._lock:
                 self._bye.add(rank)
@@ -326,6 +375,30 @@ class ControlPlaneServer:
                 lambda: all(self._ended[r] >= CONNECTIONS_PER_WORKER
                             for r in self._bye),
                 max(0.0, deadline - time.monotonic()))
+
+    def request_dump(self, rank, reason="stall"):
+        """Ask ``rank`` for a stack dump of every thread, down its
+        guaranteed socket; False when the rank has none (never sent READY
+        or a beat) or the send fails. Never raises."""
+        with self._lock:
+            conn = self._conns.get(rank)
+        if conn is None:
+            return False
+        payload = json.dumps({"reason": reason}).encode("utf-8")
+        try:
+            conn.sendall(_HEADER.pack(len(payload) + 5, MSG_DUMP_REQ, rank)
+                         + payload)
+        except OSError:
+            return False
+        return True
+
+    def stack_dumps(self, rank=None):
+        """The stack dumps received: ``{rank: [text, ...]}``, or one
+        rank's list."""
+        with self._lock:
+            if rank is not None:
+                return list(self._stack_dumps.get(rank, ()))
+            return {r: list(d) for r, d in self._stack_dumps.items()}
 
     def ready_count(self):
         with self._lock:
@@ -484,6 +557,31 @@ class ControlPlaneClient:
         # log_to_driver is explicit and low-rate: the guaranteed socket
         self._send_json(MSG_USERLOG, {"text": text[:MAX_LOG_TEXT]})
 
+    def send_telemetry(self, payload_obj):
+        # a flush: the guaranteed socket, never the droppable log ring
+        self._send_json(MSG_TELEMETRY, payload_obj)
+
+    def send_heartbeat(self, payload_obj):
+        # a beat must go on while the training thread is wedged: the
+        # guaranteed socket, and no flush of the log ring first
+        self._send_json(MSG_HEARTBEAT, payload_obj)
+
+    def _answer_dump_request(self, payload):
+        """A STACK_DUMP of every thread, sent from the watchdog thread:
+        faulthandler reads each thread's frames without their help."""
+        from sparkdl_tpu_torch.observe.health import dump_all_threads
+
+        try:
+            reason = json.loads(payload.decode("utf-8", "replace")).get(
+                "reason", "requested")
+        except (ValueError, AttributeError):
+            reason = "requested"
+        try:
+            dump = dump_all_threads()
+        except Exception:
+            dump = "<faulthandler dump failed>\n" + traceback.format_exc()
+        self._send_json(MSG_STACK_DUMP, {"reason": reason, "dump": dump})
+
     def send_result(self, pickled_bytes):
         self._logs.flush()  # the run's last lines reach the driver first
         if len(pickled_bytes) <= RESULT_CHUNK:
@@ -508,12 +606,23 @@ class ControlPlaneClient:
     def start_driver_watchdog(self, grace_seconds=10.0):
         """Exit this worker when the driver's end of the socket closes
         (the driver died, even by SIGKILL): no worker outlives its
-        driver, holding its card."""
+        driver, holding its card. Meanwhile answer the driver's DUMP_REQ
+        frames, the only frames it sends."""
 
         def watch():
             try:
-                while self._sock.recv(4096):
-                    pass  # the driver sends nothing; any bytes are dropped
+                while True:
+                    head = _recv_exact(self._sock, _HEADER.size)
+                    if head is None:
+                        break
+                    length, mtype, _ = _HEADER.unpack(head)
+                    if length < 5 or length - 5 > MAX_FRAME:
+                        break  # unframeable: as a reset
+                    payload = _recv_exact(self._sock, length - 5)
+                    if payload is None:
+                        break
+                    if mtype == MSG_DUMP_REQ:
+                        self._answer_dump_request(payload)
             except OSError:
                 pass
             if self._closing:

@@ -60,10 +60,24 @@ The port reads no ``SPARKDL_TPU_*`` environment variable: each knob of
 the JAX launcher is a module setting here, read at call time (set it as
 ``launcher.HOSTS = "h1:4,h2:4"``).
 
-Telemetry, the hang detector, elastic resizing, per-rank kwargs and the
-pre-flight lint of the JAX launcher are not ported.
+With telemetry on (``observe.TELEMETRY_DIR``), one
+:class:`~sparkdl_tpu_torch.observe.aggregate.GangTelemetry` spans every
+supervised attempt of a launch and receives its ranks' flushes; each
+rank gets the driver's telemetry settings on its command line; each
+attempt runs a :class:`~sparkdl_tpu_torch.observe.health.HangDetector`
+in the monitor loop over the ranks' heartbeats. When it declares the
+gang hung, the launcher asks every rank for a stack dump, waits up to
+``_DUMP_GRACE_S`` for the stalled ranks' answers, kills the gang and
+raises ``GangFailure(kind="hang")``, which the supervisor relaunches as
+transient. The run dir (timeline, metrics, step attribution, health,
+stack dumps, flight-recorder tails) is written however the launch ends,
+an exhausted retry budget included.
+
+Elastic resizing, per-rank kwargs, the statusz page, the alert engine
+and the pre-flight lint of the JAX launcher are not ported.
 """
 
+import json
 import logging
 import os
 import shlex
@@ -102,6 +116,9 @@ REMOTE_PYTHON = None
 # binds cuda:LOCAL_RANK and raises without it; "cpu": every rank runs on
 # the CPU over gloo, and the slots are this host's cores
 WORKER_DEVICE = None
+# how long a hung gang waits for its stalled ranks' stack dumps before
+# the kill (the JAX launcher's default SPARKDL_TPU_DUMP_GRACE)
+_DUMP_GRACE_S = 10.0
 
 # the directory that holds sparkdl_tpu_torch, for the workers' imports
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -400,15 +417,37 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
             "Pickled main + kwargs is %.1f MB; large closures make "
             "HorovodRunner jobs slow to start. Move data loading inside "
             "main().", len(payload) / 2**20)
-    return supervisor.supervise(
-        lambda ctx: _launch_gang_once(np, payload, driver_log_verbosity,
-                                      restart=ctx),
-        supervisor.policy)
+    from sparkdl_tpu_torch import observe
+
+    telemetry = None
+    if observe.enabled():
+        from sparkdl_tpu_torch.observe.aggregate import GangTelemetry
+
+        telemetry = GangTelemetry()
+    try:
+        return supervisor.supervise(
+            lambda ctx: _launch_gang_once(np, payload, driver_log_verbosity,
+                                          restart=ctx, telemetry=telemetry),
+            supervisor.policy)
+    finally:
+        if telemetry is not None and observe.telemetry_dir():
+            # never masks the gang's own result or exception
+            try:
+                paths = telemetry.write(observe.new_run_dir())
+            except Exception as e:  # noqa: BLE001 - an unwritable dir or
+                # a malformed frame must not replace the gang's outcome
+                logger.warning("telemetry write under %s failed: %s",
+                               observe.telemetry_dir(), e)
+            else:
+                logger.info("gang telemetry written: %s",
+                            ", ".join(sorted(paths.values())))
 
 
-def _launch_gang_once(np, payload, driver_log_verbosity, restart):
+def _launch_gang_once(np, payload, driver_log_verbosity, restart,
+                      telemetry=None):
     """One launch attempt of the cloudpickled ``(main, kwargs)``, its
-    workers told ``restart`` (a RestartContext); rank 0's result."""
+    workers told ``restart`` (a RestartContext), their telemetry into
+    ``telemetry`` (a GangTelemetry, or None); rank 0's result."""
     from sparkdl_tpu_torch.horovod.topology import (
         Placement,
         _addressable,
@@ -428,7 +467,7 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart):
         else:
             ran = maybe_launch_on_spark(
                 np, payload, driver_log_verbosity, restart,
-                rank_device("cluster"))
+                rank_device("cluster"), telemetry)
             if ran is not None:
                 return ran.value
 
@@ -463,26 +502,34 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart):
     try:
         master_addr = _addressable("localhost") if remote else "127.0.0.1"
         return _run_gang(num_workers, mode, placement, remote, shell,
-                         master_addr, payload, driver_log_verbosity, restart)
+                         master_addr, payload, driver_log_verbosity, restart,
+                         telemetry)
     finally:
         if claim is not None:
             claim.release()
 
 
 def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
-              payload, driver_log_verbosity, restart):
+              payload, driver_log_verbosity, restart, telemetry=None):
     """Spawn the workers (``remote`` hosts' through ``shell``), wait for
     them and return rank 0's unpickled result."""
     import cloudpickle
     import torch.distributed as dist
 
+    from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
     from sparkdl_tpu_torch.horovod.supervisor import GangFailure
 
     job_dir = tempfile.mkdtemp(prefix="sparkdl-torch-job-")
     boot_path = os.path.join(job_dir, "boot.bin")
-    store = server = None
+    store = server = detector = None
     procs, boot_logs = [], []
+    if telemetry is not None:
+        from sparkdl_tpu_torch.observe.health import HangDetector
+
+        detector = HangDetector(num_workers)
+        # the attempt's rings and OOM reports, for the run dir
+        telemetry.note_job_dir(job_dir)
     try:
         # local gangs stream their workers' output to the driver
         # (reference README.md:44-47); one-worker-a-slot gangs honor
@@ -491,7 +538,8 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
             num_workers,
             verbosity=driver_log_verbosity if mode == "cluster" else "all",
             log_path=os.path.join(job_dir, "job.log"),
-            bind_host="0.0.0.0" if remote else "127.0.0.1")
+            bind_host="0.0.0.0" if remote else "127.0.0.1",
+            telemetry=telemetry, health=detector)
         # the store's server listens on every interface; master_addr is
         # what the workers dial, a routable one when a rank is remote
         store = dist.TCPStore(master_addr, 0, is_master=True,
@@ -506,6 +554,8 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         device = rank_device(mode)
         if device is not None:
             args += ["--device", device]
+        if telemetry is not None:
+            args += ["--telemetry", json.dumps(observe.worker_settings())]
         python = REMOTE_PYTHON or sys.executable
         # the workers' boot stream: the secret's line, then the payload;
         # each worker's stdin opens it anew, and it is unlinked once they
@@ -533,6 +583,8 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
                     cmd, env=env, stdin=boot_in, stdout=boot_log,
                     stderr=subprocess.STDOUT))
         os.unlink(boot_path)
+        observe.instant("gang.spawn", cat="launch", num_workers=num_workers,
+                        mode=mode, job_dir=job_dir)
 
         def fail(reason, codes, kind):
             excs = server.exceptions
@@ -548,27 +600,33 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
                               exceptions=excs)
 
         start = time.monotonic()
-        while server.ready_count() < num_workers:
-            codes = [p.poll() for p in procs]
-            if any(c not in (None, 0) for c in codes):
-                server.wait_drained(1.0)  # the EXC frames of the dead
-                fail("HorovodRunner gang failed to start: worker(s) "
-                     f"{[r for r, c in enumerate(codes) if c]} exited "
-                     f"during rendezvous (codes {codes}).", codes,
-                     "start_failure")
-            if time.monotonic() - start > START_TIMEOUT_S:
-                fail(f"HorovodRunner gang failed to start: only "
-                     f"{server.ready_count()}/{num_workers} workers reached "
-                     f"the rendezvous within {START_TIMEOUT_S:.0f}s "
-                     "(fail-fast, reference runner_base.py:54-58).", codes,
-                     "rendezvous_timeout")
-            time.sleep(0.05)
+        with observe.span("gang.rendezvous", cat="launch",
+                          num_workers=num_workers):
+            while server.ready_count() < num_workers:
+                codes = [p.poll() for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    server.wait_drained(1.0)  # the EXC frames of the dead
+                    fail("HorovodRunner gang failed to start: worker(s) "
+                         f"{[r for r, c in enumerate(codes) if c]} exited "
+                         f"during rendezvous (codes {codes}).", codes,
+                         "start_failure")
+                if time.monotonic() - start > START_TIMEOUT_S:
+                    fail(f"HorovodRunner gang failed to start: only "
+                         f"{server.ready_count()}/{num_workers} workers "
+                         f"reached the rendezvous within "
+                         f"{START_TIMEOUT_S:.0f}s (fail-fast, reference "
+                         "runner_base.py:54-58).", codes,
+                         "rendezvous_timeout")
+                time.sleep(0.05)
+        observe.instant("gang.ready", cat="launch", num_workers=num_workers)
         logger.info("HorovodRunner gang ready in %.1f s",
                     time.monotonic() - start)
 
         first_death = None
         while any(p.poll() is None for p in procs):
             codes = [p.poll() for p in procs]
+            if detector is not None and first_death is None:
+                _check_hang(detector, server, procs, num_workers, job_dir)
             if (JOB_TIMEOUT_S is not None
                     and time.monotonic() - start > JOB_TIMEOUT_S):
                 fail(f"HorovodRunner job ran past {JOB_TIMEOUT_S:.0f}s; "
@@ -594,6 +652,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
                  "result over the control plane.", codes, "no_result")
         return cloudpickle.loads(result)
     finally:
+        if detector is not None:
+            # however the attempt ended: its verdicts, for health.json
+            telemetry.add_health_summary(detector.summary())
         for p in procs:
             if p.poll() is None:
                 p.kill()
@@ -606,3 +667,40 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         if server is not None:
             server.close()
         del store  # closes the rendezvous store's server
+
+
+def _check_hang(detector, server, procs, num_workers, job_dir):
+    """One pass of the hang detector: a stack dump asked of each newly
+    stalled rank; on a hang verdict, one of every rank, a wait of up to
+    ``_DUMP_GRACE_S`` for the stalled ranks' answers, the gang killed, and
+    ``GangFailure(kind="hang")`` raised."""
+    from sparkdl_tpu_torch.horovod.supervisor import GangFailure
+
+    report = detector.poll()
+    for r in report["new_stalled"]:
+        # while the evidence lives: the rank's watchdog thread answers
+        # however wedged its training thread is
+        server.request_dump(r, reason="stall")
+    verdict = report["hang"]
+    if not verdict:
+        return
+    stalled = detector.stalled_ranks
+    for r in range(num_workers):
+        server.request_dump(r, reason=f"hang:{verdict}")
+    deadline = time.monotonic() + _DUMP_GRACE_S
+    while time.monotonic() < deadline and not all(
+            server.stack_dumps(r) for r in stalled):
+        time.sleep(0.1)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+    raise GangFailure(
+        "HorovodRunner gang hung: beats continued but no rank made "
+        f"progress for {detector.stall_s:.0f}s (verdict: {verdict}; "
+        f"stalled rank(s) {stalled}).\n{detector.describe()}\nStack dumps "
+        f"captured from rank(s) {sorted(server.stack_dumps())}. Worker "
+        f"logs: {job_dir}", kind="hang", hang_verdict=verdict,
+        exit_codes=[p.poll() or 0 for p in procs],
+        exceptions=server.exceptions)

@@ -13,8 +13,10 @@ runs the same rank bootstrap as a local worker
 The rendezvous stays the driver's: the driver opens the job's
 ``TCPStore`` (it listens on every interface) and its control plane on
 all interfaces, and ships their routable addresses, the control plane's
-secret, the device and the restart context to the tasks in the job's
-closure. Each task sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
+secret, the device, the restart context and, with telemetry on, the
+driver's telemetry settings to the tasks in the job's closure (their
+flushes reach the launch's GangTelemetry through the control plane; a
+task keeps no flight recorder, as in the JAX package). Each task sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
 ``LOCAL_WORLD_SIZE`` (local values by
 :func:`~sparkdl_tpu_torch.horovod.topology.placement_from_task_hosts`
 over the barrier's task infos), ``MASTER_ADDR``, ``MASTER_PORT`` and the
@@ -45,7 +47,7 @@ class SparkGangResult:
 
 
 def _barrier_main(payload, control_addr, control_secret, master_addr,
-                  master_port, device, restart):
+                  master_port, device, restart, telemetry=None):
     """The function each barrier task runs on its partition (executor
     side); it returns ``[rank 0's cloudpickled result]`` on rank 0 and
     nothing elsewhere."""
@@ -91,7 +93,7 @@ def _barrier_main(payload, control_addr, control_secret, master_addr,
                 ControlPlaneClient(control_addr, rank, control_secret),
                 log_path=log_path, device=device, restart=restart,
                 load_payload=lambda: cloudpickle.loads(payload),
-                send_result=False, parent_death=False)
+                send_result=False, parent_death=False, telemetry=telemetry)
         finally:
             # the worker as it was: no later code of the process finds
             # this job's rank or its driver's address
@@ -118,7 +120,7 @@ def _check_slots(sc, num_workers):
 
 
 def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
-                     restart, device):
+                     restart, device, telemetry=None):
     """The barrier job: control plane and store on the driver, the
     payload in the closure, rank-tagged failures, rank 0's result."""
     import tempfile
@@ -126,6 +128,7 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
     import cloudpickle
     import torch.distributed as dist
 
+    from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
     from sparkdl_tpu_torch.horovod.supervisor import GangFailure
 
@@ -133,7 +136,8 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
     log_path = os.path.join(job_dir, "job.log")
     # executors on other hosts dial back: all interfaces, routable address
     server = ControlPlaneServer(num_workers, verbosity=driver_log_verbosity,
-                                log_path=log_path, bind_host="0.0.0.0")
+                                log_path=log_path, bind_host="0.0.0.0",
+                                telemetry=telemetry)
     store = None
     try:
         master_addr = server.address.rsplit(":", 1)[0]
@@ -143,7 +147,8 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
         try:
             pickled = rdd.mapPartitions(_barrier_main(
                 payload, server.address, server.secret, master_addr,
-                store.port, device, restart)).collect()
+                store.port, device, restart,
+                observe.worker_settings())).collect()
         except Exception as e:
             # the ranks' own tracebacks, not Spark's opaque task failure
             # (reference runner_base.py:62-72)
@@ -167,11 +172,12 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
 
 
 def maybe_launch_on_spark(num_workers, payload, driver_log_verbosity,
-                          restart, device):
+                          restart, device, telemetry=None):
     """Run the cloudpickled ``(main, kwargs)`` as a Spark barrier job of
     ``num_workers`` tasks (0: ``sc.defaultParallelism``, resolved
     against the cluster, not the driver's host), the tasks told
-    ``restart`` and ``device`` (``"cuda"`` or ``"cpu"``); returns a
+    ``restart`` and ``device`` (``"cuda"`` or ``"cpu"``), their flushes
+    into ``telemetry`` (a GangTelemetry, or None); returns a
     :class:`SparkGangResult`, or None when no SparkSession is active
     (then the launcher runs the gang from this host)."""
     spark = SparkSession.getActiveSession()
@@ -182,4 +188,4 @@ def maybe_launch_on_spark(num_workers, payload, driver_log_verbosity,
         num_workers = int(sc.defaultParallelism)
     _check_slots(sc, num_workers)
     return _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
-                            restart, device)
+                            restart, device, telemetry=telemetry)

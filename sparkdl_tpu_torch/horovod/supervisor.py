@@ -6,11 +6,11 @@ gangs are fail-fast (reference ``runner_base.py:54-58``): one rank dying
 ends the run. The supervisor wraps each launch:
 
 1. **Classify** the failure (:func:`classify_failure`): *transient* (a
-   rank killed by a signal, as preemption looks from the driver; a
-   rendezvous timeout; a lost result; a rank whose traceback is the
-   distributed runtime failing) or *permanent* (a user-code exception,
-   slot exhaustion, bad arguments, anything unnamed). A permanent
-   failure is raised at once.
+   gang the hang detector declared hung; a rank killed by a signal, as
+   preemption looks from the driver; a rendezvous timeout; a lost
+   result; a rank whose traceback is the distributed runtime failing)
+   or *permanent* (a user-code exception, slot exhaustion, bad
+   arguments, anything unnamed). A permanent failure is raised at once.
 2. **Relaunch** a transient one after :meth:`RetryPolicy.backoff`
    seconds, up to ``max_retries`` times.
 3. **Resume**: each relaunch runs with a
@@ -27,11 +27,12 @@ The policy is the module's :data:`policy`, which
 time; its default (``max_retries=0``) turns supervision off. No
 environment variable is read (``RetryPolicy.from_env`` is not ported):
 ``extra_patterns`` takes the place of ``SPARKDL_TPU_TRANSIENT_PATTERNS``.
-Not ported: the elastic relaunch at another world size and its reshard
-pre-flight, the hang kind, the attempt-world ledger, and the observe
-instants and counters (``gang.attempt``, ``gang_failures_total``, ...),
-whose facts stand in the log lines and in
-:attr:`GangRetryBudgetExhausted.attempts`.
+With telemetry on, each attempt lands on the driver's timeline and
+metrics as in the JAX package: the ``gang.attempt`` and
+``gang.failure`` instants, ``gang_attempts_total``,
+``gang_failures_total{verdict}``, ``gang_restarts_total`` and the
+``gang.backoff`` span. Not ported: the elastic relaunch at another world
+size and its reshard pre-flight, and the attempt-world ledger.
 """
 
 import dataclasses
@@ -86,17 +87,20 @@ _INFRA_TYPES = re.compile(
 
 class GangFailure(RuntimeError):
     """A launched gang failed. ``kind``: ``"start_failure"``,
-    ``"rendezvous_timeout"``, ``"worker_death"``, ``"no_result"`` or
-    ``"job_timeout"``; ``exit_codes``: each rank's (negative: killed by
-    that signal); ``exceptions``: rank -> traceback text of its EXC
-    frame. A RuntimeError, so callers that catch one keep working."""
+    ``"rendezvous_timeout"``, ``"worker_death"``, ``"no_result"``,
+    ``"job_timeout"`` or ``"hang"``; ``exit_codes``: each rank's
+    (negative: killed by that signal); ``exceptions``: rank -> traceback
+    text of its EXC frame; ``hang_verdict``: the hang detector's verdict
+    of a ``"hang"``. A RuntimeError, so callers that catch one keep
+    working."""
 
     def __init__(self, message, *, kind="unknown", exit_codes=None,
-                 exceptions=None):
+                 exceptions=None, hang_verdict=None):
         super().__init__(message)
         self.kind = kind
         self.exit_codes = list(exit_codes or [])
         self.exceptions = dict(exceptions or {})
+        self.hang_verdict = hang_verdict
 
 
 @dataclasses.dataclass
@@ -169,6 +173,10 @@ def classify_failure(exc, extra_patterns=()):
     """(verdict, cause) of a failed launch; a *permanent* one is never
     relaunched.
 
+    - A gang the hang detector declared hung: transient (the launcher
+      took its stack dumps and killed it; its state is in the
+      checkpoint), judged first, since that kill looks like signal
+      deaths and a rank may have raised while dying.
     - Slot exhaustion, a slot wait that timed out, remote ranks that
       cannot be started, and bad arguments: permanent.
     - A worker EXC frame that is not infrastructure: permanent (user
@@ -194,6 +202,11 @@ def classify_failure(exc, extra_patterns=()):
     if isinstance(exc, (ValueError, TypeError)):
         return PERMANENT, f"bad arguments ({type(exc).__name__})"
     if isinstance(exc, GangFailure):
+        if exc.kind == "hang":
+            return TRANSIENT, (
+                f"HANG ({exc.hang_verdict or 'hung'}) — gang made no "
+                "progress; stack dumps captured, relaunching from "
+                "checkpoint")
         user_ranks = [r for r, tb in sorted(exc.exceptions.items())
                       if not _is_infra_traceback(tb, extra_patterns)]
         if user_ranks:
@@ -259,6 +272,7 @@ def supervise(launch, policy, _sleep=time.sleep):
     relaunch its number and the newest committed step under
     ``policy.resume_dir``, read after the backoff.
     """
+    from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.horovod import RestartContext
 
     attempts = []
@@ -266,12 +280,18 @@ def supervise(launch, policy, _sleep=time.sleep):
     while True:
         context = (RestartContext(0, None) if attempt == 1 else
                    RestartContext(attempt - 1, _resume_step(policy)))
+        observe.inc("gang_attempts_total")
+        observe.instant("gang.attempt", cat="supervisor", attempt=attempt)
         try:
             return launch(context)
         except Exception as e:
             verdict, cause = classify_failure(e, policy.extra_patterns)
             attempts.append(AttemptRecord(attempt, verdict, cause))
             first_line = (str(e).splitlines() or ["<no message>"])[0]
+            observe.instant("gang.failure", cat="supervisor",
+                            attempt=attempt, verdict=verdict, cause=cause,
+                            kind=getattr(e, "kind", type(e).__name__))
+            observe.inc("gang_failures_total", verdict=verdict)
             if verdict == PERMANENT:
                 logger.error(
                     "HorovodRunner gang failed permanently on attempt %d "
@@ -290,6 +310,10 @@ def supervise(launch, policy, _sleep=time.sleep):
                 policy.max_retries, cause, delay,
                 "" if resume is None else f" (will resume from step {resume})",
                 first_line)
+            observe.inc("gang_restarts_total")
             if delay > 0:
-                _sleep(delay)
+                with observe.span("gang.backoff", cat="supervisor",
+                                  attempt=attempt, delay_s=round(delay, 3),
+                                  resume_step=resume):
+                    _sleep(delay)
             attempt += 1

@@ -28,13 +28,27 @@ backend lacks travel widened and come back: bool as uint8, int16 and
 uint16 as int32, uint32 as int64. Outside a gang (no process group:
 local mode, or a plain process) every collective returns a copy of its
 input, as the JAX engine does at size 1.
+
+With telemetry on, each public collective (the JAX engine's ``@_observed``)
+marks its entry and exit for the hang detector
+(``health.note_collective``), counts ``collective_ops_total{op}`` and
+``collective_bytes_total{op}``, observes ``collective_seconds{op}`` and
+records a ``cat="collective"`` span, under the JAX engine's op names
+(``reduce``, ``allgather``, ``alltoall``, ``scatter_reduce``,
+``broadcast``); an :class:`AsyncCollective` does so around its wait.
+The span of a collective NCCL runs on the card is its enqueue, as a
+dispatched collective's is in the JAX engine. With telemetry off, one
+test of the switch.
 """
 
 import datetime
+import functools
+import time
 
 import torch
 import torch.distributed as dist
 
+from sparkdl_tpu_torch import observe
 from sparkdl_tpu_torch.hvd import _state
 
 # Reduction ops (horovod.common.Op semantics)
@@ -47,6 +61,45 @@ _REDUCE_OPS = {AVERAGE: dist.ReduceOp.SUM, SUM: dist.ReduceOp.SUM,
                MIN: dist.ReduceOp.MIN, MAX: dist.ReduceOp.MAX}
 _WIDENED = {torch.bool: torch.uint8, torch.int16: torch.int32,
             torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+
+def _record(op_name, nbytes, wall0, dt):
+    from sparkdl_tpu_torch.observe import health
+
+    health.note_collective(op_name, done=True)
+    observe.inc("collective_ops_total", op=op_name)
+    observe.inc("collective_bytes_total", value=nbytes, op=op_name)
+    observe.observe_value("collective_seconds", dt, op=op_name)
+    observe.complete(op_name, wall0, dt, cat="collective", op=op_name,
+                     bytes=nbytes)
+
+
+def _nbytes(x):
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) \
+        else 0
+
+
+def _observed(op_name):
+    """The collective's telemetry (module docstring); with telemetry off,
+    straight through."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(x, *args, **kwargs):
+            if not observe.enabled():
+                return fn(x, *args, **kwargs)
+            from sparkdl_tpu_torch.observe import health
+
+            health.note_collective(op_name)
+            wall0 = time.time()
+            t0 = time.perf_counter()
+            out = fn(x, *args, **kwargs)
+            _record(op_name, _nbytes(x), wall0, time.perf_counter() - t0)
+            return out
+
+        return wrapper
+
+    return deco
 
 
 def resolve_op(average, op):
@@ -102,11 +155,14 @@ class AsyncCollective:
     :meth:`wait`. Every rank issues its collectives in the same program
     order, so handles may be resolved in any order."""
 
-    def __init__(self, work, finish):
+    def __init__(self, work, finish, op_name=None, nbytes=0):
         self._work = work
         self._finish = finish
         self._value = None
         self._resolved = False
+        # the op name its wait is observed under (None: not observed)
+        self._op_name = op_name
+        self._nbytes = nbytes
 
     def done(self):
         return (self._resolved or self._work is None
@@ -116,6 +172,13 @@ class AsyncCollective:
         """The collective's result (raising its error, if any);
         ``timeout`` in seconds."""
         if not self._resolved:
+            observed = self._op_name is not None and observe.enabled()
+            if observed:
+                from sparkdl_tpu_torch.observe import health
+
+                health.note_collective(self._op_name)
+                wall0 = time.time()
+                t0 = time.perf_counter()
             if self._work is not None:
                 if timeout is None:
                     self._work.wait()
@@ -123,6 +186,9 @@ class AsyncCollective:
                     self._work.wait(datetime.timedelta(seconds=timeout))
             self._value = self._finish()
             self._resolved = True
+            if observed:
+                _record(self._op_name, self._nbytes, wall0,
+                        time.perf_counter() - t0)
         return self._value
 
     def wait(self, timeout=None):
@@ -130,27 +196,34 @@ class AsyncCollective:
         self.result(timeout)
 
 
+def _reduce_start(x, op, convert=None, op_name=None):
+    st = _state.state()
+    convert = convert or (lambda out: out)
+    if st.group is None:
+        out = x.detach().clone()
+        return AsyncCollective(None, lambda: convert(out), op_name,
+                               _nbytes(x))
+    w = _on_wire(x)
+    work = dist.all_reduce(w, op=_REDUCE_OPS[op], async_op=True)
+    return AsyncCollective(work, lambda: convert(
+        _off_wire(_finish_reduce(w, op, st.size), x)), op_name, _nbytes(x))
+
+
 def reduce_start(x, op, convert=None):
     """Issue the allreduce of ``x`` now, on the calling thread, from a
     copy (the caller may change ``x`` meanwhile); returns its
     :class:`AsyncCollective`, whose result is passed through
     ``convert`` when given."""
-    st = _state.state()
-    convert = convert or (lambda out: out)
-    if st.group is None:
-        out = x.detach().clone()
-        return AsyncCollective(None, lambda: convert(out))
-    w = _on_wire(x)
-    work = dist.all_reduce(w, op=_REDUCE_OPS[op], async_op=True)
-    return AsyncCollective(work, lambda: convert(
-        _off_wire(_finish_reduce(w, op, st.size), x)))
+    return _reduce_start(x, op, convert, op_name="reduce")
 
 
+@_observed("reduce")
 def reduce(x, op):
     """Allreduce ``x`` across the gang; returns a new tensor."""
-    return reduce_start(x, op).result()
+    return _reduce_start(x, op).result()
 
 
+@_observed("reduce")
 def reduce_(buf, op):
     """Allreduce ``buf`` in place. A contiguous float buffer on its wire
     device (a CUDA gradient buffer of a NCCL gang) is reduced where it
@@ -166,9 +239,10 @@ def reduce_(buf, op):
             buf.div_(st.size)
         return buf
     with torch.no_grad():
-        return buf.copy_(reduce(buf, op))
+        return buf.copy_(_reduce_start(buf, op).result())
 
 
+@_observed("allgather")
 def allgather(x):
     """Concatenate every rank's ``x`` along dim 0; the first dimensions
     may differ by rank (size exchange, pad, gather, trim)."""
@@ -191,6 +265,7 @@ def allgather(x):
     return _off_wire(torch.cat(parts), x)
 
 
+@_observed("alltoall")
 def alltoall(x, splits):
     """All-to-all along dim 0: ``splits[j]`` rows of ``x`` go to rank j
     (in order), and the result holds the rows every rank sent here, in
@@ -199,7 +274,8 @@ def alltoall(x, splits):
     st = _state.state()
     if st.group is None:
         return x.detach().clone()
-    table = allgather(torch.tensor(splits, dtype=torch.int64)[None])
+    table = allgather.__wrapped__(
+        torch.tensor(splits, dtype=torch.int64)[None])
     received = table[:, st.rank].tolist()
     w = _on_wire(x)
     out = w.new_empty((sum(received),) + tuple(w.shape[1:]))
@@ -208,6 +284,7 @@ def alltoall(x, splits):
     return _off_wire(out, x)
 
 
+@_observed("scatter_reduce")
 def scatter_reduce(x, op):
     """Reduce-scatter along dim 0 (divisible by the size): each rank
     receives its own reduced ``dim0 / size`` rows. ``sum`` and
@@ -222,13 +299,15 @@ def scatter_reduce(x, op):
         return x.detach().clone()
     chunk = x.shape[0] // n
     if op not in (SUM, AVERAGE):
-        return reduce(x, op)[st.rank * chunk:(st.rank + 1) * chunk]
+        return _reduce_start(x, op).result()[
+            st.rank * chunk:(st.rank + 1) * chunk]
     w = _on_wire(x)
     out = w.new_empty((chunk,) + tuple(w.shape[1:]))
     dist.reduce_scatter_tensor(out, w, op=dist.ReduceOp.SUM)
     return _off_wire(_finish_reduce(out, op, n), x)
 
 
+@_observed("broadcast")
 def broadcast(x, root_rank):
     """Rank ``root_rank``'s ``x`` on every rank; returns a new tensor."""
     if _state.state().group is None:
@@ -238,6 +317,7 @@ def broadcast(x, root_rank):
     return _off_wire(w, x)
 
 
+@_observed("broadcast")
 def broadcast_(x, root_rank):
     """Broadcast into ``x`` in place: on the card over NCCL where it
     lies, else through :func:`broadcast` and a copy back."""
@@ -248,7 +328,7 @@ def broadcast_(x, root_rank):
                 and _wire_device(x) == x.device):
             dist.broadcast(x, src=int(root_rank))
             return x
-        return x.copy_(broadcast(x, root_rank))
+        return x.copy_(broadcast.__wrapped__(x, root_rank))
 
 
 def barrier():

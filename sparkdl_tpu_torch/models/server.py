@@ -41,9 +41,13 @@ Metrics (``self.metrics``, always on): ``server_requests_total{code}``
 (200/400/500/503, or "disconnect"), ``server_queue_depth`` (sampled at
 scrape), ``server_request_seconds{code}`` (arrival → response) and
 ``server_first_token_seconds`` (arrival → first generated token), plus
-``build_info``. The JAX frontend's per-request span tree
-(``ServingTelemetry``, opted in by an environment variable) is not
-ported: ``request_telemetry`` stays ``None``.
+``build_info``. With telemetry on (``observe.TELEMETRY_DIR``) the
+frontend makes a :class:`~sparkdl_tpu_torch.observe.serving.
+ServingTelemetry` over its registry (``request_telemetry``, also the
+engine's ``telemetry``): each request's span tree, the SLO histograms,
+the engine's gauges, and a run dir written every ``serving.WRITE_S``
+(30) seconds and at ``close()``. Off, ``request_telemetry`` is None and each
+hook site is one test.
 
 Error classification: request-validation failures are **400**; an
 engine ``run()`` fault on admitted requests is **500** (the engine then
@@ -59,6 +63,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from sparkdl_tpu_torch import observe
 from sparkdl_tpu_torch.observe.metrics import Registry, ensure_build_info
 
 
@@ -187,8 +192,13 @@ class ServingFrontend:
     def __init__(self, engine, host="127.0.0.1", port=0):
         self.engine = engine
         self.metrics = Registry()
-        # the JAX frontend's opt-in span tree is not ported
+        # the per-request span tree and SLO series, behind the switch
         self.request_telemetry = None
+        if observe.enabled():
+            from sparkdl_tpu_torch.observe.serving import ServingTelemetry
+
+            self.request_telemetry = ServingTelemetry(self.metrics)
+            self.engine.telemetry = self.request_telemetry
         self._arrivals = queue.Queue()   # (parsed request, _Mailbox)
         self._live = {}                  # rid -> _Mailbox
         self._shutdown = threading.Event()
@@ -250,10 +260,18 @@ class ServingFrontend:
                         self.rfile.read(n), frontend.engine)
                 except (KeyError, TypeError, ValueError,
                         json.JSONDecodeError) as e:
+                    rt = frontend.request_telemetry
+                    if rt is not None:
+                        rt.request_rejected(400, "invalid_request")
                     frontend._record_request(400, t0)
                     self.send_error(400, _status_safe(e))
                     return
                 box = _Mailbox()
+                rt = frontend.request_telemetry
+                if rt is not None:
+                    rt.request_arrived(box, len(parsed["tokens"]),
+                                       parsed["max_new_tokens"],
+                                       bool(req.get("stream")))
                 frontend._arrivals.put((parsed, box))
                 frontend._wake.set()
                 if req.get("stream"):
@@ -284,15 +302,20 @@ class ServingFrontend:
                 req, box = self._arrivals.get_nowait()
             except queue.Empty:
                 return
+            rt = self.request_telemetry
             try:
                 rid = self.engine.submit(req["tokens"],
                                          req["max_new_tokens"],
                                          stop=req["stop"])
                 self._live[rid] = box
+                if rt is not None:
+                    rt.request_submitted(rid, box)
             except (ValueError, TypeError) as e:
                 # backstop: the handler pre-validates, but the engine
                 # may still refuse the request (an empty prompt) — that
                 # refusal is about the REQUEST, hence 400
+                if rt is not None:
+                    rt.request_rejected(400, "engine_refused")
                 box.fail(400, str(e))
 
     def _engine_loop(self):
@@ -302,11 +325,16 @@ class ServingFrontend:
             # shutdown (or a loop crash) must not strand handler threads
             # on untimed waits: 503, retry against another replica
             self._poll_queue(self.engine)
-            for box in self._live.values():
+            rt = self.request_telemetry
+            for rid, box in self._live.items():
+                if rt is not None:
+                    rt.request_done(rid, code=503)
                 box.fail(503, "server shutting down")
             self._live.clear()
 
     def _serve_bursts(self):
+        rt = self.request_telemetry
+
         def on_token(rid, tok):
             box = self._live.get(rid)
             if box is not None:
@@ -315,6 +343,8 @@ class ServingFrontend:
                     self.metrics.histogram(
                         "server_first_token_seconds").observe(
                             time.perf_counter() - box.t0)
+                if rt is not None:
+                    rt.token(rid)
                 box.tokens.put(int(tok))
 
         while not self._shutdown.is_set():
@@ -327,7 +357,9 @@ class ServingFrontend:
                 results = self.engine.run(progress=self._progress,
                                           on_token=on_token)
             except Exception as e:  # engine fault: fail the waiters
-                for box in self._live.values():
+                for rid, box in self._live.items():
+                    if rt is not None:
+                        rt.request_done(rid, code=500)
                     box.fail(500, f"engine error: {e}")
                 self._live.clear()
                 # the engine still holds the poison request (queued or
@@ -350,10 +382,13 @@ class ServingFrontend:
         """Hand each finished request ``{rid: (tokens, finish reason,
         logprobs)}`` to its mailbox: the result, the stream's end, the
         blocking waiter's wake-up."""
+        rt = self.request_telemetry
         for rid, (toks, reason, lps) in finished.items():
             box = self._live.pop(rid, None)
             if box is None:
                 continue
+            if rt is not None:
+                rt.request_done(rid, code=200)
             box.result = (toks.tolist(), reason, lps)
             box.tokens.put(None)
             box.done.set()
@@ -361,6 +396,8 @@ class ServingFrontend:
     # -- lifecycle ----------------------------------------------------
 
     def start(self):
+        if self.request_telemetry is not None:
+            self.request_telemetry.start_writer()
         self._engine_thread.start()
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, name="sparkdl-torch-http",
@@ -374,3 +411,8 @@ class ServingFrontend:
         self._httpd.shutdown()
         self._httpd.server_close()
         self._engine_thread.join(timeout=30)
+        if self.request_telemetry is not None:
+            # the engine thread has drained: the run dir's last write,
+            # then the flight-recorder ring is released
+            self.request_telemetry.write()
+            self.request_telemetry.close()

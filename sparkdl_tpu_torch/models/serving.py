@@ -69,13 +69,22 @@ of the mesh takes the same host decisions.
 (``request_admitted(rid)``, ``request_pages(rid, pages)`` when it has
 one, ``admission_deferred(reason)``, ``decode_chunk(active, n_slots,
 n_tokens, free_pages=, n_pages=)``), each called behind one ``is not
-None`` test; None by default.
+None`` test; None by default (the frontend sets its
+``ServingTelemetry`` when telemetry is on). With telemetry on the engine
+also counts its cache (``kv_pages``) and its weights (``params``)
+in :mod:`sparkdl_tpu_torch.observe.mem`'s categories, which sum the
+distinct tensors of the process's live engines (a fleet's replicas) and
+hold no engine alive, and a paged pool that can
+never admit the queue's head writes ``oom_report.json`` (phase
+``admission``) before it raises.
 
 Not ported yet, and refused by name: kernel-mode routing
 (``quant_kernel``).
 """
 
 import dataclasses
+import functools
+import weakref
 
 import numpy as np
 import torch
@@ -150,6 +159,19 @@ class _Slot:
     remaining: int = 0
     tokens: list = dataclasses.field(default_factory=list)
     logprobs: list = dataclasses.field(default_factory=list)
+
+
+# the engines built with telemetry on, held weakly: the mem categories
+# read them, and an engine's last reference still frees it
+_LIVE_ENGINES = weakref.WeakSet()
+
+
+def _live_bytes(attr):
+    """Bytes of the distinct tensors of ``attr`` over the live engines
+    (replicas sharing one weight dict count it once)."""
+    from sparkdl_tpu_torch.observe import mem
+
+    return mem.tree_nbytes([getattr(e, attr) for e in list(_LIVE_ENGINES)])
 
 
 class ContinuousBatchingEngine:
@@ -286,6 +308,17 @@ class ContinuousBatchingEngine:
             self._cache = self._model.init_cache()
         else:
             self._cache = self._model.init_cache(batch=self.n_slots)
+        from sparkdl_tpu_torch import observe
+
+        if observe.enabled():
+            from sparkdl_tpu_torch.observe import mem
+
+            # the long-lived trees, by category, over the live engines
+            _LIVE_ENGINES.add(self)
+            mem.register_tree("kv_pages",
+                              functools.partial(_live_bytes, "_cache"))
+            mem.register_tree("params",
+                              functools.partial(_live_bytes, "params"))
         # device state: the cache (written in place), per-slot position
         # and last token; host: each slot's adapter
         self._pos = torch.zeros((self.n_slots,), dtype=torch.int32,
@@ -686,10 +719,19 @@ class ContinuousBatchingEngine:
         if self._queue and self.page_size and not self._prefilling:
             need = self._pages_needed(self._queue[0])
             if need > len(self._free_pages):
-                raise RuntimeError(
+                err = RuntimeError(
                     f"paged pool exhausted: request needs {need} fresh "
                     f"pages, pool has {len(self._free_pages)} free and "
                     "nothing left to drain — raise n_pages")
+                from sparkdl_tpu_torch.observe import mem
+
+                mem.write_oom_report(
+                    "admission", err,
+                    extra={"pages_needed": need,
+                           "pages_free": len(self._free_pages),
+                           "n_pages": self.cfg.n_pages,
+                           "page_size": self.page_size})
+                raise err
 
     def _step_args(self, active):
         """The per-step block tables (paged: inactive rows masked to the

@@ -1,14 +1,21 @@
-"""Metrics registry of the port's serving box: counters, gauges,
-histograms, rendered in the Prometheus text format.
+"""Per-process metrics registry: counters, gauges, histograms, rendered
+in the Prometheus text format and as JSON.
 
 Counterpart of ``sparkdl_tpu/observe/metrics.py``, copied (the port
 imports nothing of the JAX package): ``Counter``, ``Gauge``,
 ``Histogram``, ``Registry`` (``snapshot``, ``to_prometheus``,
-``to_json``), ``render_prometheus`` and ``ensure_build_info``. Thread-safe
-by construction: every mutation is one short critical section over
-plain Python numbers. The gang telemetry's merging
-(``merge_snapshots``, ``snapshot_delta``) and ``render_json`` are not
-ported yet.
+``to_json``), ``render_prometheus``, ``render_json`` and
+``ensure_build_info``. Thread-safe by construction: every mutation is
+one short critical section over plain Python numbers.
+
+Cross-process semantics, as in the JAX package: workers ship cumulative
+:meth:`Registry.snapshot` dicts (the JAX registry's dict shape) to the
+driver over the control plane; the driver merges a rank's process
+incarnations with :func:`merge_snapshots` (counters and histogram
+buckets sum, gauges take the newest), takes a launch's own movement of
+its long-lived registry with :func:`snapshot_delta`, and renders the
+gang-wide view with :func:`render_prometheus` / :func:`render_json`,
+one ``rank`` label per series.
 
 ``build_info`` carries the git sha, ``torch_version`` (in place of the
 JAX package's ``jax_version``) and the device kind from
@@ -201,11 +208,7 @@ class Registry:
         return render_prometheus([({}, self.snapshot())])
 
     def to_json(self, indent=None):
-        """The registry as one JSON document, shaped like the JAX
-        package's ``render_json`` of a single unlabeled snapshot."""
-        doc = {"generated_at": time.time(),
-               "series": [{"labels": {}, **self.snapshot()}]}
-        return json.dumps(doc, indent=indent, sort_keys=True)
+        return render_json([({}, self.snapshot())], indent=indent)
 
 
 # -- build-info correlation ---------------------------------------------------
@@ -257,6 +260,94 @@ def ensure_build_info(registry):
     labels = build_info_labels()
     registry.gauge("build_info", **labels).set(1)
     return labels
+
+
+# -- snapshot merging (driver-side gang view) --------------------------------
+
+
+def merge_snapshots(snaps):
+    """Merge cumulative snapshots of successive incarnations of ONE
+    logical process (a rank across supervised relaunches): counters and
+    histogram bucket counts sum; a gauge takes the value of the newest
+    snapshot by its ``ts`` stamp (ties go to the later argument), since
+    incarnation files may be recovered in any order."""
+    out = {"ts": 0.0, "counters": [], "gauges": [], "histograms": []}
+    counters = {}
+    gauges = {}   # key -> (ts, value)
+    hists = {}
+    for snap in snaps:
+        ts = snap.get("ts", 0.0)
+        out["ts"] = max(out["ts"], ts)
+        for c in snap.get("counters", ()):
+            key = (c["name"], _label_key(c["labels"]))
+            counters[key] = counters.get(key, 0.0) + c["value"]
+        for g in snap.get("gauges", ()):
+            key = (g["name"], _label_key(g["labels"]))
+            if key not in gauges or ts >= gauges[key][0]:
+                gauges[key] = (ts, g["value"])
+        for h in snap.get("histograms", ()):
+            key = (h["name"], _label_key(h["labels"]))
+            prev = hists.get(key)
+            if prev is None or list(prev["buckets"]) != list(h["buckets"]):
+                # first sight, or a bucket layout that changed: keep the
+                # newer layout rather than sum incompatible bins
+                hists[key] = {
+                    "name": h["name"], "labels": dict(h["labels"]),
+                    "buckets": list(h["buckets"]),
+                    "counts": list(h["counts"]),
+                    "sum": h["sum"], "count": h["count"],
+                }
+            else:
+                prev["counts"] = [
+                    a + b for a, b in zip(prev["counts"], h["counts"])]
+                prev["sum"] += h["sum"]
+                prev["count"] += h["count"]
+    for (name, lk), v in sorted(counters.items()):
+        out["counters"].append({"name": name, "labels": dict(lk),
+                                "value": v})
+    for (name, lk), (_, v) in sorted(gauges.items()):
+        out["gauges"].append({"name": name, "labels": dict(lk), "value": v})
+    for key in sorted(hists):
+        out["histograms"].append(hists[key])
+    return out
+
+
+def snapshot_delta(base, cur):
+    """``cur`` minus ``base`` for the monotonic series: a launch's own
+    movement of a registry that outlives launches (the driver's).
+    Counters subtract by value, histograms by bucket counts, sum and
+    count (a changed bucket layout falls back to ``cur``); gauges pass
+    through. Series that did not move are dropped."""
+    out = {"ts": cur.get("ts", 0.0), "counters": [],
+           "gauges": [dict(g) for g in cur.get("gauges", ())],
+           "histograms": []}
+    base_c = {(c["name"], _label_key(c["labels"])): c["value"]
+              for c in base.get("counters", ())}
+    for c in cur.get("counters", ()):
+        v = c["value"] - base_c.get(
+            (c["name"], _label_key(c["labels"])), 0.0)
+        if v > 0:
+            out["counters"].append({"name": c["name"],
+                                    "labels": dict(c["labels"]),
+                                    "value": v})
+    base_h = {(h["name"], _label_key(h["labels"])): h
+              for h in base.get("histograms", ())}
+    for h in cur.get("histograms", ()):
+        prev = base_h.get((h["name"], _label_key(h["labels"])))
+        if prev is None or list(prev["buckets"]) != list(h["buckets"]):
+            d = {k: (list(h[k]) if isinstance(h[k], list) else h[k])
+                 for k in ("name", "buckets", "counts", "sum", "count")}
+            d["labels"] = dict(h["labels"])
+        else:
+            d = {"name": h["name"], "labels": dict(h["labels"]),
+                 "buckets": list(h["buckets"]),
+                 "counts": [a - b for a, b in
+                            zip(h["counts"], prev["counts"])],
+                 "sum": h["sum"] - prev["sum"],
+                 "count": h["count"] - prev["count"]}
+        if d["count"] > 0:
+            out["histograms"].append(d)
+    return out
 
 
 # -- rendering ------------------------------------------------------------------
@@ -333,3 +424,14 @@ def render_prometheus(labeled_snapshots):
         for _, lines in sorted(series, key=lambda s: s[0]):
             out.extend(lines)
     return "\n".join(out) + ("\n" if out else "")
+
+
+def render_json(labeled_snapshots, indent=None):
+    """The labeled snapshots ``[(extra_labels, snapshot), ...]`` as one
+    JSON document (``generated_at`` and one ``series`` entry each)."""
+    doc = {
+        "generated_at": time.time(),
+        "series": [{"labels": dict(extra), **snap}
+                   for extra, snap in labeled_snapshots],
+    }
+    return json.dumps(doc, indent=indent, sort_keys=True)

@@ -21,6 +21,7 @@ from sparkdl_tpu_torch.parallel.train import (  # noqa: F401
     cross_entropy_loss,
     fused_cross_entropy,
     global_batch,
+    instrument_step,
     make_lm_loss_fn,
     make_train_step,
     param_count,

@@ -21,8 +21,11 @@ differentiable collectives of :mod:`~sparkdl_tpu_torch.parallel.mesh`):
 and the loss over its data-like axes (``data``, ``fsdp``, ``seq``) and
 never over ``model``, whose ranks hold different shards, and
 :func:`fused_cross_entropy` takes the head's vocabulary shard (the
-vocabulary-parallel loss). The telemetry wrappers
-(``instrument_step``, ``lower_train_step``) are not ported.
+vocabulary-parallel loss). :func:`instrument_step` wraps a step in the
+gang telemetry of :mod:`sparkdl_tpu_torch.observe`; ``lower_train_step``
+(an XLA lowering) has no counterpart here: the step's cost for the MFU
+gauge is the caller's count, given to
+:func:`~sparkdl_tpu_torch.observe.perf.register_step_cost`.
 
 Usage (LoRA fine-tune)::
 
@@ -77,6 +80,9 @@ gives each rank its rows of ``data`` x ``fsdp``.
 the whole tree with its sharding sidecar, which
 ``restore(target_mesh=...)`` re-lays onto another mesh.
 """
+
+import functools
+import time
 
 import numpy as np
 import torch
@@ -206,6 +212,66 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
         return {"loss": total}
 
     return step
+
+
+def _wait_for_device(out):
+    """Block until the work that produced ``out``'s CUDA tensors (a
+    step's returned loss) is done on their cards."""
+    tensors = (out.values() if isinstance(out, dict)
+               else out if isinstance(out, (list, tuple)) else (out,))
+    for dev in {t.device for t in tensors
+                if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+def instrument_step(step_fn, name="train_step"):
+    """``step_fn`` with gang telemetry (the JAX function's): at each call
+    the hang detector's progress mark (``health.note_step``, at entry),
+    ``mem.oom_guard``, a ``cat="train"`` span with the call's ``step``
+    and ``phase`` (``"compile"`` for the first call, ``"execute"``
+    after), the ``<name>_seconds`` histogram and ``<name>_total`` counter
+    by phase, the ``<name>_per_second`` gauge over the execute calls,
+    and ``perf.note_step`` (achieved FLOP/s, MFU and the bandwidth
+    gauges, against the cost given to ``perf.register_step_cost``).
+
+    A step returns its loss before the card has run its kernels: with
+    telemetry on, the span ends only once the card has finished the
+    returned tensors' work (a synchronize of their cards), so the
+    attribution and the MFU time the step, not its launch. With
+    telemetry off, one test of the switch, then ``step_fn``."""
+    from sparkdl_tpu_torch import observe
+
+    state = {"calls": 0, "first_exec_t0": None}
+
+    @functools.wraps(step_fn)
+    def stepped(*args, **kwargs):
+        if not observe.enabled():
+            return step_fn(*args, **kwargs)
+        from sparkdl_tpu_torch.observe import health, mem, perf
+
+        health.note_step(state["calls"])
+        phase = "compile" if state["calls"] == 0 else "execute"
+        t0 = time.perf_counter()
+        with mem.oom_guard(phase="step"), \
+                observe.span(name, cat="train", step=state["calls"],
+                             phase=phase):
+            out = step_fn(*args, **kwargs)
+            _wait_for_device(out)
+        dt = time.perf_counter() - t0
+        state["calls"] += 1
+        observe.observe_value(f"{name}_seconds", dt, phase=phase)
+        observe.inc(f"{name}_total", phase=phase)
+        if phase == "execute":
+            perf.note_step(name, dt)
+            if state["first_exec_t0"] is None:
+                state["first_exec_t0"] = t0
+            elapsed = time.perf_counter() - state["first_exec_t0"]
+            if elapsed > 0:
+                observe.set_gauge(f"{name}_per_second",
+                                  (state["calls"] - 1) / elapsed)
+        return out
+
+    return stepped
 
 
 def _data_axes(mesh):

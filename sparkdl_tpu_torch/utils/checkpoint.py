@@ -46,9 +46,20 @@ Not ported, and why: the orbax regime latch (no cross-process barrier
 here to deadlock in, so there is one regime); orbax's direct restore
 into sharded targets (every restore takes the host path of the JAX
 gang ranks) and the group-size knob ``SPARKDL_TPU_RESHARD_GROUPED``
-(placement is always leaf by leaf); the observe spans and counters.
+(placement is always leaf by leaf).
+
+With telemetry on, as in the JAX package: a synchronous save is one
+``checkpoint.save`` span (``cat="checkpoint"``, snapshot and durable
+write); an asynchronous one a ``checkpoint.snapshot`` host span (the
+copy to host memory; the write runs on its thread), each with
+``checkpoint_saves_total`` and ``checkpoint_save_seconds``; each restore
+attempt a ``checkpoint.restore`` span and ``checkpoint_restores_total``,
+a torn step ``checkpoint_corrupt_steps_total`` and a
+``checkpoint.corrupt_step`` instant; a resharded restore a
+``gang.reshard`` span and ``gang_reshards_total{direction}``.
 """
 
+import contextlib
 import json
 import logging
 import os
@@ -168,6 +179,16 @@ def _sharding_tree_doc(step, leaves, specs, mesh):
                     "dtype": i.dtype, "spec": [list(d) for d in i.spec]}
                    for i in infos],
     }
+
+
+def _span(on, name, **args):
+    """A telemetry span around a checkpoint phase when ``on``; else
+    nothing of the facade is touched."""
+    if not on:
+        return contextlib.nullcontext()
+    from sparkdl_tpu_torch import observe
+
+    return observe.span(name, **args)
 
 
 def _fsync_dir(path):
@@ -303,20 +324,37 @@ class TrainCheckpointer:
             if step in _committed_steps(self._dir):
                 raise ValueError(f"checkpoint for step {step} already "
                                  f"exists under {self._dir}")
+        from sparkdl_tpu_torch import observe
+
+        on = observe.enabled()
         t = time.perf_counter()
-        snapshot = _snapshot(state)
-        self.last_save = {"step": step, "bytes": None,
-                          "snapshot_s": time.perf_counter() - t,
-                          "write_s": None}
-        if sidecar is not None:
-            self.last_save.update(gather_s=gather_s, sidecar_bytes=None)
         if not self._async:
-            self._write(step, snapshot, sidecar)
-            return True
-        self._writer = threading.Thread(
-            target=self._write_async, args=(step, snapshot, sidecar),
-            name=f"checkpoint-write-{step}", daemon=True)
-        self._writer.start()
+            with _span(on, "checkpoint.save", cat="checkpoint", step=step,
+                       sync=True):
+                snapshot = _snapshot(state)
+                self.last_save = {"step": step, "bytes": None,
+                                  "snapshot_s": time.perf_counter() - t,
+                                  "write_s": None}
+                if sidecar is not None:
+                    self.last_save.update(gather_s=gather_s,
+                                          sidecar_bytes=None)
+                self._write(step, snapshot, sidecar)
+        else:
+            with _span(on, "checkpoint.snapshot", cat="host", step=step):
+                snapshot = _snapshot(state)
+            self.last_save = {"step": step, "bytes": None,
+                              "snapshot_s": time.perf_counter() - t,
+                              "write_s": None}
+            if sidecar is not None:
+                self.last_save.update(gather_s=gather_s, sidecar_bytes=None)
+            self._writer = threading.Thread(
+                target=self._write_async, args=(step, snapshot, sidecar),
+                name=f"checkpoint-write-{step}", daemon=True)
+            self._writer.start()
+        if on:
+            observe.inc("checkpoint_saves_total")
+            observe.observe_value("checkpoint_save_seconds",
+                                  time.perf_counter() - t)
         return True
 
     def _write_async(self, step, snapshot, sidecar):
@@ -437,15 +475,22 @@ class TrainCheckpointer:
         if fallback:
             candidates += [s for s in reversed(_committed_steps(self._dir))
                            if s < int(step)]
+        from sparkdl_tpu_torch import observe
+
+        on = observe.enabled()
         first_error = None
         self.last_reshard = None
         for i, cand in enumerate(candidates):
             path = os.path.join(self._dir, str(cand), STATE_FILE)
             try:
-                plan = (None if target_mesh is None
-                        else self._reshard_plan(cand, target_mesh))
-                state = torch.load(path, map_location="cpu",
-                                   weights_only=True)
+                with _span(on, "checkpoint.restore", cat="checkpoint",
+                           step=int(cand)):
+                    if on:
+                        observe.inc("checkpoint_restores_total")
+                    plan = (None if target_mesh is None
+                            else self._reshard_plan(cand, target_mesh))
+                    state = torch.load(path, map_location="cpu",
+                                       weights_only=True)
             except ReshardPreflightError:
                 # a deterministic refusal, not a torn step: every earlier
                 # step would fail alike, and none may be quarantined
@@ -456,6 +501,12 @@ class TrainCheckpointer:
                 first_error = first_error or e
                 if i + 1 >= len(candidates):
                     break
+                if on:
+                    observe.inc("checkpoint_corrupt_steps_total")
+                    observe.instant(
+                        "checkpoint.corrupt_step", cat="checkpoint",
+                        step=int(cand), error=f"{type(e).__name__}: {e}",
+                        fallback_step=int(candidates[i + 1]))
                 logger.error(
                     "checkpoint step %d under %s failed to restore (%s: "
                     "%s); falling back to committed step %d", cand,
@@ -502,11 +553,13 @@ class TrainCheckpointer:
         package's host-mediated placement with groups of one leaf: the
         new slices accumulate and one leaf's old shard is in flight, the
         high water within the plan's whole-tree bound."""
+        from sparkdl_tpu_torch import observe
         from sparkdl_tpu_torch.parallel.sharding import (
             named_sharding_for,
             shard_params,
         )
 
+        t_wall, t0 = time.time(), time.perf_counter()
         source_axes = sidecar_mesh_axes(doc) or dict(plan.target_axes)
         target_axes = dict(plan.target_axes)
         spec_by_path = {p["path"]: p.get("spec") or []
@@ -560,6 +613,12 @@ class TrainCheckpointer:
             "restore_high_water_bytes": plan.restore_high_water_bytes,
             "hbm_bytes": plan.hbm_bytes,
         }
+        if observe.enabled():
+            observe.complete("gang.reshard", t_wall,
+                             time.perf_counter() - t0, cat="checkpoint",
+                             **self.last_reshard)
+            observe.inc("gang_reshards_total",
+                        direction=self.last_reshard["direction"])
         logger.info(
             "resharded restore of step %d: %s %s -> %s (%d leaves, "
             "%.1f MiB placed)", step, self.last_reshard["direction"],

@@ -82,6 +82,19 @@ GANG_COUNTERPARTS = {
     "sparkdl_tpu_torch/models/resnet.py": "sparkdl_tpu/models/resnet.py",
     "sparkdl_tpu_torch/models/bert.py": "sparkdl_tpu/models/bert.py",
     "sparkdl_tpu_torch/models/convert.py": "sparkdl_tpu/models/convert.py",
+    # gang and serving telemetry
+    "sparkdl_tpu_torch/observe/__init__.py": "sparkdl_tpu/observe/__init__.py",
+    "sparkdl_tpu_torch/observe/metrics.py": "sparkdl_tpu/observe/metrics.py",
+    "sparkdl_tpu_torch/observe/timeline.py":
+        "sparkdl_tpu/observe/timeline.py",
+    "sparkdl_tpu_torch/observe/flightrec.py":
+        "sparkdl_tpu/observe/flightrec.py",
+    "sparkdl_tpu_torch/observe/perf.py": "sparkdl_tpu/observe/perf.py",
+    "sparkdl_tpu_torch/observe/health.py": "sparkdl_tpu/observe/health.py",
+    "sparkdl_tpu_torch/observe/mem.py": "sparkdl_tpu/observe/mem.py",
+    "sparkdl_tpu_torch/observe/aggregate.py":
+        "sparkdl_tpu/observe/aggregate.py",
+    "sparkdl_tpu_torch/observe/serving.py": "sparkdl_tpu/observe/serving.py",
 }
 
 
@@ -162,6 +175,20 @@ def test_model_zoo_exports_the_names_the_jax_package_locks():
 
     for name in ("config_from_hf", "params_from_hf", "params_to_hf"):
         assert callable(getattr(convert, name)), name
+
+
+def test_observe_exports_the_jax_facades_names():
+    """The JAX facade's ``__all__``, every name of which this port's
+    telemetry slice ports; no environment variable is its switch."""
+    import sparkdl_tpu.observe as jax_observe
+    import sparkdl_tpu_torch.observe as pt_observe
+
+    assert set(jax_observe.__all__) <= set(pt_observe.__all__)
+    for name in jax_observe.__all__:
+        assert hasattr(pt_observe, name), name
+    assert pt_observe.TELEMETRY_DIR is None and not pt_observe.enabled()
+    for path in (REPO / "sparkdl_tpu_torch" / "observe").glob("*.py"):
+        assert "os.environ" not in path.read_text(), path.name
 
 
 def test_a_port_gangs_horovod_torch_is_the_port():

@@ -5,6 +5,7 @@ requests with the engine's own tokens; the status classification (400,
 frontend on the same stub engine; the metrics registry renders what the
 JAX registry renders."""
 
+import importlib
 import json
 import threading
 import time
@@ -23,7 +24,9 @@ from sparkdl_tpu.observe.metrics import (
 from sparkdl_tpu_torch.models import llama as pt_llama
 from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
 from sparkdl_tpu_torch.models.server import ServingFrontend
-from sparkdl_tpu_torch.observe import metrics as pt_metrics
+
+# the module (the package's ``metrics`` is the facade's registry getter)
+pt_metrics = importlib.import_module("sparkdl_tpu_torch.observe.metrics")
 
 torch.set_num_threads(2)
 

@@ -185,7 +185,8 @@ def test_spark_comes_before_counting_this_hosts_cards(fake_pyspark,
                         supervisor.RetryPolicy(max_retries=2))
     jobs = []
 
-    def run_job(sc, n, payload, verbosity, restart, device):
+    def run_job(sc, n, payload, verbosity, restart, device, telemetry):
+        assert telemetry is None  # the switch is off
         jobs.append((n, verbosity, restart, device))
         main, kwargs = cloudpickle.loads(payload)
         return spark_backend.SparkGangResult(main(**kwargs))
