@@ -367,6 +367,36 @@ and on any failed check. Phases:
    attempt 1's two steps, both attempts' lanes and attempt 0's step in
    the recovered flight-recorder tail. Each prints its numbers on a
    line of its own.
+25. the live tier and the readers. 25b, right after 24c on phase 3's
+   int8 model: phase 14's ``FleetFrontend`` at one replica, registered
+   with a ``StatuszServer`` of this process, serves phase 3's first 8
+   requests at once; gates: ``/statusz`` scraped during the burst shows
+   the one replica's row and the queue depth, the B4 and B5 launches
+   (zeroed before) what the engine's counts predict, and the alert rule
+   ``server_ttft`` fires once with ``alerts.TTFT_P99_S`` half the
+   fleet's p99 bucket and not with it twice that. 25a, after 24b: 9a's
+   fine-tune (``np=1``) with the telemetry, the alert engine, the perf
+   forensics on alert and the status server (port 0) switched on
+   (module settings: a ``ALERT_SETTINGS["alerts.WINDOW_S"]`` window, a
+   factor of 2, 3 steps a window, a capture of 2 steps); 2 warm-up and
+   ``ALERT_HEALTHY`` healthy steps, then ``ALERT_SLOWED`` slowed steps,
+   each running the trainer's step ``ALERT_SLOW_FACTOR`` times inside
+   one ``instrument_step`` span (real card work, about 3x); the driver
+   scrapes ``/statusz`` and ``/metrics`` as it runs; gates: exactly one
+   alert, ``step_time_regression`` on rank 0, after the first slowed
+   step began; its PROFILE_REQ answered by PROFILE_DONE (no profiler
+   error) before the gang ends; the ``torch.profiler`` trace of the 2
+   captured steps naming ``flash_fwd``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` exactly as often as the launch counters rose over
+   those steps (32 layers x 3 x 2 = 192 each); ``regression_report.json``
+   naming compute as the component that grew over the window that fired,
+   and the captured steps' compute at 2.5x the baseline's at least; the
+   run dir's ``alerts.json`` and ``regression_report.json`` rendered by
+   the port's doctor; a mid-run ``/statusz`` carrying rank 0's step, beat age and
+   perf window, rendered by ``top``; ``/metrics`` parsing. It prints
+   the seconds from the first slowed step to the alert and from the
+   alert to PROFILE_DONE, the captured steps' ms beside the other slowed
+   steps', the ``/statusz`` latency and the phase's wall seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -496,7 +526,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
            "19": -2, "20": -2, "21a": -2, "21b": -2, "22a": 1, "24a": 1,
-           "24b": 1}
+           "24b": 1, "25a": 1}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
@@ -560,6 +590,19 @@ TELEMETRY_WARMUP, TELEMETRY_STEPS, TELEMETRY_SAVE_AFTER = 2, 5, 2
 TELEMETRY_HEARTBEAT_S = 1.0
 HANG_DEPTH, HANG_HEARTBEAT_S, HANG_STALL_S = 2, 0.5, 5.0
 TELEMETRY_REQUESTS = 8
+# phase 25: 25a's warm-up, healthy and slowed steps (9a's model and
+# batch) and the trainer steps a slowed step runs in one span; the
+# driver's settings (a window of ~10 healthy steps, which 3 slowed ones
+# fill) and the ranks' (flushes fast enough for that window, a capture
+# of 2 steps); 25b's requests (phase 3's first)
+ALERT_WARMUP, ALERT_HEALTHY, ALERT_SLOWED, ALERT_SLOW_FACTOR = 2, 6, 12, 3
+ALERT_SETTINGS = {"alerts.ENABLED": True, "alerts.WINDOW_S": 5.0,
+                  "alerts.CHECK_S": 0.25, "alerts.MIN_STEPS": 3,
+                  "alerts.STEP_FACTOR": 2.0, "forensics.ON_ALERT": True,
+                  "statusz.PORT": 0}
+ALERT_RANK_SETTINGS = {"observe.FLUSH_S": 0.5, "health.HEARTBEAT_S": 1.0,
+                       "capture.STEPS": 2}
+FLEET_STATUSZ_REQUESTS = 8
 # Meta's Llama-3-8B config.json values under HF's attribute names (no
 # transformers on the card machine: a plain object carries them)
 HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
@@ -6496,6 +6539,342 @@ def serve_telemetry(torch, model):
     return report
 
 
+# -- phase 25: the live tier and the readers ---------------------------------
+
+
+@contextlib.contextmanager
+def _observe_settings(settings):
+    """Module settings of ``sparkdl_tpu_torch.observe``'s modules
+    (``{"alerts.ENABLED": True, ...}``) for the block, then put back."""
+    import importlib
+
+    saved = []
+    for key, value in settings.items():
+        mod, name = key.rsplit(".", 1)
+        module = importlib.import_module(f"sparkdl_tpu_torch.observe.{mod}")
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for module, name, value in reversed(saved):
+            setattr(module, name, value)
+
+
+def _get(url, timeout=10):
+    """GET ``url``: (seconds, body text)."""
+    import urllib.request
+
+    t = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body = r.read().decode()
+    return time.perf_counter() - t, body
+
+
+def _parse_prometheus(text):
+    """``{series: value}`` of a Prometheus text body; raises on a line
+    that is not ``name{labels} value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        out[series] = float(value)
+    return out
+
+
+def alert_main(cfg, batch, warmup, healthy, slowed, factor, seed, device):
+    """Every rank of phase 25a: 9a's trainer (:func:`_gang_trainer`), its
+    step in ``instrument_step``; ``warmup`` + ``healthy`` steps of one
+    trainer step, then ``slowed`` steps of ``factor`` trainer steps in
+    one span. Each step's wall start, ms and flash launches (counters
+    zeroed first). Rank 0 returns every rank's report."""
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.observe import perf
+    from sparkdl_tpu_torch.parallel.train import instrument_step
+
+    tr = _gang_trainer(cfg, batch, seed, device)
+    rows, seq = tr.mine["inputs"].shape
+    perf.register_step_cost("train_step", flops=_lora_step_flops(
+        tr.model, tr.named, cfg, rows * seq, seq))
+
+    def steps(times):
+        for _ in range(times):
+            out = tr.step(tr.mine)
+        return out
+
+    step = instrument_step(steps, name="train_step")
+    _zero_flash()
+    starts, ms, launches = [], [], []
+    for s in range(warmup + healthy + slowed):
+        tr.sync()
+        before = _flash_launches()
+        starts.append(time.time())
+        t = time.perf_counter()
+        step(factor if s >= warmup + healthy else 1)["loss"].item()
+        ms.append(1e3 * (time.perf_counter() - t))
+        after = _flash_launches()
+        launches.append({k: after[k] - before[k] for k in after})
+    return hvd.allgather_object({
+        "rank": hvd.rank(), "starts": starts, "step_ms": ms,
+        "step_launches": launches, "launches": _flash_launches()})
+
+
+def alert_gang(torch):
+    """Phase 25a: a slowdown of 9a's fine-tune caught, profiled, diffed."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.observe import doctor, forensics, statusz, top
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = _train_cfg()
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    servers, managers, scrapes, metrics = [], [], [], []
+    start_statusz = statusz.maybe_start_statusz
+    make_forensics = forensics.maybe_make_forensics
+
+    def kept_server(*a, **k):
+        servers.append(start_statusz(*a, **k))
+        return servers[-1]
+
+    def kept_manager(*a, **k):
+        managers.append(make_forensics(*a, **k))
+        return managers[-1]
+
+    done = threading.Event()
+
+    def scrape():
+        """The driver's own reads of the live page while the gang runs."""
+        while not done.wait(0.5):
+            if not servers:
+                continue
+            base = f"http://{servers[0].address}"
+            try:
+                took, body = _get(base + "/statusz")
+                scrapes.append((took, json.loads(body)))
+                metrics[:] = [_get(base + "/metrics")[1]]  # the newest
+            except OSError:
+                continue  # between attempts, or the gang's end
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    statusz.maybe_start_statusz = kept_server
+    forensics.maybe_make_forensics = kept_manager
+    t = time.perf_counter()
+    try:
+        with _telemetry_on(**ALERT_RANK_SETTINGS) as root, \
+                _observe_settings(ALERT_SETTINGS), _launcher_settings():
+            scraper.start()
+            ranks = HorovodRunner(np=GANG_NP["25a"]).run(
+                alert_main, cfg=cfg, batch=batch, warmup=ALERT_WARMUP,
+                healthy=ALERT_HEALTHY, slowed=ALERT_SLOWED,
+                factor=ALERT_SLOW_FACTOR, seed=SEED, device=DEVICE)
+    finally:
+        wall_s = time.perf_counter() - t
+        done.set()
+        scraper.join(timeout=10)
+        statusz.maybe_start_statusz = start_statusz
+        forensics.maybe_make_forensics = make_forensics
+    run_dir = _one_run_dir(root)
+    r0 = ranks[0]
+    first_slow = ALERT_WARMUP + ALERT_HEALTHY
+    names = set(os.listdir(run_dir))
+    want = {"alerts.json", "regression_report.json",
+            "profile_report-rank-0-0.json", "trace-rank-0-0.json"}
+    _require(want <= names, f"phase 25a: the run dir lacks "
+             f"{sorted(want - names)}")
+    with open(os.path.join(run_dir, "alerts.json")) as f:
+        fired = json.load(f)["alerts"]
+    _require([(a["rule"], a["rank"]) for a in fired]
+             == [("step_time_regression", 0)],
+             f"phase 25a: alerts {[(a['rule'], a['rank']) for a in fired]}")
+    alert = fired[0]
+    _require(alert["ts"] > r0["starts"][first_slow],
+             f"phase 25a: the alert at {alert['ts']} came before the first "
+             f"slowed step began ({r0['starts'][first_slow]})")
+    with open(os.path.join(run_dir, "regression_report.json")) as f:
+        entries = json.load(f)["reports"]
+    _require(len(entries) == 1, f"phase 25a: {len(entries)} regression "
+             "entries")
+    entry = entries[0]
+    cap = entry["capture"]
+    _require(cap is not None and "error" not in cap
+             and cap["steps_captured"] == 2,
+             f"phase 25a: the capture {cap}")
+    diff = entry["diff"]
+    comp = diff["delta"]["components_per_step"]
+    base_c = diff["baseline"]["components_per_step"]["compute"]
+    grew = (base_c + comp["compute"]) / base_c
+    _require(diff["significant"] and diff["top_growing_component"]
+             == "compute" and grew >= 1.5,
+             f"phase 25a: the diff names {diff['top_growing_component']}, "
+             f"compute x{grew:.3f}")
+    [completed] = managers[0].captures_status()["completed"]
+    with open(os.path.join(run_dir, cap["report"])) as f:
+        per_step = json.load(f)["attribution"]["per_step"]
+    captured = [r["step"] for r in per_step]
+    _require(len(captured) == 2 and all(s >= first_slow for s in captured),
+             f"phase 25a: captured steps {captured}")
+    # the diff is the firing window's, healthy and slowed steps mixed; the
+    # captured steps are all slowed: their compute against the baseline's
+    captured_grew = statistics.mean(
+        r["components"]["compute"] for r in per_step) / base_c
+    _require(captured_grew >= 2.5,
+             f"phase 25a: the captured steps' compute x{captured_grew:.3f} "
+             "of the baseline's")
+    with open(os.path.join(run_dir, cap["trace_dir"])) as f:
+        trace = json.load(f)["traceEvents"]
+    in_trace, in_counters = {}, {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        in_trace[name] = sum(1 for e in trace if e.get("cat") == "kernel"
+                             and f"{name}_kernel" in e.get("name", ""))
+        in_counters[name] = sum(r0["step_launches"][s][name]
+                                for s in captured)
+        want_n = cfg.n_layers * ALERT_SLOW_FACTOR * len(captured)
+        _require(in_trace[name] == in_counters[name] == want_n,
+                 f"phase 25a: {name} {in_trace[name]} times in the trace, "
+                 f"{in_counters[name]} launches over the captured steps, "
+                 f"want {want_n}")
+    text = doctor.render_text(doctor.diagnose(run_dir))
+    for part in ("alerts: 1 fired", "step_time_regression",
+                 "perf forensics: 1 regression report(s), 1 capture(s)"):
+        _require(part in text, f"phase 25a: the doctor lacks {part!r}")
+    live = [(took, d) for took, d in scrapes
+            if isinstance(d["ranks"].get("0", {}).get("step"), int)
+            and isinstance(d["ranks"]["0"].get("beat_age_s"), float)
+            and "0" in d["perf"]["per_rank"]]
+    _require(live, f"phase 25a: no mid-run /statusz with rank 0's step, "
+             f"beat age and perf window in {len(scrapes)} scrapes")
+    _require(metrics and any(k.startswith("train_step_total{")
+                             for k in _parse_prometheus(metrics[0])),
+             "phase 25a: /metrics carried no train_step_total")
+    frame = top.render(live[-1][1])
+    _require("gang status" in frame, "phase 25a: top rendered no frame")
+    slow_ms = r0["step_ms"][first_slow:]
+    captured_ms = [r0["step_ms"][s] for s in captured]
+    span_ms = [1e3 * r["dur_s"] for r in per_step]
+    other_ms = [m for s, m in enumerate(r0["step_ms"])
+                if s >= first_slow and s not in captured
+                and s != captured[0] - 1]
+    # the profiler starts at the end of the step before the window and
+    # stops at the end of its last, on the training thread, outside the
+    # step spans: in the loop's time of those two steps, not the spans'
+    start_ms = r0["step_ms"][captured[0] - 1] - statistics.median(other_ms)
+    stop_ms = captured_ms[-1] - span_ms[-1]
+    latency = sorted(took for took, _ in scrapes)
+    report = {
+        "np": GANG_NP["25a"], "n_layers": cfg.n_layers,
+        "steps": len(r0["step_ms"]), "slowed_from": first_slow,
+        "healthy_ms_median": statistics.median(
+            r0["step_ms"][ALERT_WARMUP:first_slow]),
+        "slowed_ms_median": statistics.median(slow_ms),
+        "first_slowed_to_alert_s": alert["ts"] - r0["starts"][first_slow],
+        "alert_to_profile_done_s": completed["ts"] - alert["ts"],
+        "alert_detail": alert["detail"],
+        "captured_steps": captured, "captured_ms": captured_ms,
+        "captured_span_ms": span_ms,
+        "uncaptured_slowed_ms_median": statistics.median(other_ms),
+        "profiler_start_ms": start_ms, "profiler_stop_ms": stop_ms,
+        "profile_window_s": cap["window_s"],
+        "diff_step_factor": diff["delta"]["step_factor"],
+        "diff_compute_factor": grew,
+        "captured_compute_factor": captured_grew,
+        "diff_steps": [diff["baseline"]["steps"], diff["regressed"]["steps"]],
+        "trace_kernels": in_trace,
+        "trace_bytes": os.path.getsize(os.path.join(run_dir,
+                                                    cap["trace_dir"])),
+        "statusz_scrapes": len(scrapes),
+        "statusz_ms_median": 1e3 * statistics.median(latency),
+        "statusz_ms_max": 1e3 * latency[-1],
+        "run_dir_bytes": _dir_bytes(run_dir), "wall_s": wall_s,
+        "launches": r0["launches"]}
+    _log("alert_gang " + json.dumps(report))
+    return report
+
+
+def fleet_statusz(torch, model):
+    """Phase 25b: a one-replica fleet on this process's ``/statusz``, and
+    the ``server_ttft`` rule over its histogram."""
+    from sparkdl_tpu_torch.models.fleet import FleetFrontend
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+    from sparkdl_tpu_torch.observe import alerts, statusz
+    from sparkdl_tpu_torch.observe.aggregate import GangTelemetry
+
+    cfg = model.cfg
+    params = model.state_dict()
+    prompts, budgets = _requests(cfg, FLEET_STATUSZ_REQUESTS)
+    payloads = [{"tokens": p.tolist(), "max_new_tokens": b}
+                for p, b in zip(prompts, budgets)]
+    engines = []
+
+    def factory():
+        engines.append(ContinuousBatchingEngine(
+            model, params, n_slots=8, chunk=16, page_size=64, device=DEVICE))
+        return engines[-1]
+
+    t = time.perf_counter()
+    server = statusz.StatuszServer(GangTelemetry()).start()
+    fleet = FleetFrontend(factory, replicas=1,
+                          max_queue=FLEET_MAX_QUEUE).start()
+    docs, latency, fires = [], [], {}
+    try:
+        burst = {}
+        runner = threading.Thread(target=lambda: burst.update(
+            zip(("got", "wall"), _fleet_burst(fleet, payloads))))
+        _zero_launches()
+        runner.start()
+        while runner.is_alive():
+            took, body = _get(f"http://{server.address}/statusz")
+            latency.append(took)
+            docs.append(json.loads(body))
+            time.sleep(0.1)
+        runner.join()
+        launches = _read_launches()
+        snap = fleet.metrics.snapshot()
+        [ttft] = [h for h in snap["histograms"]
+                  if h["name"] == "server_ttft_seconds"]
+        p99 = alerts._histogram_quantile(ttft["buckets"], ttft["counts"],
+                                         0.99)
+        for name, bound in (("below", p99 / 2), ("above", p99 * 2)):
+            with _observe_settings({"alerts.TTFT_P99_S": bound,
+                                    "alerts.CHECK_S": 0.0}):
+                engine = alerts.AlertEngine(GangTelemetry())
+                engine.poll()
+                engine.poll()  # latched: the same firing, not another
+            fires[name] = [r["rule"] for r in engine.records()]
+    finally:
+        fleet.close()
+        server.close()
+    wall_s = time.perf_counter() - t
+    _require(statusz.fleet_status() is None,
+             "phase 25b: a closed fleet is still registered")
+    _burst_summary(burst["got"], payloads, burst["wall"], cfg.vocab_size,
+                   "phase 25b")
+    want = _engines_launches(cfg, engines)
+    _require(launches == want, f"phase 25b: launches {launches}, the "
+             f"engine's counts predict {want}")
+    rows = [d["fleet"] for d in docs if d.get("fleet")]
+    _require(rows and all(len(f) == 1 and len(f[0]["replicas"]) == 1
+                          and isinstance(f[0]["queue_depth"], int)
+                          for f in rows),
+             f"phase 25b: /statusz fleet rows {rows[:1]}")
+    depths = [f[0]["queue_depth"] for f in rows]
+    _require(ttft["count"] == FLEET_STATUSZ_REQUESTS,
+             f"phase 25b: server_ttft_seconds counts {ttft['count']}")
+    _require(fires == {"below": ["server_ttft"], "above": []},
+             f"phase 25b: server_ttft fired {fires} around p99 {p99}")
+    latency.sort()
+    report = {
+        "requests": FLEET_STATUSZ_REQUESTS, "replicas": 1,
+        "launches": launches, "ttft_p99_bucket_s": p99,
+        "ttft_p50_s": _hist_quantile(ttft, 0.5),
+        "queue_depth_max": max(depths), "statusz_scrapes": len(docs),
+        "statusz_ms_median": 1e3 * statistics.median(latency),
+        "statusz_ms_max": 1e3 * latency[-1],
+        "server_ttft_fires": fires, "wall_s": wall_s}
+    _log("fleet_statusz " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -6558,6 +6937,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # slice 17, on phase 3's int8 model: ServingTelemetry behind HTTP
     telemetry_serving = serve_telemetry(torch, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # slice 18, on phase 3's int8 model: a fleet on /statusz
+    fleet_live = fleet_statusz(torch, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6660,6 +7043,10 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     hang = hang_gang(torch)
+    # slice 18: 9a's fine-tune slowed down, caught, profiled and diffed
+    gc.collect()
+    torch.cuda.empty_cache()
+    alerted = alert_gang(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -6688,7 +7075,8 @@ def main(argv=None):
                     "22c": slots["launches"][name],
                     "22d": remote["launches"][name],
                     "24a": telemetry["launches"][name],
-                    "24b": hang["launches"][name]}
+                    "24b": hang["launches"][name],
+                    "25a": alerted["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -6726,7 +7114,8 @@ def main(argv=None):
                     "24c_off": telemetry_serving["launches_off"][
                         "quantized_matmul"],
                     "24c": telemetry_serving["launches"][
-                        "quantized_matmul"]}
+                        "quantized_matmul"],
+                    "25b": fleet_live["launches"]["quantized_matmul"]}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
                       "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
@@ -6745,6 +7134,8 @@ def main(argv=None):
                       "24c_off": telemetry_serving["launches_off"][
                           "paged_attention_decode"],
                       "24c": telemetry_serving["launches"][
+                          "paged_attention_decode"],
+                      "25b": fleet_live["launches"][
                           "paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
@@ -6816,6 +7207,7 @@ def main(argv=None):
                        "hf_convert": hf,
                        "telemetry_serving": telemetry_serving,
                        "telemetry_gang": telemetry, "hang_gang": hang,
+                       "fleet_statusz": fleet_live, "alert_gang": alerted,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -44,16 +44,18 @@ Spark reuses for the next job) joins that job's group, on its card.
 With the driver's telemetry on, step 1 also sets the control plane as
 the telemetry sink and starts the flusher, opens the rank's flight
 recorder in its job dir (none for a Spark barrier task, which has no job
-dir the driver reads), starts the heartbeat and the memory sampler, and
-emits ``worker.start``; at the end it emits ``worker.exit``, stops them
-and flushes once more, before BYE (the driver takes BYE as the rank's
-last word). The heartbeat and the sampler start before ``hvd.init``:
+dir the driver reads), starts the perf-forensics capture service there
+(:mod:`sparkdl_tpu_torch.observe.capture`: the driver's PROFILE_REQ
+frames), the heartbeat and the memory sampler, and emits
+``worker.start``; at the end it emits ``worker.exit``, stops them and
+flushes once more, before BYE (the driver takes BYE as the rank's last
+word). The heartbeat and the sampler start before ``hvd.init``:
 they read no card until it is bound (:mod:`sparkdl_tpu_torch.observe.
 health`). Before them the bootstrap imports ``torch._dynamo``, which a
 process's first optimizer imports otherwise (seconds of host time): in
 ``main``, after its first observed collective, that gap would count
-against ``health.STALL_S``. The JAX worker's fault injection, compile cache, profiler and
-capture service are not ported.
+against ``health.STALL_S``. The JAX worker's fault injection, compile
+cache and profiler are not ported.
 """
 
 import argparse
@@ -114,6 +116,7 @@ def _start_telemetry(client, rank, job_dir):
     :func:`_stop_telemetry` stops."""
     from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.observe import flightrec, mem
+    from sparkdl_tpu_torch.observe.capture import maybe_start_capture_service
     from sparkdl_tpu_torch.observe.health import HeartbeatSender
 
     # the first optimizer's import, taken before the hang window opens
@@ -130,11 +133,13 @@ def _start_telemetry(client, rank, job_dir):
             observe.set_flight_recorder(recorder)
         except OSError:
             recorder = None  # an unwritable dir: the rest still works
+    # its tap chains over the flight recorder's mirror
+    capture = maybe_start_capture_service(client, rank, job_dir)
     heartbeat = HeartbeatSender(client, rank)
     heartbeat.start()
     mem.maybe_start_sampler()
     observe.instant("worker.start", cat="worker", rank=rank)
-    return heartbeat, recorder
+    return heartbeat, recorder, capture
 
 
 def _stop_telemetry(started, rank, exit_code):
@@ -142,9 +147,13 @@ def _stop_telemetry(started, rank, exit_code):
     from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.observe import mem
 
-    heartbeat, recorder = started
+    heartbeat, recorder, capture = started
     heartbeat.stop()
     mem.stop_sampler()
+    if capture is not None:
+        # before the recorder its tap chains to; a capture in flight
+        # writes its trace and sends PROFILE_DONE before BYE
+        capture.stop(join_timeout=60.0)
     observe.instant("worker.exit", cat="worker", rank=rank,
                     exit_code=exit_code)
     observe.stop_flusher()

@@ -11,8 +11,12 @@ beacon), worker to driver, which the server hands to its
 :class:`~sparkdl_tpu_torch.observe.health.HangDetector`; DUMP_REQ, driver
 to worker on the rank's guaranteed socket, which the worker's watchdog
 thread answers with a STACK_DUMP of every thread, however wedged its
-training thread is. The frame numbers and layout are the JAX package's.
-The profile frames (14, 15) are not ported.
+training thread is; and PROFILE_REQ, driver to worker on the same
+socket, which the watchdog hands to the rank's capture service
+(:mod:`sparkdl_tpu_torch.observe.capture`; without one, with telemetry
+off, the frame is dropped), and which the service answers with
+PROFILE_DONE once its window is written. The frame numbers and layout
+are the JAX package's.
 
 Log volume never blocks training (reference ``runner_base.py:65-68``):
 LOG frames go into a bounded drop-oldest ring (:class:`LogRing`, 4 MiB)
@@ -68,6 +72,8 @@ MSG_TELEMETRY = 10  # a metric snapshot and timeline events
 MSG_HEARTBEAT = 11  # a rank's liveness beacon
 MSG_DUMP_REQ = 12  # driver to worker: send every thread's stack
 MSG_STACK_DUMP = 13  # worker to driver: the faulthandler dump text
+MSG_PROFILE_REQ = 14  # driver to worker: capture a perf-forensics window
+MSG_PROFILE_DONE = 15  # worker to driver: the capture's report meta
 
 _HEADER = struct.Struct(">IBI")  # length (of type+rank+payload), type, rank
 
@@ -167,6 +173,10 @@ class ControlPlaneServer:
         # on, which the worker's watchdog reads): where DUMP_REQ goes
         self._conns = {}
         self._stack_dumps = {}  # rank -> [dump text, ...]
+        self._profile_reports = {}  # rank -> [PROFILE_DONE meta, ...]
+        # the observer of PROFILE_DONE frames (the forensics manager's),
+        # called outside the lock as on_profile_done(rank, meta)
+        self.on_profile_done = None
         self.secret = _secrets.token_hex(32)  # the workers get it
         self._log_file = open(log_path, "a", buffering=1) if log_path \
             else None
@@ -319,6 +329,18 @@ class ControlPlaneServer:
                                                reason=msg.get("reason"))
             if self._health is not None:
                 self._health.note_stack_dump(rank)
+        elif mtype == MSG_PROFILE_DONE:
+            msg = json.loads(payload.decode("utf-8", "replace"))
+            if not isinstance(msg, dict):
+                msg = {}
+            with self._lock:
+                self._profile_reports.setdefault(rank, []).append(msg)
+            self._log(f"[rank {rank} PROFILE DONE "
+                      f"({msg.get('reason', 'requested')}) "
+                      f"{msg.get('report') or ''}]")
+            cb = self.on_profile_done
+            if cb is not None:
+                cb(rank, msg)
         elif mtype == MSG_BYE:
             with self._lock:
                 self._bye.add(rank)
@@ -364,17 +386,19 @@ class ControlPlaneServer:
         handled (an exited worker's socket ends after its last byte).
         A rank that said BYE had opened its log ring's connection too,
         which the accept thread may not have taken up yet: wait for both
-        of its connections to end."""
+        of its connections to end. True when everything drained within
+        ``timeout``, False when it ran out first."""
         deadline = time.monotonic() + timeout
         with self._lock:
             threads = list(self._threads)
         for t in threads:
             t.join(max(0.0, deadline - time.monotonic()))
         with self._conn_ended:
-            self._conn_ended.wait_for(
+            ended = self._conn_ended.wait_for(
                 lambda: all(self._ended[r] >= CONNECTIONS_PER_WORKER
                             for r in self._bye),
                 max(0.0, deadline - time.monotonic()))
+        return bool(ended) and not any(t.is_alive() for t in threads)
 
     def request_dump(self, rank, reason="stall"):
         """Ask ``rank`` for a stack dump of every thread, down its
@@ -391,6 +415,36 @@ class ControlPlaneServer:
         except OSError:
             return False
         return True
+
+    def request_profile(self, rank, reason="alert", rule=None, steps=None):
+        """Ask ``rank`` to capture a perf-forensics window (a
+        ``torch.profiler`` trace, the window's uncapped attribution, a
+        memory snapshot) into its job dir, down its guaranteed socket;
+        False when the rank has none or the send fails. Never raises."""
+        with self._lock:
+            conn = self._conns.get(rank)
+        if conn is None:
+            return False
+        req = {"reason": reason}
+        if rule is not None:
+            req["rule"] = rule
+        if steps is not None:
+            req["steps"] = int(steps)
+        payload = json.dumps(req).encode("utf-8")
+        try:
+            conn.sendall(_HEADER.pack(len(payload) + 5, MSG_PROFILE_REQ,
+                                      rank) + payload)
+        except OSError:
+            return False
+        return True
+
+    def profile_reports(self, rank=None):
+        """The PROFILE_DONE metas received: ``{rank: [meta, ...]}``, or
+        one rank's list."""
+        with self._lock:
+            if rank is not None:
+                return list(self._profile_reports.get(rank, ()))
+            return {r: list(d) for r, d in self._profile_reports.items()}
 
     def stack_dumps(self, rank=None):
         """The stack dumps received: ``{rank: [text, ...]}``, or one
@@ -525,6 +579,8 @@ class ControlPlaneClient:
         self._sock.sendall(auth)
         self._lock = threading.Lock()
         self._closing = False
+        # the capture service's entry for PROFILE_REQ (None: dropped)
+        self._profile_handler = None
         self._logs = LogRing(host, int(port), auth)
 
     @property
@@ -582,6 +638,35 @@ class ControlPlaneClient:
             dump = "<faulthandler dump failed>\n" + traceback.format_exc()
         self._send_json(MSG_STACK_DUMP, {"reason": reason, "dump": dump})
 
+    def set_profile_handler(self, handler):
+        """Register the capture service's entry for the driver's
+        PROFILE_REQ frames, ``handler(request_dict)``, called on the
+        watchdog thread (it hands the capture to a thread of its own);
+        None unregisters."""
+        self._profile_handler = handler
+
+    def send_profile_done(self, report_meta):
+        """Answer a PROFILE_REQ: the finished (or failed) capture's
+        metadata, on the guaranteed socket."""
+        self._send_json(MSG_PROFILE_DONE, report_meta)
+
+    def _dispatch_profile_request(self, payload):
+        """One PROFILE_REQ to the registered capture service; without one
+        the frame is dropped: no error, no work."""
+        handler = self._profile_handler
+        if handler is None:
+            return
+        try:
+            req = json.loads(payload.decode("utf-8", "replace"))
+        except ValueError:
+            req = {}
+        if not isinstance(req, dict):
+            req = {}
+        try:
+            handler(req)
+        except Exception:
+            pass  # the watchdog keeps watching, whatever the service does
+
     def send_result(self, pickled_bytes):
         self._logs.flush()  # the run's last lines reach the driver first
         if len(pickled_bytes) <= RESULT_CHUNK:
@@ -607,7 +692,8 @@ class ControlPlaneClient:
         """Exit this worker when the driver's end of the socket closes
         (the driver died, even by SIGKILL): no worker outlives its
         driver, holding its card. Meanwhile answer the driver's DUMP_REQ
-        frames, the only frames it sends."""
+        frames and hand its PROFILE_REQ frames to the capture service,
+        the only frames it sends."""
 
         def watch():
             try:
@@ -623,6 +709,8 @@ class ControlPlaneClient:
                         break
                     if mtype == MSG_DUMP_REQ:
                         self._answer_dump_request(payload)
+                    elif mtype == MSG_PROFILE_REQ:
+                        self._dispatch_profile_request(payload)
             except OSError:
                 pass
             if self._closing:

@@ -73,8 +73,23 @@ transient. The run dir (timeline, metrics, step attribution, health,
 stack dumps, flight-recorder tails) is written however the launch ends,
 an exhausted retry budget included.
 
-Elastic resizing, per-rank kwargs, the statusz page, the alert engine
-and the pre-flight lint of the JAX launcher are not ported.
+The live tier rides the same telemetry: with ``statusz.PORT`` set, each
+attempt of a local or remote gang serves ``/statusz``, ``/metrics``,
+``/events`` and ``/capturez`` on the driver
+(:mod:`sparkdl_tpu_torch.observe.statusz`); with ``alerts.ENABLED``, one
+alert engine spans the launch's attempts and is polled in the monitor
+loop beside the hang detector, and its report becomes the run dir's
+``alerts.json``; one perf-forensics manager spans them too, bound to
+each attempt's control plane, and with ``forensics.ON_ALERT`` a perf
+alert asks the rank for a ``torch.profiler`` window (PROFILE_REQ) and
+writes ``regression_report.json``. None of it ever replaces the gang's
+own result or exception. A Spark barrier gang gets the telemetry and the
+run dir, not the live tier.
+
+Elastic resizing, per-rank kwargs and the pre-flight lint of the JAX
+launcher are not ported; nor are its comms and fixit pre-flight
+reports, the producers of ``comms_report.json`` and
+``fixit_report.json``.
 """
 
 import json
@@ -419,17 +434,30 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
             "main().", len(payload) / 2**20)
     from sparkdl_tpu_torch import observe
 
-    telemetry = None
+    telemetry = alert_engine = forensics = None
     if observe.enabled():
         from sparkdl_tpu_torch.observe.aggregate import GangTelemetry
+        from sparkdl_tpu_torch.observe.alerts import maybe_make_engine
+        from sparkdl_tpu_torch.observe.forensics import maybe_make_forensics
 
         telemetry = GangTelemetry()
+        # one engine and one forensics manager span the attempts
+        alert_engine = maybe_make_engine(telemetry)
+        forensics = maybe_make_forensics(telemetry, alert_engine=alert_engine)
     try:
         return supervisor.supervise(
             lambda ctx: _launch_gang_once(np, payload, driver_log_verbosity,
-                                          restart=ctx, telemetry=telemetry),
+                                          restart=ctx, telemetry=telemetry,
+                                          alerts=alert_engine,
+                                          forensics=forensics),
             supervisor.policy)
     finally:
+        if alert_engine is not None:
+            # a clean run's alerts.json too: the rules ran, none fired
+            try:
+                telemetry.add_alert_report(alert_engine.report())
+            except Exception as e:  # noqa: BLE001 - never masks the gang
+                logger.warning("alert report attach failed: %s", e)
         if telemetry is not None and observe.telemetry_dir():
             # never masks the gang's own result or exception
             try:
@@ -444,10 +472,12 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
 
 
 def _launch_gang_once(np, payload, driver_log_verbosity, restart,
-                      telemetry=None):
+                      telemetry=None, alerts=None, forensics=None):
     """One launch attempt of the cloudpickled ``(main, kwargs)``, its
     workers told ``restart`` (a RestartContext), their telemetry into
-    ``telemetry`` (a GangTelemetry, or None); rank 0's result."""
+    ``telemetry`` (a GangTelemetry, or None), polled by ``alerts`` (an
+    AlertEngine, or None), captures through ``forensics`` (a
+    ForensicsManager, or None); rank 0's result."""
     from sparkdl_tpu_torch.horovod.topology import (
         Placement,
         _addressable,
@@ -503,14 +533,15 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
         master_addr = _addressable("localhost") if remote else "127.0.0.1"
         return _run_gang(num_workers, mode, placement, remote, shell,
                          master_addr, payload, driver_log_verbosity, restart,
-                         telemetry)
+                         telemetry, alerts, forensics)
     finally:
         if claim is not None:
             claim.release()
 
 
 def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
-              payload, driver_log_verbosity, restart, telemetry=None):
+              payload, driver_log_verbosity, restart, telemetry=None,
+              alerts=None, forensics=None):
     """Spawn the workers (``remote`` hosts' through ``shell``), wait for
     them and return rank 0's unpickled result."""
     import cloudpickle
@@ -518,19 +549,35 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
 
     from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
-    from sparkdl_tpu_torch.horovod.supervisor import GangFailure
+    from sparkdl_tpu_torch.horovod.supervisor import (
+        GangFailure,
+        record_attempt_world,
+    )
 
     job_dir = tempfile.mkdtemp(prefix="sparkdl-torch-job-")
     boot_path = os.path.join(job_dir, "boot.bin")
-    store = server = detector = None
+    store = server = detector = statusz = None
     procs, boot_logs = [], []
+    record_attempt_world(num_workers)
     if telemetry is not None:
         from sparkdl_tpu_torch.observe.health import HangDetector
 
         detector = HangDetector(num_workers)
-        # the attempt's rings and OOM reports, for the run dir
+        if alerts is not None:
+            alerts.set_world(num_workers, detector=detector)
+        # the attempt's rings, OOM reports and captures, for the run dir
         telemetry.note_job_dir(job_dir)
     try:
+        if telemetry is not None:
+            from sparkdl_tpu_torch.observe.statusz import maybe_start_statusz
+
+            # inside the try: the finally closes it however the attempt ends
+            statusz = maybe_start_statusz(
+                telemetry, detector=detector, num_workers=num_workers,
+                alerts=alerts, forensics=forensics)
+            if statusz is not None:
+                logger.info("statusz live at http://%s/statusz",
+                            statusz.address)
         # local gangs stream their workers' output to the driver
         # (reference README.md:44-47); one-worker-a-slot gangs honor
         # driver_log_verbosity
@@ -540,6 +587,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
             log_path=os.path.join(job_dir, "job.log"),
             bind_host="0.0.0.0" if remote else "127.0.0.1",
             telemetry=telemetry, health=detector)
+        if forensics is not None:
+            # PROFILE_REQ goes out through this attempt's control plane
+            forensics.bind_server(server)
         # the store's server listens on every interface; master_addr is
         # what the workers dial, a routable one when a rank is remote
         store = dist.TCPStore(master_addr, 0, is_master=True,
@@ -625,6 +675,12 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         first_death = None
         while any(p.poll() is None for p in procs):
             codes = [p.poll() for p in procs]
+            if alerts is not None:
+                # the streaming rules (throttled to their cadence); a perf
+                # firing asks its rank for a profile window
+                fired = alerts.poll()
+                if forensics is not None and fired:
+                    forensics.on_alerts(fired)
             if detector is not None and first_death is None:
                 _check_hang(detector, server, procs, num_workers, job_dir)
             if (JOB_TIMEOUT_S is not None
@@ -642,7 +698,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
                          "worker_death")
             time.sleep(0.05)
         codes = [p.wait() for p in procs]
-        server.wait_drained(5.0)
+        if not server.wait_drained(5.0):
+            logger.warning("the control plane did not drain within 5 s of "
+                           "the workers' exit; frames after that are lost")
         if any(codes):
             fail(f"HorovodRunner job failed (exit codes {codes}).", codes,
                  "worker_death")
@@ -652,6 +710,8 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
                  "result over the control plane.", codes, "no_result")
         return cloudpickle.loads(result)
     finally:
+        if statusz is not None:
+            statusz.close()  # before the teardown a scrape would race
         if detector is not None:
             # however the attempt ended: its verdicts, for health.json
             telemetry.add_health_summary(detector.summary())

@@ -31,8 +31,9 @@ With telemetry on, each attempt lands on the driver's timeline and
 metrics as in the JAX package: the ``gang.attempt`` and
 ``gang.failure`` instants, ``gang_attempts_total``,
 ``gang_failures_total{verdict}``, ``gang_restarts_total`` and the
-``gang.backoff`` span. Not ported: the elastic relaunch at another world
-size and its reshard pre-flight, and the attempt-world ledger.
+``gang.backoff`` span. The launcher records each attempt's world size
+(:func:`record_attempt_world`), which ``/statusz`` reads. Not ported:
+the elastic relaunch at another world size and its reshard pre-flight.
 """
 
 import dataclasses
@@ -254,6 +255,42 @@ class RetryPolicy:
 # the policy launch_gang supervises with; replace it to turn retries on
 policy = RetryPolicy()
 
+# the world size and the wall-clock start of each launch attempt of the
+# current supervised launch, for /statusz
+_attempt_worlds = []
+_attempt_stamps = []
+
+
+def record_attempt_world(num_workers):
+    """Launcher hook: one resolved gang size a launch attempt."""
+    _attempt_worlds.append(int(num_workers))
+    _attempt_stamps.append(time.time())
+
+
+def attempt_world_sizes():
+    """World sizes of this driver's launch attempts, oldest first."""
+    return list(_attempt_worlds)
+
+
+def attempt_chip_hours(now=None):
+    """Card-hours an attempt (world size x the attempt's wall time), the
+    last one up to ``now``; None where an attempt's start is unknown."""
+    now = time.time() if now is None else now
+    out = []
+    for i, world in enumerate(_attempt_worlds):
+        t0 = _attempt_stamps[i] if i < len(_attempt_stamps) else None
+        if t0 is None:
+            out.append({"attempt": i + 1, "world": world,
+                        "chip_hours": None})
+            continue
+        t1 = (_attempt_stamps[i + 1]
+              if i + 1 < len(_attempt_stamps) else now)
+        out.append({
+            "attempt": i + 1, "world": world,
+            "chip_hours": round(world * max(0.0, t1 - t0) / 3600.0, 6),
+        })
+    return out
+
 
 def _resume_step(policy):
     if not policy.resume_dir:
@@ -277,6 +314,8 @@ def supervise(launch, policy, _sleep=time.sleep):
 
     attempts = []
     attempt = 1
+    del _attempt_worlds[:]  # each supervised launch its own
+    del _attempt_stamps[:]
     while True:
         context = (RestartContext(0, None) if attempt == 1 else
                    RestartContext(attempt - 1, _resume_step(policy)))

@@ -30,6 +30,11 @@ on one engine thread. This module adds the tier above it:
     drained the same way, and REPLACED with a fresh engine from the
     factory (``server_replica_restarts_total{cause=...}``).
 
+A started fleet registers with :mod:`~sparkdl_tpu_torch.observe.statusz`
+(weakly; ``close`` unregisters it): any status server of the process shows
+its replica table, and the alert engine's ``server_ttft`` and
+``queue_depth_growth`` rules read it.
+
 Each request is answered as soon as it finishes: the worker's progress
 hook posts what ``engine.take_finished()`` hands over after every decode
 chunk (the JAX worker answers its blocking clients only when ``run()``
@@ -740,6 +745,11 @@ class FleetFrontend:
     # -- lifecycle ----------------------------------------------------
 
     def start(self):
+        from sparkdl_tpu_torch.observe.statusz import register_fleet
+
+        # any status server of this process renders its replica table, and
+        # the alert engine's fleet rules read it (weakly held)
+        register_fleet(self)
         for w in self._workers:
             w.start()
         self._monitor_thread.start()
@@ -750,6 +760,9 @@ class FleetFrontend:
         return self
 
     def close(self):
+        from sparkdl_tpu_torch.observe.statusz import unregister_fleet
+
+        unregister_fleet(self)  # a closed fleet leaves the table at once
         self._shutdown.set()
         self._httpd.shutdown()
         self._httpd.server_close()

@@ -11,7 +11,16 @@ facade the rest of the port calls:
 - :mod:`~sparkdl_tpu_torch.observe.aggregate`: the driver's merge of
   its ranks' telemetry into one run dir;
 - :mod:`~sparkdl_tpu_torch.observe.perf`, ``health``, ``mem``,
-  ``flightrec`` and ``serving``.
+  ``flightrec`` and ``serving``;
+- the live tier: :mod:`~sparkdl_tpu_torch.observe.statusz` (the gang's
+  ``/statusz``, ``/metrics``, ``/events`` and ``/capturez``),
+  :mod:`~sparkdl_tpu_torch.observe.alerts` (the streaming rules),
+  :mod:`~sparkdl_tpu_torch.observe.forensics` and
+  :mod:`~sparkdl_tpu_torch.observe.capture` (alert-triggered
+  ``torch.profiler`` windows over PROFILE_REQ / PROFILE_DONE);
+- the readers of a run dir, a ledger or a live page:
+  :mod:`~sparkdl_tpu_torch.observe.doctor`, ``compare``, ``trend`` and
+  ``top``.
 
 **Off by default.** The switch is the module setting
 :data:`TELEMETRY_DIR` (None: off), read at call time; no environment
@@ -21,8 +30,9 @@ no thread starts, no CUDA call is made, nothing is allocated. The
 always live when made explicitly (the serving frontend's ``/metrics``).
 
 A gang's driver ships the worker-side settings (:func:`worker_settings`:
-this module's, ``health.HEARTBEAT_S``, ``mem.SAMPLE_S`` and
-``flightrec.EVENTS``) to each rank on its command line, or in a Spark
+this module's, ``health.HEARTBEAT_S``, ``mem.SAMPLE_S``,
+``flightrec.EVENTS`` and the capture service's ``capture.STEPS`` and
+``capture.AT_STEP``) to each rank on its command line, or in a Spark
 barrier task's closure; the rank applies them for the length of its run
 (:func:`applied_settings`) and never reads them from its environment.
 
@@ -97,15 +107,16 @@ def timeline():
 
 
 def _setting_owners():
-    from sparkdl_tpu_torch.observe import flightrec, health, mem
+    from sparkdl_tpu_torch.observe import capture, flightrec, health, mem
 
     return {"observe": sys.modules[__name__], "health": health, "mem": mem,
-            "flightrec": flightrec}
+            "flightrec": flightrec, "capture": capture}
 
 
 _WORKER_SETTINGS = (("observe", "TELEMETRY_DIR"), ("observe", "FLUSH_S"),
                     ("health", "HEARTBEAT_S"), ("mem", "SAMPLE_S"),
-                    ("flightrec", "EVENTS"))
+                    ("flightrec", "EVENTS"), ("capture", "STEPS"),
+                    ("capture", "AT_STEP"))
 
 
 def worker_settings():

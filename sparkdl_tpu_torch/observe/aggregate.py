@@ -21,12 +21,23 @@ hang verdicts) and writes the JAX package's artifacts:
 - ``stack-rank-<r>.txt``: the stack dumps a hang diagnosis asked for;
 - ``flightrec-rank-<r>.json``: each rank's flight-recorder tail,
   recovered from every attempt's job dir (a rank SIGKILLed between
-  flushes leaves only this), and any ``oom_report*.json`` found there.
+  flushes leaves only this), and any ``oom_report*.json`` found there;
+- ``alerts.json``: the alert engine's report of every attempt, merged
+  (the newest configuration, every attempt's firings), written for a
+  clean run too (:meth:`GangTelemetry.add_alert_report`);
+- ``regression_report.json``: the perf forensics' entries
+  (:meth:`GangTelemetry.add_regression_report`), and the captures'
+  ``profile_report-rank-<r>-<seq>.json`` and
+  ``trace-rank-<r>-<seq>.json`` (a ``torch.profiler`` Chrome trace, in
+  place of the JAX package's ``xprof-rank-*`` directories) recovered
+  from the job dirs;
+- ``comms_report.json`` and ``fixit_report.json``: only when reports
+  are handed to :meth:`GangTelemetry.add_comms_reports` /
+  :meth:`GangTelemetry.add_fixit_reports` (the JAX launcher's pre-flight
+  over HLO and jaxpr, their producer, has no counterpart in the port).
 
-The JAX module's comms, fixit, alert, elastic and regression reports
-come with their producers, which the port lacks. ``ingest`` runs on
-control-plane connection threads while ``write`` runs on the driver's
-main thread: one lock covers both.
+``ingest`` runs on control-plane connection threads while ``write`` runs
+on the driver's main thread: one lock covers both.
 """
 
 import collections
@@ -49,6 +60,10 @@ PROM_FILE = "metrics.prom"
 JSON_FILE = "metrics.json"
 HEALTH_FILE = "health.json"
 PERF_FILE = "perf.json"
+COMMS_FILE = "comms_report.json"
+FIXIT_FILE = "fixit_report.json"
+ALERTS_FILE = "alerts.json"
+REGRESSION_FILE = "regression_report.json"
 
 # the live event journal is a ring: live readers want the recent past
 # only, while write() reads every rank's full event list
@@ -74,6 +89,10 @@ class GangTelemetry:
         self._stack_dumps = {}      # rank -> [(reason, dump), ...]
         self._job_dirs = []         # one per attempt (flight-recorder scan)
         self._health_summaries = []  # one HangDetector summary an attempt
+        self._comms_reports = []    # static comms budgets, when handed
+        self._fixit_reports = []    # fixit reports, when handed
+        self._alert_reports = []    # one alert-engine report an attempt
+        self._regression_reports = []  # perf-forensics entries
         self._journal = collections.deque(maxlen=JOURNAL_CAP)
         self._journal_seq = 0
         # the driver's registry outlives launches: baseline it now, so
@@ -125,6 +144,38 @@ class GangTelemetry:
         if summary:
             with self._lock:
                 self._health_summaries.append(summary)
+
+    def add_comms_reports(self, reports):
+        """Static comms budgets, written to ``comms_report.json`` for the
+        doctor to set against the measured collective bytes."""
+        with self._lock:
+            self._comms_reports.extend(
+                r for r in reports if isinstance(r, dict))
+
+    def add_fixit_reports(self, reports):
+        """Fixit reports, written to ``fixit_report.json`` for the
+        doctor's fixit section."""
+        with self._lock:
+            self._fixit_reports.extend(
+                r for r in reports if isinstance(r, dict))
+
+    def add_alert_report(self, report):
+        """One alert-engine report (:meth:`~sparkdl_tpu_torch.observe.
+        alerts.AlertEngine.report`). Reports accumulate: ``write`` merges
+        them into ``alerts.json``, the newest configuration and every
+        firing, and writes it when nothing fired too (a clean run's file
+        says the rules ran)."""
+        if isinstance(report, dict):
+            with self._lock:
+                self._alert_reports.append(report)
+
+    def add_regression_report(self, entry):
+        """One perf-forensics entry (:mod:`sparkdl_tpu_torch.observe.
+        forensics`): the ``diff_attribution`` of a fired perf alert with
+        its trigger and capture, written to ``regression_report.json``."""
+        if isinstance(entry, dict):
+            with self._lock:
+                self._regression_reports.append(entry)
 
     # -- live views -------------------------------------------------------------
 
@@ -269,6 +320,10 @@ class GangTelemetry:
             dumps = {r: list(d) for r, d in self._stack_dumps.items()}
             job_dirs = list(self._job_dirs)
             health = list(self._health_summaries)
+            comms = list(self._comms_reports)
+            fixit = list(self._fixit_reports)
+            alert_reports = list(self._alert_reports)
+            regression_reports = list(self._regression_reports)
         perf_ranks = {}
         for rank in sorted(rank_events):
             report = perf.attribution_report(rank_events[rank])
@@ -284,6 +339,22 @@ class GangTelemetry:
             files.append((PERF_FILE, json.dumps(
                 {"schema": perf.BREAKDOWN_SCHEMA, "ranks": perf_ranks},
                 indent=2)))
+        if alert_reports:
+            merged = dict(alert_reports[-1])
+            merged["alerts"] = [a for rep in alert_reports
+                                for a in rep.get("alerts", ())]
+            merged["attempts"] = len(alert_reports)
+            files.append((ALERTS_FILE, json.dumps(merged, indent=2)))
+        if regression_reports:
+            files.append((REGRESSION_FILE, json.dumps(
+                {"schema": perf.REGRESSION_SCHEMA,
+                 "reports": regression_reports}, indent=2)))
+        if comms:
+            files.append((COMMS_FILE, json.dumps({"reports": comms},
+                                                 indent=2)))
+        if fixit:
+            files.append((FIXIT_FILE, json.dumps({"reports": fixit},
+                                                 indent=2)))
         for rank in sorted(dumps):
             files.append((f"stack-rank-{rank}.txt", "\n".join(
                 f"==== stack dump (reason: {reason}) ====\n{dump}"
@@ -297,9 +368,13 @@ class GangTelemetry:
         for rank in sorted(tails):
             files.append((f"flightrec-rank-{rank}.json",
                           json.dumps({"rank": rank, "events": tails[rank]})))
+        # OOM reports, and the captures' reports and Chrome traces
         for job_dir in job_dirs:
-            for src in sorted(glob.glob(os.path.join(job_dir,
-                                                     "oom_report*.json"))):
+            for src in sorted(
+                    glob.glob(os.path.join(job_dir, "oom_report*.json"))
+                    + glob.glob(os.path.join(job_dir,
+                                             "profile_report*.json"))
+                    + glob.glob(os.path.join(job_dir, "trace-rank-*.json"))):
                 try:
                     with open(src) as f:
                         files.append((os.path.basename(src), f.read()))

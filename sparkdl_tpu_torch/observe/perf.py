@@ -34,8 +34,25 @@ port):
   takes the caller's analytic count (``flops=``, ``bytes_accessed=``).
 - No environment variable overrides a peak.
 
-The perf-history ledger and ``diff_attribution`` are not ported.
+3. **Differential attribution** (:func:`diff_attribution`,
+   :func:`render_diff_lines`): why steps got slower between two windows,
+   component by component, with the grown span names: the JAX package's
+   code, schema ``sparkdl_tpu.perf.regression/1``.
+
+4. **Regression ledger** (:func:`history_record`, :func:`append_history`,
+   :func:`read_history`): one schema-versioned JSON line a record, the
+   JAX package's format byte for byte, so each package reads the other's
+   ledger. Its path is the module setting :data:`HISTORY_PATH`, read at
+   call time; None (the default) is no ledger: :func:`append_history`
+   writes only where it is given a ``path``, and :func:`read_history`
+   returns ``[]``. The JAX module defaults to its package's
+   ``benchmarks/results/history.jsonl``; the port never writes there.
 """
+
+import json
+import os
+import socket
+import time
 
 BREAKDOWN_SCHEMA = "sparkdl_tpu.perf.breakdown/1"
 
@@ -364,6 +381,244 @@ def attribution_report(events, step_cat="train"):
     return doc
 
 
+# -- differential attribution (perf forensics) -------------------------------
+
+REGRESSION_SCHEMA = "sparkdl_tpu.perf.regression/1"
+
+
+def _report_from_rows(rows):
+    """An :func:`attribution_report`-shaped doc aggregated from
+    precomputed per-step rows (the capped-rows fallback: when only
+    ``perf.json``'s ``per_step`` survive, the diff still runs — it
+    just cannot name grown span names)."""
+    totals = {c: 0.0 for c in COMPONENTS}
+    for r in rows:
+        for c, v in (r.get("components") or {}).items():
+            if c in totals and isinstance(v, (int, float)):
+                totals[c] += float(v)
+    total_s = sum(float(r.get("dur_s") or 0.0) for r in rows)
+    overlapped = sum(float(r.get("overlapped_collective_s") or 0.0)
+                     for r in rows)
+    coll = sum(float(r.get("collective_total_s") or 0.0) for r in rows)
+    doc = make_breakdown(total_s, totals, source="rows")
+    doc.update({
+        "steps": len(rows),
+        "overlapped_collective_s": overlapped,
+        "collective_total_s": coll,
+        "overlap_efficiency": (overlapped / coll if coll > 0 else None),
+        "per_step": list(rows),
+    })
+    return doc
+
+
+def _window_report(window, step_cat="train"):
+    """Normalize one diff side into ``(attribution doc, raw events)``.
+
+    Accepts — in order of forensic fidelity — a raw timeline event
+    list (→ :func:`attribution_report`, span names available), a list
+    of precomputed per-step rows (``components``/``dur_s`` dicts), or
+    an already-built attribution/breakdown doc. ``(None, None)`` when
+    the window carries nothing attributable."""
+    if isinstance(window, dict):
+        if "events" in window and isinstance(window["events"],
+                                             (list, tuple)):
+            events = list(window["events"])
+            doc = attribution_report(events, step_cat=step_cat)
+            if window.get("mfu") is not None and "mfu" not in doc:
+                doc["mfu"] = window["mfu"]
+            return (doc if doc.get("steps") else None,
+                    events if doc.get("steps") else None)
+        if "components" in window or "per_step" in window:
+            return (window if window.get("steps") else None), None
+        return None, None
+    if isinstance(window, (list, tuple)):
+        items = [w for w in window if isinstance(w, dict)]
+        if not items:
+            return None, None
+        if all("components" in w and "dur_s" in w for w in items):
+            return _report_from_rows(items), None
+        doc = attribution_report(items, step_cat=step_cat)
+        if not doc.get("steps"):
+            return None, None
+        return doc, items
+    return None, None
+
+
+def _per_step_components(doc):
+    """Mean step-thread seconds per step for every component."""
+    steps = doc.get("steps") or 0
+    comps = doc.get("components") or {}
+    if not steps:
+        return {c: 0.0 for c in COMPONENTS}
+    return {c: float(comps.get(c, 0.0) or 0.0) / steps
+            for c in COMPONENTS}
+
+
+def _span_seconds_per_step(events, steps, step_cat="train"):
+    """Per-step seconds by span name over raw events (non-step X
+    spans) — the grown-span-names half of the diff."""
+    if not events or not steps:
+        return {}
+    by_name = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") == step_cat:
+            continue
+        name = e.get("name")
+        ts = e.get("ts")
+        if not name or not isinstance(ts, (int, float)):
+            continue
+        dur = float(e.get("dur", 0) or 0) / 1e6
+        by_name[name] = by_name.get(name, 0.0) + dur
+    return {n: s / steps for n, s in by_name.items()}
+
+
+def _window_summary(doc):
+    steps = doc.get("steps") or 0
+    total_s = float(doc.get("total_s") or 0.0)
+    return {
+        "steps": steps,
+        "step_s_mean": (total_s / steps if steps else None),
+        "components_per_step": _per_step_components(doc),
+        "overlap_efficiency": doc.get("overlap_efficiency"),
+        "mfu": doc.get("mfu"),
+        "inter_step_data_wait_s": doc.get("inter_step_data_wait_s"),
+    }
+
+
+def diff_attribution(baseline_window, regressed_window, *,
+                     step_cat="train", noise_floor_s=1e-3,
+                     rel_floor=0.05, top_spans=5):
+    """Differential step attribution: WHY did steps get slower between
+    two windows (the alert rule's own calibration window vs the window
+    that fired)?
+
+    Each window may be a raw timeline event list, a list of per-step
+    attribution rows, or an :func:`attribution_report` doc — the
+    capped-rows fallback means a 200-row ``perf.json`` still diffs,
+    it just cannot name grown spans. Returns a
+    :data:`REGRESSION_SCHEMA` doc::
+
+        {"schema", "baseline": {...}, "regressed": {...},
+         "delta": {"step_s", "step_factor", "components_per_step",
+                   "overlap_efficiency", "mfu"},
+         "top_growing_component": name|None,   # None = under the floor
+         "growth_fraction": {...},  # share of step growth, grown comps
+         "top_growing_spans": [{"name", "baseline_s_per_step",
+                                "regressed_s_per_step", "delta_s"}],
+         "significant": bool, "noise_floor_s": float}
+
+    or ``None`` when either side has no attributable steps. The noise
+    floor — ``max(noise_floor_s, rel_floor × baseline step time)`` —
+    keeps run-to-run jitter from being named a grown component: a
+    zero-delta pair reports ``significant: False`` and no culprit.
+    """
+    base_doc, base_events = _window_report(baseline_window,
+                                           step_cat=step_cat)
+    reg_doc, reg_events = _window_report(regressed_window,
+                                         step_cat=step_cat)
+    if base_doc is None or reg_doc is None:
+        return None
+    base = _window_summary(base_doc)
+    reg = _window_summary(reg_doc)
+    step_delta = reg["step_s_mean"] - base["step_s_mean"]
+    floor = max(float(noise_floor_s), rel_floor * base["step_s_mean"])
+    comp_delta = {
+        c: reg["components_per_step"][c] - base["components_per_step"][c]
+        for c in COMPONENTS
+    }
+    grown = {c: d for c, d in comp_delta.items() if d > floor}
+    significant = step_delta > floor and bool(grown)
+    top_component = (max(grown, key=grown.get) if significant else None)
+    growth_fraction = {}
+    if significant and step_delta > 0:
+        growth_fraction = {c: d / step_delta for c, d in grown.items()}
+    eff_delta = None
+    if isinstance(base.get("overlap_efficiency"), (int, float)) and \
+            isinstance(reg.get("overlap_efficiency"), (int, float)):
+        eff_delta = (reg["overlap_efficiency"]
+                     - base["overlap_efficiency"])
+    mfu_delta = None
+    if isinstance(base.get("mfu"), (int, float)) and \
+            isinstance(reg.get("mfu"), (int, float)):
+        mfu_delta = reg["mfu"] - base["mfu"]
+    spans = []
+    if base_events is not None and reg_events is not None:
+        base_spans = _span_seconds_per_step(
+            base_events, base["steps"], step_cat=step_cat)
+        reg_spans = _span_seconds_per_step(
+            reg_events, reg["steps"], step_cat=step_cat)
+        for name in set(base_spans) | set(reg_spans):
+            d = reg_spans.get(name, 0.0) - base_spans.get(name, 0.0)
+            if d > floor:
+                spans.append({
+                    "name": name,
+                    "baseline_s_per_step": base_spans.get(name, 0.0),
+                    "regressed_s_per_step": reg_spans.get(name, 0.0),
+                    "delta_s": d,
+                })
+        spans.sort(key=lambda s: -s["delta_s"])
+        spans = spans[:top_spans]
+    return {
+        "schema": REGRESSION_SCHEMA,
+        "baseline": base,
+        "regressed": reg,
+        "delta": {
+            "step_s": step_delta,
+            "step_factor": (reg["step_s_mean"] / base["step_s_mean"]
+                            if base["step_s_mean"] else None),
+            "components_per_step": comp_delta,
+            "overlap_efficiency": eff_delta,
+            "mfu": mfu_delta,
+        },
+        "top_growing_component": top_component,
+        "growth_fraction": growth_fraction,
+        "top_growing_spans": spans,
+        "significant": significant,
+        "noise_floor_s": floor,
+    }
+
+
+def render_diff_lines(diff, indent=""):
+    """Human-readable lines for one :func:`diff_attribution` doc — the
+    SHARED renderer doctor, ``observe.compare --explain`` and the
+    forensics report all use, so the three surfaces read alike."""
+    if not diff:
+        return []
+    base, reg = diff["baseline"], diff["regressed"]
+    d = diff["delta"]
+    lines = [
+        "%sstep time: %.4fs -> %.4fs (x%.2f, %+.4fs) over %d vs %d "
+        "step(s)" % (
+            indent, base["step_s_mean"], reg["step_s_mean"],
+            d["step_factor"] or 0.0, d["step_s"],
+            base["steps"], reg["steps"]),
+    ]
+    for c in COMPONENTS:
+        delta = d["components_per_step"].get(c, 0.0)
+        marker = ""
+        if c == diff.get("top_growing_component"):
+            marker = "  <-- grew the most"
+        lines.append(
+            "%s  %-13s %.4fs/step -> %.4fs/step (%+.4fs)%s" % (
+                indent, c, base["components_per_step"].get(c, 0.0),
+                reg["components_per_step"].get(c, 0.0), delta, marker))
+    if d.get("overlap_efficiency") is not None:
+        lines.append("%s  overlap efficiency %+.1f%%" % (
+            indent, d["overlap_efficiency"] * 100))
+    if d.get("mfu") is not None:
+        lines.append("%s  mfu %+.4f" % (indent, d["mfu"]))
+    for s in diff.get("top_growing_spans") or ():
+        lines.append(
+            "%s  span %-24s %+0.4fs/step (%.4fs -> %.4fs)" % (
+                indent, s["name"], s["delta_s"],
+                s["baseline_s_per_step"], s["regressed_s_per_step"]))
+    if not diff.get("significant"):
+        lines.append(
+            "%s  (delta under the %.4fs noise floor — no component "
+            "named)" % (indent, diff["noise_floor_s"]))
+    return lines
+
+
 # -- roofline / MFU gauges ---------------------------------------------------
 
 # name -> {"flops", "bytes_accessed", "device_kind", "peak_flops",
@@ -427,3 +682,126 @@ def note_step(name, seconds):
 
 def _reset_for_tests():
     _step_costs.clear()
+
+
+# -- regression ledger -------------------------------------------------------
+
+HISTORY_SCHEMA = 1
+# the ledger's path, read at call time (None: no ledger)
+HISTORY_PATH = None
+
+
+def default_history_path():
+    """:data:`HISTORY_PATH` as it stands (None: no ledger)."""
+    return HISTORY_PATH
+
+
+def host_fingerprint():
+    """Stable who-measured-this string: comparisons across different
+    fingerprints are apples-to-oranges and the compare CLI says so."""
+    import platform as _platform
+
+    return "%s/%s/cpu%s" % (
+        socket.gethostname(), _platform.machine(), os.cpu_count() or 0)
+
+
+def git_sha():
+    """Short HEAD sha of the checkout this package sits in, or None."""
+    from sparkdl_tpu_torch.observe.metrics import _git_sha
+
+    return _git_sha()
+
+
+def _percentile(samples, q):
+    """np.percentile's default linear interpolation, without the
+    numpy import this artifact-side module avoids."""
+    xs = sorted(float(s) for s in samples)
+    if not xs:
+        return None
+    k = (len(xs) - 1) * q / 100.0
+    f, c = int(k), min(int(k) + 1, len(xs) - 1)
+    return xs[f] + (xs[c] - xs[f]) * (k - f)
+
+
+def sample_metric(samples, *, unit, higher_is_better=False, digits=4):
+    """ONE ledger metric dict from raw per-rep samples (already in the
+    target unit): ``value`` = p50, with ``p99`` and the samples
+    preserved so :mod:`sparkdl_tpu_torch.observe.compare`'s median/IQR noise
+    protection applies. The single definition of the shape
+    :func:`history_record` documents — benchmarks must not hand-roll
+    copies of it."""
+    if not samples:
+        raise ValueError("sample_metric needs at least one sample")
+    p50 = round(_percentile(samples, 50), digits)
+    return {
+        "value": p50, "p50": p50,
+        "p99": round(_percentile(samples, 99), digits),
+        "samples": [round(float(s), digits) for s in samples],
+        "unit": unit, "higher_is_better": higher_is_better,
+    }
+
+
+def history_record(metrics, *, device_kind=None, bench=None, extra=None):
+    """One schema-versioned ledger line. ``metrics`` maps name →
+    ``{"value": float, "unit": str, "samples": [...]?, "p50"?,
+    "p99"?, "higher_is_better"?: bool}`` (plain numbers are wrapped).
+    """
+    norm = {}
+    for name, m in metrics.items():
+        if not isinstance(m, dict):
+            m = {"value": m}
+        if m.get("value") is None:
+            continue
+        norm[name] = {k: v for k, v in m.items() if v is not None}
+    rec = {
+        "schema": HISTORY_SCHEMA,
+        "ts": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "git_sha": git_sha(),
+        "host": host_fingerprint(),
+        "device_kind": device_kind,
+        "bench": bench,
+        "metrics": norm,
+    }
+    if extra:
+        rec.update(extra)
+    return rec
+
+
+def append_history(record, path=None):
+    """Append one record as a JSON line (creating parents) to ``path``,
+    else to :data:`HISTORY_PATH`; nothing when both are None. Best
+    effort and silent on failure: the ledger must never fail the run
+    that feeds it. Returns the path written, or None."""
+    path = path or HISTORY_PATH
+    if not path:
+        return None
+    try:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps(record, sort_keys=True) + "\n")
+        return path
+    except Exception:
+        return None
+
+
+def read_history(path=None):
+    """Parsed ledger entries of ``path`` (else :data:`HISTORY_PATH`),
+    skipping unparsable lines, oldest first; ``[]`` for a missing file
+    or no ledger at all."""
+    path = path or HISTORY_PATH
+    if not path:
+        return []
+    out = []
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue
+    except OSError:
+        return []
+    return out

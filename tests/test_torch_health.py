@@ -227,7 +227,7 @@ class _FakeClient:
         pass
 
     send_ready = send_user_log = send_result = send_exception = \
-        send_telemetry
+        send_profile_done = set_profile_handler = send_telemetry
 
     def send_bye(self, exit_code):
         pass

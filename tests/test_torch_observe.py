@@ -490,7 +490,7 @@ def test_switch_off_calls_nothing_of_the_facade(monkeypatch, tmp_path):
 
 
 def test_worker_settings_travel_as_module_settings(monkeypatch):
-    from sparkdl_tpu_torch.observe import health
+    from sparkdl_tpu_torch.observe import capture, health
 
     monkeypatch.setattr(observe, "TELEMETRY_DIR", None)
     assert observe.worker_settings() is None
@@ -500,7 +500,8 @@ def test_worker_settings_travel_as_module_settings(monkeypatch):
     assert settings == {
         "observe.TELEMETRY_DIR": "/some/where", "observe.FLUSH_S": 5.0,
         "health.HEARTBEAT_S": 0.5, "mem.SAMPLE_S": mem.SAMPLE_S,
-        "flightrec.EVENTS": flightrec.EVENTS}
+        "flightrec.EVENTS": flightrec.EVENTS,
+        "capture.STEPS": capture.STEPS, "capture.AT_STEP": capture.AT_STEP}
     assert json.loads(json.dumps(settings)) == settings
     monkeypatch.setattr(observe, "TELEMETRY_DIR", None)
     with observe.applied_settings(dict(settings, **{

@@ -95,6 +95,16 @@ GANG_COUNTERPARTS = {
     "sparkdl_tpu_torch/observe/aggregate.py":
         "sparkdl_tpu/observe/aggregate.py",
     "sparkdl_tpu_torch/observe/serving.py": "sparkdl_tpu/observe/serving.py",
+    # the live tier and the readers
+    "sparkdl_tpu_torch/observe/alerts.py": "sparkdl_tpu/observe/alerts.py",
+    "sparkdl_tpu_torch/observe/statusz.py": "sparkdl_tpu/observe/statusz.py",
+    "sparkdl_tpu_torch/observe/capture.py": "sparkdl_tpu/observe/capture.py",
+    "sparkdl_tpu_torch/observe/forensics.py":
+        "sparkdl_tpu/observe/forensics.py",
+    "sparkdl_tpu_torch/observe/doctor.py": "sparkdl_tpu/observe/doctor.py",
+    "sparkdl_tpu_torch/observe/compare.py": "sparkdl_tpu/observe/compare.py",
+    "sparkdl_tpu_torch/observe/trend.py": "sparkdl_tpu/observe/trend.py",
+    "sparkdl_tpu_torch/observe/top.py": "sparkdl_tpu/observe/top.py",
 }
 
 

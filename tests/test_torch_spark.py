@@ -229,12 +229,19 @@ def test_a_reused_python_worker_joins_each_jobs_own_group(fake_pyspark,
     one barrier task of job 1, then one of job 2. Each joins its own
     job's group (its store) and reports to its own job's driver; between
     them the process holds no group, no restart context, no client and
-    no ``horovod`` binding."""
+    no ``horovod`` binding: its ``horovod`` modules are the ones it held
+    before (none, unless an earlier test of this process imported the
+    JAX package's ``horovod``)."""
     import torch.distributed as dist
 
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.horovod import control_plane, restart_context
 
+    def horovod_modules():
+        return {k: m for k, m in sys.modules.items()
+                if k == "horovod" or k.startswith("horovod.")}
+
+    held = horovod_modules()
     task = types.SimpleNamespace(
         partitionId=lambda: 0, barrier=lambda: None,
         getTaskInfos=lambda: [types.SimpleNamespace(address="127.0.0.1:0")])
@@ -251,7 +258,7 @@ def test_a_reused_python_worker_joins_each_jobs_own_group(fake_pyspark,
                 server.address, server.secret, "127.0.0.1", store.port,
                 "cpu", RestartContext(job, 7 * job))
             [pickled] = run(iter([0]))
-            server.wait_drained(5.0)
+            assert server.wait_drained(5.0)
         finally:
             server.close()
         got = cloudpickle.loads(pickled)
@@ -263,7 +270,7 @@ def test_a_reused_python_worker_joins_each_jobs_own_group(fake_pyspark,
         assert not dist.is_initialized() and not hvd.is_initialized()
         assert restart_context() == (0, None, None, None)
         assert control_plane.get_worker_client() is None
-        assert "horovod" not in sys.modules and sys.stdout is stdout
+        assert horovod_modules() == held and sys.stdout is stdout
         del store
 
 
@@ -287,7 +294,7 @@ def test_a_card_task_without_its_card_raises(fake_pyspark, tmp_path):
             RestartContext(0, None))
         with pytest.raises(RuntimeError, match="CUDA device"):
             run(iter([0]))
-        server.wait_drained(5.0)
+        assert server.wait_drained(5.0)
         excs = server.exceptions
     finally:
         server.close()
