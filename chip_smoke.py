@@ -184,9 +184,9 @@ and on any failed check. Phases:
    first resumed step, and the run's wall seconds beside 9a's;
 15. sequence-parallel LoRA fine-tuning: ``HorovodRunner(np=-2)``, two
    ranks on the one card (gloo), ``make_mesh(MeshSpec(seq=2))``, phase
-   5's configuration at 9b's depth (4) with ``attention_fn`` the mesh's
-   ``make_ring_attention`` (ring-flash on the card: B1-B3 inside a
-   two-ring backward), one sequence of 8192 tokens (4096 a rank at
+   5's configuration at depth 2 (``SEQ_DEPTH``) with ``attention_fn``
+   the mesh's ``make_ring_attention`` (ring-flash on the card: B1-B3
+   inside a two-ring backward), one sequence of 8192 tokens (4096 a rank at
    their global positions), the fused loss, 3 steps: step 0's loss
    (within 1e-2) and adapter gradients (within 2^-5 of each norm)
    against one process running the whole sequence through
@@ -234,7 +234,7 @@ and on any failed check. Phases:
    a slot); ms a call by form and the collectives' host ms inside it;
 20. tensor-parallel LoRA training: ``HorovodRunner(np=-2)``, two ranks on
    the one card (gloo), ``make_mesh(MeshSpec(model=2))``, phase 5's
-   configuration (rank 16 on q and v, flash, bf16 base) at depth 8, each
+   configuration (rank 16 on q and v, flash, bf16 base) at depth 4, each
    rank 16 query heads and 4 kv heads and half the vocabulary 128256,
    every rank's weights from one seed (every ``lora_b`` non-zero), batch
    1 x 2048, the vocabulary-parallel fused loss, AdamW on the adapters
@@ -248,7 +248,7 @@ and on any failed check. Phases:
    fp32 gradients of the same weights than twice that run's; the
    adapters after step 1 within 2^-5 of their norms of that run's;
    both ranks' whole adapters identical; the collectives of a forward
-   and of a backward, and 8 x 3 launches of each flash kernel a rank,
+   and of a backward, and 4 x 3 launches of each flash kernel a rank,
    as the model predicts; the restored adapters bit-identical to the
    gathered ones, and the single-card model's loss with them the TP
    model's at the saved step (phase 6's tolerance). It prints ms a step,
@@ -260,7 +260,7 @@ and on any failed check. Phases:
    (``HorovodRunner(np=-2)``, ``make_mesh(MeshSpec(fsdp=2))``), each
    rank storing half of every weight the rules split over ``fsdp`` and
    gathering each decoder block whole before its forward and again in
-   its backward. 21a, LoRA training: phase 20's model at depth 4, a
+   its backward. 21a, LoRA training: phase 20's model at depth 2, a
    global batch of 2 x 2048 (one row a rank through ``shard_batch``),
    the fused loss, AdamW, 1 untimed and 3 timed steps; gates: each
    rank's losses within phase 6's tolerance of one process running the
@@ -269,7 +269,7 @@ and on any failed check. Phases:
    an fp32 twin as phase 20 holds them, both ranks' adapters identical,
    each rank's resident parameter bytes what ``param_sharding`` gives,
    the gathers, reduce-scatters and all-reduces a step as
-   ``PERF.md`` predicts, and 4 x 3 launches of each flash kernel a
+   ``PERF.md`` predicts, and 2 x 3 launches of each flash kernel a
    rank; it prints ms a step, tokens/s, the gathers' host ms inside the
    timed steps and their share, peak memory a rank beside the whole
    model's weight bytes. 21b, int8 serving: phase 3's weights rebuilt
@@ -397,6 +397,36 @@ and on any failed check. Phases:
    the seconds from the first slowed step to the alert and from the
    alert to PROFILE_DONE, the captured steps' ms beside the other slowed
    steps', the ``/statusz`` latency and the phase's wall seconds.
+26. an elastic round trip, last: 9b's LoRA fine-tune (depth 4, two
+   ranks sharing the card over gloo, ``data=2``, 9b's batch and seed) as
+   one supervised ``HorovodRunner(np=-2)`` launch of ``ELASTIC_STEPS``
+   steps, each saved with ``TrainCheckpointer.save(mesh=)`` under the
+   policy's ``resume_dir``, the model's tree registered with
+   ``analysis.register_gang_sharding`` on ``{"data": 2}``, the telemetry
+   on. The fault injection kills rank 1 after step
+   ``ELASTIC_KILL_AFTER``; the elastic controller (the file probe at 1)
+   clamps the relaunch to one rank, which binds the card (NCCL, a world
+   of one) and restores onto ``data=1``; once step
+   ``ELASTIC_GROW_AFTER`` is committed the phase writes 2, and the
+   controller plans a grow and recycles the gang at its next committed
+   step; the two ranks restore onto ``data=2`` and train to the end.
+   Gates: one kill, three attempts of worlds [2, 1, 2], restart contexts
+   carrying ``{"data": 2}`` -> ``{"data": 1}`` and back, the restores
+   resharding shrink then grow, each step's loss within 2^-10 of an
+   in-process twin's at the same global batch (in as many microbatches
+   as the world that committed the step had ranks) and each adapter's
+   change
+   within 2^-5 of the twin's (9b's tolerances), B1-B3 launched layers x
+   steps on each rank of each attempt, the pre-flight's
+   ``gang.reshard_preflight`` instants and ``elastic.json``'s decisions;
+   the twin's last step runs under ``profiler.trace`` with
+   ``annotate("phase26.step")``, whose Chrome trace must name the region
+   and B1. It prints the seconds from the kill to the shrunken gang's
+   first step, from the capacity's return to the grow decision and from
+   the decision to the regrown gang's first step (each relaunch by
+   stage: to the launch, to ``hvd.init``, the model built, restored,
+   the first step), the ms a step at np 2, 1 and 2, and the phase's
+   wall seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -526,16 +556,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
            "19": -2, "20": -2, "21a": -2, "21b": -2, "22a": 1, "24a": 1,
-           "24b": 1, "25a": 1}
+           "24b": 1, "25a": 1, "26": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
 # is killed
 RESUME_KILL_AFTER = 1
 # phase 15: one sequence of Llama-3-8B's published context over the
-# ranks' seq axis (at 9b's depth), its steps; phase 16: the microbatches
-# (1 x PIPE_SEQ tokens each) and the decoder blocks split over the stages
-SEQ_TOKENS, SEQ_STEPS = 8192, 3
+# ranks' seq axis, its steps and its depth (9b's 4 until phase 26 pushed
+# the script past 1000 s); phase 16: the microbatches (1 x PIPE_SEQ
+# tokens each) and the decoder blocks split over the stages
+SEQ_TOKENS, SEQ_STEPS, SEQ_DEPTH = 8192, 3, 2
 PIPE_MICROBATCHES, PIPE_SEQ, PIPE_BLOCKS = 8, 2048, 4
 # phases 17-19: Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json; arXiv:2401.04088 Table 1),
@@ -551,14 +582,16 @@ MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 16, 8
 MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
 EP_TOKENS, EP_CAPACITY, EP_RUNS = 2048, 1.25, 3
 # phase 20: tensor-parallel LoRA training at Llama-3-8B width, depth cut
-# to 8 (two ranks share the card, and every layer costs four host-staged
-# 16 MiB all-reduces a step), one row of 2048 tokens, its steps
-TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 8, 2048, 3
-# phase 21: ZeRO-3 on two ranks sharing the card, depth cut to 4 (21a:
-# every block is gathered twice a step over gloo's host staging) and to
-# 2 (21b, int8 serving); 21a's global batch of 2 x 2048, one row a rank;
-# 21b's requests (phase 3's first) and their budget
-FSDP_TRAIN_DEPTH, FSDP_TRAIN_ROWS, FSDP_TRAIN_SEQ = 4, 2, 2048
+# to 4 (two ranks share the card, and every layer costs four host-staged
+# 16 MiB all-reduces a step; 8 until phase 26 pushed the script past
+# 1000 s), one row of 2048 tokens, its steps
+TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 2048, 3
+# phase 21: ZeRO-3 on two ranks sharing the card, depth cut to 2 (21a:
+# every block is gathered twice a step over gloo's host staging; 4 until
+# phase 26 pushed the script past 1000 s) and to 2 (21b, int8 serving);
+# 21a's global batch of 2 x 2048, one row a rank; 21b's requests (phase
+# 3's first) and their budget
+FSDP_TRAIN_DEPTH, FSDP_TRAIN_ROWS, FSDP_TRAIN_SEQ = 2, 2, 2048
 FSDP_TRAIN_STEPS = 3
 FSDP_SERVE_DEPTH, FSDP_SERVE_REQUESTS, FSDP_SERVE_BUDGET = 2, 4, 16
 # phase 22: how long 22c's competing claim holds the card's slots, and
@@ -603,6 +636,17 @@ ALERT_SETTINGS = {"alerts.ENABLED": True, "alerts.WINDOW_S": 5.0,
 ALERT_RANK_SETTINGS = {"observe.FLUSH_S": 0.5, "health.HEARTBEAT_S": 1.0,
                        "capture.STEPS": 2}
 FLEET_STATUSZ_REQUESTS = 8
+# phase 26: 9b's fine-tune (depth 4, two ranks sharing the card, 9b's
+# batch and seed) through an elastic round trip: the steps in all, the
+# step after which rank 1 is killed, the committed step after which the
+# capacity file says 2 again, the pause after each committed step (the
+# controller's polls need a step or two of the shrunken gang), and the
+# elastic controller's settings (the file probe: the devices probe
+# counts one card, which clamps two ranks a card at once)
+ELASTIC_STEPS, ELASTIC_KILL_AFTER, ELASTIC_GROW_AFTER = 8, 1, 3
+ELASTIC_PACE_S = 0.5
+ELASTIC_SETTINGS = {"PROBE": "file", "CHECK_S": 0.2, "DEBOUNCE_S": 1.0,
+                    "CKPT_WAIT_S": 60.0}
 # Meta's Llama-3-8B config.json values under HF's attribute names (no
 # transformers on the card machine: a plain object carries them)
 HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
@@ -3447,7 +3491,7 @@ def seq_parallel(torch):
     from sparkdl_tpu_torch.models.lora import lora_mask
     from sparkdl_tpu_torch.parallel.train import global_batch, make_lm_loss_fn
 
-    cfg = _train_cfg(n_layers=GANG_SHARED_DEPTH)
+    cfg = _train_cfg(n_layers=SEQ_DEPTH)
     batch = global_batch(np.random.default_rng(SEED + 15), cfg.vocab_size, 1,
                          SEQ_TOKENS)
     t = time.perf_counter()
@@ -5392,20 +5436,27 @@ def _no_name_lookups():
 
 
 @contextlib.contextmanager
+def _attrs(obj, **settings):
+    """``obj``'s attributes set for the block, put back after."""
+    saved = {k: getattr(obj, k) for k in settings}
+    for k, v in settings.items():
+        setattr(obj, k, v)
+    try:
+        yield obj
+    finally:
+        for k, v in saved.items():
+            setattr(obj, k, v)
+
+
+@contextlib.contextmanager
 def _launcher_settings(**settings):
     """The launcher's module settings for the length of the block, the
     ranks' device the card's (or the CPU in a rehearsal)."""
     from sparkdl_tpu_torch.horovod import launcher
 
     settings.setdefault("WORKER_DEVICE", None if DEVICE == "cuda" else "cpu")
-    saved = {k: getattr(launcher, k) for k in settings}
-    for k, v in settings.items():
-        setattr(launcher, k, v)
-    try:
+    with _attrs(launcher, **settings):
         yield launcher
-    finally:
-        for k, v in saved.items():
-            setattr(launcher, k, v)
 
 
 @contextlib.contextmanager
@@ -6875,6 +6926,338 @@ def fleet_statusz(torch, model):
     return report
 
 
+# -- phase 26: an elastic round trip -------------------------------------------
+
+
+def elastic_main(cfg, batch, steps, seed, device, ckpt_dir, log_dir, pace_s):
+    """Every rank of phase 26: 9b's trainer (:func:`_gang_trainer`) on the
+    mesh of its restart context's target axes (else ``data`` over the
+    world), resumed from the context's step onto that mesh; each step
+    saved on the mesh (adapters and optimizer state), a barrier, a line
+    in ``<log_dir>/a<attempt>-r<rank>.jsonl`` (the loss, the step's ms,
+    the flash counters so far, the wall clock at the step's end and, on
+    an attempt's first step, when the rank was past ``hvd.init``, had
+    its model built and had restored), the
+    fault injection's hook, ``pace_s`` of pause. A rank of a one-rank
+    gang on the card must have bound ``cuda:0`` over NCCL. Rank 0
+    returns every rank's report."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod import restart_context
+    from sparkdl_tpu_torch.parallel.mesh import make_mesh_from_axes
+    from sparkdl_tpu_torch.utils.chaos import chaos_step
+    from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    tr = _gang_trainer(cfg, batch, seed, device)
+    ctx = restart_context()
+    rank, size = hvd.rank(), hvd.size()
+    if device == "cuda" and size == 1:
+        _require(tr.device == torch.device("cuda", 0)
+                 and tr.backend == "cpu:gloo,cuda:nccl",
+                 f"phase 26: the one-rank gang bound {tr.device} over "
+                 f"{tr.backend}, not cuda:0 over NCCL")
+    mesh = make_mesh_from_axes(dict(ctx.target_axes or {"data": size}))
+    ckpt = TrainCheckpointer(ckpt_dir)
+    start, reshard, restore_ms, restored_at = 0, None, None, None
+    if ctx.resume_step is not None:
+        tr.sync()
+        t = time.perf_counter()
+        state = ckpt.restore(ctx.resume_step,
+                             target={"adapters": dict(tr.named), "opt": None},
+                             target_mesh=mesh)
+        with torch.no_grad():
+            for name, p in tr.named:
+                p.copy_(state["adapters"][name])
+        tr.opt.load_state_dict(state["opt"])
+        tr.sync()
+        restore_ms = 1e3 * (time.perf_counter() - t)
+        restored_at = time.time()
+        reshard = ckpt.last_reshard
+        start = ckpt.last_restored_step + 1
+    _zero_flash()
+    path = os.path.join(log_dir, f"a{ctx.attempt}-r{rank}.jsonl")
+    losses = []
+    for s in range(start, steps):
+        tr.sync()
+        t = time.perf_counter()
+        losses.append(tr.step(tr.mine)["loss"].item())  # waits for the step
+        ms = 1e3 * (time.perf_counter() - t)
+        done_at = time.time()
+        ckpt.save(s, {"adapters": dict(tr.named),
+                      "opt": tr.opt.state_dict()}, mesh=mesh, specs={})
+        hvd.barrier()  # rank 0's step committed before any rank dies
+        with open(path, "a") as f:
+            f.write(json.dumps({
+                "attempt": ctx.attempt, "rank": rank, "size": size,
+                "step": s, "loss": losses[-1], "ms": ms,
+                "done_at": done_at, "launches": _flash_launches(),
+                "reshard": reshard if s == start else None,
+                "restore_ms": restore_ms if s == start else None,
+                "ready_at": tr.ready_at, "built_at": tr.built_at,
+                "restored_at": restored_at}) + "\n")
+        chaos_step(s)
+        time.sleep(pace_s)
+    ckpt.close()
+    report = {"rank": rank, "size": size, "attempt": ctx.attempt,
+              "resume_step": ctx.resume_step, "losses": losses,
+              "adapters": ({n: p.detach().cpu() for n, p in tr.named}
+                           if rank == 0 else None)}
+    return hvd.allgather_object(report)
+
+
+def _elastic_twin(torch, cfg, batch, worlds, trace_dir):
+    """The in-process twin of phase 26's steps: rank 0's weights, an
+    AdamW step a committed step on the whole global batch, in as many
+    microbatches as the world that committed it had ranks (``worlds``:
+    one a step), so each row's products are the gang's; the last step
+    under ``profiler.trace`` with ``annotate("phase26.step")``. Its
+    losses, the adapters' change and the trace's events."""
+    from sparkdl_tpu_torch.models.llama import Llama, init_weights
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.train import (
+        make_lm_loss_fn,
+        make_train_step,
+    )
+    from sparkdl_tpu_torch.utils import profiler
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    model = init_weights(Llama(cfg, device=DEVICE), gen)
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    start = {n: p.detach().clone() for n, p in named}
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    steps = {n: make_train_step(make_lm_loss_fn(model), opt,
+                                param_mask=mask, grad_accum=n,
+                                device=DEVICE)
+             for n in sorted(set(worlds))}
+    losses = [steps[n](batch)["loss"].item() for n in worlds[:-1]]
+    with profiler.trace(trace_dir):
+        with profiler.annotate("phase26.step"):
+            losses.append(steps[worlds[-1]](batch)["loss"].item())
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    _require(len(files) == 1, f"phase 26: the twin's trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    deltas = {n: (p.detach() - start[n]).cpu() for n, p in named}
+    end = {n: p.detach().cpu() for n, p in named}
+    del model, opt, steps, named, start
+    return losses, deltas, end, events
+
+
+def elastic_gang(torch):
+    """Phase 26: 9b's fine-tune shrinks from two ranks to one after a
+    kill and grows back to two when the capacity file says so, in one
+    supervised ``HorovodRunner(np=-2)`` launch."""
+    import shutil
+
+    from sparkdl_tpu_torch import HorovodRunner, analysis
+    from sparkdl_tpu_torch.analysis import comms
+    from sparkdl_tpu_torch.horovod import elastic, launcher, supervisor
+    from sparkdl_tpu_torch.models.llama import Llama
+    from sparkdl_tpu_torch.parallel.train import global_batch
+    from sparkdl_tpu_torch.utils import chaos
+    from sparkdl_tpu_torch.utils.checkpoint import latest_complete_step
+
+    cfg = _train_cfg(n_layers=GANG_SHARED_DEPTH)
+    batch = global_batch(np.random.default_rng(SEED + 4), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    work = tempfile.mkdtemp(prefix="chip-smoke-26-")
+    ckpt_dir = os.path.join(work, "ckpt")
+    log_dir = os.path.join(work, "steps")
+    os.makedirs(log_dir)
+    cap_file = os.path.join(work, "capacity")
+    once = os.path.join(work, "one-kill")
+    with open(cap_file, "w") as f:
+        f.write("1")
+    # the driver's view of the gang: the model's tree on data=2
+    analysis.register_gang_sharding(Llama(cfg, device="meta"),
+                                    mesh={"data": 2})
+    cap_back = {}
+    stop = threading.Event()
+
+    def return_capacity():
+        while not stop.is_set():
+            if (latest_complete_step(ckpt_dir) or -1) >= ELASTIC_GROW_AFTER:
+                with open(cap_file, "w") as f:
+                    f.write("2")
+                cap_back["at"] = time.time()
+                return
+            time.sleep(0.02)
+
+    contexts = []
+    launch_once = launcher._launch_gang_once
+
+    def noted(*args, **kw):
+        contexts.append((kw["restart"], kw.get("world"), time.time()))
+        return launch_once(*args, **kw)
+
+    returner = threading.Thread(target=return_capacity, daemon=True)
+    phase_t = time.perf_counter()
+    policy = supervisor.RetryPolicy(max_retries=1, backoff_base=0.5,
+                                    backoff_max=1.0, jitter=0.0,
+                                    resume_dir=ckpt_dir)
+    try:
+        returner.start()
+        with _telemetry_on(**{"observe.FLUSH_S": 1.0}) as root, \
+                _launcher_settings(ABORT_GRACE_S=10.0), \
+                _attrs(supervisor, policy=policy), \
+                _attrs(launcher, _launch_gang_once=noted), \
+                _attrs(chaos, KILL_RANK=1, KILL_STEP=ELASTIC_KILL_AFTER,
+                       ONCE_FILE=once), \
+                _attrs(elastic, ENABLED=True, CAPACITY_FILE=cap_file,
+                       **ELASTIC_SETTINGS):
+            t = time.perf_counter()
+            ranks = HorovodRunner(np=GANG_NP["26"]).run(
+                elastic_main, cfg=cfg, batch=batch, steps=ELASTIC_STEPS,
+                seed=SEED, device=DEVICE, ckpt_dir=ckpt_dir,
+                log_dir=log_dir, pace_s=ELASTIC_PACE_S)
+            wall_s = time.perf_counter() - t
+        worlds = supervisor.attempt_world_sizes()
+        killed_at = os.stat(once).st_mtime if os.path.exists(once) else None
+        records = []
+        for name in sorted(os.listdir(log_dir)):
+            with open(os.path.join(log_dir, name)) as f:
+                records += [json.loads(line) for line in f]
+    finally:
+        stop.set()
+        returner.join(timeout=5)
+        comms.clear_gang_sharding()
+        shutil.rmtree(work, ignore_errors=True)
+    run_dir = _one_run_dir(root)
+    r0 = ranks[0]
+    _require(killed_at is not None and r0["attempt"] == 2,
+             f"phase 26: kill file {killed_at}, final attempt "
+             f"{r0['attempt']}; want one kill and two relaunches")
+    _require(worlds == [2, 1, 2], f"phase 26: worlds {worlds}")
+
+    def axes(data):
+        return {"data": data, "fsdp": 1, "seq": 1, "model": 1}
+
+    pairs = [(c.source_axes, c.target_axes, world)
+             for c, world, _ in contexts]
+    _require(pairs == [(None, None, None), (axes(2), axes(1), 1),
+                       (axes(1), axes(2), 2)],
+             f"phase 26: restart contexts {pairs}")
+    by_attempt = {}
+    for rec in records:
+        by_attempt.setdefault(rec["attempt"], []).append(rec)
+    directions = [next(r["reshard"]["direction"] for r in by_attempt[a]
+                       if r["reshard"] and r["rank"] == 0)
+                  for a in (1, 2)]
+    _require(directions == ["shrink", "grow"],
+             f"phase 26: restores resharded {directions}")
+    # each step's loss: the mean of the ranks' of the attempt that
+    # committed it, as the gang's averaged step is
+    step_losses, step_worlds = {}, {}
+    for a in sorted(by_attempt):
+        for s in sorted({r["step"] for r in by_attempt[a]}):
+            step_losses[s] = float(np.mean([r["loss"] for r in by_attempt[a]
+                                            if r["step"] == s]))
+            step_worlds[s] = by_attempt[a][0]["size"]
+    _require(sorted(step_losses) == list(range(ELASTIC_STEPS)),
+             f"phase 26: committed steps {sorted(step_losses)}")
+    launches = {}
+    for a, recs in by_attempt.items():
+        for rank in sorted({r["rank"] for r in recs}):
+            mine = [r for r in recs if r["rank"] == rank]
+            last = max(mine, key=lambda r: r["step"])
+            want = cfg.n_layers * len(mine)
+            for name, n in last["launches"].items():
+                _require(n == want, f"phase 26 attempt {a} rank {rank}: "
+                         f"{name} {n} launches in {len(mine)} steps, want "
+                         f"{want}")
+                launches[name] = launches.get(name, 0) + n
+    with open(os.path.join(run_dir, "elastic.json")) as f:
+        decisions = json.load(f)["decisions"]
+    kinds = [(d["direction"], d["outcome"], d["from_np"], d["to_np"])
+             for d in decisions]
+    _require(kinds == [("shrink", "transition", 2, 1),
+                       ("grow", "resize", 1, 2),
+                       ("grow", "transition", 1, 2)],
+             f"phase 26: elastic.json decisions {kinds}")
+    driver = _lanes(run_dir).get(0, [])
+    preflights = [e["args"] for e in driver
+                  if e["name"] == "gang.reshard_preflight"]
+    _require([a["target_np"] for a in preflights] == [1, 2],
+             f"phase 26: pre-flights {preflights}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace_dir = tempfile.mkdtemp(prefix="chip-smoke-26-trace-")
+    try:
+        twin_losses, twin_deltas, twin_end, trace = _elastic_twin(
+            torch, cfg, batch,
+            [step_worlds[s] for s in range(ELASTIC_STEPS)], trace_dir)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    names = {e.get("name", "") for e in trace}
+    _require("phase26.step" in names
+             and any("flash_fwd_kernel" in n for n in names),
+             "phase 26: the twin's trace lacks the region or B1")
+    gang_losses = [step_losses[s] for s in range(ELASTIC_STEPS)]
+    for got_l, ref_l in zip(gang_losses, twin_losses):
+        _require(abs(got_l - ref_l) <= 2.0 ** -10 * abs(ref_l),
+                 f"phase 26 losses {gang_losses} vs the twin's "
+                 f"{twin_losses}")
+    rel_errs = {}
+    for name, ref_delta in twin_deltas.items():
+        delta = r0["adapters"][name] - (twin_end[name] - ref_delta)
+        rel_errs[name] = ((delta - ref_delta).norm()
+                          / ref_delta.norm()).item()
+    _log("elastic_gang adapters " + json.dumps(rel_errs))
+    worst = sorted(rel_errs.items(), key=lambda kv: -kv[1])[:4]
+    _require(all(d.norm() > 0 for d in twin_deltas.values())
+             and worst[0][1] <= 2.0 ** -5,
+             f"phase 26: gang vs twin, relative errors of the adapters' "
+             f"changes, worst {worst}")
+
+    grow = next(d for d in decisions if d["outcome"] == "resize")
+    first = {a: min(r["done_at"] for r in recs)
+             for a, recs in by_attempt.items()}
+
+    def breakdown(a, since):
+        """The relaunch of attempt ``a`` from ``since`` (the kill, the
+        grow decision) to its first step, by stage (rank 0's)."""
+        r = min((r for r in by_attempt[a] if r["rank"] == 0),
+                key=lambda r: r["step"])
+        spawned = contexts[a][2]
+        return {"to_launch": spawned - since,
+                "launch_to_ready": r["ready_at"] - spawned,
+                "ready_to_built": r["built_at"] - r["ready_at"],
+                "built_to_restored": r["restored_at"] - r["built_at"],
+                "first_step": r["done_at"] - r["restored_at"]}
+
+    # rank 0's step ms by attempt; an attempt's first step is a fresh
+    # process's first (its warm-up), so the median is of the others
+    step_ms = {a: [r["ms"] for r in sorted(recs, key=lambda r: r["step"])
+                   if r["rank"] == 0] for a, recs in by_attempt.items()}
+    report = {
+        "np": GANG_NP["26"], "n_layers": cfg.n_layers, "steps": ELASTIC_STEPS,
+        "worlds": worlds, "killed_after_step": ELASTIC_KILL_AFTER,
+        "grow_resume_step": r0["resume_step"],
+        "kill_to_first_shrunk_step_s": first[1] - killed_at,
+        "capacity_to_grow_decision_s": grow["ts"] - cap_back["at"],
+        "grow_decision_to_first_regrown_step_s": first[2] - grow["ts"],
+        "relaunch_breakdown_s": {"shrink": breakdown(1, killed_at),
+                                 "grow": breakdown(2, grow["ts"])},
+        "step_ms_by_attempt": [step_ms[a] for a in (0, 1, 2)],
+        "step_ms_np2_np1_np2": [statistics.median(step_ms[a][1:]
+                                                  or step_ms[a])
+                                for a in (0, 1, 2)],
+        "restore_ms": [next(r["restore_ms"] for r in by_attempt[a]
+                            if r["rank"] == 0) for a in (1, 2)],
+        "losses": gang_losses, "twin_losses": twin_losses,
+        "step_worlds": [step_worlds[s] for s in range(ELASTIC_STEPS)],
+        "worst_rel_change_err": max(rel_errs.values()),
+        "launches": launches, "run_wall_s": wall_s,
+        "phase_wall_s": time.perf_counter() - phase_t}
+    _log("elastic_gang " + json.dumps(report))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -7047,6 +7430,10 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     alerted = alert_gang(torch)
+    # slice 19: an elastic round trip of 9b's fine-tune
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_run = elastic_gang(torch)
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -7076,7 +7463,8 @@ def main(argv=None):
                     "22d": remote["launches"][name],
                     "24a": telemetry["launches"][name],
                     "24b": hang["launches"][name],
-                    "25a": alerted["launches"][name]}
+                    "25a": alerted["launches"][name],
+                    "26": elastic_run["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -7208,6 +7596,7 @@ def main(argv=None):
                        "telemetry_serving": telemetry_serving,
                        "telemetry_gang": telemetry, "hang_gang": hang,
                        "fleet_statusz": fleet_live, "alert_gang": alerted,
+                       "elastic_gang": elastic_run,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,11 @@ a target mesh, and what does that cost a device.
 Counterpart of the reshard half of ``sparkdl_tpu/analysis/comms.py``
 (:class:`ReshardPreflightError`, :class:`ReshardPlan`,
 :func:`reshard_plan`, :func:`param_info_from_sidecar`,
-:func:`shrink_mesh`), with the same byte arithmetic and the same finding
-messages. The collective pricing over HLO and ``comms_report`` have no
+:func:`shrink_mesh`, and the gang-sharding registry that the
+supervisor's pre-flight of an elastic relaunch reads:
+:func:`register_gang_sharding`, :func:`registered_gang_sharding`,
+:func:`clear_gang_sharding`, :func:`check_relaunch_np`), with the same
+byte arithmetic and the same finding messages. The collective pricing over HLO and ``comms_report`` have no
 PyTorch counterpart and are not ported. The per-device memory budget
 defaults to the CUDA device's total memory, and to none (no check) on
 the CPU.
@@ -251,3 +254,76 @@ def shrink_mesh(source_axes, target_np):
                  "seq": seq, "model": model}, None)
     return ({"data": remaining, "fsdp": 1, "seq": seq, "model": model},
             None)
+
+
+# -- the gang's sharding tree (the supervisor's pre-flight input) -------------
+
+_GANG_SHARDING = None
+
+
+def register_gang_sharding(param_info, source_axes, *,
+                           local_device_count=None, hbm_bytes=None,
+                           state_multiplier=3.0):
+    """Register the running gang's sharding tree (:class:`ParamInfo`
+    leaves) and mesh axes, so that the supervisor can check an elastic
+    relaunch at another world size before it relaunches
+    (:func:`check_relaunch_np`). Driver-side, never pickled; the wrapper
+    :func:`sparkdl_tpu_torch.analysis.register_gang_sharding` builds both
+    from a model or a state dict and a mesh."""
+    global _GANG_SHARDING
+    _GANG_SHARDING = {
+        "param_info": list(param_info),
+        "source_axes": dict(source_axes),
+        "local_device_count": local_device_count,
+        "hbm_bytes": hbm_bytes,
+        "state_multiplier": state_multiplier,
+    }
+    return _GANG_SHARDING
+
+
+def registered_gang_sharding():
+    return _GANG_SHARDING
+
+
+def clear_gang_sharding():
+    """Drop the registered tree."""
+    global _GANG_SHARDING
+    _GANG_SHARDING = None
+
+
+def note_gang_axes(axes):
+    """The supervisor's hook: the registered gang now runs on ``axes``
+    (an elastic relaunch's target mesh), the source of the next
+    relaunch's pre-flight and restart context. No-op without a
+    registered tree."""
+    if _GANG_SHARDING is not None and axes:
+        _GANG_SHARDING["source_axes"] = dict(axes)
+
+
+def check_relaunch_np(target_np):
+    """The supervisor's pre-flight of relaunching the registered gang at
+    ``target_np`` ranks: the :class:`ReshardPlan`, or None when no tree
+    is registered (nothing provable; the relaunch goes unchecked).
+    Raises :class:`ReshardPreflightError` naming the failing leaf or axis
+    when :func:`shrink_mesh` finds no mesh or the plan is infeasible."""
+    reg = _GANG_SHARDING
+    if reg is None:
+        return None
+    target_axes, reason = shrink_mesh(reg["source_axes"], int(target_np))
+    if target_axes is None:
+        raise ReshardPreflightError([Finding(
+            rule_id="reshard-infeasible",
+            severity=Severity.ERROR,
+            op="mesh",
+            location="",
+            message=f"no target mesh for np={target_np}: {reason}",
+        )])
+    plan = reshard_plan(
+        reg["param_info"], reg["source_axes"], target_axes,
+        local_device_count=reg["local_device_count"],
+        hbm_bytes=reg["hbm_bytes"],
+        state_multiplier=reg["state_multiplier"],
+    )
+    if not plan.feasible:
+        raise ReshardPreflightError(plan.problems, plan=plan)
+    return plan

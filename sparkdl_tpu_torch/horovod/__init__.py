@@ -26,8 +26,11 @@ first launch). ``resume_step``: the newest
 :class:`~sparkdl_tpu_torch.utils.checkpoint.TrainCheckpointer` step
 committed under the supervisor policy's ``resume_dir`` when this attempt
 was launched, or None (start from scratch). ``source_axes`` /
-``target_axes``: the mesh axes of an elastic relaunch at another world
-size, which is not ported; always None."""
+``target_axes``: on a relaunch at another world size (an elastic
+shrink or grow), the mesh axes (``{"data": 2, "fsdp": 1, "seq": 1,
+"model": 1}``) the resume step was saved on and the ones derived for
+the new world, from which the relaunched main rebuilds its mesh
+(``make_mesh_from_axes(ctx.target_axes)``); None otherwise."""
 
 # this process's context: the worker bootstrap sets it from its command
 # line before main runs; outside a relaunch it stays the first attempt's
@@ -56,6 +59,11 @@ def restart_context():
         for step in range(start, total_steps):
             ...
 
+    A relaunch at another world size also names the mesh to rebuild
+    (``ctx.target_axes``) and restores onto it
+    (``ckpt.restore(step, target_mesh=make_mesh_from_axes(
+    ctx.target_axes))``).
+
     Outside a supervised relaunch (the first attempt, a gang without
     retries, local ``np=-1`` mode) it is ``RestartContext(0, None)``, so
     calling it unconditionally is always safe. With telemetry on, a
@@ -70,7 +78,8 @@ def restart_context():
         observe.instant("gang.resume", cat="supervisor",
                         attempt=_context.attempt,
                         resume_step=_context.resume_step,
-                        source_axes=None, target_axes=None)
+                        source_axes=_context.source_axes,
+                        target_axes=_context.target_axes)
     return _context
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``sparkdl_tpu/horovod/_worker.py``. The launcher runs
 ``python -m sparkdl_tpu_torch.horovod._worker --job-dir D --attempt A
-[--resume-step S] [--device cuda|cpu] [--telemetry JSON]`` once for each rank, on this
+[--resume-step S] [--source-axes JSON --target-axes JSON]
+[--device cuda|cpu] [--telemetry JSON] [--rank-settings JSON]`` once
+for each rank, on this
 host or through the remote shell, with the rank's ``torch.distributed``
 environment and the control plane's address. Its standard input is the
 boot stream: the control plane's secret on the first line, then the
@@ -15,6 +17,10 @@ for the processes it starts.
 gang's backend rule applies. ``--telemetry``: the driver's
 :func:`sparkdl_tpu_torch.observe.worker_settings` when its telemetry is
 on (the rank applies them; it reads none from its environment).
+``--rank-settings``: the driver's :func:`rank_settings`, the fault
+injection's and the profiler's settings, shipped whether telemetry is
+on or not. ``--attempt``, ``--resume-step`` and the axes: the restart
+context.
 
 :func:`run_rank` is the bootstrap of every rank, a worker process's and
 a Spark barrier task's alike. It:
@@ -26,12 +32,16 @@ a Spark barrier task's alike. It:
 2. binds the drop-in import names for the length of the run (``import
    horovod.torch as hvd`` gives
    :mod:`sparkdl_tpu_torch.compat.horovod_torch`);
-3. joins the gang (``hvd.init`` with the launcher's device: a rank of a
-   card gang binds ``cuda:LOCAL_RANK`` or raises);
+3. runs the fault injection's boot hook
+   (:func:`sparkdl_tpu_torch.utils.chaos.on_worker_boot`), then joins
+   the gang (``hvd.init`` with the launcher's device: a rank of a card
+   gang binds ``cuda:LOCAL_RANK`` or raises);
 4. sends READY;
 5. sets its restart context (what
    :func:`sparkdl_tpu_torch.horovod.restart_context` returns), loads
-   ``(main, kwargs)`` and runs ``main(**kwargs)``;
+   ``(main, kwargs)`` and runs ``main(**kwargs)``, under a profiler
+   window when the driver set
+   :data:`sparkdl_tpu_torch.utils.profiler.PROFILE_DIR`;
 6. on rank 0, sends the cloudpickled return value as RESULT (a worker
    process) or returns it (a barrier task, whose result goes back
    through Spark's ``collect()``).
@@ -54,8 +64,8 @@ they read no card until it is bound (:mod:`sparkdl_tpu_torch.observe.
 health`). Before them the bootstrap imports ``torch._dynamo``, which a
 process's first optimizer imports otherwise (seconds of host time): in
 ``main``, after its first observed collective, that gap would count
-against ``health.STALL_S``. The JAX worker's fault injection, compile
-cache and profiler are not ported.
+against ``health.STALL_S``. The JAX worker's compile cache has no
+counterpart.
 """
 
 import argparse
@@ -95,6 +105,35 @@ class _TeeStream(io.TextIOBase):
 
     def writable(self):
         return True
+
+
+# the module settings a driver ships to its ranks whether its telemetry
+# is on or not: "chaos.NAME" (the fault injection's) and
+# "profiler.PROFILE_DIR"
+def _rank_setting_owners():
+    from sparkdl_tpu_torch.utils import chaos, profiler
+
+    return {"chaos": chaos, "profiler": profiler}
+
+
+def rank_settings():
+    """The fault injection's settings that are set and the profiler's
+    ``PROFILE_DIR``, ``{"module.NAME": value}``, or None when none is:
+    what a driver ships to its ranks."""
+    from sparkdl_tpu_torch.utils import chaos, profiler
+
+    out = {f"chaos.{k}": v for k, v in chaos.settings().items()}
+    if profiler.PROFILE_DIR:
+        out["profiler.PROFILE_DIR"] = profiler.PROFILE_DIR
+    return out or None
+
+
+def applied_rank_settings(settings):
+    """The driver's :func:`rank_settings` in force for the block (None:
+    nothing changes), the previous values back after it."""
+    from sparkdl_tpu_torch import observe
+
+    return observe.applied_module_settings(settings, _rank_setting_owners)
 
 
 def _set_parent_death_signal():
@@ -206,7 +245,7 @@ def worker_io(client, local_log_path, parent_death=True, job_dir=None):
 
 def run_rank(client, *, log_path, device, restart, load_payload,
              send_result=True, parent_death=True, telemetry=None,
-             job_dir=None):
+             job_dir=None, settings=None):
     """Run this rank (the module docstring's steps) and return rank 0's
     cloudpickled result (None on the other ranks). ``client``: a
     :class:`~sparkdl_tpu_torch.horovod.control_plane.ControlPlaneClient`
@@ -217,7 +256,8 @@ def run_rank(client, *, log_path, device, restart, load_payload,
     sends its result as RESULT too; ``telemetry``: the driver's
     :func:`~sparkdl_tpu_torch.observe.worker_settings` (None: off),
     in force for the run; ``job_dir``: where the rank's flight recorder
-    and OOM report go. Raises what ``main`` raised, after its EXC
+    and OOM report go; ``settings``: the driver's :func:`rank_settings`,
+    in force for the run. Raises what ``main`` raised, after its EXC
     frame."""
     import cloudpickle
 
@@ -225,18 +265,22 @@ def run_rank(client, *, log_path, device, restart, load_payload,
     from sparkdl_tpu_torch.compat import horovod_torch
     from sparkdl_tpu_torch.horovod.control_plane import worker_client
     from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.utils import chaos, profiler
 
     try:
-        with observe.applied_settings(telemetry), worker_client(client), \
+        with observe.applied_settings(telemetry), \
+                applied_rank_settings(settings), worker_client(client), \
                 worker_io(client, log_path, parent_death, job_dir):
             # the payload may name horovod modules: bound before it is
             # unpickled
             with horovod_torch.bound():
+                chaos.on_worker_boot(client.rank)
                 _state.init(device=device)
                 client.send_ready()
                 horovod._set_restart_context(restart)
                 user_main, kwargs = load_payload()
-                result = user_main(**kwargs)
+                with profiler.maybe_trace_worker(client.rank):
+                    result = user_main(**kwargs)
                 if hvd.rank() != 0:
                     return None
                 pickled = cloudpickle.dumps(result)
@@ -263,7 +307,10 @@ def main(argv=None):
     parser.add_argument("--attempt", type=int, default=0)
     parser.add_argument("--resume-step", type=int, default=None)
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None)
+    parser.add_argument("--source-axes", type=json.loads, default=None)
+    parser.add_argument("--target-axes", type=json.loads, default=None)
     parser.add_argument("--telemetry", type=json.loads, default=None)
+    parser.add_argument("--rank-settings", type=json.loads, default=None)
     args = parser.parse_args(argv)
     rank = int(os.environ["RANK"])
     # before the tee exists, stdout is the launcher's per-rank boot log
@@ -286,10 +333,12 @@ def main(argv=None):
         run_rank(client,
                  log_path=os.path.join(args.job_dir, f"rank-{rank}.log"),
                  device=args.device,
-                 restart=RestartContext(args.attempt, args.resume_step),
+                 restart=RestartContext(args.attempt, args.resume_step,
+                                        args.source_axes, args.target_axes),
                  load_payload=lambda: cloudpickle.loads(
                      sys.stdin.buffer.read()),
-                 telemetry=args.telemetry, job_dir=args.job_dir)
+                 telemetry=args.telemetry, job_dir=args.job_dir,
+                 settings=args.rank_settings)
     except BaseException:
         sys.exit(1)  # worker_io logged the traceback and sent it
     sys.exit(0)

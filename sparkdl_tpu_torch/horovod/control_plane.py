@@ -77,6 +77,16 @@ MSG_PROFILE_DONE = 15  # worker to driver: the capture's report meta
 
 _HEADER = struct.Struct(">IBI")  # length (of type+rank+payload), type, rank
 
+# frame names, as the fault injection's CP_DROP names them
+_MSG_NAMES = {
+    MSG_READY: "READY", MSG_LOG: "LOG", MSG_USERLOG: "USERLOG",
+    MSG_RESULT: "RESULT", MSG_EXC: "EXC", MSG_BYE: "BYE",
+    MSG_AUTH: "AUTH", MSG_RESULT_PART: "RESULT", MSG_RESULT_END: "RESULT",
+    MSG_TELEMETRY: "TELEMETRY", MSG_HEARTBEAT: "HEARTBEAT",
+    MSG_STACK_DUMP: "STACK_DUMP", MSG_PROFILE_REQ: "PROFILE_REQ",
+    MSG_PROFILE_DONE: "PROFILE_DONE",
+}
+
 # the launcher's worker environment: where the driver listens, the secret
 CONTROL_ADDR_ENV = "SPARKDL_TORCH_CONTROL_ADDR"
 CONTROL_SECRET_ENV = "SPARKDL_TORCH_CONTROL_SECRET"
@@ -589,6 +599,16 @@ class ControlPlaneClient:
         return self._logs.dropped
 
     def _send(self, mtype, payload):
+        # the fault injection may drop or delay a frame (inert unless a
+        # chaos setting is set); the log ring's frames are droppable by
+        # design and not hooked
+        from sparkdl_tpu_torch.utils.chaos import control_frame_fate
+
+        fate = control_frame_fate(_MSG_NAMES.get(mtype, str(mtype)))
+        if fate == "drop":
+            return
+        if fate:
+            time.sleep(fate)
         frame = _HEADER.pack(len(payload) + 5, mtype, self.rank) + payload
         with self._lock:
             try:

@@ -86,10 +86,28 @@ writes ``regression_report.json``. None of it ever replaces the gang's
 own result or exception. A Spark barrier gang gets the telemetry and the
 run dir, not the live tier.
 
-Elastic resizing, per-rank kwargs and the pre-flight lint of the JAX
-launcher are not ported; nor are its comms and fixit pre-flight
-reports, the producers of ``comms_report.json`` and
-``fixit_report.json``.
+**Elastic relaunch.** An attempt's world size follows the supervisor's
+relaunch target (:attr:`~sparkdl_tpu_torch.horovod.supervisor.
+RetryPolicy.relaunch_np`, or the elastic controller's): a local gang
+spawns that many workers (a target of 1 is a one-rank subprocess gang
+under the control plane, not ``np=-1``'s in-process run), a
+one-worker-a-slot gang claims that many slots. With
+:data:`sparkdl_tpu_torch.horovod.elastic.ENABLED`, one
+:class:`~sparkdl_tpu_torch.horovod.elastic.ElasticController` spans the
+launch's attempts (the active controller the supervisor asks), is told
+each attempt's world size and is polled in the monitor loop; when a
+resize it planned reaches its checkpoint boundary the launcher kills
+the gang and raises ``GangFailure(kind="elastic_resize")``, which the
+supervisor relaunches at the target with no budget and no backoff. Its
+decision log is the run dir's ``elastic.json`` and ``/statusz``'s
+``elastic`` section. A Spark barrier gang keeps its ``np``, as in the
+JAX launcher. The driver ships the fault injection's and the profiler's
+settings to every rank (``--rank-settings``), whether its telemetry is
+on or not.
+
+Per-rank kwargs and the pre-flight lint of the JAX launcher are not
+ported; nor are its comms and fixit pre-flight reports, the producers
+of ``comms_report.json`` and ``fixit_report.json``.
 """
 
 import json
@@ -424,7 +442,7 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
     :class:`RemoteTransportError` when remote ranks cannot be started."""
     import cloudpickle
 
-    from sparkdl_tpu_torch.horovod import supervisor
+    from sparkdl_tpu_torch.horovod import elastic, supervisor
 
     payload = cloudpickle.dumps((main, kwargs))
     if len(payload) > LARGE_PAYLOAD_BYTES:
@@ -444,14 +462,26 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
         # one engine and one forensics manager span the attempts
         alert_engine = maybe_make_engine(telemetry)
         forensics = maybe_make_forensics(telemetry, alert_engine=alert_engine)
+    # the capacity watcher and card arbiter span the attempts too; the
+    # supervisor asks the active one for relaunch targets
+    controller = elastic.maybe_make_controller(alerts=alert_engine)
+    if controller is not None:
+        elastic.set_active_controller(controller)
     try:
         return supervisor.supervise(
-            lambda ctx: _launch_gang_once(np, payload, driver_log_verbosity,
-                                          restart=ctx, telemetry=telemetry,
-                                          alerts=alert_engine,
-                                          forensics=forensics),
+            lambda ctx, world=None: _launch_gang_once(
+                np, payload, driver_log_verbosity, restart=ctx,
+                telemetry=telemetry, alerts=alert_engine,
+                forensics=forensics, world=world, controller=controller),
             supervisor.policy)
     finally:
+        if controller is not None:
+            elastic.set_active_controller(None)
+            if telemetry is not None:
+                try:
+                    telemetry.add_elastic_report(controller.report())
+                except Exception as e:  # noqa: BLE001 - never masks the gang
+                    logger.warning("elastic report attach failed: %s", e)
         if alert_engine is not None:
             # a clean run's alerts.json too: the rules ran, none fired
             try:
@@ -472,12 +502,16 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
 
 
 def _launch_gang_once(np, payload, driver_log_verbosity, restart,
-                      telemetry=None, alerts=None, forensics=None):
+                      telemetry=None, alerts=None, forensics=None,
+                      world=None, controller=None):
     """One launch attempt of the cloudpickled ``(main, kwargs)``, its
     workers told ``restart`` (a RestartContext), their telemetry into
     ``telemetry`` (a GangTelemetry, or None), polled by ``alerts`` (an
     AlertEngine, or None), captures through ``forensics`` (a
-    ForensicsManager, or None); rank 0's result."""
+    ForensicsManager, or None), ``world`` workers when it is given (an
+    elastic relaunch; None: ``np``'s), ``controller`` (an
+    ElasticController, or None) told the world and polled; rank 0's
+    result."""
     from sparkdl_tpu_torch.horovod.topology import (
         Placement,
         _addressable,
@@ -506,6 +540,18 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
     num_workers, mode, total = (
         _resolve_num_workers(np) if spec is None or np <= -2
         else _resolve_num_workers(np, spec))
+    if world and int(world) != num_workers:
+        # the supervisor's relaunch target, cleared by its pre-flight: a
+        # local gang spawns that many workers, a cluster gang resolves
+        # (and claims) that many slots
+        if mode == "local":
+            num_workers = int(world)
+        else:
+            num_workers, mode, total = (
+                _resolve_num_workers(int(world)) if spec is None
+                else _resolve_num_workers(int(world), spec))
+        logger.info("elastic relaunch: gang world resized to np=%d (%s "
+                    "mode)", num_workers, mode)
     placement = (spec.first(num_workers) if spec is not None
                  and mode == "cluster" else Placement.single_host(num_workers))
     remote = sorted({h for h, _ in placement.hosts if not is_local_host(h)})
@@ -533,7 +579,7 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
         master_addr = _addressable("localhost") if remote else "127.0.0.1"
         return _run_gang(num_workers, mode, placement, remote, shell,
                          master_addr, payload, driver_log_verbosity, restart,
-                         telemetry, alerts, forensics)
+                         telemetry, alerts, forensics, controller)
     finally:
         if claim is not None:
             claim.release()
@@ -541,13 +587,14 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
 
 def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
               payload, driver_log_verbosity, restart, telemetry=None,
-              alerts=None, forensics=None):
+              alerts=None, forensics=None, controller=None):
     """Spawn the workers (``remote`` hosts' through ``shell``), wait for
     them and return rank 0's unpickled result."""
     import cloudpickle
     import torch.distributed as dist
 
     from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.horovod._worker import rank_settings
     from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
     from sparkdl_tpu_torch.horovod.supervisor import (
         GangFailure,
@@ -559,6 +606,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
     store = server = detector = statusz = None
     procs, boot_logs = [], []
     record_attempt_world(num_workers)
+    if controller is not None:
+        # a change of world counts here, where the attempt's size is known
+        controller.note_attempt(num_workers)
     if telemetry is not None:
         from sparkdl_tpu_torch.observe.health import HangDetector
 
@@ -574,7 +624,7 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
             # inside the try: the finally closes it however the attempt ends
             statusz = maybe_start_statusz(
                 telemetry, detector=detector, num_workers=num_workers,
-                alerts=alerts, forensics=forensics)
+                alerts=alerts, elastic=controller, forensics=forensics)
             if statusz is not None:
                 logger.info("statusz live at http://%s/statusz",
                             statusz.address)
@@ -601,11 +651,17 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         args = ["--job-dir", job_dir, "--attempt", str(restart.attempt)]
         if restart.resume_step is not None:
             args += ["--resume-step", str(restart.resume_step)]
+        if restart.source_axes and restart.target_axes:
+            args += ["--source-axes", json.dumps(restart.source_axes),
+                     "--target-axes", json.dumps(restart.target_axes)]
         device = rank_device(mode)
         if device is not None:
             args += ["--device", device]
         if telemetry is not None:
             args += ["--telemetry", json.dumps(observe.worker_settings())]
+        settings = rank_settings()
+        if settings:
+            args += ["--rank-settings", json.dumps(settings)]
         python = REMOTE_PYTHON or sys.executable
         # the workers' boot stream: the secret's line, then the payload;
         # each worker's stdin opens it anew, and it is unlinked once they
@@ -681,6 +737,12 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
                 fired = alerts.poll()
                 if forensics is not None and fired:
                     forensics.on_alerts(fired)
+            if controller is not None and first_death is None:
+                # the elastic tick (throttled inside): a resize at its
+                # checkpoint boundary recycles the gang now
+                resize = controller.poll()
+                if resize is not None:
+                    _recycle(procs, resize)
             if detector is not None and first_death is None:
                 _check_hang(detector, server, procs, num_workers, job_dir)
             if (JOB_TIMEOUT_S is not None
@@ -727,6 +789,26 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         if server is not None:
             server.close()
         del store  # closes the rendezvous store's server
+
+
+def _recycle(procs, resize):
+    """Kill the gang for the elastic controller's ``resize`` and raise
+    ``GangFailure(kind="elastic_resize")``, which the supervisor
+    relaunches at the target with no budget and no backoff."""
+    from sparkdl_tpu_torch.horovod.supervisor import GangFailure
+
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+    raise GangFailure(
+        f"elastic resize: {resize['direction']} to np={resize['target_np']} "
+        f"({resize['reason']}); resuming from step "
+        f"{resize.get('resume_step')}", kind="elastic_resize",
+        exit_codes=[p.poll() or 0 for p in procs],
+        elastic_direction=resize["direction"],
+        elastic_target=resize["target_np"])
 
 
 def _check_hang(detector, server, procs, num_workers, job_dir):

@@ -13,8 +13,10 @@ runs the same rank bootstrap as a local worker
 The rendezvous stays the driver's: the driver opens the job's
 ``TCPStore`` (it listens on every interface) and its control plane on
 all interfaces, and ships their routable addresses, the control plane's
-secret, the device, the restart context and, with telemetry on, the
-driver's telemetry settings to the tasks in the job's closure (their
+secret, the device, the restart context, the fault injection's and the
+profiler's settings (:func:`~sparkdl_tpu_torch.horovod._worker.
+rank_settings`) and, with telemetry on, the driver's telemetry settings
+to the tasks in the job's closure (their
 flushes reach the launch's GangTelemetry through the control plane; a
 task keeps no flight recorder, as in the JAX package). Each task sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
 ``LOCAL_WORLD_SIZE`` (local values by
@@ -47,7 +49,8 @@ class SparkGangResult:
 
 
 def _barrier_main(payload, control_addr, control_secret, master_addr,
-                  master_port, device, restart, telemetry=None):
+                  master_port, device, restart, telemetry=None,
+                  settings=None):
     """The function each barrier task runs on its partition (executor
     side); it returns ``[rank 0's cloudpickled result]`` on rank 0 and
     nothing elsewhere."""
@@ -93,7 +96,8 @@ def _barrier_main(payload, control_addr, control_secret, master_addr,
                 ControlPlaneClient(control_addr, rank, control_secret),
                 log_path=log_path, device=device, restart=restart,
                 load_payload=lambda: cloudpickle.loads(payload),
-                send_result=False, parent_death=False, telemetry=telemetry)
+                send_result=False, parent_death=False, telemetry=telemetry,
+                settings=settings)
         finally:
             # the worker as it was: no later code of the process finds
             # this job's rank or its driver's address
@@ -129,6 +133,7 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
     import torch.distributed as dist
 
     from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.horovod._worker import rank_settings
     from sparkdl_tpu_torch.horovod.control_plane import ControlPlaneServer
     from sparkdl_tpu_torch.horovod.supervisor import GangFailure
 
@@ -148,7 +153,7 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
             pickled = rdd.mapPartitions(_barrier_main(
                 payload, server.address, server.secret, master_addr,
                 store.port, device, restart,
-                observe.worker_settings())).collect()
+                observe.worker_settings(), rank_settings())).collect()
         except Exception as e:
             # the ranks' own tracebacks, not Spark's opaque task failure
             # (reference runner_base.py:62-72)

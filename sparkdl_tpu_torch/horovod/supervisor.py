@@ -22,18 +22,37 @@ ends the run. The supervisor wraps each launch:
 4. **Exhaust loudly**: :class:`GangRetryBudgetExhausted` names every
    attempt with its classified cause.
 
+**Elastic relaunch.** A relaunch may run at another world size: the
+operator's :attr:`RetryPolicy.relaunch_np` (the JAX package's
+``SPARKDL_TPU_GANG_RELAUNCH_NP``) or, with it unset, the active
+:class:`~sparkdl_tpu_torch.horovod.elastic.ElasticController`'s target
+(a planned resize, or the current world clamped to the probed capacity).
+Before the backoff, the target goes through the reshard pre-flight
+(:func:`~sparkdl_tpu_torch.analysis.comms.check_relaunch_np` against the
+tree registered with :func:`sparkdl_tpu_torch.analysis.
+register_gang_sharding`): an infeasible target of the operator's raises
+the typed ``ReshardPreflightError``; one of the controller's cancels its
+plan (``"reshard_preflight_refused"``) and the relaunch keeps the
+current world. The relaunch's restart context carries the mesh axes it
+comes from (the registry's, else the resume step's sidecar) and the
+ones :func:`~sparkdl_tpu_torch.analysis.comms.shrink_mesh` derives for
+the target, and the launcher resizes the gang to the target. A resize
+the controller planned (a ``GangFailure`` of kind ``"elastic_resize"``)
+takes no retry budget and no backoff, and lands as a ``gang.resize``
+instant instead of ``gang.failure``.
+
 The policy is the module's :data:`policy`, which
 :func:`~sparkdl_tpu_torch.horovod.launcher.launch_gang` reads at call
 time; its default (``max_retries=0``) turns supervision off. No
 environment variable is read (``RetryPolicy.from_env`` is not ported):
 ``extra_patterns`` takes the place of ``SPARKDL_TPU_TRANSIENT_PATTERNS``.
 With telemetry on, each attempt lands on the driver's timeline and
-metrics as in the JAX package: the ``gang.attempt`` and
-``gang.failure`` instants, ``gang_attempts_total``,
-``gang_failures_total{verdict}``, ``gang_restarts_total`` and the
-``gang.backoff`` span. The launcher records each attempt's world size
-(:func:`record_attempt_world`), which ``/statusz`` reads. Not ported:
-the elastic relaunch at another world size and its reshard pre-flight.
+metrics as in the JAX package: the ``gang.attempt``, ``gang.failure``,
+``gang.resize``, ``gang.reshard_preflight`` and ``gang.reshard_refused``
+instants, ``gang_attempts_total``, ``gang_failures_total{verdict}``,
+``gang_restarts_total`` and the ``gang.backoff`` span. The launcher
+records each attempt's world size (:func:`record_attempt_world`), which
+``/statusz`` reads.
 """
 
 import dataclasses
@@ -89,19 +108,24 @@ _INFRA_TYPES = re.compile(
 class GangFailure(RuntimeError):
     """A launched gang failed. ``kind``: ``"start_failure"``,
     ``"rendezvous_timeout"``, ``"worker_death"``, ``"no_result"``,
-    ``"job_timeout"`` or ``"hang"``; ``exit_codes``: each rank's
-    (negative: killed by that signal); ``exceptions``: rank -> traceback
-    text of its EXC frame; ``hang_verdict``: the hang detector's verdict
-    of a ``"hang"``. A RuntimeError, so callers that catch one keep
-    working."""
+    ``"job_timeout"``, ``"hang"`` or ``"elastic_resize"`` (the launcher
+    recycled the gang for the elastic controller's planned resize);
+    ``exit_codes``: each rank's (negative: killed by that signal);
+    ``exceptions``: rank -> traceback text of its EXC frame;
+    ``hang_verdict``: the hang detector's verdict of a ``"hang"``;
+    ``elastic_direction`` and ``elastic_target``: a resize's direction
+    and np. A RuntimeError, so callers that catch one keep working."""
 
     def __init__(self, message, *, kind="unknown", exit_codes=None,
-                 exceptions=None, hang_verdict=None):
+                 exceptions=None, hang_verdict=None, elastic_direction=None,
+                 elastic_target=None):
         super().__init__(message)
         self.kind = kind
         self.exit_codes = list(exit_codes or [])
         self.exceptions = dict(exceptions or {})
         self.hang_verdict = hang_verdict
+        self.elastic_direction = elastic_direction
+        self.elastic_target = elastic_target
 
 
 @dataclasses.dataclass
@@ -174,6 +198,9 @@ def classify_failure(exc, extra_patterns=()):
     """(verdict, cause) of a failed launch; a *permanent* one is never
     relaunched.
 
+    - A resize the elastic controller planned: transient (the relaunch
+      is its purpose), judged first, since the launcher's kill looks
+      like signal deaths.
     - A gang the hang detector declared hung: transient (the launcher
       took its stack dumps and killed it; its state is in the
       checkpoint), judged first, since that kill looks like signal
@@ -203,6 +230,11 @@ def classify_failure(exc, extra_patterns=()):
     if isinstance(exc, (ValueError, TypeError)):
         return PERMANENT, f"bad arguments ({type(exc).__name__})"
     if isinstance(exc, GangFailure):
+        if exc.kind == "elastic_resize":
+            return TRANSIENT, (
+                f"ELASTIC ({exc.elastic_direction or 'resize'}) — planned "
+                f"resize to np={exc.elastic_target}; relaunching from "
+                "checkpoint")
         if exc.kind == "hang":
             return TRANSIENT, (
                 f"HANG ({exc.hang_verdict or 'hung'}) — gang made no "
@@ -234,8 +266,9 @@ def classify_failure(exc, extra_patterns=()):
 
 @dataclasses.dataclass
 class RetryPolicy:
-    """Relaunch budget, backoff schedule, resume source and extra
-    transient signatures."""
+    """Relaunch budget, backoff schedule, resume source, extra transient
+    signatures and ``relaunch_np``: the world size of every relaunch
+    (None: the elastic controller's target, else the configured np)."""
     max_retries: int = 0
     backoff_base: float = 1.0
     backoff_factor: float = 2.0
@@ -243,6 +276,7 @@ class RetryPolicy:
     jitter: float = 0.5
     resume_dir: str = None
     extra_patterns: tuple = ()
+    relaunch_np: int = None
 
     def backoff(self, attempt, _random=random.random):
         """Seconds before relaunch number ``attempt`` (1-based): capped
@@ -300,55 +334,182 @@ def _resume_step(policy):
     return latest_complete_step(policy.resume_dir)
 
 
+def _relaunch_np_target(policy):
+    """The world size of the next relaunch, or None (the configured
+    np): the policy's ``relaunch_np`` wins; else the active elastic
+    controller's answer (a planned resize's target, or the current
+    world clamped to the probed capacity)."""
+    if policy.relaunch_np is not None:
+        return int(policy.relaunch_np)
+    from sparkdl_tpu_torch.horovod import elastic
+
+    ctrl = elastic.active_controller()
+    if ctrl is not None:
+        try:
+            return ctrl.relaunch_target()
+        except Exception:  # noqa: BLE001 - a probe failure keeps the np
+            logger.warning("elastic relaunch-target probe failed",
+                           exc_info=True)
+    return None
+
+
+def _reshard_preflight(target_np):
+    """Check a relaunch at ``target_np`` before the backoff: an
+    infeasible one raises the typed ``ReshardPreflightError`` here, on
+    the driver, not mid-restore on the cards. Returns the ReshardPlan,
+    or None when no sharding tree is registered (nothing provable)."""
+    from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.analysis.comms import (
+        ReshardPreflightError,
+        check_relaunch_np,
+    )
+
+    try:
+        plan = check_relaunch_np(target_np)
+    except ReshardPreflightError as e:
+        observe.instant("gang.reshard_refused", cat="supervisor",
+                        target_np=target_np,
+                        problems=[str(f) for f in e.findings[:4]])
+        logger.error("elastic relaunch at np=%d refused by the reshard "
+                     "pre-flight; not relaunching: %s", target_np, e)
+        raise
+    if plan is not None:
+        observe.instant("gang.reshard_preflight", cat="supervisor",
+                        target_np=target_np, feasible=True,
+                        restore_high_water_bytes=
+                        plan.restore_high_water_bytes)
+        logger.info("elastic relaunch at np=%d cleared the reshard "
+                    "pre-flight (target mesh %s, restore high-water %.2f "
+                    "GiB)", target_np, plan.target_axes,
+                    plan.restore_high_water_bytes / 2**30)
+    return plan
+
+
+def _reshard_axes(policy, target_np, resume_step):
+    """(source_axes, target_axes) of a relaunch at ``target_np``: the
+    source from the registered gang sharding, else from the resume
+    step's sidecar; the target by ``shrink_mesh``. ``(None, None)``
+    when no source is known (the workers then take their own
+    defaults)."""
+    from sparkdl_tpu_torch.analysis.comms import (
+        registered_gang_sharding,
+        shrink_mesh,
+    )
+
+    src = None
+    reg = registered_gang_sharding()
+    if reg is not None:
+        src = dict(reg["source_axes"])
+    if not src and policy.resume_dir and resume_step is not None:
+        from sparkdl_tpu_torch.utils.checkpoint import (
+            load_sharding_tree,
+            sidecar_mesh_axes,
+        )
+
+        doc = load_sharding_tree(policy.resume_dir, resume_step)
+        if doc is not None:
+            src = sidecar_mesh_axes(doc)
+    if not src:
+        return None, None
+    tgt, _reason = shrink_mesh(src, int(target_np))
+    return src, tgt
+
+
 def supervise(launch, policy, _sleep=time.sleep):
     """Run ``launch(context)`` under ``policy`` and return its result.
 
     ``launch`` takes the attempt's
     :class:`~sparkdl_tpu_torch.horovod.RestartContext` and raises on
-    failure. The first attempt gets ``RestartContext(0, None)``; each
-    relaunch its number and the newest committed step under
-    ``policy.resume_dir``, read after the backoff.
+    failure; a relaunch at another world size (:func:`_relaunch_np_target`)
+    calls ``launch(context, world)``. The first attempt gets
+    ``RestartContext(0, None)``; each relaunch its number, the newest
+    committed step under ``policy.resume_dir`` (read after the backoff)
+    and, at a target world size, the source and target mesh axes. A
+    relaunch at a target moves the registered gang sharding's axes to
+    the target's, the source of the next relaunch.
     """
     from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.analysis.comms import note_gang_axes
     from sparkdl_tpu_torch.horovod import RestartContext
 
     attempts = []
     attempt = 1
+    budget_used = 0  # only unplanned transient failures take budget
     del _attempt_worlds[:]  # each supervised launch its own
     del _attempt_stamps[:]
     while True:
-        context = (RestartContext(0, None) if attempt == 1 else
-                   RestartContext(attempt - 1, _resume_step(policy)))
+        target_np = None
+        context = RestartContext(0, None)
+        if attempt > 1:
+            step = _resume_step(policy)
+            target_np = _relaunch_np_target(policy)
+            src = tgt = None
+            if target_np is not None:
+                src, tgt = _reshard_axes(policy, target_np, step)
+                note_gang_axes(tgt)
+            context = RestartContext(attempt - 1, step, src, tgt)
         observe.inc("gang_attempts_total")
         observe.instant("gang.attempt", cat="supervisor", attempt=attempt)
         try:
-            return launch(context)
+            if target_np is None:
+                return launch(context)
+            return launch(context, target_np)
         except Exception as e:
             verdict, cause = classify_failure(e, policy.extra_patterns)
+            planned = getattr(e, "kind", None) == "elastic_resize"
             attempts.append(AttemptRecord(attempt, verdict, cause))
             first_line = (str(e).splitlines() or ["<no message>"])[0]
-            observe.instant("gang.failure", cat="supervisor",
-                            attempt=attempt, verdict=verdict, cause=cause,
-                            kind=getattr(e, "kind", type(e).__name__))
-            observe.inc("gang_failures_total", verdict=verdict)
+            if planned:
+                # the controller's resize, not a failure
+                observe.instant("gang.resize", cat="supervisor",
+                                attempt=attempt, cause=cause,
+                                direction=e.elastic_direction,
+                                target_np=e.elastic_target)
+                logger.info("HorovodRunner gang recycling for a planned "
+                            "elastic resize (attempt %d: %s)", attempt,
+                            cause)
+            else:
+                observe.instant("gang.failure", cat="supervisor",
+                                attempt=attempt, verdict=verdict,
+                                cause=cause,
+                                kind=getattr(e, "kind", type(e).__name__))
+                observe.inc("gang_failures_total", verdict=verdict)
             if verdict == PERMANENT:
                 logger.error(
                     "HorovodRunner gang failed permanently on attempt %d "
                     "(%s); not retrying: %s", attempt, cause, first_line)
                 raise
-            if attempt > policy.max_retries:
-                if policy.max_retries > 0:
-                    raise GangRetryBudgetExhausted(
-                        attempts, policy.max_retries) from e
-                raise  # supervision off: surface untouched
-            delay = policy.backoff(attempt)
+            if not planned:
+                budget_used += 1
+                if budget_used > policy.max_retries:
+                    if policy.max_retries > 0:
+                        raise GangRetryBudgetExhausted(
+                            attempts, policy.max_retries) from e
+                    raise  # supervision off: surface untouched
+            target = _relaunch_np_target(policy)
+            if target is not None:
+                # before the backoff: an infeasible operator target raises;
+                # the controller's plan is cancelled instead
+                try:
+                    _reshard_preflight(target)
+                except Exception:
+                    if policy.relaunch_np is not None:
+                        raise
+                    from sparkdl_tpu_torch.horovod import elastic
+
+                    ctrl = elastic.active_controller()
+                    if ctrl is None:
+                        raise
+                    ctrl.cancel_pending("reshard_preflight_refused")
+            delay = 0.0 if planned else policy.backoff(budget_used)
             resume = _resume_step(policy)
-            logger.warning(
-                "HorovodRunner gang failed transiently (attempt %d, retry "
-                "%d/%d: %s); relaunching in %.1fs%s: %s", attempt, attempt,
-                policy.max_retries, cause, delay,
-                "" if resume is None else f" (will resume from step {resume})",
-                first_line)
+            if not planned:
+                logger.warning(
+                    "HorovodRunner gang failed transiently (attempt %d, "
+                    "retry %d/%d: %s); relaunching in %.1fs%s: %s", attempt,
+                    budget_used, policy.max_retries, cause, delay,
+                    "" if resume is None
+                    else f" (will resume from step {resume})", first_line)
             observe.inc("gang_restarts_total")
             if delay > 0:
                 with observe.span("gang.backoff", cat="supervisor",

@@ -154,16 +154,38 @@ def moe_gates(logits, top_k):
     return gates_from_probs(torch.softmax(logits, dim=-1), top_k)
 
 
-def load_balance_loss(probs, top_k):
+def load_balance_loss(probs, top_k, *, mesh=None):
     """Router load-balance auxiliary (switch-transformer form,
     generalized to top-k): ``E * sum_e f_e * P_e`` where ``f_e`` is the
     fraction of tokens routing to expert e (top-k membership) and
     ``P_e`` the mean router probability. Perfectly balanced routing
-    gives ``top_k``; imbalance grows it toward ``E * top_k``."""
+    gives ``top_k``; imbalance grows it toward ``E * top_k``.
+
+    ``mesh``: the model's mesh. On a mesh whose data-like axes
+    (``data``, ``fsdp``, ``seq``) of size > 1 split the batch (product
+    R), this rank returns ``E * sum_e f_global[e] * P_r[e]``: ``f`` is
+    the mean of the ranks' ``f`` (one all-reduce of the detached vector
+    over those axes, divided by R; like the top-k mask it has no
+    gradient) and ``P_r`` this rank's own mean probability, with its
+    gradient. The value a rank returns is not the global aux; its mean
+    over the ranks is, in value and in gradient, since every rank holds
+    equally many tokens, and that mean is what the mesh-aware step
+    returns and differentiates (C8's rule, the mean over the data
+    ranks). ``model`` ranks hold the same tokens and add nothing.
+    Without a mesh, or with R = 1, the local form."""
     n_experts = probs.shape[-1]
     flat = probs.reshape(-1, n_experts)
     chosen = _topk_mask(flat, top_k).to(torch.float32)
     f = chosen.mean(dim=0)
+    if mesh is not None:
+        from sparkdl_tpu_torch.parallel.train import _data_axes
+
+        axes, n = _data_axes(mesh)
+        if axes:
+            f = f.detach()
+            for axis in axes:
+                f = mesh.all_reduce(f, axis)
+            f = f / n
     p = flat.mean(dim=0)
     return n_experts * torch.sum(f * p)
 
@@ -181,13 +203,19 @@ def _router_probs(tree, under=False):
     return [tree] if under else []
 
 
-def moe_aux_loss(intermediates, top_k):
+def moe_aux_loss(intermediates, top_k, *, mesh=None):
     """Sum :func:`load_balance_loss` over every recorded
     ``router_probs`` in an intermediates tree (one per MoE layer:
     ``Llama.forward(..., return_intermediates=True)``). Raises if none
     are present: a silent 0.0 would let the router train without
-    balancing."""
-    losses = [load_balance_loss(p, top_k)
+    balancing.
+
+    ``mesh``: the model's mesh, as :func:`load_balance_loss` takes it.
+    On data-like axes > 1 a rank's value is its share (the global
+    ``f`` against its own ``P``), not the global aux; the mean over the
+    ranks, which the mesh-aware step returns and differentiates, is
+    JAX's aux over the global batch."""
+    losses = [load_balance_loss(p, top_k, mesh=mesh)
               for p in _router_probs(intermediates)]
     if not losses:
         raise ValueError(

@@ -130,16 +130,23 @@ def worker_settings():
             for m, name in _WORKER_SETTINGS}
 
 
-@contextlib.contextmanager
 def applied_settings(settings):
     """The driver's :func:`worker_settings` in force in this process for
     the length of the block (None: nothing changes), then the previous
     values back: a process that runs one rank after another (a reused
     Spark worker) takes each job's own."""
+    return applied_module_settings(settings, _setting_owners)
+
+
+@contextlib.contextmanager
+def applied_module_settings(settings, owners):
+    """``settings`` (``{"module.NAME": value}``) set on the modules that
+    ``owners()`` names (``{"module": module}``) for the block, the
+    previous values back after it; None or empty: nothing changes."""
     if not settings:
         yield
         return
-    owners = _setting_owners()
+    owners = owners()
     prev = {}
     for key, value in settings.items():
         m, name = key.split(".", 1)

@@ -25,6 +25,9 @@ hang verdicts) and writes the JAX package's artifacts:
 - ``alerts.json``: the alert engine's report of every attempt, merged
   (the newest configuration, every attempt's firings), written for a
   clean run too (:meth:`GangTelemetry.add_alert_report`);
+- ``elastic.json``: the elastic controller's decision log of the
+  launch (:meth:`GangTelemetry.add_elastic_report`), the newest state
+  and every report's decisions;
 - ``regression_report.json``: the perf forensics' entries
   (:meth:`GangTelemetry.add_regression_report`), and the captures'
   ``profile_report-rank-<r>-<seq>.json`` and
@@ -63,6 +66,7 @@ PERF_FILE = "perf.json"
 COMMS_FILE = "comms_report.json"
 FIXIT_FILE = "fixit_report.json"
 ALERTS_FILE = "alerts.json"
+ELASTIC_FILE = "elastic.json"
 REGRESSION_FILE = "regression_report.json"
 
 # the live event journal is a ring: live readers want the recent past
@@ -92,6 +96,7 @@ class GangTelemetry:
         self._comms_reports = []    # static comms budgets, when handed
         self._fixit_reports = []    # fixit reports, when handed
         self._alert_reports = []    # one alert-engine report an attempt
+        self._elastic_reports = []  # the elastic controller's decision log
         self._regression_reports = []  # perf-forensics entries
         self._journal = collections.deque(maxlen=JOURNAL_CAP)
         self._journal_seq = 0
@@ -158,6 +163,16 @@ class GangTelemetry:
         with self._lock:
             self._fixit_reports.extend(
                 r for r in reports if isinstance(r, dict))
+
+    def add_elastic_report(self, report):
+        """The elastic controller's decision log
+        (:meth:`~sparkdl_tpu_torch.horovod.elastic.ElasticController.
+        report`), one a supervised launch (the controller spans its
+        attempts): ``write`` merges the reports into ``elastic.json``,
+        the newest state and every decision."""
+        if isinstance(report, dict):
+            with self._lock:
+                self._elastic_reports.append(report)
 
     def add_alert_report(self, report):
         """One alert-engine report (:meth:`~sparkdl_tpu_torch.observe.
@@ -323,6 +338,7 @@ class GangTelemetry:
             comms = list(self._comms_reports)
             fixit = list(self._fixit_reports)
             alert_reports = list(self._alert_reports)
+            elastic_reports = list(self._elastic_reports)
             regression_reports = list(self._regression_reports)
         perf_ranks = {}
         for rank in sorted(rank_events):
@@ -339,6 +355,12 @@ class GangTelemetry:
             files.append((PERF_FILE, json.dumps(
                 {"schema": perf.BREAKDOWN_SCHEMA, "ranks": perf_ranks},
                 indent=2)))
+        if elastic_reports:
+            merged = dict(elastic_reports[-1])
+            merged["decisions"] = [d for rep in elastic_reports
+                                   for d in rep.get("decisions", ())]
+            merged["reports"] = len(elastic_reports)
+            files.append((ELASTIC_FILE, json.dumps(merged, indent=2)))
         if alert_reports:
             merged = dict(alert_reports[-1])
             merged["alerts"] = [a for rep in alert_reports

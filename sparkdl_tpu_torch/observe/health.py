@@ -176,7 +176,9 @@ class HeartbeatSender:
     """The worker's beacon thread: :func:`heartbeat_payload` over the
     control plane every ``interval`` seconds (None: :data:`HEARTBEAT_S`),
     the first at once, so the driver has this rank's baseline before the
-    first stall window can pass."""
+    first stall window can pass. The fault injection can mute it
+    (:data:`sparkdl_tpu_torch.utils.chaos.MUTE_HEARTBEAT`: the beats
+    stop, the process lives), the detector's silent verdict."""
 
     def __init__(self, client, rank, interval=None):
         self._client = client
@@ -187,6 +189,10 @@ class HeartbeatSender:
         self._thread = None
 
     def beat(self):
+        from sparkdl_tpu_torch.utils.chaos import heartbeat_muted
+
+        if heartbeat_muted(self._rank):
+            return False  # the fault injection's mute: beats stop
         try:
             self._client.send_heartbeat(heartbeat_payload(self._rank))
         except Exception:

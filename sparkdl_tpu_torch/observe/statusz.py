@@ -18,7 +18,9 @@ and every beat:
     detector's live state), the supervisor's counters, a rolling
     attribution window per rank (median step time, component fractions,
     overlap efficiency, MFU), the alert engine's rules and firings, the
-    perf forensics' captures, and each registered fleet's replica table.
+    perf forensics' captures, each registered fleet's replica table, and
+    the elastic controller's current and available cards, pending plan
+    and newest decisions (``elastic=``).
 ``GET /events``
     A server-sent-events tail of the merged live timeline: each journal
     event one ``data:`` line, its sequence the SSE ``id``.
@@ -136,7 +138,7 @@ def statusz_port():
 
 
 def maybe_start_statusz(telemetry, detector=None, num_workers=None,
-                        alerts=None, forensics=None):
+                        alerts=None, elastic=None, forensics=None):
     """A running :class:`StatuszServer` when :data:`PORT` is set and
     telemetry is live, None otherwise. A port already taken logs and
     returns None: the gang matters more than its page."""
@@ -146,7 +148,8 @@ def maybe_start_statusz(telemetry, detector=None, num_workers=None,
     try:
         return StatuszServer(
             telemetry, detector=detector, num_workers=num_workers,
-            alerts=alerts, forensics=forensics, port=port).start()
+            alerts=alerts, elastic=elastic, forensics=forensics,
+            port=port).start()
     except OSError as e:
         import logging
 
@@ -164,11 +167,8 @@ class StatuszServer:
     def __init__(self, telemetry, detector=None, num_workers=None,
                  alerts=None, elastic=None, forensics=None,
                  host="127.0.0.1", port=0):
-        if elastic is not None:
-            raise NotImplementedError(
-                "StatuszServer(elastic=): the elastic controller is not "
-                "ported")
         self._telemetry = telemetry
+        self._elastic = elastic
         self._detector = detector
         self._alerts = alerts
         self._forensics = forensics
@@ -295,6 +295,11 @@ class StatuszServer:
         fleet = fleet_status()
         if fleet is not None:
             doc["fleet"] = fleet
+        if self._elastic is not None:
+            try:
+                doc["elastic"] = self._elastic.status()
+            except Exception:
+                pass
         return doc
 
     def _serve_statusz(self, handler):

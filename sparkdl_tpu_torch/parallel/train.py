@@ -143,7 +143,12 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
     the model's mesh (:func:`cross_entropy_loss` and
     :func:`fused_cross_entropy` with ``ignore_index`` and
     ``mesh=model.mesh``); a user loss that ignores labels and takes no
-    mesh gives the mean of the ranks' means. Wrapping its
+    mesh gives the mean of the ranks' means. An MoE router's aux loss
+    follows the same rule through :func:`~sparkdl_tpu_torch.models.moe.
+    moe_aux_loss` with ``mesh=model.mesh`` (C9: the global ``f``
+    against each rank's own ``P``), whose mean over the ranks is the
+    global batch's aux in value and gradient; without the mesh it is
+    the mean of the ranks' products, which is not. Wrapping its
     optimizer in ``hvd.DistributedOptimizer`` (a mean over the whole
     world) raises ValueError.
     """

@@ -9,7 +9,8 @@ weight trained; the JAX ``make_train_step`` takes the same steps from
 the same weights and batch under GSPMD on the same meshes (the first 4
 of ``tests/conftest.py``'s 8 CPU devices). The same gang checks
 ``cfg.remat``, the losses with unequally ignored labels (C8), one MoE
-LoRA step, the collectives a step issues, ``Mesh.reduce_scatter`` and
+LoRA step, the MoE router's aux loss with each rank's rows routed
+differently (C9), the collectives a step issues, ``Mesh.reduce_scatter`` and
 the sharded-parameter gather, the serving engine's tokens (int8 and
 int4, paged) against the JAX engine's on the same meshes, and a
 ``data=2 x fsdp=2`` checkpoint with its sidecar, restored inside the
@@ -53,6 +54,11 @@ CFG = dict(d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
            vocab_size=256)
 LORA = dict(lora_rank=4, lora_targets=("q_proj", "v_proj", "o_proj"))
 MOE = dict(n_experts=4, moe_top_k=2)
+AUX_WEIGHT = 0.01
+AUX_ROUTER_SCALE = 20.0
+# the MoE aux cases (C9): (mesh, mode), the router trained in "full"
+AUX_CASES = (("data2_fsdp2", "lora"), ("data2_fsdp2", "full"),
+             ("fsdp2_model2", "lora"))
 MESHES = {"fsdp4": dict(fsdp=4), "data2_fsdp2": dict(data=2, fsdp=2),
           "fsdp2_model2": dict(fsdp=2, model=2)}
 MODES = ("lora", "full")
@@ -245,6 +251,38 @@ def _ignoring_loss(kind):
     return make
 
 
+def _aux_loss(model):
+    """The LM loss plus ``AUX_WEIGHT`` x the router's aux loss over the
+    model's mesh (C9)."""
+    from sparkdl_tpu_torch.models.moe import moe_aux_loss
+    from sparkdl_tpu_torch.parallel.train import cross_entropy_loss
+
+    def loss_fn(batch):
+        logits, inter = model(torch.as_tensor(batch["inputs"]),
+                              return_intermediates=True)
+        return (cross_entropy_loss(logits, torch.as_tensor(batch["targets"]))
+                + AUX_WEIGHT * moe_aux_loss(inter, MOE["moe_top_k"],
+                                            mesh=model.mesh))
+
+    loss_fn.model = model
+    return loss_fn
+
+
+def _routed_fractions(flat, mesh, mode, batch):
+    """This rank's own top-k fractions ``f`` of each MoE layer on its
+    rows of ``batch`` (layer order)."""
+    from sparkdl_tpu_torch.models.moe import _router_probs, _topk_mask
+    from sparkdl_tpu_torch.parallel.train import shard_batch
+
+    model = _model(flat, mesh, mode, **MOE)
+    with torch.no_grad():
+        _, inter = model(torch.as_tensor(shard_batch(batch, mesh)["inputs"]),
+                         return_intermediates=True)
+    return [_topk_mask(p.reshape(-1, MOE["n_experts"]),
+                       MOE["moe_top_k"]).mean(dim=0).numpy()
+            for p in _router_probs(inter)]
+
+
 def _count_step(flat, mesh, mode, batch):
     """The collectives one step issues on this rank, by kind (the mesh's
     instance methods wrapped, as the model's autograd nodes call
@@ -357,7 +395,7 @@ def _gang_main(flats, batch, ignored, serve_flat, ckpt_dir):
     hvd.init()
     root = hvd.rank() == 0
     out = {"steps": {}, "grads": {}, "remat": {}, "shapes": {},
-           "serve": {}, "step_options": {}}
+           "serve": {}, "step_options": {}, "aux": {}}
     for name, kw in MESHES.items():
         mesh = make_mesh(MeshSpec(**kw))
         for mode in MODES:
@@ -381,6 +419,15 @@ def _gang_main(flats, batch, ignored, serve_flat, ckpt_dir):
                                           loss_fn=_ignoring_loss(kind))
                 for mode in MODES for kind in ("logits", "fused")}
             out["coords"] = mesh.axis_index("data"), mesh.axis_index("fsdp")
+        for case in AUX_CASES:
+            if case[0] == name:
+                mode = case[1]
+                tree = flats["moe_aux" if mode == "lora" else "moe_aux_full"]
+                loss, grads, _ = _port_grads(tree, mesh, mode, batch,
+                                             loss_fn=_aux_loss, **MOE)
+                out["aux"][case] = (loss, grads if root else None,
+                                    _routed_fractions(tree, mesh, mode,
+                                                      batch))
         if name == "fsdp2_model2":
             loss, grads, _ = _port_grads(flats["moe"], mesh, "lora", batch,
                                          **MOE)
@@ -399,10 +446,23 @@ def _gang_main(flats, batch, ignored, serve_flat, ckpt_dir):
     return hvd.allgather_object(out)
 
 
+def _boosted_router(tree, scale=AUX_ROUTER_SCALE):
+    """``tree`` with every router kernel times ``scale``: sharp routing,
+    so that each rank's rows route to experts of their own."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (_boosted_router(v, scale) if k != "router"
+                else dict(v, kernel=np.asarray(v["kernel"]) * scale))
+            for k, v in tree.items()}
+
+
 @pytest.fixture(scope="module")
 def trees():
     lora = _jax_tree()
-    return {"lora": lora, "full": _base(lora), "moe": _jax_tree(**MOE)}
+    moe = _jax_tree(**MOE)
+    aux = _boosted_router(moe)
+    return {"lora": lora, "full": _base(lora), "moe": moe, "moe_aux": aux,
+            "moe_aux_full": _base(aux)}
 
 
 @pytest.fixture(scope="module")
@@ -446,7 +506,7 @@ def gang_started(trees, serve_tree, ckpt_dir):
 
 
 @pytest.fixture(scope="module")
-def gang(gang_started, jax_runs, jax_ignored):
+def gang(gang_started, jax_runs, jax_ignored, jax_aux):
     """Every rank's results of the gang, once the JAX side is done."""
     thread, out = gang_started
     thread.join()
@@ -744,6 +804,57 @@ def test_an_moe_lora_step_on_fsdp2_model2_matches_jax(gang, trees):
     assert sorted(grads) == _trained("lora", ref_grads)
     for name, value in grads.items():
         np.testing.assert_allclose(value, ref_grads[name], rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_aux(gang_started, trees):
+    """C9's reference: the loss and gradients of the global batch's LM
+    loss plus ``AUX_WEIGHT`` x JAX's ``moe_aux_loss`` of the
+    intermediates, under GSPMD on each aux case's mesh."""
+    from sparkdl_tpu.models import moe as jax_moe
+
+    out = {}
+    for name, mode in AUX_CASES:
+        tree = trees["moe_aux" if mode == "lora" else "moe_aux_full"]
+        mesh, model, params, _, data = _jax_case(tree, MESHES[name], mode,
+                                                 _batch(), **MOE)
+
+        def loss(p, b, model=model):
+            logits, st = model.apply({"params": p}, b["inputs"],
+                                     mutable=["intermediates"])
+            return (jax_train.cross_entropy_loss(logits, b["targets"])
+                    + AUX_WEIGHT * jax_moe.moe_aux_loss(
+                        st["intermediates"], MOE["moe_top_k"]))
+
+        out[name, mode] = _jax_value_and_grad(mesh, loss, params, data)
+    return out
+
+
+@pytest.mark.gang
+@pytest.mark.parametrize("case", AUX_CASES, ids="-".join)
+def test_moe_aux_loss_over_data_ranks_matches_jax(gang, jax_aux, case):
+    """C9: with each rank's rows routed differently (the ranks' own
+    top-k fractions differ), every rank's step loss (LM loss plus 0.01 x
+    the router's aux) is JAX's over the global batch, and the averaged
+    gradients are its gradients: the router's kernel and bias in the
+    full mode, the adapters (which the aux reaches through the residual
+    stream) in LoRA. A mean of the ranks' own ``E * sum f_r P_r`` misses
+    both."""
+    ref_loss, ref_grads = jax_aux[case]
+    got = [r["aux"][case] for r in gang]
+    fractions = np.array([g[2] for g in got])  # (rank, layer, expert)
+    assert not np.allclose(fractions, fractions[:1]), fractions
+    for loss, _, _ in got:
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    grads = got[0][1]
+    trained = _trained(case[1], ref_grads)
+    assert sorted(grads) == trained
+    if case[1] == "full":
+        assert {"layers.0.moe_mlp.router.kernel",
+                "layers.1.moe_mlp.router.bias"} <= set(trained)
+    for name in trained:
+        np.testing.assert_allclose(grads[name], ref_grads[name], rtol=1e-4,
                                    atol=1e-6, err_msg=name)
 
 

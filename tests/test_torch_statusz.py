@@ -9,6 +9,7 @@ import http.client
 import json
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -291,5 +292,14 @@ def test_port_none_opens_no_socket_and_no_thread(monkeypatch):
     finally:
         server.close()
     assert "sparkdl-torch-statusz" not in before
-    with pytest.raises(NotImplementedError, match="elastic"):
-        statusz.StatuszServer(aggregate.GangTelemetry(), elastic=object())
+    # elastic= is taken and its status shown (the elastic controller)
+    elastic = types.SimpleNamespace(
+        status=lambda: {"enabled": True, "current_np": 1,
+                        "available_np": 2})
+    server = statusz.maybe_start_statusz(aggregate.GangTelemetry(),
+                                         num_workers=1, elastic=elastic)
+    try:
+        assert json.loads(_get(server, "/statusz"))["elastic"] == \
+            elastic.status()
+    finally:
+        server.close()
