@@ -19,7 +19,9 @@ it ZeRO-3 on two ranks sharing the card; run HorovodRunner on Spark;
 train the model zoo (the MNIST CNN, ResNet-50 and BERT-base SQuAD) through
 HorovodRunner and convert a HuggingFace Llama-3-8B state dict into the
 int8 serving path; serve and fine-tune with the telemetry on and
-diagnose a hung gang; and show every run went through its kernels.
+diagnose a hung gang; serve through a fleet whose replica is a
+tensor-parallel gang, and train BERT-base tensor-parallel and ZeRO-3;
+and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -67,36 +69,53 @@ and on any failed check. Phases:
    depth 2, kernels against plain over the dense cache (phase 4's
    tolerance);
 14. the fleet: int8 paged engines at phase 3's settings behind one
-   ``FleetFrontend`` (max_queue 24), sharing phase 3's weights on the
-   card: 32 concurrent urllib clients (odd ones streamed), some refused
+   ``FleetFrontend`` (max_queue 12), sharing phase 3's weights on the
+   card: 16 concurrent urllib clients (odd ones streamed), some refused
    with 503 and ``Retry-After``, first at one replica and then at 2
    (tokens/s, time to first token and each engine's decode ms a step
-   beside the one replica's); then 8 while replica 0's engine raises
+   beside the one replica's); then 4 while replica 0's engine raises
    SystemExit inside ``run()`` after 3 decode chunks (its requests get
-   500, the replica is replaced) and 8 after the respawn; every 200 on
+   500, the replica is replaced) and 4 after the respawn; every 200 on
    its budget, ``server_requests_total`` accounting for every request,
    one restart, and the launches, zeroed before each fleet's first
    burst, equal to what the engines' counts predict; requests/s and tokens/s beside
    phase 3's, the streamed clients' time to first token, requests a
    replica, the seconds from the fault to a live replacement and peak
    memory; then the serving model is freed;
-13. tensor-parallel serving: ``HorovodRunner(np=-2)``, two ranks on the
-   one card (gloo), each ``make_mesh(MeshSpec(model=2))`` and phase
-   3's int8 weights rebuilt from the shared seed; at depth 2 the TP=2
+13. tensor-parallel serving, run as the first burst of phase 27b's
+   fleet (so that the 8B TP engine starts once): two ranks on the one
+   card (gloo), each ``make_mesh(MeshSpec(model=2))`` and an int8 model
+   of ``TP_SERVE_DEPTH`` layers drawn from phase 3's seed (its layers
+   phase 3's first, its head drawn after them); at depth 2 the TP=2
    logits of one prefill and two decode steps through the kernels
    against the same TP layers through the plain versions and against
    one card's through the kernels and through the plain versions
    (phase 4's tolerance); then an int8 paged engine with ``mesh=`` (4
    kv heads a rank, the paged decode through
    ``paged_attention_decode_sharded``) serves phase 3's first 8
-   requests; each rank's launches equal its engine's counts (32 paged
-   decodes a step, 225 int8 matmuls a forward), its collectives 64
-   all-reduces, 2 all-gathers and 1 token broadcast a forward, both
-   ranks return the same tokens, logprobs, stats and finish reasons,
-   every request ends on its budget; decode ms a step and tokens/s
-   beside phase 3's, each collective's ms at the decode step's shapes,
-   peak memory a rank and the share of tokens that agree with phase
-   3;
+   requests, each rank recording its launches, collectives, clocks and
+   results to a file this process reads; each rank's launches equal
+   its engine's counts (a paged decode a layer a step, 7 int8 matmuls a
+   layer and the head's a forward), its collectives 2 all-reduces a
+   layer, 2 all-gathers and 1 token broadcast a forward, both ranks
+   return the same tokens, logprobs,
+   stats and finish reasons, every request ends on its budget; decode
+   ms a step and tokens/s beside phase 3's, each collective's ms at the
+   decode step's shapes, peak memory a rank and the share of tokens
+   that agree with phase 3;
+27b. a tensor-parallel replica behind ``FleetFrontend``, right after
+   phase 25b: one replica spelled ``GangReplica(tp_rank_engine,
+   np=-2)``, whose ranks build phase 13's engine; phase 13's 8
+   requests through HTTP, the odd ones streamed: every client's tokens
+   the ranks' own (phase 13's) exactly; then ``N_TP_FAULT_REQUESTS``
+   long requests in flight, rank 1 SIGKILLed at the streamed one's
+   first token: each ends in 500, the replica is respawned as a new
+   gang, and phase 13's first ``N_TP_FAULT_REQUESTS`` requests (budgets
+   cut to ``TP_AFTER_BUDGET``) give the first burst's tokens again,
+   with the launches their engines' counts predict; no rank process
+   outlives ``close()``. It prints tokens/s and streamed TTFT p50 /
+   p95 beside phase 13's, the seconds from the kill to the new gang
+   serving and the new gang's start;
 7. int4 serving at full width behind the HTTP ``ServingFrontend``
    (random normal(0.02) weights quantized to int4, group 64, 8 slots,
    pages of 64, chunk 16, ``prefill_chunk=256``): 16 concurrent HTTP
@@ -136,7 +155,7 @@ and on any failed check. Phases:
    logits against a single-adapter model carrying it (phase 4's
    tolerance);
 12. speculative serving: the same bf16 base as a paged target, its int8
-   weights as the draft, k = 4, greedy, phase 3's first 8 requests,
+   weights as the draft, k = 4, greedy, phase 3's first 4 requests,
    then the plain paged engine on the same target and requests; every
    request on its budget, the int8 launches equal to (7 x layers + 1)
    x the draft's forwards (k + 1 a round, one prefill a request), no
@@ -428,6 +447,18 @@ and on any failed check. Phases:
    the first step), the ms a step at np 2, 1 and 2, and the phase's
    wall seconds.
 
+27a. BERT on a mesh, last: phase 23c's BERT-base SQuAD (32 x 384,
+   AdamW 3e-5, every weight trained) as ``HorovodRunner(np=-2)``, two
+   ranks sharing the card over gloo, on ``MeshSpec(model=2)`` (6 heads
+   a rank) and then ``MeshSpec(fsdp=2)`` (16 rows a rank, the 12
+   blocks gathered by ZeRO-3), ``BERT_MESH_STEPS`` steps of
+   ``make_train_step`` on each, every collective counted and timed;
+   then the same steps in this process (the whole model, the whole
+   batch): each mesh's losses within 2^-10 relative of these (phase
+   20's rule), both ranks' alike. It prints ms a step beside 23c's,
+   the collectives' host ms and their share of the step, and the peak
+   a rank.
+
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
 """
@@ -435,6 +466,7 @@ carry the kernels' record (``{"kernels": [...]}``) and the card.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -492,16 +524,23 @@ Q4_SHAPES = QMM_SHAPES[:5] + [(PREFILL_CHUNK, 4096, 14336, "bf16", 0,
 # phase 7b: one shared prefix, the requests that extend it
 PREFIX_LEN, N_PREFIX_REQUESTS = 512, 8
 # phase 11: adapters stacked on phase 5's base; phase 12: the draft
-# length and the requests served (phase 3's first)
+# length and the requests served (phase 3's first; 8 until phase 27
+# pushed the script toward 1100 s)
 MULTI_LORA = 4
-SPEC_K, N_SPEC_REQUESTS = 4, 8
+SPEC_K, N_SPEC_REQUESTS = 4, 4
 # phase 13: the requests the tensor-parallel ranks serve (phase 3's
-# first); phase 14: the fleet's replicas, its admission bound, the
-# clients of its burst, of the burst at a faulting replica (which dies
-# after that many decode chunks) and of the burst after its respawn
-N_TP_REQUESTS = 8
-FLEET_REPLICAS, FLEET_MAX_QUEUE, N_FLEET_REQUESTS = 2, 24, 32
-N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 8, 3
+# first), which phase 27b's fleet serves; 27b's requests in flight when
+# a rank is killed, sent again after the respawn with their budgets cut
+# to TP_AFTER_BUDGET; phase 14: the fleet's replicas, its admission
+# bound, the clients of its burst, of the burst at a faulting replica
+# (which dies after that many decode chunks) and of the burst after its
+# respawn (24, 32 and 8 until phase 27 pushed the script toward 1100 s)
+N_TP_REQUESTS, N_TP_FAULT_REQUESTS, TP_AFTER_BUDGET = 8, 4, 16
+# phases 13 and 27b: the TP engine's depth (32 until phase 27 pushed the
+# script past 1100 s: two ranks share the card over gloo)
+TP_SERVE_DEPTH = 16
+FLEET_REPLICAS, FLEET_MAX_QUEUE, N_FLEET_REQUESTS = 2, 12, 16
+N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 4, 3
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
 # call; 32 a step), then ragged S (no tile divides 1000), both head dims,
@@ -556,17 +595,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
 # (two copies of the model share the card)
 GANG_NP = {"9a": 1, "9b": -2, "9c": 1, "13": -2, "15": -2, "16": -2,
            "19": -2, "20": -2, "21a": -2, "21b": -2, "22a": 1, "24a": 1,
-           "24b": 1, "25a": 1, "26": -2}
+           "24b": 1, "25a": 1, "26": -2, "27a": -2}
 GANG_STEPS = 3
 GANG_SHARED_DEPTH = 4
 # phase 9c: the step after whose committed save the first attempt's rank
 # is killed
 RESUME_KILL_AFTER = 1
 # phase 15: one sequence of Llama-3-8B's published context over the
-# ranks' seq axis, its steps and its depth (9b's 4 until phase 26 pushed
-# the script past 1000 s); phase 16: the microbatches (1 x PIPE_SEQ
+# ranks' seq axis, its steps (3 until phase 27 pushed the script past
+# 1100 s) and its depth (9b's 4 until phase 26 pushed the script past
+# 1000 s); phase 16: the microbatches (1 x PIPE_SEQ
 # tokens each) and the decoder blocks split over the stages
-SEQ_TOKENS, SEQ_STEPS, SEQ_DEPTH = 8192, 3, 2
+SEQ_TOKENS, SEQ_STEPS, SEQ_DEPTH = 8192, 2, 2
 PIPE_MICROBATCHES, PIPE_SEQ, PIPE_BLOCKS = 8, 2048, 4
 # phases 17-19: Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json; arXiv:2401.04088 Table 1),
@@ -582,18 +622,20 @@ MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 16, 8
 MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
 EP_TOKENS, EP_CAPACITY, EP_RUNS = 2048, 1.25, 3
 # phase 20: tensor-parallel LoRA training at Llama-3-8B width, depth cut
-# to 4 (two ranks share the card, and every layer costs four host-staged
+# to 2 (two ranks share the card, and every layer costs four host-staged
 # 16 MiB all-reduces a step; 8 until phase 26 pushed the script past
-# 1000 s), one row of 2048 tokens, its steps
-TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 2048, 3
+# 1000 s, 4 until phase 27 pushed it past 1100 s), one row of 2048
+# tokens, its steps
+TP_TRAIN_DEPTH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2, 2048, 3
 # phase 21: ZeRO-3 on two ranks sharing the card, depth cut to 2 (21a:
 # every block is gathered twice a step over gloo's host staging; 4 until
 # phase 26 pushed the script past 1000 s) and to 2 (21b, int8 serving);
-# 21a's global batch of 2 x 2048, one row a rank; 21b's requests (phase
-# 3's first) and their budget
+# 21a's global batch of 2 x 2048, one row a rank, and its timed steps (3
+# until phase 27 pushed the script toward 1100 s); 21b's requests (phase
+# 3's first) and their budget (16 until phase 27)
 FSDP_TRAIN_DEPTH, FSDP_TRAIN_ROWS, FSDP_TRAIN_SEQ = 2, 2, 2048
-FSDP_TRAIN_STEPS = 3
-FSDP_SERVE_DEPTH, FSDP_SERVE_REQUESTS, FSDP_SERVE_BUDGET = 2, 4, 16
+FSDP_TRAIN_STEPS = 2
+FSDP_SERVE_DEPTH, FSDP_SERVE_REQUESTS, FSDP_SERVE_BUDGET = 2, 4, 8
 # phase 22: how long 22c's competing claim holds the card's slots, and
 # the flash forward that 22c's and 22d's rank holds against its plain
 # version (B, S, H, D, causal)
@@ -614,6 +656,10 @@ BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 32, 384, 128
 ZOO_WARMUP, ZOO_STEPS = 2, 5
 ZOO_NP = {"23a": -1, "23b": 1, "23c": 1}
 ZOO_BF16_TOL = 2.0 ** -4
+# phase 27a: 23c's model and batch on model=2 and then fsdp=2 (two ranks
+# sharing the card), the steps on each (each mesh's steps are 94-96 %
+# gloo's host-staged collectives)
+BERT_MESH_STEPS = 2
 HF_REQUESTS = 4
 # phase 24: 24a's warm-up and timed steps (9a's model and batch), the
 # step after which it saves, its heartbeat; 24b's depth, heartbeat and
@@ -3849,15 +3895,82 @@ def _tp_depth2(torch, full, mesh, device, rank):
             for i, (g, r) in enumerate(zip(got, ref))]
 
 
-def tp_main(cfg, n_requests, device, started):
-    """Every rank of phase 13: a mesh over the gang's ranks on the
-    ``model`` axis; phase 3's weights rebuilt on this rank's card from
-    the shared seed (int8, one matrix at a time), then the model-level
-    check (:func:`_tp_depth2`); an int8 paged engine (8 slots, pages of
-    64, chunk 16) with ``mesh=``, which keeps this rank's slice, and the
-    whole model freed; phase 3's first ``n_requests`` requests, counters
-    zeroed just before the run; then the collectives timed at the decode
-    step's shapes. Rank 0 returns every rank's report."""
+def _json_safe(obj):
+    """``obj`` with numpy scalars and arrays as plain numbers and lists
+    (a rank's record goes through a JSON file)."""
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    return obj
+
+
+def _write_json(path, obj):
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(_json_safe(obj), f)
+    os.replace(tmp, path)
+
+
+def _recorded(torch, engine, path, base):
+    """``engine`` recorded for phases 13 and 27b: from now on its
+    launches (counters zeroed here), its mesh's collectives, its prefill
+    and decode host clocks (:func:`_time_engine`), each request it is
+    given (prompt, budget) and what it returns (tokens, finish reason,
+    logprobs), and its decode steps and prefill segments, written to
+    ``path`` with ``base`` after each of its runs."""
+    counts = _count_collectives(engine.mesh)
+    spent = _time_engine(torch, engine)
+    stats0 = dict(engine.stats)
+    requests, done = {}, {}
+    submit, take, run = engine.submit, engine.take_finished, engine.run
+
+    def keep(finished):
+        for rid, (toks, reason, lps) in finished.items():
+            done[rid] = (toks, reason, lps)
+        return finished
+
+    def recorded_submit(prompt, max_new_tokens, **kw):
+        rid = submit(prompt, max_new_tokens, **kw)
+        requests[rid] = (np.asarray(prompt).tolist(), int(max_new_tokens))
+        return rid
+
+    def recorded_run(*a, **k):
+        out = run(*a, **k)
+        keep({rid: (toks, engine.finish_reasons[rid], engine.logprobs[rid])
+              for rid, toks in out.items()})
+        torch.cuda.synchronize()
+        rids = sorted(requests)
+        _write_json(path, dict(
+            base, launches=_read_launches(), collectives=dict(counts),
+            stats={key: engine.stats[key] - stats0[key]
+                   for key in ("steps", "prefill_segments")},
+            decode_s=spent["decode"], prefill_s=spent["prefill"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            requests=[requests[r] for r in rids],
+            results=[done.get(r) for r in rids]))
+        return out
+
+    engine.submit, engine.run = recorded_submit, recorded_run
+    engine.take_finished = lambda: keep(take())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+
+
+def tp_rank_engine(cfg, device, started, report_dir):
+    """Every rank of phase 27b's gang replica (``rank_factory`` of its
+    ``GangReplica``): a mesh over the gang's ranks on the ``model``
+    axis; phase 3's weights rebuilt on this rank's card from the shared
+    seed (int8, one matrix at a time); an int8 paged engine (8 slots,
+    pages of 64, chunk 16) with ``mesh=``, which keeps this rank's
+    slice, and the whole model freed; the engine recorded
+    (:func:`_recorded`) into ``report_dir`` and handed to the fleet. On
+    the replica's first gang, phase 13's model-level check
+    (:func:`_tp_depth2`) runs before the engine and its collectives are
+    timed at the decode step's shapes after it."""
     import torch
 
     from sparkdl_tpu_torch import hvd
@@ -3868,80 +3981,97 @@ def tp_main(cfg, n_requests, device, started):
     hvd.init()
     ready_s = time.time() - started
     rank, size = hvd.rank(), hvd.size()
+    first = not os.listdir(report_dir)
+    hvd.barrier()  # every rank has looked before any writes
     mesh = make_mesh(MeshSpec(model=size))
     dev = _gang_device(torch, mesh, device)
     t = time.perf_counter()
     full = random_quant_llama(torch, cfg, _seeded(torch, SEED, dev), dev)
-    depth2 = _tp_depth2(torch, full, mesh, dev, rank)
+    depth2 = _tp_depth2(torch, full, mesh, dev, rank) if first else None
     engine = ContinuousBatchingEngine(full, full.state_dict(), n_slots=8,
                                       chunk=16, page_size=64, mesh=mesh,
                                       device=dev)
     del full
     gc.collect()
     torch.cuda.empty_cache()
-    build_s = time.perf_counter() - t
-    counts = _count_collectives(mesh)
-    prompts, budgets = _requests(cfg, n_requests)
-    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
-    spent = _time_engine(torch, engine)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    counts.update(dict.fromkeys(counts, 0))
-    t0 = time.perf_counter()
-    results = engine.run()
-    wall = time.perf_counter() - t0
-    launches = _read_launches()
-    collectives = dict(counts)
-    peak = torch.cuda.max_memory_allocated()
-    coll_ms = _time_collectives(torch, mesh, dev, cfg, engine.n_slots)
-    stats = dict(engine.stats)
-    decoded = sum(len(results[r]) for r in rids) - len(rids)
-    report = {
-        "rank": rank, "size": size, "backend": _state.state().backend,
-        "device": str(dev), "ready_s": ready_s, "build_s": build_s,
-        "n_kv_heads_local": engine._model.n_kv_heads,
-        "tokens": [results[r].tolist() for r in rids], "budgets": budgets,
-        "finish_reasons": [engine.finish_reasons[r] for r in rids],
-        "logprobs": [engine.logprobs[r].tolist() for r in rids],
-        "stats": stats, "launches": launches, "collectives": collectives,
-        "wall_s": wall, "decode_s": spent["decode"],
-        "decode_ms_per_step": 1e3 * spent["decode"] / stats["steps"],
-        "decode_tokens_per_s": decoded / spent["decode"],
-        "prefill_ms_mean": 1e3 * statistics.mean(spent["prefill"]),
-        "collective_ms": coll_ms, "peak_mem_gb": peak / 1e9,
-        "depth2": depth2}
-    return hvd.allgather_object(report)
+    base = {"rank": rank, "size": size, "first": first,
+            "backend": _state.state().backend, "device": str(dev),
+            "ready_s": ready_s, "build_s": time.perf_counter() - t,
+            "n_kv_heads_local": engine._model.n_kv_heads, "depth2": depth2,
+            "collective_ms": (_time_collectives(torch, mesh, dev, cfg,
+                                                engine.n_slots)
+                              if first else None)}
+    _recorded(torch, engine, os.path.join(
+        report_dir, f"rank-{rank}-{os.getpid()}.json"), base)
+    return engine
 
 
-def serve_tp(torch, phase3, phase3_tokens):
-    """Phase 13: HorovodRunner(np=GANG_NP["13"]) ranks of
-    :func:`tp_main`, two on the one card (gloo); the ranks' launches,
-    collectives, budgets and identity checked, the model-level logits
-    held to phase 4's tolerance."""
-    from sparkdl_tpu_torch import HorovodRunner
-    from sparkdl_tpu_torch.models.llama import LlamaConfig
+def _gang_records(report_dir, pids, n_requests, timeout=120.0):
+    """The records (:func:`_recorded`) of the gang of ``pids``, once each
+    rank's shows ``n_requests`` requests served."""
+    deadline = time.monotonic() + timeout
+    while True:
+        recs = []
+        for rank, pid in enumerate(pids):
+            path = os.path.join(report_dir, f"rank-{rank}-{pid}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs.append(json.load(f))
+        if len(recs) == len(pids) and all(
+                len(r["requests"]) == n_requests
+                and None not in r["results"] for r in recs):
+            return recs
+        _require(time.monotonic() < deadline,
+                 f"phase 27b: the gang {pids} recorded "
+                 f"{[len(r['requests']) for r in recs]} requests, not "
+                 f"{n_requests} served")
+        time.sleep(0.1)
 
-    cfg = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int8")
-    t = time.perf_counter()
-    ranks = HorovodRunner(np=GANG_NP["13"]).run(
-        tp_main, cfg=cfg, n_requests=N_TP_REQUESTS, device=DEVICE,
-        started=time.time())
-    run_wall_s = time.perf_counter() - t
-    size = len(ranks)
-    _require([r["rank"] for r in ranks] == list(range(size))
-             and size == max(-GANG_NP["13"], 1),
-             f"phase 13: ranks {[r['rank'] for r in ranks]}")
-    r0 = ranks[0]
-    for r in ranks:
-        stats = r["stats"]
-        forwards = stats["steps"] + stats["prefill_segments"]
-        want = {"paged_attention_decode": cfg.n_layers * stats["steps"],
+
+def _in_order(rec, payloads):
+    """A rank's record's results in the order of ``payloads`` (matched
+    by prompt and budget): (tokens, finish reasons, logprobs)."""
+    by = {(tuple(p), b): res for (p, b), res in zip(rec["requests"],
+                                                   rec["results"])}
+    rows = [by[(tuple(p["tokens"]), p["max_new_tokens"])]
+            for p in payloads]
+    return ([r[0] for r in rows], [r[1] for r in rows],
+            [r[2] for r in rows])
+
+
+def _check_launches(cfg, recs, what):
+    """Each rank's launches held to its engine's counts (a paged decode a
+    layer a decode step, 7 int8 matmuls a layer and the head's a
+    forward); their sum."""
+    for r in recs:
+        forwards = r["stats"]["steps"] + r["stats"]["prefill_segments"]
+        want = {"paged_attention_decode": cfg.n_layers * r["stats"]["steps"],
                 "quantized_matmul": (7 * cfg.n_layers + 1) * forwards,
                 "quantized_matmul_int4": 0}
         _require(r["launches"] == want,
-                 f"phase 13 rank {r['rank']}: launches {r['launches']}, the "
+                 f"{what} rank {r['rank']}: launches {r['launches']}, the "
                  f"engine's counts predict {want}")
+    return {k: sum(r["launches"][k] for r in recs)
+            for k in recs[0]["launches"]}
+
+
+def _check_tp(cfg, recs, burst, phase3, phase3_tokens):
+    """Phase 13's checks on its ranks' records of the fleet's first
+    burst (phase 3's first ``N_TP_REQUESTS`` requests): the launches and
+    collectives (2 all-reduces a layer, 2 all-gathers and 1 token
+    broadcast a forward) its engines' counts predict, each rank's kv heads, the
+    ranks' tokens, finish reasons, logprobs and stats identical, every
+    request on its budget, the model-level logits to phase 4's
+    tolerance; returns phase 13's record."""
+    size = len(recs)
+    _require([r["rank"] for r in recs] == list(range(size))
+             and size == max(-GANG_NP["13"], 1) and recs[0]["first"],
+             f"phase 13: ranks {[r['rank'] for r in recs]}")
+    launches = _check_launches(cfg, recs, "phase 13")
+    r0 = recs[0]
+    toks, reasons, lps = _in_order(r0, burst)
+    for r in recs:
+        forwards = r["stats"]["steps"] + r["stats"]["prefill_segments"]
         tp = size > 1
         want = {"all_reduce": 2 * cfg.n_layers * forwards * tp,
                 "all_gather": 2 * forwards * tp, "broadcast": forwards * tp}
@@ -3951,40 +4081,218 @@ def serve_tp(torch, phase3, phase3_tokens):
         _require(r["n_kv_heads_local"] * size == cfg.n_kv_heads,
                  f"phase 13 rank {r['rank']}: {r['n_kv_heads_local']} kv "
                  "heads in its cache")
-        for key in ("tokens", "finish_reasons", "logprobs", "stats"):
-            _require(r[key] == r0[key],
-                     f"phase 13: rank {r['rank']}'s {key} differ from rank "
-                     "0's")
-    for i, (toks, budget, reason, lps) in enumerate(zip(
-            r0["tokens"], r0["budgets"], r0["finish_reasons"],
-            r0["logprobs"])):
-        _require(len(toks) == budget and reason == "length"
-                 and all(0 <= t < cfg.vocab_size for t in toks),
-                 f"phase 13 request {i}: {len(toks)} tokens on {reason}, "
-                 f"budget {budget}")
-        _require(bool(np.isfinite(lps).all() and (np.asarray(lps)
-                                                  <= 1e-6).all()),
+        _require(_in_order(r, burst) == (toks, reasons, lps)
+                 and r["stats"] == r0["stats"],
+                 f"phase 13: rank {r['rank']}'s tokens, logprobs or stats "
+                 "differ from rank 0's")
+    for i, (t, p, reason, lp) in enumerate(zip(toks, burst, reasons, lps)):
+        _require(len(t) == p["max_new_tokens"] and reason == "length"
+                 and all(0 <= x < cfg.vocab_size for x in t),
+                 f"phase 13 request {i}: {len(t)} tokens on {reason}, "
+                 f"budget {p['max_new_tokens']}")
+        _require(bool(np.isfinite(lp).all() and (np.asarray(lp)
+                                                 <= 1e-6).all()),
                  f"phase 13 request {i}: logprobs not finite and <= 0")
     for row in r0["depth2"]:
         _require_logits(row)
-    report = {k: v for k, v in r0.items()
-              if k not in ("tokens", "logprobs", "finish_reasons")}
+    stats = r0["stats"]
+    decoded = sum(len(t) for t in toks) - len(toks)
+    report = {k: r0[k] for k in ("rank", "size", "backend", "device",
+                                 "ready_s", "build_s", "n_kv_heads_local",
+                                 "depth2", "stats", "collectives",
+                                 "collective_ms", "peak_mem_gb")}
     report.update({
         "np": GANG_NP["13"], "n_layers": cfg.n_layers,
-        "requests": N_TP_REQUESTS, "run_wall_s": run_wall_s,
+        "requests": N_TP_REQUESTS, "tokens": toks, "launches": launches,
+        "decode_s": r0["decode_s"],
+        "decode_ms_per_step": 1e3 * r0["decode_s"] / stats["steps"],
+        "decode_tokens_per_s": decoded / r0["decode_s"],
+        "prefill_ms_mean": 1e3 * statistics.mean(r0["prefill_s"]),
         "ranks": [{k: r[k] for k in ("rank", "backend", "device",
-                                      "peak_mem_gb", "decode_ms_per_step",
-                                      "launches", "collectives")}
-                  for r in ranks],
+                                      "peak_mem_gb", "launches",
+                                      "collectives")} for r in recs],
         "collectives_per_forward": {
-            k: v / (r0["stats"]["steps"] + r0["stats"]["prefill_segments"])
+            k: v / (stats["steps"] + stats["prefill_segments"])
             for k, v in r0["collectives"].items()},
         "phase3_decode_ms_per_step": phase3["decode_ms_per_step"],
         "phase3_decode_tokens_per_s": phase3["decode_tokens_per_s"],
-        "agree_with_phase3": _agreement(r0["tokens"],
+        "agree_with_phase3": _agreement(toks,
                                         phase3_tokens[:N_TP_REQUESTS])})
-    _log("tp " + json.dumps(report))
     return report
+
+
+def serve_tp_fleet(torch, phase3, phase3_tokens):
+    """Phases 13 and 27b: a ``FleetFrontend`` of one tensor-parallel
+    replica, a gang of ``GangReplica(tp_rank_engine, np=GANG_NP["13"])``
+    ranks sharing the card over gloo, so that the 8B TP engine starts
+    once. Phase 13's 8 requests through HTTP, the odd ones streamed: the
+    ranks' records of them are phase 13 (:func:`_check_tp`), and what
+    the clients got is 27b's: every token the ranks' own, exactly, and
+    the launches the engines' counts. Then ``N_TP_FAULT_REQUESTS`` long
+    requests in flight and rank 1 SIGKILLed at the streamed one's first
+    token: each gets 500 and the replica is respawned as a new gang;
+    then the first ``N_TP_FAULT_REQUESTS`` requests again, their budgets
+    cut to ``TP_AFTER_BUDGET``, give the first burst's tokens. No rank
+    outlives ``close()``. Returns phase 13's record and 27b's."""
+    import shutil
+    import signal
+
+    from sparkdl_tpu_torch.models.fleet import FleetFrontend, GangReplica
+    from sparkdl_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(n_layers=TP_SERVE_DEPTH, max_cache_len=2048,
+                                quant="int8")
+    report_dir = tempfile.mkdtemp(prefix="chip-smoke-27b-")
+    prompts, budgets = _requests(cfg, N_TP_REQUESTS)
+    burst = [{"tokens": p.tolist(), "max_new_tokens": b,
+              "stream": bool(i % 2)}
+             for i, (p, b) in enumerate(zip(prompts, budgets))]
+    again = [dict(p, max_new_tokens=TP_AFTER_BUDGET)
+             for p in burst[:N_TP_FAULT_REQUESTS]]
+    # long budgets: in flight when the streamed one's first token lands
+    doomed = [dict(p, max_new_tokens=128) for p in again]
+    fleet, pids, new_pids = None, [], []
+    try:
+        with _launcher_settings(ABORT_GRACE_S=5.0):
+            t = time.perf_counter()
+            fleet = FleetFrontend(
+                GangReplica(functools.partial(
+                    tp_rank_engine, cfg, DEVICE, time.time(), report_dir),
+                    np=GANG_NP["13"]),
+                replicas=1, max_queue=FLEET_MAX_QUEUE).start()
+            start_s = time.perf_counter() - t
+            first = fleet._workers[0]
+            pids = list(first.pids)
+
+            got, wall = _fleet_burst(fleet, burst)
+            served = _burst_summary(got, burst, wall, cfg.vocab_size,
+                                    "phase 27b")
+            _require(served["answered"] == N_TP_REQUESTS,
+                     f"phase 27b: codes {served['codes']}")
+            recs = _gang_records(report_dir, pids, N_TP_REQUESTS)
+            tp = _check_tp(cfg, recs, burst, phase3, phase3_tokens)
+            tp.update(run_wall_s=start_s + wall, wall_s=wall)
+            toks = [_fleet_tokens(*g[:2], p)[0] for g, p in zip(got, burst)]
+            _require(toks == tp["tokens"],
+                     f"phase 27b: tokens through the fleet "
+                     f"{_agreement(toks, tp['tokens'])} of the ranks' own")
+
+            killed = {}
+
+            def kill_rank_1():
+                if "at" not in killed:
+                    killed["at"] = time.perf_counter()
+                    os.kill(pids[1], signal.SIGKILL)
+
+            out = [None] * len(doomed)
+
+            def client(i):
+                if i == 1:
+                    out[i] = _stream_until_first(
+                        fleet, dict(doomed[i], stream=True), kill_rank_1)
+                else:
+                    out[i] = _fleet_post(fleet, dict(doomed[i],
+                                                     stream=False))
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(doomed))]
+            # the blocking ones in flight before the stream starts
+            for i, th in enumerate(threads):
+                if i != 1:
+                    th.start()
+            deadline = time.perf_counter() + 60
+            while (fleet.replica_states()[0]["inflight"] < len(doomed) - 1
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+            threads[1].start()
+            for th in threads:
+                th.join(600)
+            codes = [o[0] for o in out]
+            _require("at" in killed and codes == [500] * len(doomed),
+                     f"phase 27b: codes after rank 1's SIGKILL {codes}")
+            deadline = time.perf_counter() + 300
+            while True:
+                w = fleet._workers[0]
+                if w is not first and w.alive and w.pids:
+                    replaced = time.perf_counter()
+                    break
+                _require(time.perf_counter() < deadline,
+                         "phase 27b: no new gang within 300 s "
+                         f"({fleet.replica_states()})")
+                time.sleep(0.05)
+            new_pids = list(w.pids)
+            _require(not set(new_pids) & set(pids)
+                     and all(_pid_gone(p) for p in pids),
+                     f"phase 27b: old gang {pids}, new {new_pids}")
+            got2, _ = _fleet_burst(fleet, again)
+            after = _burst_summary(got2, again, 1.0, cfg.vocab_size,
+                                   "phase 27b after the respawn")
+            toks2 = [_fleet_tokens(*g[:2], p)[0] for g, p in zip(got2, again)]
+            want2 = [t[:TP_AFTER_BUDGET] for t in toks[:N_TP_FAULT_REQUESTS]]
+            _require(toks2 == want2, "phase 27b: the new gang's tokens "
+                     f"{_agreement(toks2, want2)} of the first burst's")
+            launches_after = _check_launches(
+                cfg, _gang_records(report_dir, new_pids,
+                                   N_TP_FAULT_REQUESTS),
+                "phase 27b after the respawn")
+            restarts = fleet.metrics.counter(
+                "server_replica_restarts_total", cause="death").value
+            _require(restarts == 1, f"phase 27b: {restarts} restarts")
+            respawn_start_s = w.start_s
+    finally:
+        if fleet is not None:
+            fleet.close()
+        shutil.rmtree(report_dir, ignore_errors=True)
+    gone = [p for p in pids + new_pids if not _pid_gone(p)]
+    _require(not gone, f"phase 27b: rank processes alive after close: "
+             f"{gone}")
+    report = {
+        "np": GANG_NP["13"], "requests": N_TP_REQUESTS,
+        "gang_start_s": start_s, "burst_wall_s": wall,
+        "tokens_per_s": served["tokens_per_s"],
+        "ttft_streamed_s": served["ttft_streamed_s"],
+        "phase13_decode_tokens_per_s": tp["decode_tokens_per_s"],
+        "phase13_decode_ms_per_step": tp["decode_ms_per_step"],
+        "launches": tp["launches"], "launches_respawned": launches_after,
+        "fault_codes": codes,
+        "fault_to_replacement_s": replaced - killed["at"],
+        "respawned_gang_start_s": respawn_start_s,
+        "after_respawn": {k: after[k] for k in ("codes", "answered")},
+        "card": _card_line(torch)}
+    tp.pop("tokens")
+    _log("tp " + json.dumps(tp))
+    _log("fleet_tp " + json.dumps(report))
+    return tp, report
+
+
+def _stream_until_first(fleet, payload, at_first):
+    """A streamed client that calls ``at_first()`` at its first token and
+    reads on: (500 when its terminal event is an error, else 200,
+    the events)."""
+    import urllib.request
+
+    host, port = fleet.address
+    req = urllib.request.Request(
+        f"http://{host}:{port}/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            events.append(json.loads(line[6:]))
+            if len(events) == 1 and "token" in events[0]:
+                at_first()
+    code = 500 if events and "error" in events[-1] else 200
+    return code, events
+
+
+def _pid_gone(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
 
 
 def _mixtral_cfg(n_layers, **kw):
@@ -5981,6 +6289,166 @@ def zoo(torch, phase, family):
     return report
 
 
+def bert_mesh_main(steps, seed, device, started):
+    """Every rank of phase 27a: for ``MeshSpec(model=size)`` and then
+    ``MeshSpec(fsdp=size)``, phase 23c's BERT-base SQuAD drawn whole
+    from ``seed`` on this rank's card and this rank's slice kept
+    (``BertForQuestionAnswering.from_params(..., mesh=)``), AdamW 3e-5
+    over every weight, this rank's rows of phase 23c's batch; ``steps``
+    steps of the mesh-aware ``make_train_step``, each timed, with every
+    collective of the mesh counted and timed between synchronizes.
+    Returns every rank's reports."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.models import BertConfig, BertForQuestionAnswering
+    from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from sparkdl_tpu_torch.parallel.train import make_train_step, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    ready_s = time.time() - started
+    rank, size = hvd.rank(), hvd.size()
+    out = {"rank": rank, "backend": _state.state().backend,
+           "ready_s": ready_s, "meshes": {}}
+    for name, spec in (("model", MeshSpec(model=size)),
+                       ("fsdp", MeshSpec(fsdp=size))):
+        mesh = make_mesh(spec)
+        dev = _gang_device(torch, mesh, device)
+        on_card = dev.type == "cuda"
+        t = time.perf_counter()
+        whole = _zoo_model(torch, "bert", dev, _seeded(torch, seed, dev))
+        model = BertForQuestionAnswering.from_params(
+            BertConfig.base(), whole.state_dict(), dev, mesh=mesh).train()
+        del whole
+        build_s = time.perf_counter() - t
+        opt = _zoo_optimizer(torch, "bert", model)
+        step = make_train_step(_zoo_loss_fn("bert", model), opt, device=dev)
+        mine = shard_batch(_zoo_batch(torch, "bert", dev), mesh)
+        kinds = ("all_reduce", "all_gather", "reduce_scatter")
+        calls = _timed_calls(torch, mesh, dev, kinds)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, times, counts, coll_ms = [], [], [], []
+        for _ in range(steps):
+            for v in calls.values():
+                v.clear()
+            if on_card:
+                torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            losses.append(step(mine)["loss"].item())  # waits for the step
+            times.append(time.perf_counter() - t)
+            counts.append({k: len(v) for k, v in calls.items()})
+            coll_ms.append(sum(sum(v) for v in calls.values()))
+        # the first step: allocations and the optimizer's state
+        warm = times[1:] or times
+        warm_coll = coll_ms[1:] or coll_ms
+        out["meshes"][name] = {
+            "axes": dict(mesh.shape), "build_s": build_s,
+            "rows": int(next(iter(mine.values())).shape[0]),
+            "heads_local": model.bert.layers[0].attn.n_heads,
+            "zero3_units": (None if model.zero3 is None
+                            else len(model.zero3.units)),
+            "losses": losses, "step_ms": [1e3 * x for x in times],
+            "step_ms_median": 1e3 * statistics.median(warm),
+            "collectives_per_step": counts,
+            "collective_ms": coll_ms,
+            "collective_ms_median": statistics.median(warm_coll),
+            "collective_share_of_step": (statistics.median(warm_coll)
+                                         / (1e3 * statistics.median(warm))),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if on_card else 0.0)}
+        del model, opt, step, mine
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return hvd.allgather_object(out)
+
+
+def bert_mesh(torch, phase23c):
+    """Phase 27a: phase 23c's BERT-base SQuAD under
+    ``HorovodRunner(np=GANG_NP["27a"])``, two ranks sharing the card
+    over gloo (:func:`bert_mesh_main`), tensor-parallel and then ZeRO-3;
+    then the same ``BERT_MESH_STEPS`` steps in this process (the whole
+    model, the whole batch, the plain optimizer, ``make_train_step``,
+    phase 20's one-card comparison): each mesh's losses within 2^-10
+    relative of these, every rank's alike."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.models import BertConfig
+    from sparkdl_tpu_torch.parallel.train import make_train_step
+
+    with _launcher_settings():
+        t = time.perf_counter()
+        ranks = HorovodRunner(np=GANG_NP["27a"]).run(
+            bert_mesh_main, steps=BERT_MESH_STEPS, seed=SEED, device=DEVICE,
+            started=time.time())
+        wall_s = time.perf_counter() - t
+    size = len(ranks)
+    _require([r["rank"] for r in ranks] == list(range(size))
+             and size == max(-GANG_NP["27a"], 1),
+             f"phase 27a: ranks {[r['rank'] for r in ranks]}")
+    if GANG_NP["27a"] <= -2 and DEVICE == "cuda":
+        _require(all(r["backend"] == "gloo" for r in ranks),
+                 f"phase 27a: backends {[r['backend'] for r in ranks]}")
+    dev = torch.device(DEVICE)
+    model = _zoo_model(torch, "bert", dev, _seeded(torch, SEED, dev)).train()
+    step = make_train_step(_zoo_loss_fn("bert", model),
+                           _zoo_optimizer(torch, "bert", model), device=dev)
+    batch = _zoo_batch(torch, "bert", dev)
+    single = [step(batch)["loss"].item() for _ in range(BERT_MESH_STEPS)]
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = BertConfig.base()
+    report = {"np": GANG_NP["27a"], "steps": BERT_MESH_STEPS,
+              "batch": [BERT_BATCH, BERT_SEQ], "run_wall_s": wall_s,
+              "single_losses": single,
+              "phase23c_step_ms_median": phase23c["step_ms_median"],
+              "card": _card_line(torch), "meshes": {}}
+    for name in ("model", "fsdp"):
+        rows = [r["meshes"][name] for r in ranks]
+        r0 = rows[0]
+        for r in rows:
+            _require(r["losses"] == r0["losses"],
+                     f"phase 27a {name}={size}: the ranks' losses differ "
+                     f"{[x['losses'] for x in rows]}")
+        _require(all(np.isfinite(r0["losses"])) and all(
+            abs(a - b) <= 2.0 ** -10 * abs(b)
+            for a, b in zip(r0["losses"], single, strict=True)),
+                 f"phase 27a {name}={size}: losses {r0['losses']} vs "
+                 f"{single} in one process")
+        if name == "model":
+            _require(all(r["heads_local"] * size == base.n_heads
+                         for r in rows),
+                     f"phase 27a: heads a rank "
+                     f"{[r['heads_local'] for r in rows]}")
+        else:
+            _require(all(r["zero3_units"] == base.n_layers for r in rows)
+                     and all(r["rows"] * size == BERT_BATCH for r in rows),
+                     f"phase 27a fsdp: units "
+                     f"{[r['zero3_units'] for r in rows]}, rows "
+                     f"{[r['rows'] for r in rows]}")
+        report["meshes"][name] = {
+            **{k: r0[k] for k in ("axes", "rows", "losses",
+                                  "collectives_per_step")},
+            "build_s": [r["build_s"] for r in rows],
+            "step_ms_median": [r["step_ms_median"] for r in rows],
+            "collective_ms_median": [r["collective_ms_median"]
+                                     for r in rows],
+            "collective_share_of_step": [r["collective_share_of_step"]
+                                         for r in rows],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in rows],
+            "samples_per_s": BERT_BATCH / (1e-3 * statistics.median(
+                [r["step_ms_median"] for r in rows])),
+            "max_loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                r0["losses"], single))}
+    report["ready_s"] = [r["ready_s"] for r in ranks]
+    _log("bert_mesh " + json.dumps(report))
+    return report
+
+
 def _hf_llama_state_dict(torch, hf, gen):
     """An HF ``LlamaForCausalLM`` state dict at ``hf``'s widths on the
     card in bf16, drawn from ``gen``: every matrix normal(0.02), the norm
@@ -7327,8 +7795,9 @@ def main(argv=None):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    # the ranks need the card's memory: this process holds no model
-    tp = serve_tp(torch, serving, phase3_tokens)
+    # the ranks need the card's memory: this process holds no model.
+    # slice 20: phase 13's ranks are the first gang of 27b's replica
+    tp, fleet_tp = serve_tp_fleet(torch, serving, phase3_tokens)
     torch.cuda.reset_peak_memory_stats()
 
     cfg4 = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int4",
@@ -7434,6 +7903,10 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     elastic_run = elastic_gang(torch)
+    # slice 20: 23c's BERT-base tensor-parallel and ZeRO-3 on two ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_run = bert_mesh(torch, zoo_runs["23c"])
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -7490,8 +7963,10 @@ def main(argv=None):
                     "10_generate":
                         dense["generate"]["launches"]["quantized_matmul"],
                     "12": spec["launches"]["quantized_matmul"],
-                    "13": sum(r["launches"]["quantized_matmul"]
-                              for r in tp["ranks"]),
+                    # phase 13 is the first burst of 27b's fleet
+                    "13_27b": fleet_tp["launches"]["quantized_matmul"],
+                    "27b_respawned": fleet_tp["launches_respawned"][
+                        "quantized_matmul"],
                     "14_one_replica": fleet["one_replica"]["launches"][
                         "quantized_matmul"],
                     "14": fleet["launches"]["quantized_matmul"],
@@ -7509,8 +7984,10 @@ def main(argv=None):
                       "11": multi["launches"]["paged_attention_decode"],
                       "12_plain": spec["plain"]["launches"][
                           "paged_attention_decode"],
-                      "13": sum(r["launches"]["paged_attention_decode"]
-                                for r in tp["ranks"]),
+                      "13_27b": fleet_tp["launches"][
+                          "paged_attention_decode"],
+                      "27b_respawned": fleet_tp["launches_respawned"][
+                          "paged_attention_decode"],
                       "14_one_replica": fleet["one_replica"]["launches"][
                           "paged_attention_decode"],
                       "14": fleet["launches"]["paged_attention_decode"],
@@ -7597,6 +8074,7 @@ def main(argv=None):
                        "telemetry_gang": telemetry, "hang_gang": hang,
                        "fleet_statusz": fleet_live, "alert_gang": alerted,
                        "elastic_gang": elastic_run,
+                       "fleet_tp": fleet_tp, "bert_mesh": bert_run,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

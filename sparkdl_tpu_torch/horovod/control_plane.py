@@ -18,6 +18,15 @@ off, the frame is dropped), and which the service answers with
 PROFILE_DONE once its window is written. The frame numbers and layout
 are the JAX package's.
 
+Two frames are the port's only, numbered above the JAX package's 1-15:
+SERVE_REQ (16), driver to the first rank of a fleet's gang replica on
+its guaranteed socket, the requests the fleet admits to the replica and
+its stop, which the watchdog thread hands to the rank's serving loop;
+and SERVE_OUT (17), that rank to the driver, the replica's engine
+contract, streamed tokens and finished or refused requests
+(:class:`~sparkdl_tpu_torch.models.fleet.GangReplica`). The JAX fleet's
+tensor-parallel engine is one GSPMD process and sends no such frames.
+
 Log volume never blocks training (reference ``runner_base.py:65-68``):
 LOG frames go into a bounded drop-oldest ring (:class:`LogRing`, 4 MiB)
 that a daemon thread drains over a connection of its own, so a driver
@@ -74,6 +83,9 @@ MSG_DUMP_REQ = 12  # driver to worker: send every thread's stack
 MSG_STACK_DUMP = 13  # worker to driver: the faulthandler dump text
 MSG_PROFILE_REQ = 14  # driver to worker: capture a perf-forensics window
 MSG_PROFILE_DONE = 15  # worker to driver: the capture's report meta
+# the port's own frames (a fleet's gang replica), above the JAX numbers
+MSG_SERVE_REQ = 16  # driver to worker: requests admitted to the replica
+MSG_SERVE_OUT = 17  # worker to driver: tokens, finished, refused
 
 _HEADER = struct.Struct(">IBI")  # length (of type+rank+payload), type, rank
 
@@ -84,7 +96,8 @@ _MSG_NAMES = {
     MSG_AUTH: "AUTH", MSG_RESULT_PART: "RESULT", MSG_RESULT_END: "RESULT",
     MSG_TELEMETRY: "TELEMETRY", MSG_HEARTBEAT: "HEARTBEAT",
     MSG_STACK_DUMP: "STACK_DUMP", MSG_PROFILE_REQ: "PROFILE_REQ",
-    MSG_PROFILE_DONE: "PROFILE_DONE",
+    MSG_PROFILE_DONE: "PROFILE_DONE", MSG_SERVE_REQ: "SERVE_REQ",
+    MSG_SERVE_OUT: "SERVE_OUT",
 }
 
 # the launcher's worker environment: where the driver listens, the secret
@@ -187,6 +200,10 @@ class ControlPlaneServer:
         # the observer of PROFILE_DONE frames (the forensics manager's),
         # called outside the lock as on_profile_done(rank, meta)
         self.on_profile_done = None
+        # the observer of SERVE_OUT frames (a fleet's gang replica),
+        # called on the rank's connection thread as on_serve(rank, msg)
+        self.on_serve = None
+        self._send_lock = threading.Lock()  # SERVE_REQ frames whole
         self.secret = _secrets.token_hex(32)  # the workers get it
         self._log_file = open(log_path, "a", buffering=1) if log_path \
             else None
@@ -351,6 +368,10 @@ class ControlPlaneServer:
             cb = self.on_profile_done
             if cb is not None:
                 cb(rank, msg)
+        elif mtype == MSG_SERVE_OUT:
+            cb = self.on_serve
+            if cb is not None:
+                cb(rank, json.loads(payload.decode("utf-8", "replace")))
         elif mtype == MSG_BYE:
             with self._lock:
                 self._bye.add(rank)
@@ -444,6 +465,23 @@ class ControlPlaneServer:
         try:
             conn.sendall(_HEADER.pack(len(payload) + 5, MSG_PROFILE_REQ,
                                       rank) + payload)
+        except OSError:
+            return False
+        return True
+
+    def send_serve(self, rank, obj):
+        """Send ``obj`` (JSON) to ``rank`` as SERVE_REQ, down its
+        guaranteed socket; False when the rank has none or the send
+        fails. Never raises."""
+        with self._lock:
+            conn = self._conns.get(rank)
+        if conn is None:
+            return False
+        payload = json.dumps(obj).encode("utf-8")
+        try:
+            with self._send_lock:
+                conn.sendall(_HEADER.pack(len(payload) + 5, MSG_SERVE_REQ,
+                                          rank) + payload)
         except OSError:
             return False
         return True
@@ -591,6 +629,9 @@ class ControlPlaneClient:
         self._closing = False
         # the capture service's entry for PROFILE_REQ (None: dropped)
         self._profile_handler = None
+        # a gang replica's serving loop's entry for SERVE_REQ (None:
+        # dropped)
+        self._serve_handler = None
         self._logs = LogRing(host, int(port), auth)
 
     @property
@@ -687,6 +728,28 @@ class ControlPlaneClient:
         except Exception:
             pass  # the watchdog keeps watching, whatever the service does
 
+    def set_serve_handler(self, handler):
+        """Register a gang replica's entry for the driver's SERVE_REQ
+        frames, ``handler(request_dict)``, called on the watchdog
+        thread; None unregisters."""
+        self._serve_handler = handler
+
+    def send_serve(self, obj):
+        """SERVE_OUT to the driver: ``obj`` as JSON, on the guaranteed
+        socket."""
+        self._send_json(MSG_SERVE_OUT, obj)
+
+    def _dispatch_serve_request(self, payload):
+        handler = self._serve_handler
+        if handler is None:
+            return
+        try:
+            req = json.loads(payload.decode("utf-8", "replace"))
+        except ValueError:
+            return
+        if isinstance(req, dict):
+            handler(req)
+
     def send_result(self, pickled_bytes):
         self._logs.flush()  # the run's last lines reach the driver first
         if len(pickled_bytes) <= RESULT_CHUNK:
@@ -712,8 +775,9 @@ class ControlPlaneClient:
         """Exit this worker when the driver's end of the socket closes
         (the driver died, even by SIGKILL): no worker outlives its
         driver, holding its card. Meanwhile answer the driver's DUMP_REQ
-        frames and hand its PROFILE_REQ frames to the capture service,
-        the only frames it sends."""
+        frames, hand its PROFILE_REQ frames to the capture service and
+        its SERVE_REQ frames to a gang replica's serving loop, the only
+        frames it sends."""
 
         def watch():
             try:
@@ -731,6 +795,8 @@ class ControlPlaneClient:
                         self._answer_dump_request(payload)
                     elif mtype == MSG_PROFILE_REQ:
                         self._dispatch_profile_request(payload)
+                    elif mtype == MSG_SERVE_REQ:
+                        self._dispatch_serve_request(payload)
             except OSError:
                 pass
             if self._closing:

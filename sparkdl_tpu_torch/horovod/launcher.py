@@ -429,11 +429,22 @@ def _tail(path, n=40):
         return ""
 
 
-def launch_gang(np, main, kwargs, driver_log_verbosity):
+def launch_gang(np, main, kwargs, driver_log_verbosity, *, policy=None,
+                attach=None, cancel=None):
     """Run ``main(**kwargs)`` on a gang of workers (``np`` as
     :class:`~sparkdl_tpu_torch.horovod.runner_base.HorovodRunner` takes
     it, ``np != -1``) and return rank 0's return value, relaunching a
-    gang that fails transiently as the supervisor's policy allows.
+    gang that fails transiently as the supervisor's policy allows
+    (``policy``; None: :data:`~sparkdl_tpu_torch.horovod.supervisor.
+    policy`).
+
+    ``attach(server)`` is called with each local or remote attempt's
+    control plane (:class:`~sparkdl_tpu_torch.horovod.control_plane.
+    ControlPlaneServer`) before its workers are spawned, so the caller
+    can exchange frames with the ranks (a fleet's gang replica); the
+    JAX launcher has no such hook. Setting ``cancel`` (a
+    ``threading.Event``) kills the attempt's workers and raises
+    ``GangFailure(kind="cancelled")``.
     Raises :class:`~sparkdl_tpu_torch.horovod.supervisor.GangFailure`
     when a worker fails (with its traceback), when the gang does not
     start within ``START_TIMEOUT_S`` or runs past ``JOB_TIMEOUT_S``;
@@ -472,8 +483,9 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
             lambda ctx, world=None: _launch_gang_once(
                 np, payload, driver_log_verbosity, restart=ctx,
                 telemetry=telemetry, alerts=alert_engine,
-                forensics=forensics, world=world, controller=controller),
-            supervisor.policy)
+                forensics=forensics, world=world, controller=controller,
+                attach=attach, cancel=cancel),
+            supervisor.policy if policy is None else policy)
     finally:
         if controller is not None:
             elastic.set_active_controller(None)
@@ -503,14 +515,16 @@ def launch_gang(np, main, kwargs, driver_log_verbosity):
 
 def _launch_gang_once(np, payload, driver_log_verbosity, restart,
                       telemetry=None, alerts=None, forensics=None,
-                      world=None, controller=None):
+                      world=None, controller=None, attach=None,
+                      cancel=None):
     """One launch attempt of the cloudpickled ``(main, kwargs)``, its
     workers told ``restart`` (a RestartContext), their telemetry into
     ``telemetry`` (a GangTelemetry, or None), polled by ``alerts`` (an
     AlertEngine, or None), captures through ``forensics`` (a
     ForensicsManager, or None), ``world`` workers when it is given (an
     elastic relaunch; None: ``np``'s), ``controller`` (an
-    ElasticController, or None) told the world and polled; rank 0's
+    ElasticController, or None) told the world and polled, ``attach``
+    and ``cancel`` as :func:`launch_gang` takes them; rank 0's
     result."""
     from sparkdl_tpu_torch.horovod.topology import (
         Placement,
@@ -579,7 +593,8 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
         master_addr = _addressable("localhost") if remote else "127.0.0.1"
         return _run_gang(num_workers, mode, placement, remote, shell,
                          master_addr, payload, driver_log_verbosity, restart,
-                         telemetry, alerts, forensics, controller)
+                         telemetry, alerts, forensics, controller, attach,
+                         cancel)
     finally:
         if claim is not None:
             claim.release()
@@ -587,7 +602,8 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
 
 def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
               payload, driver_log_verbosity, restart, telemetry=None,
-              alerts=None, forensics=None, controller=None):
+              alerts=None, forensics=None, controller=None, attach=None,
+              cancel=None):
     """Spawn the workers (``remote`` hosts' through ``shell``), wait for
     them and return rank 0's unpickled result."""
     import cloudpickle
@@ -640,6 +656,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         if forensics is not None:
             # PROFILE_REQ goes out through this attempt's control plane
             forensics.bind_server(server)
+        if attach is not None:
+            # before any worker can connect: no frame of theirs is missed
+            attach(server)
         # the store's server listens on every interface; master_addr is
         # what the workers dial, a routable one when a rank is remote
         store = dist.TCPStore(master_addr, 0, is_master=True,
@@ -709,6 +728,7 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         with observe.span("gang.rendezvous", cat="launch",
                           num_workers=num_workers):
             while server.ready_count() < num_workers:
+                _check_cancel(cancel, procs)
                 codes = [p.poll() for p in procs]
                 if any(c not in (None, 0) for c in codes):
                     server.wait_drained(1.0)  # the EXC frames of the dead
@@ -730,6 +750,7 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
 
         first_death = None
         while any(p.poll() is None for p in procs):
+            _check_cancel(cancel, procs)
             codes = [p.poll() for p in procs]
             if alerts is not None:
                 # the streaming rules (throttled to their cadence); a perf
@@ -789,6 +810,23 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         if server is not None:
             server.close()
         del store  # closes the rendezvous store's server
+
+
+def _check_cancel(cancel, procs):
+    """When ``cancel`` is set: kill the gang and raise
+    ``GangFailure(kind="cancelled")`` (its caller ended it)."""
+    if cancel is None or not cancel.is_set():
+        return
+    from sparkdl_tpu_torch.horovod.supervisor import GangFailure
+
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+    raise GangFailure("HorovodRunner gang cancelled by its caller; every "
+                      "worker was killed.", kind="cancelled",
+                      exit_codes=[p.poll() or 0 for p in procs])
 
 
 def _recycle(procs, resize):

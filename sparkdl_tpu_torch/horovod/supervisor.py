@@ -108,8 +108,9 @@ _INFRA_TYPES = re.compile(
 class GangFailure(RuntimeError):
     """A launched gang failed. ``kind``: ``"start_failure"``,
     ``"rendezvous_timeout"``, ``"worker_death"``, ``"no_result"``,
-    ``"job_timeout"``, ``"hang"`` or ``"elastic_resize"`` (the launcher
-    recycled the gang for the elastic controller's planned resize);
+    ``"job_timeout"``, ``"hang"``, ``"elastic_resize"`` (the launcher
+    recycled the gang for the elastic controller's planned resize) or
+    ``"cancelled"`` (its caller ended it: ``launch_gang(cancel=)``);
     ``exit_codes``: each rank's (negative: killed by that signal);
     ``exceptions``: rank -> traceback text of its EXC frame;
     ``hang_verdict``: the hang detector's verdict of a ``"hang"``;
@@ -201,6 +202,8 @@ def classify_failure(exc, extra_patterns=()):
     - A resize the elastic controller planned: transient (the relaunch
       is its purpose), judged first, since the launcher's kill looks
       like signal deaths.
+    - A gang its caller cancelled (``launch_gang(cancel=)``): permanent,
+      judged first, since the launcher's kill looks like signal deaths.
     - A gang the hang detector declared hung: transient (the launcher
       took its stack dumps and killed it; its state is in the
       checkpoint), judged first, since that kill looks like signal
@@ -230,6 +233,8 @@ def classify_failure(exc, extra_patterns=()):
     if isinstance(exc, (ValueError, TypeError)):
         return PERMANENT, f"bad arguments ({type(exc).__name__})"
     if isinstance(exc, GangFailure):
+        if exc.kind == "cancelled":
+            return PERMANENT, "CANCELLED — its caller ended the gang"
         if exc.kind == "elastic_resize":
             return TRANSIENT, (
                 f"ELASTIC ({exc.elastic_direction or 'resize'}) — planned "
@@ -475,8 +480,10 @@ def supervise(launch, policy, _sleep=time.sleep):
                                 kind=getattr(e, "kind", type(e).__name__))
                 observe.inc("gang_failures_total", verdict=verdict)
             if verdict == PERMANENT:
-                logger.error(
-                    "HorovodRunner gang failed permanently on attempt %d "
+                # a gang its caller cancelled did not fail
+                log = (logger.info if getattr(e, "kind", None) == "cancelled"
+                       else logger.error)
+                log("HorovodRunner gang failed permanently on attempt %d "
                     "(%s); not retrying: %s", attempt, cause, first_line)
                 raise
             if not planned:

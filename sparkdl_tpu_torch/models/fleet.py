@@ -8,12 +8,35 @@ on one engine thread. This module adds the tier above it:
 - :class:`EngineWorker` — one replica: an engine (built by the fleet's
   ``engine_factory``, so a replica can be REPLACED with a fresh one) on
   its own engine thread, draining its own arrival queue into
-  ``engine.submit`` as the single front-end does. A replica is a
-  single-process engine: one built with a ``mesh`` (a tensor-parallel
-  rank) is refused, since a fleet of tensor-parallel replicas needs a
-  gang a replica. Replicas on one card may share one weight dict (the
-  engine does not copy tensors already on its device, so only the KV
-  caches are per replica); the weights stay read-only.
+  ``engine.submit`` as the single front-end does. Replicas on one card
+  may share one weight dict (the engine does not copy tensors already
+  on its device, so only the KV caches are per replica); the weights
+  stay read-only.
+- :class:`GangWorker` — one tensor-parallel replica, spelled
+  ``FleetFrontend(GangReplica(rank_factory, np=m), ...)``: a gang of
+  ``m`` ranks started through the port's launcher
+  (:func:`~sparkdl_tpu_torch.horovod.launcher.launch_gang`), each rank
+  building its engine with ``rank_factory()`` (an engine with a
+  ``mesh``). The JAX fleet takes an engine with a mesh from a
+  zero-argument factory in its own process, as GSPMD drives all of it
+  from there; the port's TP engine is one process a rank, so the fleet
+  process builds none, and an engine with a mesh handed to
+  :class:`EngineWorker` is refused by name. The gang's first rank takes
+  the replica's arrivals over the gang's control plane (frame
+  SERVE_REQ, JSON); before each engine step it broadcasts the step's
+  admissions (and the replica's stop) to every rank, which all
+  ``submit`` the same requests in the same order and step in lockstep
+  (the engine broadcasts each sampled token); it sends each token and
+  each finished or refused request back (SERVE_OUT), and the fleet
+  delivers them through the same mailboxes, so admission control,
+  routing, ``/fleet``, ``/metrics`` and ``/statusz`` see one replica.
+  The death of any rank, the gang's hang verdict (telemetry on) and a
+  replica with work but no token for ``hang_seconds`` are the
+  replica's: its in-flight requests fail with 500, every rank of the
+  gang is killed and a new gang is started. An engine fault in a rank
+  ends the gang too (the ranks could not stay in lockstep past it).
+  The engine-side hooks of :class:`_WorkerTelemetry` (queue wait,
+  batch utilization, pages) run in the ranks and are not recorded.
 - :class:`FleetFrontend` — the single public HTTP surface, with the SAME
   wire contract as ``ServingFrontend`` (the parse/deliver plumbing is
   imported from :mod:`~sparkdl_tpu_torch.models.server`), plus:
@@ -53,11 +76,15 @@ own always-on registry through the engine's telemetry hooks
 """
 
 import json
+import os
 import queue
 import threading
 import time
+import types
 
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
 
 from sparkdl_tpu_torch.models.server import (
     _Mailbox,
@@ -136,9 +163,11 @@ class EngineWorker:
         engine = engine_factory()
         if getattr(engine, "mesh", None) is not None:
             raise NotImplementedError(
-                "a fleet replica is a single-process engine: an engine "
-                "with a mesh (a tensor-parallel rank) needs a gang a "
-                "replica, which is not ported")
+                "an engine with a mesh (a tensor-parallel rank) built in "
+                "the fleet's process cannot serve alone: the JAX spelling "
+                "(one GSPMD process) is not ported; a tensor-parallel "
+                "replica is a gang, FleetFrontend(GangReplica(rank_factory,"
+                " np=m))")
         self.engine = engine
         self._metrics = metrics
         self._arrivals = queue.Queue()   # (parsed request, _Mailbox)
@@ -204,6 +233,10 @@ class EngineWorker:
         self._stop.set()
         self._wake.set()
 
+    def discard(self):
+        """Drop a worker that was never started."""
+        self.stop()
+
     def _touch_progress(self):
         """Liveness stamp, written under the lock: the engine thread
         (chunks, tokens, queue polls), handler threads (idle-arrival
@@ -216,6 +249,9 @@ class EngineWorker:
         self._thread.join(timeout)
 
     # -- supervision ---------------------------------------------------
+
+    # the restart cause of a worker found dead
+    death_cause = "death"
 
     def declare_dead(self, code, message):
         """Called by the fleet supervisor (hang verdict) OR by the
@@ -382,13 +418,326 @@ class EngineWorker:
             box.done.set()
 
 
+# how long a gang replica's first rank waits for arrivals before it
+# steps the (idle) gang anyway: the broadcast that keeps every rank's
+# loop in step, and how soon a stop reaches an idle gang
+GANG_IDLE_S = 0.05
+# how long the fleet waits for a new gang's engines (the launch, the
+# weights, the engine) before it gives the gang up
+GANG_START_S = 600.0
+
+
+class GangReplica:
+    """The spelling of a tensor-parallel fleet replica:
+    ``FleetFrontend(GangReplica(rank_factory, np=m), replicas=N)``.
+
+    Each replica is a gang started through
+    :func:`~sparkdl_tpu_torch.horovod.launcher.launch_gang` with ``np``
+    as ``HorovodRunner`` takes it (``np=m``: one rank a card, or a core
+    under ``launcher.WORKER_DEVICE = "cpu"``, claiming slots; ``np=-m``:
+    ``m`` local ranks, which may share a card). Every rank calls
+    ``rank_factory()`` after ``hvd.init()``; it returns that rank's
+    engine, built with ``mesh=make_mesh(...)`` over the gang (cloudpickled
+    to the ranks with what it closes on)."""
+
+    def __init__(self, rank_factory, *, np):
+        if int(np) in (-1, 0, 1):
+            raise ValueError(
+                f"a gang replica has at least two ranks: np={np} (a "
+                "single-process replica takes a zero-argument factory)")
+        self.rank_factory = rank_factory
+        self.np = int(np)
+
+
+def _bcast_json(obj):
+    """Rank 0's JSON-able ``obj`` on every rank of the gang: its length,
+    then its bytes, over the gang's process group."""
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+
+    data = json.dumps(obj).encode("utf-8") if hvd.rank() == 0 else b""
+    n = int(hvd.broadcast(torch.tensor([len(data)], dtype=torch.int64),
+                          root_rank=0)[0])
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
+           if hvd.rank() == 0 else torch.zeros(n, dtype=torch.uint8))
+    buf = hvd.broadcast(buf, root_rank=0)
+    return json.loads(bytes(buf.numpy()).decode("utf-8"))
+
+
+class _RankLoop:
+    """The serving loop of every rank of a gang replica. The first rank
+    (``lead``) takes the fleet's SERVE_REQ frames from ``inbox`` and
+    answers with SERVE_OUT; every rank steps its engine in lockstep."""
+
+    def __init__(self, engine, lead, client, inbox):
+        self.engine, self.lead = engine, lead
+        self._client, self._inbox = client, inbox
+        self._ids = {}     # engine rid -> the fleet's request id
+        self._tokens = []  # (request id, token) not yet sent
+        self._ticks = 0
+        self.stopping = False
+
+    def _collect(self, wait):
+        """The lead's arrivals and stop since the last step."""
+        submit, stop = [], False
+        try:
+            msg = (self._inbox.get(timeout=GANG_IDLE_S) if wait
+                   else self._inbox.get_nowait())
+            while True:
+                submit.extend(msg.get("submit", ()))
+                stop = stop or bool(msg.get("stop"))
+                msg = self._inbox.get_nowait()
+        except queue.Empty:
+            pass
+        return {"submit": submit, "stop": stop}
+
+    def _step_in(self, wait):
+        """One lockstep point: the lead's admissions broadcast, submitted
+        by every rank in order (a request the engine refuses is refused
+        on every rank alike); returns how many were admitted."""
+        from sparkdl_tpu_torch import observe
+
+        if observe.enabled():
+            from sparkdl_tpu_torch.observe import health
+
+            self._ticks += 1
+            health.note_step(self._ticks)  # progress, idle or not
+        msg = _bcast_json(self._collect(wait) if self.lead else None)
+        admitted, refused = 0, []
+        for req in msg["submit"]:
+            try:
+                rid = self.engine.submit(req["tokens"],
+                                         req["max_new_tokens"],
+                                         stop=req.get("stop"))
+            except (ValueError, TypeError) as e:
+                refused.append([req["id"], str(e)])
+                continue
+            self._ids[rid] = req["id"]
+            admitted += 1
+        if refused and self.lead:
+            self._client.send_serve({"refused": refused})
+        if msg["stop"]:
+            self.stopping = True
+            # in-flight work ends here; the fleet answers it 503
+            self.engine.abort_requests()
+        return admitted
+
+    def _on_token(self, rid, tok):
+        self._tokens.append([self._ids[rid], int(tok)])
+
+    def _send(self, finished):
+        """The lead's tokens so far and ``finished`` ({rid: (tokens,
+        reason, logprobs)}) to the fleet, in one frame."""
+        done = [[self._ids.pop(rid), [int(t) for t in toks], reason,
+                 [float(v) for v in lps]]
+                for rid, (toks, reason, lps) in finished.items()]
+        if self._tokens or done:
+            self._client.send_serve({"tokens": self._tokens, "done": done})
+        self._tokens = []
+
+    def _progress(self, engine):
+        finished = engine.take_finished()
+        if self.lead:
+            self._send(finished)
+        else:
+            for rid in finished:
+                self._ids.pop(rid, None)
+        self._step_in(wait=False)
+
+    def serve(self):
+        while not self.stopping:
+            if not self._step_in(wait=True) or self.stopping:
+                continue
+            results = self.engine.run(
+                progress=self._progress,
+                on_token=self._on_token if self.lead else None)
+            finished = {rid: (toks, self.engine.finish_reasons[rid],
+                              self.engine.logprobs[rid])
+                        for rid, toks in results.items()}
+            if self.lead:
+                self._send(finished)
+            else:
+                for rid in finished:
+                    self._ids.pop(rid, None)
+
+
+def _serve_rank(rank_factory):
+    """Every rank of a gang replica: join the gang, build this rank's
+    engine, tell the fleet the engine's contract and the ranks' pids
+    (the lead), then serve until the fleet's stop."""
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.horovod.control_plane import get_worker_client
+
+    hvd.init()
+    engine = rank_factory()
+    lead = hvd.rank() == 0
+    client = get_worker_client() if lead else None
+    inbox = queue.Queue()
+    if lead:
+        client.set_serve_handler(inbox.put)
+    pids = hvd.allgather_object(os.getpid())
+    if lead:
+        client.send_serve({"hello": {
+            "max_cache_len": int(engine.cfg.max_cache_len),
+            "worst_extra": int(engine._worst_case_tokens(0, 0)),
+            "n_slots": int(engine.n_slots), "pids": pids}})
+    _RankLoop(engine, lead, client, inbox).serve()
+
+
+class _Contract:
+    """What the fleet validates a request against, as a gang replica's
+    first rank reported its engine: ``cfg.max_cache_len`` and the worst
+    case of rows a request touches."""
+
+    def __init__(self, hello):
+        self.cfg = types.SimpleNamespace(max_cache_len=hello["max_cache_len"])
+        self._extra = hello["worst_extra"]
+        self.n_slots = hello["n_slots"]
+
+    def _worst_case_tokens(self, p_len, max_new):
+        return p_len + max_new + self._extra
+
+
+class GangWorker(EngineWorker):
+    """One gang replica (:class:`GangReplica`): the gang is launched at
+    construction (the ranks build their engines then, as a factory
+    would), which returns once the first rank has reported its engine.
+    The mailboxes, hang clock and failure paths are
+    :class:`EngineWorker`'s; arrivals go to the gang at once (``queued``
+    stays 0), tokens and results come back on the control plane's
+    thread."""
+
+    def __init__(self, replica, spec, metrics):
+        self.replica = int(replica)
+        self._spec = spec
+        self._metrics = metrics
+        self._arrivals = queue.Queue()  # unused: arrivals go to the gang
+        self._live = {}                 # the fleet's request id -> _Mailbox
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._cancel = threading.Event()  # kills the gang's workers
+        self._hello = threading.Event()
+        self._server = None
+        self._crash = None
+        self._next_id = 0
+        self.dead = False
+        self.restart_cause = None
+        self.last_progress = time.monotonic()
+        self.engine = None
+        self.pids = []         # the gang's ranks' processes, in rank order
+        self.start_s = None    # seconds from the launch to the engines
+        t0 = time.monotonic()
+        self._thread = threading.Thread(
+            target=self._loop, name=f"sparkdl-gang-{replica}", daemon=True)
+        self._thread.start()
+        deadline = time.monotonic() + GANG_START_S
+        while not self._hello.wait(0.05):
+            if not self._thread.is_alive():
+                raise RuntimeError(
+                    f"gang replica {replica} failed to start: "
+                    f"{self._crash}") from self._crash
+            if time.monotonic() > deadline:
+                self._cancel.set()
+                self._thread.join(30)
+                raise RuntimeError(
+                    f"gang replica {replica} built no engine within "
+                    f"{GANG_START_S:g}s")
+        self.start_s = time.monotonic() - t0
+
+    @property
+    def death_cause(self):
+        kind = getattr(self._crash, "kind", None)
+        return "hang" if kind == "hang" else "death"
+
+    def start(self):
+        return self  # the gang serves from its construction
+
+    def discard(self):
+        self.stop()
+        self.join(10)
+
+    def submit(self, parsed, box):
+        with self._lock:
+            if self.dead or self._stop.is_set():
+                raise RuntimeError(f"replica {self.replica} is dead")
+            if not self._live:
+                self.last_progress = time.monotonic()
+            rid = self._next_id
+            self._next_id += 1
+            self._live[rid] = box
+        req = {"id": rid, "tokens": parsed["tokens"],
+               "max_new_tokens": parsed["max_new_tokens"],
+               "stop": parsed["stop"]}
+        if not self._server.send_serve(0, {"submit": [req]}):
+            with self._lock:
+                self._live.pop(rid, None)
+            raise RuntimeError(f"replica {self.replica}'s gang is gone")
+
+    def stop(self):
+        self._stop.set()
+        if self._server is not None:
+            self._server.send_serve(0, {"stop": True})
+
+    def join(self, timeout=None):
+        """Wait for the gang to end; past ``timeout`` kill it and reap
+        its workers."""
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            self._cancel.set()
+            self._thread.join(timeout)
+
+    def declare_dead(self, code, message):
+        super().declare_dead(code, message)
+        self._cancel.set()  # every rank of the gang goes with it
+
+    def _attach(self, server):
+        self._server = server
+        server.on_serve = self._on_serve
+
+    def _serve_bursts(self):
+        from sparkdl_tpu_torch.horovod import launcher, supervisor
+
+        try:
+            launcher.launch_gang(
+                self._spec.np, _serve_rank,
+                {"rank_factory": self._spec.rank_factory},
+                "log_callback_only", policy=supervisor.RetryPolicy(),
+                attach=self._attach, cancel=self._cancel)
+        except supervisor.GangFailure as e:
+            # a gang killed because it did not stop in time was stopped
+            if not (self._stop.is_set() and e.kind == "cancelled"):
+                raise
+
+    def _on_serve(self, rank, msg):
+        if rank != 0:
+            return
+        if "hello" in msg:
+            self.engine = _Contract(msg["hello"])
+            self.pids = list(msg["hello"]["pids"])
+            self._hello.set()
+        for rid, tok in msg.get("tokens", ()):
+            self._on_token(rid, tok)
+        if msg.get("done"):
+            self._post({rid: (np.asarray(toks, np.int64), reason, lps)
+                        for rid, toks, reason, lps in msg["done"]})
+        for rid, error in msg.get("refused", ()):
+            with self._lock:
+                box = self._live.pop(rid, None)
+            if box is not None:
+                box.fail(400, error)
+
+
 class FleetFrontend:
     """N engine replicas behind one admission-controlled HTTP server.
 
     ``engine_factory``: zero-arg callable building ONE engine (model,
-    params, paging, TP mesh, and the per-engine ``quant=`` mode all
-    live in the closure) — called once per replica at start and again
-    whenever the supervisor replaces a dead or hung replica.
+    params, paging and the per-engine ``quant=`` mode all live in the
+    closure) — called once per replica at start and again whenever the
+    supervisor replaces a dead or hung replica; or a
+    :class:`GangReplica`, whose every replica is a tensor-parallel gang
+    (started, and started anew, likewise).
 
     ``max_queue``: total queued+in-flight bound; arrivals above it get
     503 + ``Retry-After``. ``None`` disables admission control.
@@ -420,8 +769,7 @@ class FleetFrontend:
             else DEFAULT_HANG_S)
         self._poll_seconds = float(poll_seconds)
         self.metrics = Registry()
-        self._workers = [EngineWorker(i, engine_factory, self.metrics)
-                         for i in range(replicas)]
+        self._workers = [self._make_worker(i) for i in range(replicas)]
         self._next_replica = replicas
         self._restarts = 0
         self._shutdown = threading.Event()
@@ -529,6 +877,11 @@ class FleetFrontend:
         self._httpd = _Server((host, port), Handler)
         self.address = self._httpd.server_address
 
+    def _make_worker(self, replica):
+        if isinstance(self._factory, GangReplica):
+            return GangWorker(replica, self._factory, self.metrics)
+        return EngineWorker(replica, self._factory, self.metrics)
+
     # -- routing + admission -------------------------------------------
 
     def _validation_engine(self):
@@ -626,7 +979,7 @@ class FleetFrontend:
                     return
                 cause = None
                 if not w._thread.is_alive() or w.dead:
-                    cause = "death"
+                    cause = w.death_cause
                 elif w.hung(self.hang_seconds):
                     cause = "hang"
                     w.declare_dead(
@@ -661,8 +1014,7 @@ class FleetFrontend:
         re-armed so the monitor retries on its poll cadence, with
         every attempt counted."""
         try:
-            fresh = EngineWorker(old.replica, self._factory,
-                                 self.metrics)
+            fresh = self._make_worker(old.replica)
         except Exception:
             self.metrics.counter(
                 "server_replica_respawn_failures_total").inc()
@@ -680,12 +1032,14 @@ class FleetFrontend:
         # by close() (and stopped) or never started at all
         with self._workers_lock:
             if self._shutdown.is_set():
+                fresh.discard()
                 return
             try:
                 slot = self._workers.index(old)
             except ValueError:
                 # scaled away mid-respawn — the fleet no longer wants
-                # this slot; the unstarted fresh worker just drops
+                # this slot; the unstarted fresh worker is dropped
+                fresh.discard()
                 return
             fresh.start()
             self._restarts += 1
@@ -715,12 +1069,12 @@ class FleetFrontend:
                 break
             # build outside the lock — engine construction can take
             # seconds and request dispatch must keep flowing
-            w = EngineWorker(self._next_replica, self._factory,
-                             self.metrics)
+            w = self._make_worker(self._next_replica)
             with self._workers_lock:
-                if self._shutdown.is_set():
-                    return len(self._workers)
-                if len(self._workers) >= n:
+                if self._shutdown.is_set() or len(self._workers) >= n:
+                    w.discard()
+                    if self._shutdown.is_set():
+                        return len(self._workers)
                     break
                 self._next_replica += 1
                 w.start()

@@ -20,10 +20,10 @@ become ``cfg.dtype`` (the value the JAX forward computes with, since it
 casts them per call), while adapters, norms and the head stay fp32.
 
 :func:`load_jax_variables` loads the model zoo's families (``MnistCNN``,
-``ResNet``, the BERT models) from their flax variables: ``params`` and,
-for a ResNet, ``batch_stats`` onto the batch norms' ``mean`` and ``var``
-buffers, each convolution kernel transposed from flax's (kh, kw, in,
-out) to torch's (out, in, kh, kw).
+``ResNet``, the BERT models, on a mesh too) from their flax variables:
+``params`` and, for a ResNet, ``batch_stats`` onto the batch norms'
+``mean`` and ``var`` buffers, each convolution kernel transposed from
+flax's (kh, kw, in, out) to torch's (out, in, kh, kw).
 """
 
 import re
@@ -97,11 +97,15 @@ def load_jax_variables(model, variables):
     (kh, kw, in, out) → (out, in, kh, kw); ``batch_stats``' ``mean`` and
     ``var`` land on the buffers of the same names. Raises on a missing,
     unexpected or mis-shaped entry (a BERT tree initialised without
-    ``token_type_ids`` lacks ``type_embed``)."""
+    ``token_type_ids`` lacks ``type_embed``). A BERT model laid out on a
+    tensor-parallel or ZeRO-3 mesh takes this rank's slice of each whole
+    leaf (its ``local_params``)."""
     flat = flatten_jax_tree(variables.get("params", {}))
     for name, arr in flat.items():
         if name.endswith("kernel") and arr.ndim == 4:
             flat[name] = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
     flat.update(flatten_jax_tree(variables.get("batch_stats", {})))
+    if getattr(model, "mesh", None) is not None:
+        flat = model.local_params(flat)
     _copy_into(model.state_dict(), flat, "flax variables")
     return model

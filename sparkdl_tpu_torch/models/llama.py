@@ -64,7 +64,8 @@ one to one (:mod:`sparkdl_tpu_torch.models.from_jax`).
   ``model`` as GSPMD sums it. Every rank must run the same forwards and
   backwards in the same order (``cfg.remat``'s recompute re-issues a
   block's all-reduces on every rank alike). A mesh with ``fsdp > 1``
-  raises NotImplementedError.
+  stores the weights ZeRO-3. The machinery is
+  :mod:`~sparkdl_tpu_torch.models.megatron`, which BERT shares.
   ``paged_attention_fn`` replaces the single-token paged decode call
   (the engine passes
   :func:`~sparkdl_tpu_torch.ops.paged_attention.paged_attention_decode_sharded`).
@@ -81,7 +82,6 @@ The TPU's kernel-mode fields (``paged_kernel``, ``quant_kernel``) are
 not fields here.
 """
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -91,197 +91,17 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from sparkdl_tpu_torch.models import megatron
 from sparkdl_tpu_torch.models.lora import LoRADense, MultiLoRADense
+from sparkdl_tpu_torch.models.megatron import IN, bound, fan_in, tp_call
 from sparkdl_tpu_torch.models.moe import MoEConfig, MoEMLP
 from sparkdl_tpu_torch.ops import attention as _attention
 from sparkdl_tpu_torch.ops import paged_attention as _paged
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
 from sparkdl_tpu_torch.parallel import ring_attention as _ring
-from sparkdl_tpu_torch.parallel.mesh import (
-    axis_sum,
-    gather_shards,
-    gathered,
-    replicated,
-)
+from sparkdl_tpu_torch.parallel.mesh import gathered
 
 NEG_INF = -1e30
-
-# the last-dim layout of a projection's input and output by its
-# tensor-parallel role: "full" (whole, every rank alike), "shared" (whole,
-# entered through Megatron's f for a per-rank use), "split" (this rank's
-# block), "partial" (a summand of the whole)
-_IN = {"col": "shared", "row": "split", "rep": "full"}
-_OUT = {"col": "split", "row": "partial", "rep": "full"}
-
-
-@dataclasses.dataclass(frozen=True)
-class _TP:
-    """A tensor-parallel model's place on its mesh's ``model`` axis."""
-
-    mesh: object
-    rank: int
-    size: int
-
-
-def _relayout(x, have, want, tp):
-    """``x``'s last dim moved from layout ``have`` to ``want`` on the
-    ``model`` axis, differentiably: a partial sum is all-reduced (g), a
-    split made whole by an all-gather, a whole one entered through f for
-    a per-rank use ("shared") and split by taking this rank's block. A
-    shared tensor never goes back to "full": its gradient is a rank's
-    share."""
-    if have == want:
-        return x
-    if have == "partial":
-        x, have = axis_sum(x, tp.mesh, "model"), "full"
-    elif have == "split":
-        x, have = gathered(x, tp.mesh, "model"), "full"
-    if have == want:
-        return x
-    if have == "full":
-        x = replicated(x, tp.mesh, "model")
-    if want == "shared":
-        return x
-    n = x.shape[-1] // tp.size
-    return x[..., tp.rank * n:(tp.rank + 1) * n]
-
-
-def _fan_in(x, modules, tp):
-    """``(input, layout)`` of each of ``modules`` fed the whole ``x``:
-    the column-parallel ones share one f (one all-reduce of their summed
-    input gradients in the backward), the others take ``x``."""
-    if tp is None:
-        return [(x, "full")] * len(modules)
-    shared = None
-    out = []
-    for module in modules:
-        if _IN[module.tp_role] == "shared":
-            if shared is None:
-                shared = _relayout(x, "full", "shared", tp)
-            out.append((shared, "shared"))
-        else:
-            out.append((x, "full"))
-    return out
-
-
-def _tp_call(module, x, tp, have="full", want="full", adapter_ids=None):
-    """``module`` over ``x``; under tensor parallelism (``tp``) ``x``
-    comes in layout ``have`` and the output leaves in ``want``, each
-    moved to and from the layouts of the module's role."""
-    if tp is not None:
-        x = _relayout(x, have, _IN[module.tp_role], tp)
-    # a multi-LoRA projection selects each row's adapter
-    if isinstance(module, MultiLoRADense):
-        y = module(x, adapter_ids)
-    else:
-        y = module(x)
-    if tp is not None:
-        y = _relayout(y, _OUT[module.tp_role], want, tp)
-    return y
-
-
-@contextlib.contextmanager
-def _bound(weights):
-    """Each ``(module, leaf)`` of ``weights`` reads as the given tensor
-    (an instance attribute shadows the parameter) for the ``with``
-    body; the module's parameters stay as they are."""
-    for (owner, leaf), w in weights.items():
-        owner.__dict__[leaf] = w
-    try:
-        yield
-    finally:
-        for owner, leaf in weights:
-            owner.__dict__.pop(leaf, None)
-
-
-class _Regather:
-    """The note a gathered weight is saved as in the graph: its unit,
-    its leaf and the saved view's geometry."""
-
-    __slots__ = ("unit", "key", "geometry")
-
-    def __init__(self, unit, key, t):
-        self.unit, self.key = unit, key
-        self.geometry = (t.size(), t.stride(), t.storage_offset())
-
-
-class _Zero3:
-    """A model's ZeRO-3 storage on its mesh's ``fsdp`` axis: the split
-    leaves of each unit (``layers.<i>`` a block, ``"top"`` the rest),
-    with the dim each is cut along, gathered whole on demand. Every rank
-    issues the same gathers in the same order: the units' leaves are
-    taken in state-dict order, grouped by (dtype, trained)."""
-
-    def __init__(self, model, mesh, dims):
-        self.mesh = mesh
-        modules = dict(model.named_modules())
-        self.units = {}
-        for name, dim in dims.items():
-            owner, _, leaf = name.rpartition(".")
-            parts = name.split(".")
-            unit = int(parts[1]) if parts[0] == "layers" else "top"
-            self.units.setdefault(unit, []).append(
-                (modules[owner], leaf, dim))
-        self._again = None  # (unit, weights) gathered again in a backward
-
-    def has(self, unit, module=None):
-        return any(module is None or owner is module
-                   for owner, _, _ in self.units.get(unit, ()))
-
-    def gather(self, unit):
-        """``{(module, leaf): whole}`` of ``unit``: one gather a (dtype,
-        trained) group; differentiable when gradients are recorded."""
-        groups = {}
-        for owner, leaf, dim in self.units.get(unit, ()):
-            p = owner._parameters[leaf]
-            groups.setdefault((p.dtype, p.requires_grad), []).append(
-                ((owner, leaf), p, dim))
-        out = {}
-        for items in groups.values():
-            wholes = gather_shards([p for _, p, _ in items],
-                                   [d for _, _, d in items], self.mesh,
-                                   "fsdp")
-            out.update(zip((k for k, _, _ in items), wholes))
-        return out
-
-    def release(self):
-        self._again = None
-
-    def _gathered_again(self, unit):
-        if self._again is None or self._again[0] != unit:
-            if self._again is None:
-                # dropped when this backward ends
-                torch.autograd.Variable._execution_engine.queue_callback(
-                    self.release)
-            self._again = None
-            with torch.no_grad():
-                self._again = (unit, self.gather(unit))
-        return self._again[1]
-
-    def run(self, unit, fn, *args, hooks=True):
-        """``fn(*args)`` with ``unit``'s leaves gathered whole; with
-        ``hooks`` and gradients recorded, the gathered weights the graph
-        saves are noted, not kept, and gathered again in the backward."""
-        weights = self.gather(unit)
-        with _bound(weights):
-            if not (hooks and torch.is_grad_enabled()):
-                return fn(*args)
-            ptrs = {w.untyped_storage().data_ptr(): k
-                    for k, w in weights.items() if w.numel()}
-
-            def pack(t):
-                key = ptrs.get(t.untyped_storage().data_ptr())
-                return t if key is None else _Regather(unit, key, t)
-
-            def unpack(saved):
-                if not isinstance(saved, _Regather):
-                    return saved
-                whole = self._gathered_again(saved.unit)[saved.key]
-                return whole.as_strided(*saved.geometry)
-
-            with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-                return fn(*args)
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -555,7 +375,7 @@ class Attention(nn.Module):
                              "o_proj")
 
     def _proj(self, module, x, adapter_ids, have="full", want="full"):
-        return _tp_call(module, x, self.tp, have, want, adapter_ids)
+        return tp_call(module, x, self.tp, have, want, adapter_ids)
 
     def forward(self, x, cos, sin, positions, block_tables=None, k_cache=None,
                 v_cache=None, adapter_ids=None):
@@ -569,7 +389,7 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         # under tensor parallelism: this rank's heads ("split"), Q, K
         # and V behind one f
-        (xq, lq), (xk, lk), (xv, lv) = _fan_in(
+        (xq, lq), (xk, lk), (xv, lv) = fan_in(
             x, (self.q_proj, self.k_proj, self.v_proj), self.tp)
         q = self._proj(self.q_proj, xq, adapter_ids, lq, "split").reshape(
             b, s, n_heads, hd)
@@ -636,11 +456,11 @@ class MLP(nn.Module):
         tp = self.tp
         # the hidden in the layout down_proj takes: no collective between
         # the three when down_proj is row-parallel
-        mid = "full" if tp is None else _IN[self.down_proj.tp_role]
-        (xg, lg), (xu, lu) = _fan_in(x, (self.gate_proj, self.up_proj), tp)
-        g = _tp_call(self.gate_proj, xg, tp, have=lg, want=mid)
-        u = _tp_call(self.up_proj, xu, tp, have=lu, want=mid)
-        return _tp_call(self.down_proj, F.silu(g) * u, tp, have=mid)
+        mid = "full" if tp is None else IN[self.down_proj.tp_role]
+        (xg, lg), (xu, lu) = fan_in(x, (self.gate_proj, self.up_proj), tp)
+        g = tp_call(self.gate_proj, xg, tp, have=lg, want=mid)
+        u = tp_call(self.up_proj, xu, tp, have=lu, want=mid)
+        return tp_call(self.down_proj, F.silu(g) * u, tp, have=mid)
 
 
 class Block(nn.Module):
@@ -721,9 +541,8 @@ class Llama(nn.Module):
     def _shard(self, mesh, rules, device):
         """Give every weight its local shape on ``device`` by the rules'
         layout, the ZeRO-3 units their split leaves, and each projection
-        its role."""
-        from sparkdl_tpu_torch.parallel import sharding
-
+        its role (:func:`~sparkdl_tpu_torch.models.megatron.shard_model`);
+        then each attention its heads."""
         cfg, size = self.cfg, mesh.axis_size("model")
         if cfg.n_kv_heads % size:
             raise NotImplementedError(
@@ -735,33 +554,11 @@ class Llama(nn.Module):
                 f"n_experts={cfg.n_experts} does not divide over "
                 f"model={size}: each rank holds whole experts (replicated "
                 "experts are not ported)")
-        full = self.state_dict()
-        rules = sharding.TRANSFORMER_RULES if rules is None else rules
-        self.tp_specs = sharding.tp_layout(full, rules, mesh)
-        modules = dict(self.named_modules())
-        for name, t in sharding.shard_params(full, self.tp_specs,
-                                             mesh).items():
-            owner, _, leaf = name.rpartition(".")
-            old = getattr(modules[owner], leaf)
-            setattr(modules[owner], leaf, nn.Parameter(
-                torch.empty(t.shape, dtype=old.dtype, device=device),
-                requires_grad=old.requires_grad))
+        self.tp_specs, self.zero3, self.tp = megatron.shard_model(
+            self, mesh, rules, device)
         self.mesh = mesh
-        dims = sharding.fsdp_dims(self.tp_specs, mesh)
-        if dims:
-            self.zero3 = _Zero3(self, mesh, dims)
-        if size == 1:
+        if self.tp is None:
             return
-        for prefix, role in sharding.projection_roles(
-                self.tp_specs, mesh).items():
-            modules[prefix].tp_role = role
-            if isinstance(modules[prefix], LoRADense) and role != "rep":
-                # the adapter leaf a split projection holds whole
-                modules[prefix].tp_whole = (
-                    mesh, "lora_a" if role == "col" else "lora_b")
-        self.embed.tp_split = "model" in sharding.split_dims(
-            self.tp_specs["embed.embedding"], mesh.shape).get(1, ())
-        self.tp = _TP(mesh, mesh.axis_index("model"), size)
         self.n_kv_heads = cfg.n_kv_heads // size
         for layer in self.layers:
             layer.attn.tp = self.tp
@@ -784,38 +581,14 @@ class Llama(nn.Module):
         model = cls(cfg, device="meta", mesh=mesh, rules=rules,
                     paged_attention_fn=paged_attention_fn,
                     attention_fn=attention_fn)
-        if model.mesh is not None:
-            params = model.local_params(params)
-        expected = model.state_dict()
-        missing = sorted(set(expected) - set(params))
-        unexpected = sorted(set(params) - set(expected))
-        if missing or unexpected:
-            raise ValueError(
-                f"params do not match the model: missing {missing}, "
-                f"unexpected {unexpected}")
-        state = {}
-        for name, ref in expected.items():
-            t = torch.as_tensor(params[name])
-            if tuple(t.shape) != tuple(ref.shape):
-                raise ValueError(
-                    f"{name}: shape {tuple(t.shape)}, model expects "
-                    f"{tuple(ref.shape)}")
-            state[name] = t.to(device=device, dtype=ref.dtype)
-        model.load_state_dict(state, strict=True, assign=True)
-        return model
+        return megatron.load_params(model, model.local_params(params),
+                                    device)
 
     def local_params(self, params):
         """This rank's slice of the whole state dict (or flat JAX tree)
         ``params`` by :attr:`tp_specs`; ``params`` itself for a model
         that is neither tensor-parallel nor ZeRO-3."""
-        if self.mesh is None:
-            return params
-        from sparkdl_tpu_torch.parallel import sharding
-
-        unknown = sorted(set(params) - set(self.tp_specs))
-        if unknown:
-            raise ValueError(f"params the model does not have: {unknown}")
-        return sharding.shard_params(params, self.tp_specs, self.mesh)
+        return megatron.local_params(self, params)
 
     @property
     def device(self):
@@ -830,9 +603,7 @@ class Llama(nn.Module):
         return self.lm_head.kernel
 
     def _block(self, i, layer, *args, hooks=True):
-        if self.zero3 is None:
-            return layer(*args)
-        return self.zero3.run(i, layer, *args, hooks=hooks)
+        return megatron.run_block(self.zero3, i, layer, *args, hooks=hooks)
 
     def init_cache(self, batch=None):
         """A zeroed cache for this decode config, on the model's device:
@@ -966,7 +737,7 @@ class Llama(nn.Module):
             zero3.release()
             if zero3.has("top", self.embed):
                 top = zero3.gather("top")
-        with _bound(top):
+        with bound(top):
             x = self.embed(tokens.long())
         if self.embed.tp_split:
             x = gathered(x, self.tp.mesh, "model")
@@ -993,10 +764,10 @@ class Llama(nn.Module):
         if zero3 is not None and not top and zero3.has("top") and (
                 not return_hidden or zero3.has("top", self.final_norm)):
             top = zero3.gather("top")
-        with _bound(top):
+        with bound(top):
             x = self.final_norm(x)
             if not return_hidden:
-                x = _tp_call(self.lm_head, x.to(torch.float32), self.tp)
+                x = tp_call(self.lm_head, x.to(torch.float32), self.tp)
         return (x, intermediates) if return_intermediates else x
 
 

@@ -14,7 +14,10 @@ differently (C9), the collectives a step issues, ``Mesh.reduce_scatter`` and
 the sharded-parameter gather, the serving engine's tokens (int8 and
 int4, paged) against the JAX engine's on the same meshes, and a
 ``data=2 x fsdp=2`` checkpoint with its sidecar, restored inside the
-gang onto ``fsdp=4`` and here onto one rank.
+gang onto ``fsdp=4`` and here onto one rank. The same gang runs BERT on
+``data=2 x fsdp=2`` (``tests/test_torch_bert_parallel.py``'s rank
+main): both heads' forwards with and without a padding mask and 2 QA
+steps against the JAX GSPMD run.
 
 cloudpickle sends this module's functions (the workers' main) by value,
 so a worker imports the port and torch, never JAX."""
@@ -46,9 +49,12 @@ from sparkdl_tpu_torch.parallel import sharding as pt_sharding
 from sparkdl_tpu_torch.parallel import train as pt_train
 from sparkdl_tpu_torch.parallel.mesh import AXES, Mesh
 from sparkdl_tpu_torch.utils import checkpoint as pt_ckpt
+from tests import test_torch_bert_parallel as bert_par
+from tests.test_torch_bert_parallel import bert_rank_main
 
 torch.set_num_threads(2)
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
+cloudpickle.register_pickle_by_value(bert_par)
 
 CFG = dict(d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
            vocab_size=256)
@@ -387,7 +393,7 @@ def _checkpoint_main(flat, batch, ckpt_dir):
             "restored_equal": equal, "reshard": ckpt.last_reshard}
 
 
-def _gang_main(flats, batch, ignored, serve_flat, ckpt_dir):
+def _gang_main(flats, batch, ignored, serve_flat, ckpt_dir, bert_flats):
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 
@@ -419,6 +425,7 @@ def _gang_main(flats, batch, ignored, serve_flat, ckpt_dir):
                                           loss_fn=_ignoring_loss(kind))
                 for mode in MODES for kind in ("logits", "fused")}
             out["coords"] = mesh.axis_index("data"), mesh.axis_index("fsdp")
+            out["bert"] = bert_rank_main(bert_flats, mesh)
         for case in AUX_CASES:
             if case[0] == name:
                 mode = case[1]
@@ -476,7 +483,12 @@ def ckpt_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def gang_started(trees, serve_tree, ckpt_dir):
+def bert_trees():
+    return bert_par.bert_trees()
+
+
+@pytest.fixture(scope="module")
+def gang_started(trees, serve_tree, ckpt_dir, bert_trees):
     """One bounded gang (start within 60 s, end within 240 s), run in a
     thread while this process computes the JAX side."""
     saved = (launcher.START_TIMEOUT_S, launcher.JOB_TIMEOUT_S,
@@ -491,7 +503,9 @@ def gang_started(trees, serve_tree, ckpt_dir):
                 _gang_main,
                 flats={k: flatten_jax_tree(v) for k, v in trees.items()},
                 batch=_batch(), ignored=_ignored_batch(),
-                serve_flat=flatten_jax_tree(serve_tree), ckpt_dir=ckpt_dir)
+                serve_flat=flatten_jax_tree(serve_tree), ckpt_dir=ckpt_dir,
+                bert_flats={k: flatten_jax_tree(v)
+                            for k, v in bert_trees.items()})
         except BaseException as e:  # re-raised by the gang fixture
             out["error"] = e
 
@@ -506,7 +520,12 @@ def gang_started(trees, serve_tree, ckpt_dir):
 
 
 @pytest.fixture(scope="module")
-def gang(gang_started, jax_runs, jax_ignored, jax_aux):
+def jax_bert(gang_started, bert_trees):
+    return bert_par.jax_bert_runs(bert_trees, MESHES["data2_fsdp2"])
+
+
+@pytest.fixture(scope="module")
+def gang(gang_started, jax_runs, jax_ignored, jax_aux, jax_bert):
     """Every rank's results of the gang, once the JAX side is done."""
     thread, out = gang_started
     thread.join()
@@ -718,6 +737,28 @@ def test_a_step_gathers_each_block_twice_and_reduce_scatters_trained_ones(
             "all_reduce": 2}
     for r in gang:
         assert r["counts"][mode] == want
+
+
+# -- BERT on data=2 x fsdp=2 ---------------------------------------------------
+
+@pytest.mark.gang
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("head", bert_par.HEADS)
+def test_bert_fsdp_forward_matches_jax(gang, jax_bert, head, masked):
+    """Both heads on data=2 x fsdp=2, each block gathered whole before
+    it runs, against the JAX GSPMD forward of the same weights (atol
+    1e-5); the ZeRO-3 units are the two blocks."""
+    ranks = [r["bert"] for r in gang]
+    assert all(r["units"] == [0, 1] for r in ranks)
+    bert_par.check_forwards(ranks, jax_bert, head, masked)
+
+
+@pytest.mark.gang
+def test_bert_fsdp_steps_match_jax(gang, jax_bert, bert_trees):
+    """2 AdamW steps of the QA loss with every weight trained: losses
+    within 1e-5 relative (the global batch's on every rank), leaves
+    within 1e-5 of the JAX step's on the same mesh."""
+    bert_par.check_steps([r["bert"] for r in gang], jax_bert, bert_trees)
 
 
 @pytest.mark.gang

@@ -14,7 +14,10 @@ with unequally ignored labels, the differentiable relayouts, and saves
 a ``data=2 x model=2`` checkpoint with its sharding sidecar, restored
 inside the gang onto ``model=4`` and here onto one rank. The reshard plan, ``shrink_mesh`` and the
 sidecar reader are held against the JAX functions on the JAX tests'
-cases, with no gang.
+cases, with no gang. The same gang runs BERT on ``data=2 x model=2``
+(``tests/test_torch_bert_parallel.py``'s rank main): both heads'
+forwards with and without a padding mask and 2 QA steps against the JAX
+GSPMD run, and a checkpoint restored here onto one rank.
 
 cloudpickle sends this module's functions (the workers' main) by value,
 so a worker imports the port and torch, never JAX."""
@@ -56,9 +59,12 @@ from sparkdl_tpu_torch.parallel import sharding as pt_sharding
 from sparkdl_tpu_torch.parallel import train as pt_train
 from sparkdl_tpu_torch.parallel.mesh import AXES, Mesh
 from sparkdl_tpu_torch.utils import checkpoint as pt_ckpt
+from tests import test_torch_bert_parallel as bert_par
+from tests.test_torch_bert_parallel import bert_rank_main
 
 torch.set_num_threads(2)
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
+cloudpickle.register_pickle_by_value(bert_par)
 
 CFG = dict(d_model=64, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=128,
            vocab_size=256)
@@ -306,7 +312,7 @@ def _checkpoint_main(flat, batch, ckpt_dir):
             "save": ckpt.last_save}
 
 
-def _gang_main(flat_lora, flat_base, batch, ignored, ckpt_dir):
+def _gang_main(flat_lora, flat_base, batch, ignored, ckpt_dir, bert_flats):
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 
@@ -338,6 +344,8 @@ def _gang_main(flat_lora, flat_base, batch, ignored, ckpt_dir):
                 for mode in MODES for kind in ("logits", "fused")}
             out["coords"] = (mesh.axis_index("data"),
                              mesh.axis_index("model"))
+            out["bert"] = bert_rank_main(
+                bert_flats, mesh, os.path.join(ckpt_dir, "bert"))
         if name == "model4":
             out["relayout"] = _relayout_main(mesh)
     out["checkpoint"] = _checkpoint_main(flat_lora, batch, ckpt_dir)
@@ -355,7 +363,12 @@ def ckpt_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def gang(tree, ckpt_dir):
+def bert_trees():
+    return bert_par.bert_trees()
+
+
+@pytest.fixture(scope="module")
+def gang(tree, ckpt_dir, bert_trees):
     """Every rank's results of one bounded gang: start within 60 s, end
     within 240 s."""
     saved = (launcher.START_TIMEOUT_S, launcher.JOB_TIMEOUT_S,
@@ -366,7 +379,9 @@ def gang(tree, ckpt_dir):
         return HorovodRunner(np=-4).run(
             _gang_main, flat_lora=flatten_jax_tree(tree),
             flat_base=flatten_jax_tree(_base(tree)), batch=_batch(),
-            ignored=_ignored_batch(), ckpt_dir=ckpt_dir)
+            ignored=_ignored_batch(), ckpt_dir=ckpt_dir,
+            bert_flats={k: flatten_jax_tree(v)
+                        for k, v in bert_trees.items()})
     finally:
         (launcher.START_TIMEOUT_S, launcher.JOB_TIMEOUT_S,
          launcher.ABORT_GRACE_S) = saved
@@ -623,6 +638,53 @@ def test_constrain_slices_and_gathers_differentiably(gang):
                                       x[:, 2 * rank:2 * rank + 2])
         np.testing.assert_array_equal(got["back"], x)
         np.testing.assert_allclose(got["grad"], got["want_grad"], atol=1e-6)
+
+
+# -- BERT on data=2 x model=2 --------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_bert(bert_trees):
+    return bert_par.jax_bert_runs(bert_trees, MESHES["data2_model2"])
+
+
+@pytest.mark.gang
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("head", bert_par.HEADS)
+def test_bert_tp_forward_matches_jax(gang, jax_bert, head, masked):
+    """Both heads on data=2 x model=2, each rank on 2 of the 4 heads,
+    against the JAX GSPMD forward of the same weights (atol 1e-5)."""
+    bert_par.check_forwards([r["bert"] for r in gang], jax_bert, head,
+                            masked)
+
+
+@pytest.mark.gang
+def test_bert_tp_steps_match_jax(gang, jax_bert, bert_trees):
+    """2 AdamW steps of the QA loss with every weight trained, biases
+    and embeddings included: losses within 1e-5 relative, leaves within
+    1e-5 of the JAX step's on the same mesh."""
+    bert_par.check_steps([r["bert"] for r in gang], jax_bert, bert_trees)
+
+
+@pytest.mark.gang
+def test_bert_tp_save_restores_onto_one_rank(gang, ckpt_dir):
+    """The data=2 x model=2 BERT save (rank 0 writes) restored onto one
+    rank is the gathered tree, and its model's loss on the whole batch
+    is the TP model's (the mean of the data ranks' losses)."""
+    ck = [r["bert"] for r in gang]
+    assert [c["wrote"] for c in ck] == [True, False, False, False]
+    restored = pt_ckpt.TrainCheckpointer(
+        os.path.join(ckpt_dir, "bert")).restore(
+        bert_par.BERT_CKPT_STEP, target_mesh=_one_rank())
+    whole = ck[0]["steps"][1]
+    assert sorted(restored) == sorted(whole)
+    for name, value in whole.items():
+        np.testing.assert_array_equal(restored[name].numpy(), value)
+    model = bert_par.pt_bert.BertForQuestionAnswering.from_params(
+        bert_par.pt_cfg(), restored, "cpu")
+    with torch.no_grad():
+        loss = bert_par.qa_loss_fn(model)(bert_par.bert_batch()).item()
+    by = {c["coord"]: c["saved_loss"] for c in ck}
+    np.testing.assert_allclose(loss, np.mean(list(by.values())), rtol=1e-6)
 
 
 # -- checkpoints ---------------------------------------------------------------
