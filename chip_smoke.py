@@ -21,7 +21,9 @@ HorovodRunner and convert a HuggingFace Llama-3-8B state dict into the
 int8 serving path; serve and fine-tune with the telemetry on and
 diagnose a hung gang; serve through a fleet whose replica is a
 tensor-parallel gang, and train BERT-base tensor-parallel and ZeRO-3;
-and show every run went through its kernels.
+tune the serving path's decode chunk with the autotuner and apply its
+profile to a gang under the lock-order sanitizer; and show every run
+went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -459,6 +461,32 @@ and on any failed check. Phases:
    the collectives' host ms and their share of the step, and the peak
    a rank.
 
+28. tuning and the runtime's own lints. 28a, right before 24a: the
+   autotuner (``python -m sparkdl_tpu_torch.perf.autotune --bench
+   serve``, its ``main`` in this process) over the decode chunk's
+   default (16) and ``AUTOTUNE_VALUE``, ``--max-trials 4``; each trial
+   a subprocess of ``perf.trial serve`` at Llama-3-8B width cut to
+   ``AUTOTUNE_DEPTH`` layers, int8 weights, pages of 64, 8 slots, behind
+   a one-replica ``FleetFrontend``, 4 streamed clients x 4 requests of
+   64 prompt and 128 new tokens; the profile emitted under a temporary
+   directory's ``h100`` key. Gates: one trial of the value, every trial's
+   ledger line with 4 rounds of tokens/s, its B4 and B5 launches over
+   the traffic (counted in the trial's process, zeroed before it) what
+   its engines' decode steps and forwards predict, none of another
+   kernel, a ``verified`` or ``degraded`` profile with its evidence.
+   28b and 28c ride 24a: ``perf.profile.PROFILE`` set to 28a's
+   directory, the launcher's pre-flight applies the profile and the
+   rank reports the serve settings in force (the profile's value or the
+   default); ``locksan.ENABLED`` on the driver (the supervisor installs
+   it) and the rank (its bootstrap does), no lock-order cycle or
+   inversion in either report. 28d, right after 24a: with
+   ``preflight.ENABLED``, ``HorovodRunner(np=1)`` over a ``main`` whose
+   closure holds a CUDA tensor raises ``PreflightLintError`` with
+   ``subprocess.Popen`` a tripwire that is never reached. It prints
+   each trial's tokens/s, the decision and the profile's status, the
+   pre-flight's times, the sanitizer's reports and, after 25a, its cost:
+   24a's step under it beside 25a's healthy steps without it.
+
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
 """
@@ -695,6 +723,14 @@ ELASTIC_SETTINGS = {"PROBE": "file", "CHECK_S": 0.2, "DEBOUNCE_S": 1.0,
                     "CKPT_WAIT_S": 60.0}
 # Meta's Llama-3-8B config.json values under HF's attribute names (no
 # transformers on the card machine: a plain object carries them)
+# phase 28a: the autotuner's serve trials (perf/trial.py's traffic) at
+# Llama-3-8B width, depth cut to 8, over one setting and one value other
+# than its default
+AUTOTUNE_DEPTH = 8
+AUTOTUNE_KNOB = "sparkdl_tpu_torch.perf.trial.SERVE_DECODE_CHUNK"
+AUTOTUNE_VALUE = 8
+AUTOTUNE_MAX_TRIALS = 4
+AUTOTUNE_TRIAL_TIMEOUT_S = 300.0
 HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
                     num_hidden_layers=32, num_attention_heads=32,
                     num_key_value_heads=8, intermediate_size=14336,
@@ -6656,18 +6692,182 @@ def _lora_step_flops(model, named, cfg, tokens, seq):
     return (4 * n_matmul + 2 * n_train + attn) * tokens
 
 
+def autotune_serve(torch, card):
+    """Phase 28a: ``python -m sparkdl_tpu_torch.perf.autotune --bench
+    serve`` (its ``main``, in this process; each trial a subprocess of
+    ``perf.trial``) over :data:`AUTOTUNE_KNOB`'s default and
+    :data:`AUTOTUNE_VALUE` at Llama-3-8B width, depth
+    :data:`AUTOTUNE_DEPTH`, int8 weights, the paged cache; the profile
+    emitted under a temporary directory's ``h100`` key. Gates: the plan,
+    every trial's ledger line (4 rounds of tokens/s, the card's name),
+    its B4 and B5 launches what its engines' decode steps and forwards
+    predict, and a verified or degraded profile with its evidence."""
+    import io
+
+    from sparkdl_tpu_torch.observe import perf as operf
+    from sparkdl_tpu_torch.perf import autotune, profile
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-28a-")
+    history = os.path.join(root, "history.jsonl")
+    profiles = os.path.join(root, "profiles")
+    bench_args = [f"--layers={AUTOTUNE_DEPTH}"]
+    if DEVICE != "cuda":
+        bench_args += ["--device=cpu", "--config=tiny"]
+    argv = ["--bench", "serve", "--knob", AUTOTUNE_KNOB,
+            "--values", f"{AUTOTUNE_KNOB}={AUTOTUNE_VALUE}",
+            "--max-trials", str(AUTOTUNE_MAX_TRIALS),
+            "--profile-dir", profiles, "--history", history,
+            "--trial-timeout", str(AUTOTUNE_TRIAL_TIMEOUT_S)]
+    argv += [f"--bench-arg={a}" for a in bench_args]
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = autotune.main(argv)
+    wall_s = time.perf_counter() - t
+    _require(rc == 0, f"phase 28a: autotune exited {rc}: "
+             f"{out.getvalue()[-400:]}")
+    emitted = json.loads(out.getvalue())
+    kind = "h100" if DEVICE == "cuda" else "cpu"
+    _require(emitted["profile"] == os.path.join(profiles, kind,
+                                                "serve.json"),
+             f"phase 28a: the profile went to {emitted['profile']}")
+    doc = profile.load_profile(emitted["profile"])
+    ev = doc["evidence"]
+    _require(doc["status"] in (profile.STATUS_VERIFIED,
+                               profile.STATUS_DEGRADED)
+             and doc["bench"] == "serve"
+             and profile.strict_device_kind(doc["device_kind"]) == kind,
+             f"phase 28a: profile {doc['status']} for {doc['device_kind']}")
+    _require([tr["overrides"] for tr in ev["trials"]]
+             == [{AUTOTUNE_KNOB: AUTOTUNE_VALUE}],
+             f"phase 28a: trials {ev['trials']}")
+    verified = isinstance(ev["verification"], dict)
+    lines = operf.read_history(history)
+    _require(len(lines) == (4 if verified else 2),
+             f"phase 28a: {len(lines)} ledger lines, verification "
+             f"{'ran' if verified else 'skipped'}")
+    cfg_layers = AUTOTUNE_DEPTH
+    trials = []
+    for rec in lines:
+        got = rec["launches"]
+        tps = rec["metrics"]["serve_tokens_per_sec"]
+        _require(rec["bench"] == "trial:serve"
+                 and len(tps["samples"]) == 4
+                 and rec["n_layers"] == cfg_layers,
+                 f"phase 28a: ledger line {rec['bench']} with "
+                 f"{len(tps['samples'])} samples, {rec['n_layers']} layers")
+        if DEVICE == "cuda":
+            want = {"paged_attention_decode":
+                    cfg_layers * rec["engine_steps"],
+                    "quantized_matmul":
+                    (7 * cfg_layers + 1) * rec["engine_forwards"]}
+            _require(rec["device_kind"] == torch.cuda.get_device_name(0)
+                     and all(got[k] == n > 0 for k, n in want.items())
+                     and got["quantized_matmul_int4"] == 0
+                     and not any(got[k] for k in ("flash_fwd",
+                                                  "flash_bwd_dq",
+                                                  "flash_bwd_dkv")),
+                     f"phase 28a: trial {rec['settings']} launched {got}, "
+                     f"its engines' counts predict {want}")
+        trials.append({
+            "settings": rec["settings"], "tokens_per_s": tps["value"],
+            "tokens_per_s_samples": tps["samples"],
+            "ttft_ms_p50": rec["metrics"]["serve_ttft_ms"]["value"],
+            "inter_token_ms_p50":
+                rec["metrics"]["serve_inter_token_ms"]["value"],
+            "wall_s": rec["wall_s"], "build_s": rec["build_s"],
+            "engine_steps": rec["engine_steps"], "launches": got})
+    report = {
+        "phase": "28a", "n_layers": cfg_layers, "knob": AUTOTUNE_KNOB,
+        "value": AUTOTUNE_VALUE, "trials": trials,
+        "decision": ev["trials"][0]["decision"],
+        "delta": ev["trials"][0]["delta"],
+        "threshold": ev["trials"][0]["threshold"],
+        "verification": (ev["verification"]["primary"] if verified
+                         else ev["verification"]),
+        "status": doc["status"], "knobs": doc["knobs"],
+        "candidate_knobs": doc.get("candidate_knobs", {}),
+        "launches": {k: sum(tr["launches"][k] for tr in trials)
+                     for k in ("paged_attention_decode",
+                               "quantized_matmul")},
+        "profile_dir": profiles, "wall_s": wall_s, "card": card}
+    _log("autotune " + json.dumps(report))
+    return report
+
+
+def _captures_a_device_tensor(torch):
+    """A ``main`` whose closure holds a tensor on the card (the meta
+    device in a CPU rehearsal)."""
+    table = torch.zeros((1024, 1024), device=(
+        DEVICE if DEVICE == "cuda" else "meta"))
+
+    def main():
+        return float(table.sum())
+
+    return main
+
+
+def preflight_refusal(torch, card):
+    """Phase 28d: ``preflight.ENABLED`` on, a launch whose ``main``
+    captures a CUDA tensor is refused with ``PreflightLintError`` before
+    the launcher spawns anything (``subprocess.Popen`` a tripwire); the
+    lint's own time beside the refused launch's."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.analysis import preflight
+    from sparkdl_tpu_torch.horovod import launcher
+
+    main = _captures_a_device_tensor(torch)
+    spawned = []
+
+    def tripwire(*a, **k):
+        spawned.append(a[0] if a else None)
+        raise CheckFailed("phase 28d: the launcher spawned a worker")
+
+    refused = None
+    with _attrs(preflight, ENABLED=True), \
+            _attrs(launcher.subprocess, Popen=tripwire), \
+            _launcher_settings():
+        t = time.perf_counter()
+        findings = None
+        try:
+            preflight.preflight_lint(main, {})
+        except preflight.PreflightLintError as e:
+            findings = e.findings
+        lint_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        try:
+            HorovodRunner(np=1).run(main)
+        except preflight.PreflightLintError as e:
+            refused = e
+        launch_ms = 1e3 * (time.perf_counter() - t)
+    _require(findings and [f.op for f in findings] == ["torch.Tensor"],
+             f"phase 28d: the lint found {findings}")
+    _require(refused is not None and not spawned,
+             f"phase 28d: the launch was {'not ' if refused is None else ''}"
+             f"refused, {len(spawned)} spawn(s)")
+    report = {"phase": "28d", "refused": type(refused).__name__,
+              "finding": str(refused.findings[0])[:200],
+              "preflight_lint_ms": lint_ms, "refused_launch_ms": launch_ms,
+              "spawned": len(spawned), "card": card}
+    _log("preflight " + json.dumps(report))
+    return report
+
+
 def telemetry_main(cfg, batch, warmup, steps, save_after, seed, device,
-                   ckpt_dir):
+                   ckpt_dir, report_settings=()):
     """Every rank of phase 24a: 9a's trainer (:func:`_gang_trainer`), its
     step in ``instrument_step`` with phase 5's FLOPs a step registered,
     the model and AdamW's state registered with ``mem``; ``warmup`` +
     ``steps`` steps, a ``TrainCheckpointer`` save of the adapters after
-    step ``save_after``. Rank 0 returns every rank's report."""
+    step ``save_after``. Rank 0 returns every rank's report, with the
+    values of the registered settings ``report_settings`` in force (28b)
+    and whether the lock-order sanitizer is installed (28c)."""
     import torch
 
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.observe import mem, perf
     from sparkdl_tpu_torch.parallel.train import instrument_step
+    from sparkdl_tpu_torch.utils import knobs, locksan
     from sparkdl_tpu_torch.utils.checkpoint import TrainCheckpointer
 
     tr = _gang_trainer(cfg, batch, seed, device)
@@ -6698,6 +6898,8 @@ def telemetry_main(cfg, batch, warmup, steps, save_after, seed, device,
         "rank": hvd.rank(), "losses": losses,
         "step_ms": [1e3 * x for x in times[warmup:]],
         "step_ms_median": 1e3 * statistics.median(times[warmup:]),
+        "settings": {n: knobs.read(n) for n in report_settings},
+        "locksan_installed": locksan.installed(),
         "flops_per_step": flops, "launches": launches,
         "params_bytes": nbytes(list(tr.model.parameters())
                                + list(tr.model.buffers())),
@@ -6705,11 +6907,16 @@ def telemetry_main(cfg, batch, warmup, steps, save_after, seed, device,
                                   for t in st.values())})
 
 
-def telemetry_gang(torch, gang):
-    """Phase 24a: 9a's fine-tune with the telemetry on."""
+def telemetry_gang(torch, gang, tuned):
+    """Phase 24a: 9a's fine-tune with the telemetry on; 28b and 28c ride
+    it: phase 28a's profile (``tuned["profile_dir"]``) applied by the
+    launcher's pre-flight, the lock-order sanitizer on the driver and the
+    rank."""
     from sparkdl_tpu_torch import HorovodRunner
     from sparkdl_tpu_torch.observe import health, perf
     from sparkdl_tpu_torch.parallel.train import global_batch
+    from sparkdl_tpu_torch.perf import profile
+    from sparkdl_tpu_torch.utils import knobs, locksan
 
     cfg = _train_cfg()
     batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
@@ -6722,23 +6929,73 @@ def telemetry_gang(torch, gang):
         return observe_beat(self, rank, payload)
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-24a-")
+    san_dir = tempfile.mkdtemp(prefix="chip-smoke-28c-")
+    # every serve setting, tuned or not: the profile's value or the default
+    names = [kb.name for kb in knobs.tunable_knobs("serve")]
     health.HangDetector.observe_beat = counted
+    locksan.reset()
     try:
         with _telemetry_on(**{"health.HEARTBEAT_S":
                               TELEMETRY_HEARTBEAT_S}) as root, \
-                _launcher_settings():
+                _launcher_settings(), \
+                _attrs(profile, PROFILE=tuned["profile_dir"]), \
+                _attrs(locksan, ENABLED=True,
+                       REPORT=os.path.join(san_dir, "concur_report.json")):
+            t = time.perf_counter()
+            applied = profile.preflight_settings()
+            preflight_ms = 1e3 * (time.perf_counter() - t)
             t = time.perf_counter()
             ranks = HorovodRunner(np=GANG_NP["24a"]).run(
                 telemetry_main, cfg=cfg, batch=batch,
                 warmup=TELEMETRY_WARMUP, steps=TELEMETRY_STEPS,
                 save_after=TELEMETRY_SAVE_AFTER, seed=SEED, device=DEVICE,
-                ckpt_dir=ckpt_dir)
+                ckpt_dir=ckpt_dir, report_settings=names)
             wall_s = time.perf_counter() - t
     finally:
         health.HangDetector.observe_beat = observe_beat
+        driver_san = locksan.report()
+        locksan.uninstall()
+        locksan.reset()
         import shutil
 
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tuned_knobs = (tuned["knobs"] if tuned["status"] ==
+                   profile.STATUS_VERIFIED else {})
+    _require(applied == tuned_knobs, f"phase 28b: the pre-flight applies "
+             f"{applied}, the profile holds {tuned_knobs}")
+    want = {n: tuned_knobs.get(n, knobs.get(n).default) for n in names}
+    for r in ranks:
+        _require(r["settings"] == want, f"phase 28b: rank {r['rank']} ran "
+                 f"under {r['settings']}, the profile gives {want}")
+    _require(driver_san["installed"] and driver_san["lock_sites"] > 0
+             and driver_san["cycles"] == [] and not driver_san["inversions"],
+             f"phase 28c: the driver's sanitizer: {driver_san['lock_sites']} "
+             f"sites, cycles {driver_san['cycles']}, "
+             f"{len(driver_san['inversions'])} inversions")
+    rank_san = []
+    for r in ranks:
+        path = os.path.join(san_dir, f"concur_report-rank-{r['rank']}.json")
+        _require(r["locksan_installed"] and os.path.isfile(path),
+                 f"phase 28c: rank {r['rank']} ran no sanitizer ({path})")
+        with open(path) as f:
+            doc = json.load(f)
+        _require(doc["cycles"] == [] and not doc["inversions"],
+                 f"phase 28c: rank {r['rank']}: cycles {doc['cycles']}, "
+                 f"{len(doc['inversions'])} inversions")
+        rank_san.append(doc)
+    sanitizer = {
+        "driver": {k: (len(v) if isinstance(v, list) else v)
+                   for k, v in driver_san.items() if k != "schema"},
+        "ranks": [{k: (len(v) if isinstance(v, list) else v)
+                   for k, v in d.items() if k != "schema"}
+                  for d in rank_san],
+        "long_holds": [(h["lock"], h["held_s"]) for d in rank_san
+                       for h in d["long_holds"]]}
+    _log("preflight_profile " + json.dumps({
+        "phase": "28b", "applied": applied, "rank_settings": want,
+        "preflight_settings_ms": preflight_ms,
+        "card": tuned["card"]}))
+    _log("locksan " + json.dumps(dict(sanitizer, phase="28c")))
     run_dir = _one_run_dir(root)
     r0 = ranks[0]
     n_steps = TELEMETRY_WARMUP + TELEMETRY_STEPS
@@ -6808,7 +7065,9 @@ def telemetry_gang(torch, gang):
         "params_bytes": r0["params_bytes"],
         "opt_state_bytes": r0["opt_state_bytes"],
         "run_dir_bytes": _dir_bytes(run_dir), "run_wall_s": wall_s,
-        "launches": r0["launches"]}
+        "launches": r0["launches"],
+        "profile_applied": applied, "preflight_settings_ms": preflight_ms,
+        "sanitizer": sanitizer}
     _log("telemetry_gang " + json.dumps(report))
     return report
 
@@ -7888,10 +8147,16 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
     hf = hf_convert(torch)
+    # slice 21: the autotuner's serve trials (28a), their profile applied
+    # to 24a's rank and the sanitizer on its driver and rank (28b, 28c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = autotune_serve(torch, card)
     # slice 17: 9a's fine-tune with the telemetry on, then a hang
     gc.collect()
     torch.cuda.empty_cache()
-    telemetry = telemetry_gang(torch, gang)
+    telemetry = telemetry_gang(torch, gang, tuned)
+    refusal = preflight_refusal(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     hang = hang_gang(torch)
@@ -7907,6 +8172,15 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     bert_run = bert_mesh(torch, zoo_runs["23c"])
+    # 28c's cost: 24a's steps under the sanitizer beside 25a's healthy
+    # steps (the same fine-tune with the telemetry on, no sanitizer)
+    sanitizer_cost = {
+        "phase": "28c", "on_24a_step_ms_median": telemetry["step_ms_median"],
+        "off_25a_healthy_ms_median": alerted["healthy_ms_median"],
+        "off_9a_step_ms_median": gang["step_ms_median"],
+        "on_over_off": (telemetry["step_ms_median"]
+                        / alerted["healthy_ms_median"]), "card": card}
+    _log("locksan_cost " + json.dumps(sanitizer_cost))
 
     # one decode step's worth of each kernel, at the served depth
     def per_step(rows, key):
@@ -7978,7 +8252,10 @@ def main(argv=None):
                         "quantized_matmul"],
                     "24c": telemetry_serving["launches"][
                         "quantized_matmul"],
-                    "25b": fleet_live["launches"]["quantized_matmul"]}
+                    "25b": fleet_live["launches"]["quantized_matmul"],
+                    # every trial of the autotuner's search, each its
+                    # own process, counted there over its traffic
+                    "28a": tuned["launches"]["quantized_matmul"]}
     paged_by_phase = {"3": serving["launches"]["paged_attention_decode"],
                       "7": http["launches"]["paged_attention_decode"],
                       "11": multi["launches"]["paged_attention_decode"],
@@ -8001,7 +8278,8 @@ def main(argv=None):
                       "24c": telemetry_serving["launches"][
                           "paged_attention_decode"],
                       "25b": fleet_live["launches"][
-                          "paged_attention_decode"]}
+                          "paged_attention_decode"],
+                      "28a": tuned["launches"]["paged_attention_decode"]}
     kernels = [
         {"name": "quantized_matmul", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul.cu",
@@ -8075,6 +8353,8 @@ def main(argv=None):
                        "fleet_statusz": fleet_live, "alert_gang": alerted,
                        "elastic_gang": elastic_run,
                        "fleet_tp": fleet_tp, "bert_mesh": bert_run,
+                       "autotune": tuned, "preflight": refusal,
+                       "sanitizer_cost": sanitizer_cost,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

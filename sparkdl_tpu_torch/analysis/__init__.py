@@ -5,9 +5,18 @@
 checkpoint's resharded restore and the supervisor's pre-flight of an
 elastic relaunch run, and :func:`register_gang_sharding`. The graph
 passes over jaxprs and HLO and ``comms_report`` have no PyTorch
-counterpart and are not ported."""
+counterpart and are not ported. The AST lints over the port's own
+code, :mod:`~sparkdl_tpu_torch.analysis.concur` (concurrency) and
+:mod:`~sparkdl_tpu_torch.analysis.selflint` (the pickling contract), and
+the launcher's pre-flight (:mod:`~sparkdl_tpu_torch.analysis.preflight`)
+are ported; ``python -m sparkdl_tpu_torch.analysis --concur|--self``
+runs the lints."""
 
 from sparkdl_tpu_torch.analysis.core import Finding, ParamInfo, Severity
+from sparkdl_tpu_torch.analysis.preflight import (
+    PreflightLintError,
+    register_preflight,
+)
 
 
 def register_gang_sharding(model_or_params, specs=None, mesh=None, *,
@@ -61,4 +70,5 @@ def register_gang_sharding(model_or_params, specs=None, mesh=None, *,
         hbm_bytes=hbm_bytes, state_multiplier=state_multiplier)
 
 
-__all__ = ["Finding", "ParamInfo", "Severity", "register_gang_sharding"]
+__all__ = ["Finding", "ParamInfo", "PreflightLintError", "Severity",
+           "register_gang_sharding", "register_preflight"]

@@ -2,10 +2,11 @@
 (:class:`ParamInfo`) and a diagnostic (:class:`Finding`) with its
 :class:`Severity`.
 
-Counterpart of ``sparkdl_tpu/analysis/core.py`` (those three only; the
-pass registry and ``GraphContext`` serve graph passes this port does not
-have). Severity contract: ``ERROR`` refuses, ``WARNING`` never blocks,
-``INFO`` is a diagnostic.
+Counterpart of ``sparkdl_tpu/analysis/core.py`` (those three, and the
+catalog of the AST rules, :func:`register_rule_info` and
+:func:`rule_catalog`; the pass registry and ``GraphContext`` serve graph
+passes this port does not have). Severity contract: ``ERROR`` refuses,
+``WARNING`` never blocks, ``INFO`` is a diagnostic.
 """
 
 import enum
@@ -76,3 +77,23 @@ class ParamInfo:
         for d in self.shape:
             n *= int(d)
         return n
+
+
+# The rules of the AST lints (the concurrency lint, the pickling
+# contract) announce themselves here, as the JAX package's non-graph
+# rules do, so that ``--list-rules`` covers them.
+_EXTRA_RULES = {}
+
+
+def register_rule_info(rule_id, severities, doc):
+    """Catalog entry for one rule: the severities it can emit and a
+    one-line description."""
+    _EXTRA_RULES[rule_id] = (tuple(severities), doc)
+
+
+def rule_catalog():
+    """Every registered rule, ``rule_id -> (severities, one_liner)``."""
+    # imported for their register_rule_info side effects
+    from sparkdl_tpu_torch.analysis import concur, selflint  # noqa: F401
+
+    return dict(_EXTRA_RULES)

@@ -18,8 +18,10 @@ gang's backend rule applies. ``--telemetry``: the driver's
 :func:`sparkdl_tpu_torch.observe.worker_settings` when its telemetry is
 on (the rank applies them; it reads none from its environment).
 ``--rank-settings``: the driver's :func:`rank_settings`, the fault
-injection's and the profiler's settings, shipped whether telemetry is
-on or not. ``--attempt``, ``--resume-step`` and the axes: the restart
+injection's, the profiler's and the lock-order sanitizer's settings and
+the applicable perf profile's, shipped whether telemetry is on or not;
+a worker process installs the sanitizer from them before anything else
+(:func:`install_locksan`). ``--attempt``, ``--resume-step`` and the axes: the restart
 context.
 
 :func:`run_rank` is the bootstrap of every rank, a worker process's and
@@ -107,24 +109,44 @@ class _TeeStream(io.TextIOBase):
         return True
 
 
-# the module settings a driver ships to its ranks whether its telemetry
-# is on or not: "chaos.NAME" (the fault injection's) and
-# "profiler.PROFILE_DIR"
-def _rank_setting_owners():
-    from sparkdl_tpu_torch.utils import chaos, profiler
+class _SettingOwners(dict):
+    """The owners of the rank settings: the short names, and any setting
+    of the package by its dotted module path (a profile's,
+    :mod:`sparkdl_tpu_torch.utils.knobs`)."""
 
-    return {"chaos": chaos, "profiler": profiler}
+    def __missing__(self, key):
+        from sparkdl_tpu_torch.utils import knobs
+
+        return knobs.owner(key)
+
+
+# the module settings a driver ships to its ranks whether its telemetry
+# is on or not: "chaos.NAME" (the fault injection's),
+# "profiler.PROFILE_DIR", "locksan.NAME" (the lock-order sanitizer's) and
+# a profile's "sparkdl_tpu_torch.<module>.NAME"
+def _rank_setting_owners():
+    from sparkdl_tpu_torch.utils import chaos, locksan, profiler
+
+    return _SettingOwners(chaos=chaos, profiler=profiler, locksan=locksan)
 
 
 def rank_settings():
-    """The fault injection's settings that are set and the profiler's
-    ``PROFILE_DIR``, ``{"module.NAME": value}``, or None when none is:
-    what a driver ships to its ranks."""
-    from sparkdl_tpu_torch.utils import chaos, profiler
+    """What a driver ships to its ranks, ``{"module.NAME": value}``, or
+    None when nothing is set: the fault injection's settings that are
+    set, the profiler's ``PROFILE_DIR``, the lock-order sanitizer's four
+    with ``locksan.ENABLED``, and under them the applicable profile's
+    settings (:func:`sparkdl_tpu_torch.perf.profile.preflight_settings`,
+    which leaves a setting the operator moved off its default alone).
+    Called for each launch attempt, so a relaunched gang gets the
+    profile again."""
+    from sparkdl_tpu_torch.perf.profile import preflight_settings
+    from sparkdl_tpu_torch.utils import chaos, locksan, profiler
 
-    out = {f"chaos.{k}": v for k, v in chaos.settings().items()}
+    out = dict(preflight_settings())
+    out.update({f"chaos.{k}": v for k, v in chaos.settings().items()})
     if profiler.PROFILE_DIR:
         out["profiler.PROFILE_DIR"] = profiler.PROFILE_DIR
+    out.update({f"locksan.{k}": v for k, v in locksan.settings().items()})
     return out or None
 
 
@@ -134,6 +156,19 @@ def applied_rank_settings(settings):
     from sparkdl_tpu_torch import observe
 
     return observe.applied_module_settings(settings, _rank_setting_owners)
+
+
+def install_locksan(settings, rank):
+    """The driver's sanitizer settings set for the process's life (its
+    report is written at exit) and :func:`sparkdl_tpu_torch.utils.
+    locksan.maybe_install`: in a worker process, before the rank makes
+    any lock."""
+    from sparkdl_tpu_torch.utils import locksan
+
+    for key, value in (settings or {}).items():
+        if key.startswith("locksan."):
+            setattr(locksan, key.split(".", 1)[1], value)
+    return locksan.maybe_install(rank=rank)
 
 
 def _set_parent_death_signal():
@@ -313,6 +348,8 @@ def main(argv=None):
     parser.add_argument("--rank-settings", type=json.loads, default=None)
     args = parser.parse_args(argv)
     rank = int(os.environ["RANK"])
+    # the lock-order sanitizer, before any lock of the rank is made
+    install_locksan(args.rank_settings, rank)
     # before the tee exists, stdout is the launcher's per-rank boot log
     addr = os.environ.get(CONTROL_ADDR_ENV)
     if not addr:

@@ -203,7 +203,7 @@ class ControlPlaneServer:
         # the observer of SERVE_OUT frames (a fleet's gang replica),
         # called on the rank's connection thread as on_serve(rank, msg)
         self.on_serve = None
-        self._send_lock = threading.Lock()  # SERVE_REQ frames whole
+        self._send_lock = threading.Lock()  # driver-to-rank frames whole
         self.secret = _secrets.token_hex(32)  # the workers get it
         self._log_file = open(log_path, "a", buffering=1) if log_path \
             else None
@@ -435,43 +435,31 @@ class ControlPlaneServer:
         """Ask ``rank`` for a stack dump of every thread, down its
         guaranteed socket; False when the rank has none (never sent READY
         or a beat) or the send fails. Never raises."""
-        with self._lock:
-            conn = self._conns.get(rank)
-        if conn is None:
-            return False
-        payload = json.dumps({"reason": reason}).encode("utf-8")
-        try:
-            conn.sendall(_HEADER.pack(len(payload) + 5, MSG_DUMP_REQ, rank)
-                         + payload)
-        except OSError:
-            return False
-        return True
+        return self._send_frame(rank, MSG_DUMP_REQ, {"reason": reason})
 
     def request_profile(self, rank, reason="alert", rule=None, steps=None):
         """Ask ``rank`` to capture a perf-forensics window (a
         ``torch.profiler`` trace, the window's uncapped attribution, a
         memory snapshot) into its job dir, down its guaranteed socket;
         False when the rank has none or the send fails. Never raises."""
-        with self._lock:
-            conn = self._conns.get(rank)
-        if conn is None:
-            return False
         req = {"reason": reason}
         if rule is not None:
             req["rule"] = rule
         if steps is not None:
             req["steps"] = int(steps)
-        payload = json.dumps(req).encode("utf-8")
-        try:
-            conn.sendall(_HEADER.pack(len(payload) + 5, MSG_PROFILE_REQ,
-                                      rank) + payload)
-        except OSError:
-            return False
-        return True
+        return self._send_frame(rank, MSG_PROFILE_REQ, req)
 
     def send_serve(self, rank, obj):
         """Send ``obj`` (JSON) to ``rank`` as SERVE_REQ, down its
         guaranteed socket; False when the rank has none or the send
+        fails. Never raises."""
+        return self._send_frame(rank, MSG_SERVE_REQ, obj)
+
+    def _send_frame(self, rank, mtype, obj):
+        """Send ``obj`` (JSON) to ``rank`` as one ``mtype`` frame down its
+        guaranteed socket, whole: the hang detector's DUMP_REQ, the
+        forensics' PROFILE_REQ and a fleet's SERVE_REQ come from
+        different threads. False when the rank has none or the send
         fails. Never raises."""
         with self._lock:
             conn = self._conns.get(rank)
@@ -480,8 +468,8 @@ class ControlPlaneServer:
         payload = json.dumps(obj).encode("utf-8")
         try:
             with self._send_lock:
-                conn.sendall(_HEADER.pack(len(payload) + 5, MSG_SERVE_REQ,
-                                          rank) + payload)
+                conn.sendall(_HEADER.pack(len(payload) + 5, mtype, rank)
+                             + payload)
         except OSError:
             return False
         return True

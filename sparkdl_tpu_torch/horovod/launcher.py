@@ -101,13 +101,21 @@ the gang and raises ``GangFailure(kind="elastic_resize")``, which the
 supervisor relaunches at the target with no budget and no backoff. Its
 decision log is the run dir's ``elastic.json`` and ``/statusz``'s
 ``elastic`` section. A Spark barrier gang keeps its ``np``, as in the
-JAX launcher. The driver ships the fault injection's and the profiler's
-settings to every rank (``--rank-settings``), whether its telemetry is
-on or not.
+JAX launcher. The driver ships the fault injection's, the profiler's and
+the lock-order sanitizer's settings to every rank (``--rank-settings``),
+whether its telemetry is on or not.
 
-Per-rank kwargs and the pre-flight lint of the JAX launcher are not
-ported; nor are its comms and fixit pre-flight reports, the producers
-of ``comms_report.json`` and ``fixit_report.json``.
+**Pre-flight.** With :data:`sparkdl_tpu_torch.analysis.preflight.
+ENABLED`, :func:`launch_gang` lints ``main``'s captures before anything
+else and refuses the launch on an ERROR. Each attempt resolves the perf
+profile (:data:`sparkdl_tpu_torch.perf.profile.PROFILE`) for the card
+kind the gang runs on and ships its settings to every rank with the
+rank settings, under the operator's: a relaunched attempt gets them
+again.
+
+Per-rank kwargs of the JAX launcher are not ported; nor are its comms
+and fixit pre-flight reports, the producers of ``comms_report.json`` and
+``fixit_report.json``.
 """
 
 import json
@@ -449,12 +457,21 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, *, policy=None,
     when a worker fails (with its traceback), when the gang does not
     start within ``START_TIMEOUT_S`` or runs past ``JOB_TIMEOUT_S``;
     :class:`SlotExhaustionError` when ``np`` exceeds the slots,
-    :class:`SlotWaitTimeout` when busy slots do not free in time and
-    :class:`RemoteTransportError` when remote ranks cannot be started."""
+    :class:`SlotWaitTimeout` when busy slots do not free in time,
+    :class:`RemoteTransportError` when remote ranks cannot be started and
+    :class:`~sparkdl_tpu_torch.analysis.preflight.PreflightLintError`
+    when the pre-flight lint (on) finds an ERROR, before anything is
+    spawned."""
     import cloudpickle
 
+    from sparkdl_tpu_torch.analysis.preflight import preflight_lint
     from sparkdl_tpu_torch.horovod import elastic, supervisor
 
+    # the opt-in pre-flight lint (analysis.preflight.ENABLED): a capture
+    # that cannot cross the pickle refuses the launch before the
+    # supervisor loop, the slot claims, the payload and any spawn — a
+    # retry would only spend its budget on the same failure
+    preflight_lint(main, kwargs)
     payload = cloudpickle.dumps((main, kwargs))
     if len(payload) > LARGE_PAYLOAD_BYTES:
         logger.warning(

@@ -100,6 +100,11 @@ class HorovodRunner:
         """
         np_arg = self.num_processor
         if np_arg == -1:
+            # the gang path's opt-in pre-flight: local mode is where users
+            # iterate before paying for cards
+            from sparkdl_tpu_torch.analysis.preflight import preflight_lint
+
+            preflight_lint(main, kwargs)
             logging.getLogger("HorovodRunner").warning(
                 "HorovodRunner is running in local mode (np=-1): main() is "
                 "invoked in the current process with a single worker. Use "

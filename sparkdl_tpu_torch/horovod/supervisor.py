@@ -436,6 +436,12 @@ def supervise(launch, policy, _sleep=time.sleep):
     from sparkdl_tpu_torch import observe
     from sparkdl_tpu_torch.analysis.comms import note_gang_axes
     from sparkdl_tpu_torch.horovod import RestartContext
+    from sparkdl_tpu_torch.utils import locksan
+
+    # the opt-in lock-order sanitizer (locksan.ENABLED), installed before
+    # the control plane's and the elastic controller's threads make
+    # their locks, so that every one of them is instrumented from birth
+    locksan.maybe_install()
 
     attempts = []
     attempt = 1

@@ -864,14 +864,17 @@ class SpeculativeBatchingEngine(ContinuousBatchingEngine):
     """
 
     def __init__(self, model, params, draft_params, *, n_slots=4,
-                 eos_id=None, k=4, generator=None, draft_model=None,
+                 eos_id=None, k=None, generator=None, draft_model=None,
                  temperature=0.0, page_size=0, n_pages=None, top_k=0,
                  top_p=1.0, device=None):
         if model.cfg.multi_lora:
             raise ValueError(
                 "SpeculativeBatchingEngine is single-adapter only")
-        # set before super(): _worst_case_tokens needs it
-        self.k = int(k)
+        from sparkdl_tpu_torch.models import speculative
+
+        # set before super(): _worst_case_tokens needs it; None is the
+        # module setting (the JAX engine's SPARKDL_TPU_SPEC_DRAFT_K)
+        self.k = int(speculative.DEFAULT_K if k is None else k)
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         super().__init__(model, params, n_slots=n_slots,

@@ -24,6 +24,8 @@ import torch
 from sparkdl_tpu_torch.models.generate import decode_twin
 from sparkdl_tpu_torch.ops._dispatch import resolve_device
 
+# the draft length a verify round proposes when the caller passes no k
+# (the JAX package's SPARKDL_TPU_SPEC_DRAFT_K), read at call time
 DEFAULT_K = 4
 
 

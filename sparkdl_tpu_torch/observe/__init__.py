@@ -140,23 +140,24 @@ def applied_settings(settings):
 
 @contextlib.contextmanager
 def applied_module_settings(settings, owners):
-    """``settings`` (``{"module.NAME": value}``) set on the modules that
-    ``owners()`` names (``{"module": module}``) for the block, the
-    previous values back after it; None or empty: nothing changes."""
+    """``settings`` (``{"module.NAME": value}``, split at the last dot)
+    set on the modules that ``owners()`` names (``{"module": module}``)
+    for the block, the previous values back after it; None or empty:
+    nothing changes."""
     if not settings:
         yield
         return
     owners = owners()
     prev = {}
     for key, value in settings.items():
-        m, name = key.split(".", 1)
+        m, name = key.rsplit(".", 1)
         prev[key] = getattr(owners[m], name)
         setattr(owners[m], name, value)
     try:
         yield
     finally:
         for key, value in prev.items():
-            m, name = key.split(".", 1)
+            m, name = key.rsplit(".", 1)
             setattr(owners[m], name, value)
 
 

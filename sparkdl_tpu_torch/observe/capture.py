@@ -161,9 +161,10 @@ class CaptureService:
         except Exception as e:  # noqa: BLE001 - reported, not hidden
             self._prof_error = f"torch.profiler failed to start: {e}"
             return
-        self._prof = prof
-        self._prof_thread = threading.get_ident()
-        self._prof_running = True
+        with self._lock:
+            self._prof = prof
+            self._prof_thread = threading.get_ident()
+            self._prof_running = True
 
     def _stop_profiler(self):
         """Stop a running profiler, from the thread that started it."""
@@ -175,7 +176,8 @@ class CaptureService:
             self._prof.stop()
         except Exception as e:  # noqa: BLE001
             self._prof_error = f"torch.profiler failed to stop: {e}"
-            self._prof = None
+            with self._lock:
+                self._prof = None
 
     # -- the timeline tap (runs on recording threads) -----------------------
 
@@ -201,8 +203,9 @@ class CaptureService:
                 if self._buf is not None:
                     self._buf.append(ev)
             return
-        if self._stop_at_next_step:
-            self._stop_at_next_step = False
+        with self._lock:
+            stop_now, self._stop_at_next_step = self._stop_at_next_step, False
+        if stop_now:
             self._stop_profiler()
             return
         opening = closing = False
@@ -274,8 +277,8 @@ class CaptureService:
                 **({"rule": rule} if rule else {}))
             t0 = time.time()
             self._done.clear()
-            self._window = None
             with self._lock:
+                self._window = None
                 self._pending = want
             self._done.wait(self._max_window_s)
             with self._lock:  # the wall cap, or a stop
@@ -288,20 +291,24 @@ class CaptureService:
             window_s = time.time() - t0
             error = self._prof_error
             trace = None
-            if self._prof_running:
-                # the cap passed inside a step: the rank's next step
-                # stops the profiler, and this window has no trace
-                self._stop_at_next_step = True
+            with self._lock:
+                running, prof = self._prof_running, self._prof
+                if running:
+                    # the cap passed inside a step: the rank's next step
+                    # stops the profiler, and this window has no trace
+                    self._stop_at_next_step = True
+                else:
+                    self._prof = None
+            if running:
                 error = error or ("the wall cap passed inside a step; "
                                   "no trace")
-            elif self._prof is not None:
+            elif prof is not None:
                 try:
-                    self._prof.export_chrome_trace(
+                    prof.export_chrome_trace(
                         os.path.join(self._job_dir, trace_name(rank, seq)))
                     trace = trace_name(rank, seq)
                 except Exception as e:  # noqa: BLE001
                     error = f"torch.profiler trace export failed: {e}"
-                self._prof = None
             from sparkdl_tpu_torch.observe import health, perf
 
             report = {

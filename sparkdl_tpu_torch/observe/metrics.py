@@ -241,16 +241,23 @@ def build_info_labels():
     name (``none`` without one)."""
     global _build_info_labels
     with _build_info_lock:
-        if _build_info_labels is None:
-            import torch
+        labels = _build_info_labels
+    if labels is None:
+        import torch
 
-            _build_info_labels = {
-                "git_sha": _git_sha() or "none",
-                "torch_version": torch.__version__,
-                "device_kind": (torch.cuda.get_device_name(0)
-                                if torch.cuda.is_available() else "none"),
-            }
-        return dict(_build_info_labels)
+        # outside the lock: git is a subprocess, and a contender must not
+        # wait behind it (the first caller's labels win a race)
+        labels = {
+            "git_sha": _git_sha() or "none",
+            "torch_version": torch.__version__,
+            "device_kind": (torch.cuda.get_device_name(0)
+                            if torch.cuda.is_available() else "none"),
+        }
+        with _build_info_lock:
+            if _build_info_labels is None:
+                _build_info_labels = labels
+            labels = _build_info_labels
+    return dict(labels)
 
 
 def ensure_build_info(registry):

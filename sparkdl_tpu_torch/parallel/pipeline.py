@@ -35,7 +35,8 @@ other stages get theirs through the reverse hops.
 
 Differences from the JAX package: ``pipeline_apply`` takes this rank's
 stage parameters (any object ``stage_fn`` takes) and the mesh, not a
-(1, ...) shard under ``shard_map``; ``overlap=None`` is True and no
+(1, ...) shard under ``shard_map``; ``overlap=None`` is
+:data:`sparkdl_tpu_torch.parallel.ring_attention.OVERLAP` and no
 environment variable is read.
 """
 
@@ -82,7 +83,8 @@ def pipeline_apply(stage_fn, stage_params, microbatches, *, mesh,
     :param stage_params: this rank's stage (:func:`stage_slice`).
     :param microbatches: (M, mb, ...), the same on every rank; only
         stage 0 reads them.
-    :param overlap: the hop schedule (module docstring); None is True.
+    :param overlap: the hop schedule (module docstring); None is
+        ``ring_attention.OVERLAP``.
     :return: the last stage's (M, mb, ...) outputs, on every rank.
     """
     overlap = resolve_overlap(overlap)

@@ -36,7 +36,8 @@ Differences from the JAX package: the functions take this rank's shards
 and the :class:`~sparkdl_tpu_torch.parallel.mesh.Mesh` (one process a
 rank, no ``shard_map``); :func:`make_ring_attention`'s ``impl=None``
 takes the flash kernels for CUDA tensors and the dense ring for CPU
-ones; ``overlap=None`` is True and no environment variable is read; the
+ones; ``overlap=None`` is :data:`OVERLAP` (no environment variable is
+read); the
 kernels take the models' (B, S, H, D) layout, so nothing is transposed.
 ``bq``, ``bk`` and ``interpret`` are TPU settings and raise
 NotImplementedError when given. The dense ring hops n - 1 times, like
@@ -49,6 +50,9 @@ import torch
 from sparkdl_tpu_torch.ops import flash_attention as _flash
 
 NEG_INF = -1e30
+# the hop schedule of a ring or pipeline called with overlap=None (the
+# JAX package's SPARKDL_TPU_OVERLAP), read at call time
+OVERLAP = True
 
 
 def attention_reference(q, k, v, *, causal=True, scale=None):
@@ -72,10 +76,9 @@ def attention_reference(q, k, v, *, causal=True, scale=None):
 
 
 def resolve_overlap(overlap):
-    """The hop schedule: an explicit ``overlap`` wins, None is True (the
-    JAX package's default, which it reads from ``SPARKDL_TPU_OVERLAP``;
-    the port reads no environment variable)."""
-    return True if overlap is None else bool(overlap)
+    """The hop schedule: an explicit ``overlap`` wins, None is
+    :data:`OVERLAP`."""
+    return bool(OVERLAP if overlap is None else overlap)
 
 
 def _rows(x):

@@ -301,7 +301,7 @@ class TrainCheckpointer:
         it, in the same order as its other collectives: the split
         leaves are gathered whole first, then rank 0 writes them with
         the step's sharding-tree sidecar."""
-        sidecar = None
+        sidecar = gather_s = None
         if mesh is not None:
             from sparkdl_tpu_torch.parallel.sharding import full_host_value
 
@@ -332,23 +332,16 @@ class TrainCheckpointer:
             with _span(on, "checkpoint.save", cat="checkpoint", step=step,
                        sync=True):
                 snapshot = _snapshot(state)
-                self.last_save = {"step": step, "bytes": None,
-                                  "snapshot_s": time.perf_counter() - t,
-                                  "write_s": None}
-                if sidecar is not None:
-                    self.last_save.update(gather_s=gather_s,
-                                          sidecar_bytes=None)
-                self._write(step, snapshot, sidecar)
+                record = self._new_record(step, t, sidecar, gather_s)
+                self._write(step, snapshot, sidecar, record)
         else:
             with _span(on, "checkpoint.snapshot", cat="host", step=step):
                 snapshot = _snapshot(state)
-            self.last_save = {"step": step, "bytes": None,
-                              "snapshot_s": time.perf_counter() - t,
-                              "write_s": None}
-            if sidecar is not None:
-                self.last_save.update(gather_s=gather_s, sidecar_bytes=None)
+            record = self._new_record(step, t, sidecar, gather_s)
+            # the write fills in its own save's record, never a later one
             self._writer = threading.Thread(
-                target=self._write_async, args=(step, snapshot, sidecar),
+                target=self._write_async,
+                args=(step, snapshot, sidecar, record),
                 name=f"checkpoint-write-{step}", daemon=True)
             self._writer.start()
         if on:
@@ -357,13 +350,23 @@ class TrainCheckpointer:
                                   time.perf_counter() - t)
         return True
 
-    def _write_async(self, step, snapshot, sidecar):
+    def _new_record(self, step, t, sidecar, gather_s):
+        """The save's :attr:`last_save`, set now; the write fills in
+        ``bytes``, ``write_s`` and ``sidecar_bytes``."""
+        record = {"step": step, "bytes": None,
+                  "snapshot_s": time.perf_counter() - t, "write_s": None}
+        if sidecar is not None:
+            record.update(gather_s=gather_s, sidecar_bytes=None)
+        self.last_save = record
+        return record
+
+    def _write_async(self, step, snapshot, sidecar, record):
         try:
-            self._write(step, snapshot, sidecar)
+            self._write(step, snapshot, sidecar, record)
         except BaseException as e:  # noqa: BLE001 - raised again at the join
             self._write_error = e
 
-    def _write_sidecar(self, step, doc):
+    def _write_sidecar(self, step, doc, record):
         """Atomic (temp file, fsync, rename) before the step's commit
         rename: a committed step saved on a mesh has its sidecar."""
         path = sharding_sidecar_path(self._dir, step)
@@ -373,14 +376,14 @@ class TrainCheckpointer:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
-        self.last_save["sidecar_bytes"] = os.path.getsize(path)
+        record["sidecar_bytes"] = os.path.getsize(path)
 
-    def _write(self, step, snapshot, sidecar=None):
+    def _write(self, step, snapshot, sidecar, record):
         import torch
 
         t = time.perf_counter()
         if sidecar is not None:
-            self._write_sidecar(step, sidecar)
+            self._write_sidecar(step, sidecar, record)
         final = os.path.join(self._dir, str(step))
         tmp = f"{final}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -393,9 +396,8 @@ class TrainCheckpointer:
         _fsync_dir(tmp)
         os.replace(tmp, final)
         _fsync_dir(self._dir)
-        self.last_save["bytes"] = os.path.getsize(
-            os.path.join(final, STATE_FILE))
-        self.last_save["write_s"] = time.perf_counter() - t
+        record["bytes"] = os.path.getsize(os.path.join(final, STATE_FILE))
+        record["write_s"] = time.perf_counter() - t
         self._prune()
 
     def _prune(self):
