@@ -72,8 +72,9 @@ and on any failed check. Phases:
    tolerance);
 14. the fleet: int8 paged engines at phase 3's settings behind one
    ``FleetFrontend`` (max_queue 12), sharing phase 3's weights on the
-   card: 16 concurrent urllib clients (odd ones streamed), some refused
-   with 503 and ``Retry-After``, first at one replica and then at 2
+   card: 16 concurrent urllib clients (odd ones streamed, budgets of
+   32-64), some refused with 503 and ``Retry-After``, first at one
+   replica and then at 2
    (tokens/s, time to first token and each engine's decode ms a step
    beside the one replica's); then 4 while replica 0's engine raises
    SystemExit inside ``run()`` after 3 decode chunks (its requests get
@@ -486,6 +487,42 @@ and on any failed check. Phases:
    each trial's tokens/s, the decision and the profile's status, the
    pre-flight's times, the sanitizer's reports and, after 25a, its cost:
    24a's step under it beside 25a's healthy steps without it.
+29. the GBDT estimators, last (no kernel of B1-B6 runs in them: their
+   launch counts are zeroed before and read after, and must stay 0).
+   29a: a binary:logistic fit of the shape of the UCI HIGGS dataset
+   (11,000,000 rows x 28 float32 features, labels from a known signal
+   of the seed), depth 8, 256 bins, learning rate 0.1, 20 rounds,
+   through ``booster.train`` on the card, then ``Booster.predict_proba``
+   on every row. Gates: the train logloss falls every round, the
+   accuracy clears the floor the signal's Bayes accuracy gives, a fit of
+   the first 200,000 rows on the card agrees with the port's CPU fit of
+   them as the CPU tests hold two packages' forests (the same trees up
+   to a split that is a near-tie, then the row-order tolerance), and the
+   card's margins equal a host descent of the same trees bit for bit. It
+   prints the host edges' and the card binning's times, the binned
+   matrix's bytes, seconds a round, one tree's histogram, split, route
+   and predict milliseconds (CUDA events around the stages that
+   ``booster._build_tree`` calls) and the histogram's bytes and time
+   beside HBM's rate. 29b: ``XgboostClassifier(num_workers=2,
+   force_repartition=True)`` on a pandas frame of the first 1,000,000
+   rows, 10 rounds: the estimator's ``launch_gang(per_rank_kwargs=)``
+   gang of two ranks sharing the card over gloo, each rank's main
+   wrapped by this script's own (its ``booster.train`` and
+   ``hvd.allreduce`` observed: the ranks allgather their trees' digests,
+   identical, and time each level's histogram all-reduce), then
+   ``transform`` through the minispark double's ``mapInPandas``;
+   accuracy within 0.5 points of one process's fit of the rows. 29c: one
+   ``python -m sparkdl_tpu_torch.perf.trial gbdt`` subprocess at
+   ``gbdt_bench.py``'s full shape; its ledger line's rows x trees a
+   second and predict rows a second.
+
+Before it imports torch the script keeps Python's compiled bytecode in
+``bytecode-cache/`` beside itself, for itself and every process it
+starts (gang ranks, trials), whatever ``PYTHONDONTWRITEBYTECODE`` says:
+where the installed packages hold no bytecode, each process would
+otherwise compile torch and ``torch._dynamo`` from source. Each phase's
+seconds are printed (``phase <name>: <s> s``) and kept in the report
+(``phase_s``).
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 carry the kernels' record (``{"kernels": [...]}``) and the card.
@@ -496,6 +533,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import statistics
@@ -565,9 +603,12 @@ SPEC_K, N_SPEC_REQUESTS = 4, 4
 # respawn (24, 32 and 8 until phase 27 pushed the script toward 1100 s)
 N_TP_REQUESTS, N_TP_FAULT_REQUESTS, TP_AFTER_BUDGET = 8, 4, 16
 # phases 13 and 27b: the TP engine's depth (32 until phase 27 pushed the
-# script past 1100 s: two ranks share the card over gloo)
-TP_SERVE_DEPTH = 16
+# script past 1100 s, 16 until phase 29 did: two ranks share the card
+# over gloo); phase 14's burst budgets (32-128 until phase 29 pushed the
+# script past 1100 s: two replicas in one process share its host)
+TP_SERVE_DEPTH = 8
 FLEET_REPLICAS, FLEET_MAX_QUEUE, N_FLEET_REQUESTS = 2, 12, 16
+FLEET_BUDGETS = (32, 64)
 N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 4, 3
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
@@ -731,6 +772,29 @@ AUTOTUNE_KNOB = "sparkdl_tpu_torch.perf.trial.SERVE_DECODE_CHUNK"
 AUTOTUNE_VALUE = 8
 AUTOTUNE_MAX_TRIALS = 4
 AUTOTUNE_TRIAL_TIMEOUT_S = 300.0
+# phase 29: the GBDT estimators. 29a at the UCI HIGGS dataset's shape
+# (11M x 28 float32; rounds cut to 20 for the time limit), XGBoost
+# hist's default 256 bins, depth 8; the labels' signal: a linear term in
+# features 0-5 and a product of 6 and 7, with unit Gaussian noise
+HIGGS_ROWS = 11_000_000
+HIGGS_FEATURES = 28
+GBDT_SIGNAL_W = (1.0, -0.8, 0.6, 0.5, -0.4, 0.3)
+GBDT_PARAMS = dict(objective="binary:logistic", n_estimators=20,
+                   max_depth=8, max_bin=256, learning_rate=0.1)
+# the floor: 90 % of the way from chance to the signal's Bayes accuracy
+GBDT_FLOOR_FRACTION = 0.9
+GBDT_CPU_ROWS = 200_000
+# tests/test_torch_booster.py's tolerances (_forest_agreement): the
+# card's forest has the CPU's structure up to a near-tie, and after it
+# (ORDER_TOL: another order of the float sums, as the card's atomic adds
+# give) the class of 99.5 % of the rows and the train logloss within 1e-3
+# relative
+GBDT_ORDER_TOL = {"same_class": 0.995, "metric_rel": 1e-3}
+# 29b: the first 1M rows (a gang start, each level's histogram staged
+# through the host by gloo), 10 rounds, within 0.5 accuracy points
+GBDT_GANG_ROWS = 1_000_000
+GBDT_GANG_ROUNDS = 10
+GBDT_GANG_POINTS = 0.5
 HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
                     num_hidden_layers=32, num_attention_heads=32,
                     num_key_value_heads=8, intermediate_size=14336,
@@ -749,6 +813,36 @@ def _require(ok, what):
 
 def _log(msg):
     print(msg, flush=True)
+
+
+def use_bytecode_cache():
+    """Write and read compiled bytecode under ``bytecode-cache/`` beside
+    this script, in this process and (through the environment) every
+    process it starts. A process that imports torch without bytecode
+    compiles it and ``torch._dynamo`` (a process's first optimizer
+    imports it) from source: seconds of every rank's start, a gang's
+    ``ready_s`` and ``opt_s`` (PERF.md)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bytecode-cache")
+    os.makedirs(path, exist_ok=True)
+    sys.pycache_prefix = path
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return path
+
+
+PHASE_S = {}
+
+
+def _timed(phase, fn, /, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds printed and kept under
+    ``phase`` in :data:`PHASE_S`."""
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[phase] = time.perf_counter() - t
+    _log(f"phase {phase}: {PHASE_S[phase]:.1f} s")
+    return out
 
 
 def _card_line(torch):
@@ -2591,7 +2685,8 @@ def serve_fleet(torch, model, phase3):
                 for i, (k, b) in enumerate(zip(
                     rng.integers(64, 1025, n), rng.integers(low, high, n)))]
 
-    burst = payloads(N_FLEET_REQUESTS, 32, 129, True)
+    burst = payloads(N_FLEET_REQUESTS, FLEET_BUDGETS[0],
+                     FLEET_BUDGETS[1] + 1, True)
     # (b) and (c): budgets past FAULT_AFTER_CHUNKS chunks of 16
     fault_burst = payloads(N_FAULT_REQUESTS, 64, 129, False)
     after_burst = payloads(N_FAULT_REQUESTS, 32, 65, False)
@@ -7985,6 +8080,441 @@ def elastic_gang(torch):
     return report
 
 
+# -- phase 29: the GBDT estimators ------------------------------------------
+
+
+class _Clock:
+    """Device intervals: CUDA events on the card, the host clock in a CPU
+    rehearsal; :meth:`ms` waits for the device."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.marks = []
+
+    def mark(self):
+        if DEVICE == "cuda":
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+        return len(self.marks) - 1
+
+    def ms(self, a, b):
+        if DEVICE == "cuda":
+            self.torch.cuda.synchronize()
+            return self.marks[a].elapsed_time(self.marks[b])
+        return 1e3 * (self.marks[b] - self.marks[a])
+
+
+def _higgs_like(torch, n):
+    """``n`` rows x :data:`HIGGS_FEATURES` standard normal float32 features
+    and their labels, made on the card from the seed; returns the host
+    copies and the signal's Bayes accuracy."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 29)
+    X = torch.randn(n, HIGGS_FEATURES, generator=gen, device=DEVICE)
+    w = torch.tensor(GBDT_SIGNAL_W, device=DEVICE)
+    s = X[:, :len(GBDT_SIGNAL_W)] @ w + 0.5 * X[:, 6] * X[:, 7]
+    y = ((s + torch.randn(n, generator=gen, device=DEVICE)) > 0).float()
+    bayes = torch.special.ndtr(s.abs()).mean().item()
+    return X.cpu().numpy(), y.cpu().numpy(), bayes
+
+
+def _gbdt_digest(bst):
+    h = hashlib.sha256()
+    for t in bst.trees:
+        for k in sorted(t):
+            h.update(np.ascontiguousarray(t[k]).tobytes())
+    return h.hexdigest()
+
+
+def _logloss(torch, margins, y):
+    """Train logloss of host margins on the device (the booster's clip)."""
+    m = torch.as_tensor(margins[:, 0], device=DEVICE).double()
+    t = torch.as_tensor(y, device=DEVICE).double()
+    p = torch.sigmoid(m).clamp(1e-15, 1 - 1e-15)
+    return float(-(t * p.log() + (1 - t) * (1 - p).log()).mean())
+
+
+def _host_margins(bst, X):
+    """The forest's margins by a numpy descent of its trees over numpy's
+    bins, summed in float32 in the card's order."""
+    from sparkdl_tpu_torch.xgboost.booster import bin_data
+
+    binned = bin_data(X, bst.edges, bst.missing)
+    n_bins = bst.edges.shape[1] + 1
+    rows = np.arange(len(X))
+    m = np.zeros(len(X), np.float32) + np.float32(bst.base_score)
+    for t in bst.trees:
+        pos = np.zeros(len(X), np.int64)
+        for _ in range(int(bst.params["max_depth"])):
+            rf = binned[rows, t["feat"][pos]]
+            right = np.where(rf == n_bins, ~t["missing_left"][pos],
+                             rf > t["thr"][pos])
+            pos = np.where(t["is_split"][pos], 2 * pos + 1 + right, pos)
+        m += t["leaf_w"][pos]
+    return m
+
+
+def _tree_stage_ms(torch, binned, g, h):
+    """One tree of :data:`GBDT_PARAMS` through the fit's own builder
+    (``booster._build_tree``), each stage it calls between two clock
+    marks: milliseconds of the histogram, split (with the level's write
+    into the tree), route and predict stages, and the histogram's least
+    bytes (each input read once, each output written once). The fit has
+    run these stages at these shapes already: nothing is cold."""
+    from sparkdl_tpu_torch.xgboost import booster as B
+
+    depth, n_bins = GBDT_PARAMS["max_depth"], GBDT_PARAMS["max_bin"]
+    f, n = binned.shape
+    clock = _Clock(torch)
+    spans = {"hist": [], "split": [], "route": [], "predict": []}
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            a = clock.mark()
+            out = fn(*args, **kw)
+            spans[stage].append((a, clock.mark()))
+            return out
+        return run
+
+    stages = {f"_{s}_stage": timed(s, getattr(B, f"_{s}_stage"))
+              for s in spans}
+    with _attrs(B, _set_level=timed("split", B._set_level), **stages):
+        B._build_tree(binned, g, h,
+                      torch.ones(f, dtype=torch.bool, device=binned.device),
+                      max_depth=depth, n_bins_tot=n_bins + 1,
+                      reg_lambda=1.0, reg_alpha=0.0, gamma=0.0,
+                      min_child_weight=1.0,
+                      learning_rate=GBDT_PARAMS["learning_rate"])
+    ms = {k: [clock.ms(a, b) for a, b in v] for k, v in spans.items()}
+    hist_bytes = sum(binned.numel() * binned.element_size() + n * (4 + 4 + 8)
+                     + 2 * 2 ** d * f * (n_bins + 1) * 4
+                     for d in range(len(ms["hist"])))
+    return {"hist_ms": sum(ms["hist"]), "hist_ms_by_level": ms["hist"],
+            "split_ms": sum(ms["split"]), "route_ms": sum(ms["route"]),
+            "predict_ms": sum(ms["predict"]), "hist_bytes": hist_bytes,
+            "hist_bound_ms": 1e3 * hist_bytes / HBM_BYTES_PER_S}
+
+
+def _forest_agreement(torch, a, b, X, y):
+    """Two forests of one fit held as ``tests/test_torch_booster.py``'s
+    ``assert_same_forest`` holds them: tree by tree, the same structure
+    with leaf weights within ``rtol=1e-5, atol=1e-6`` and gains within
+    1e-5 of the tree's largest, up to the first split that differs, which
+    must be a near-tie (both candidates' gains within 1e-5 of the tree's
+    largest). Then the margins within 1e-5 if no split differs, else
+    the class and logloss agreement on ``(X, y)`` (:data:`GBDT_ORDER_TOL`)
+    for the trees after the tie. Returns the readings and ``ok``."""
+    same, first, numbers_ok = 0, None, True
+    for ta, tb in zip(a.trees, b.trees):
+        scale = max(1.0, float(np.abs(ta["gain"]).max()))
+        diff = np.nonzero((ta["is_split"] != tb["is_split"]) | (
+            ta["is_split"] & ((ta["feat"] != tb["feat"])
+                              | (ta["thr"] != tb["thr"])
+                              | (ta["missing_left"] != tb["missing_left"]))))[0]
+        if len(diff):
+            node = int(diff[0])
+            gains = [float(ta["gain"][node]), float(tb["gain"][node])]
+            first = {"tree": same, "node": node, "gains": gains,
+                     "largest_gain": scale,
+                     "near_tie": abs(gains[0] - gains[1]) <= 1e-5 * scale}
+            break
+        numbers_ok &= bool(
+            np.allclose(tb["leaf_w"], ta["leaf_w"], rtol=1e-5, atol=1e-6)
+            and np.abs(tb["gain"] - ta["gain"]).max() <= 1e-5 * scale)
+        same += 1
+    ma = a.predict_margin(X, device=DEVICE)
+    mb = b.predict_margin(X, device="cpu")
+    la, lb = _logloss(torch, ma, y), _logloss(torch, mb, y)
+    out = {"identical_leading_trees": same, "trees": len(a.trees),
+           "leading_trees_numbers_ok": numbers_ok,
+           "first_difference": first,
+           "same_class": float(((ma[:, 0] > 0) == (mb[:, 0] > 0)).mean()),
+           "logloss": [la, lb], "logloss_rel": abs(la - lb) / lb,
+           "max_abs_margin_diff": float(np.abs(ma - mb).max())}
+    if first is None:
+        after = out["max_abs_margin_diff"] <= 1e-5
+    else:
+        after = (first["near_tie"]
+                 and out["same_class"] >= GBDT_ORDER_TOL["same_class"]
+                 and out["logloss_rel"] <= GBDT_ORDER_TOL["metric_rel"])
+    out["ok"] = numbers_ok and after
+    return out
+
+
+def gbdt_single(torch, card):
+    """Phase 29a: the single-process fit at the HIGGS shape (module
+    docstring)."""
+    from sparkdl_tpu_torch.xgboost import booster as B
+
+    n = HIGGS_ROWS
+    t = time.perf_counter()
+    X, y, bayes = _higgs_like(torch, n)
+    data_s = time.perf_counter() - t
+    # the fit through booster.train: its binning timed where it runs (the
+    # host's quantile edges, the card's bins), each round's end marked by
+    # a callback that also scores the round's margins
+    marks, losses, binning = [], [], {}
+
+    def timed(name, fn):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            binning[name] = time.perf_counter() - t
+            return out
+        return run
+
+    def on_round(rnd, margins):
+        marks.append(time.perf_counter())
+        losses.append(_logloss(torch, margins, y))
+        marks.append(time.perf_counter())
+
+    t = time.perf_counter()
+    with _attrs(B, compute_bin_edges=timed("edges", B.compute_bin_edges),
+                bin_on=timed("bins", B.bin_on)):
+        bst = B.train(dict(GBDT_PARAMS), X, y, callbacks=[on_round],
+                      device=DEVICE)
+    fit_s = time.perf_counter() - t
+    # one tree's stages on the first round's gradients (margins 0)
+    binned = B.bin_on(X, bst.edges, np.nan, torch.device(DEVICE))
+    binned_bytes = binned.numel() * binned.element_size()
+    yt = torch.as_tensor(y, device=DEVICE)
+    g = torch.full_like(yt, 0.5) - yt
+    h = torch.full_like(yt, 0.25)
+    stages = _tree_stage_ms(torch, binned, g, h)
+    del binned, yt, g, h
+    rounds_s = [marks[2 * r] - marks[2 * r - 1]
+                for r in range(1, GBDT_PARAMS["n_estimators"])]
+    _require(all(b < a for a, b in zip(losses, losses[1:])),
+             f"phase 29a: the train logloss did not fall each round: "
+             f"{losses}")
+    t = time.perf_counter()
+    proba = bst.predict_proba(X, device=DEVICE)
+    predict_s = time.perf_counter() - t
+    acc = float(((proba[:, 1] > 0.5) == (y > 0.5)).mean())
+    floor = 0.5 + GBDT_FLOOR_FRACTION * (bayes - 0.5)
+    _require(acc > floor, f"phase 29a: accuracy {acc} under the floor "
+             f"{floor} (Bayes {bayes})")
+    # the card's margins against a numpy descent of the same trees
+    m = GBDT_CPU_ROWS
+    t = time.perf_counter()
+    host = _host_margins(bst, X[:m])
+    host_s = time.perf_counter() - t
+    on_card = bst.predict_margin(X[:m], device=DEVICE)[:, 0]
+    _require(np.array_equal(on_card, host),
+             f"phase 29a: card margins differ from the host descent in "
+             f"{int((on_card != host).sum())} of {m} rows")
+    # the first rows fit on the card and by the port on the CPU
+    t = time.perf_counter()
+    small = B.train(dict(GBDT_PARAMS), X[:m], y[:m], device=DEVICE)
+    card_small_s = time.perf_counter() - t
+    t = time.perf_counter()
+    small_cpu = B.train(dict(GBDT_PARAMS), X[:m], y[:m], device="cpu")
+    cpu_small_s = time.perf_counter() - t
+    agree = _forest_agreement(torch, small, small_cpu, X[:m], y[:m])
+    _require(agree["ok"], f"phase 29a: the card's fit of {m} rows against "
+             f"the CPU's: {agree}")
+    tree_ms = sum(stages[k] for k in ("hist_ms", "split_ms", "route_ms",
+                                      "predict_ms"))
+    report = {
+        "phase": "29a", "rows": n, "features": HIGGS_FEATURES,
+        "params": GBDT_PARAMS, "data_s": data_s,
+        "host_edges_s": binning["edges"], "card_bin_s": binning["bins"],
+        "binned_bytes": binned_bytes, "fit_s": fit_s,
+        "round_s_median": statistics.median(rounds_s), "round_s": rounds_s,
+        "train_logloss": losses, "accuracy": acc, "bayes_accuracy": bayes,
+        "accuracy_floor": floor, "predict_proba_s": predict_s,
+        "tree_ms": tree_ms, **stages,
+        "hist_share_of_tree": stages["hist_ms"] / tree_ms,
+        "hist_bytes_per_s": stages["hist_bytes"] / (stages["hist_ms"] / 1e3),
+        "hbm_bytes_per_s": HBM_BYTES_PER_S,
+        "host_descent_rows": m, "host_descent_s": host_s,
+        "host_descent_equal": True,
+        "cpu_rows": m, "card_fit_s_cpu_rows": card_small_s,
+        "cpu_fit_s": cpu_small_s, "card_vs_cpu": agree,
+        "tolerance": GBDT_ORDER_TOL, "card": card}
+    _log("gbdt_fit " + json.dumps(report))
+    return report, X, y
+
+
+def gbdt_digest_main(inner, **kwargs):
+    """A rank of 29b's estimator gang, wrapped: the estimator's own gang
+    main (``inner``, ``_fit_booster``'s) with this rank's ``booster.train``
+    and ``hvd.allreduce`` observed, so that the ranks' trees' digests are
+    allgathered and each all-reduce is timed; returns the estimator's
+    result beside them."""
+    import time as _time
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.hvd import _state
+    from sparkdl_tpu_torch.xgboost import booster as B
+
+    seen, calls = {}, []
+    train, allreduce = B.train, hvd.allreduce
+
+    def observed_train(*args, **kw):
+        seen["booster"] = train(*args, **kw)
+        return seen["booster"]
+
+    def timed_allreduce(x, *args, **kw):
+        t = _time.perf_counter()
+        out = allreduce(x, *args, **kw)
+        calls.append((int(np.asarray(x).nbytes), _time.perf_counter() - t))
+        return out
+
+    B.train, hvd.allreduce = observed_train, timed_allreduce
+    try:
+        t = _time.perf_counter()
+        result = inner(**kwargs)
+        fit_s = _time.perf_counter() - t
+    finally:
+        B.train, hvd.allreduce = train, allreduce
+    return {"result": result, "calls": calls, "fit_s": fit_s,
+            "rows": len(kwargs["X"]), "device": str(_state.state().device),
+            "digests": hvd.allgather_object(_gbdt_digest(seen["booster"]))}
+
+
+def gbdt_gang(torch, card, X, y):
+    """Phase 29b: the distributed estimator on the first
+    :data:`GBDT_GANG_ROWS` rows (module docstring)."""
+    import pandas as pd
+
+    import sparkdl_tpu_torch.xgboost as xgb
+    from sparkdl_tpu_torch.horovod import launcher
+    from sparkdl_tpu_torch.xgboost import booster as B
+
+    n = GBDT_GANG_ROWS
+    X, y = X[:n], y[:n]
+    params = dict(GBDT_PARAMS, n_estimators=GBDT_GANG_ROUNDS)
+    t = time.perf_counter()
+    single = B.train(dict(params), X, y, device=DEVICE)
+    single_s = time.perf_counter() - t
+    single_acc = float((single.predict(X, device=DEVICE) == y).mean())
+    pdf = pd.DataFrame({"features": list(X), "label": y})
+    est_kw = {k: v for k, v in params.items() if k != "objective"}
+    launch, ranks = launcher.launch_gang, {}
+
+    def observed_launch(main, kwargs, **kw):
+        # the estimator's gang (its own np, verbosity and per-rank kwargs),
+        # each rank's main wrapped (its digest, its all-reduces); the
+        # estimator gets its own result back
+        ranks.update(launch(main=gbdt_digest_main,
+                            kwargs={**kwargs, "inner": main}, **kw))
+        return ranks["result"]
+
+    with _attrs(xgb, DEVICE=None if DEVICE == "cuda" else "cpu"), \
+            _launcher_settings(), _attrs(launcher, launch_gang=observed_launch):
+        t = time.perf_counter()
+        model = xgb.XgboostClassifier(num_workers=2, force_repartition=True,
+                                      **est_kw).fit(pdf)
+        est_s = time.perf_counter() - t
+        with _minispark(2) as session:
+            sdf = session.createDataFrame(pdf)
+            t = time.perf_counter()
+            out = model.transform(sdf).toPandas()
+            transform_s = time.perf_counter() - t
+    est_acc = float((out["prediction"].to_numpy() == y).mean())
+    _require(abs(est_acc - single_acc) * 100 <= GBDT_GANG_POINTS,
+             f"phase 29b: the estimator's accuracy {est_acc} against one "
+             f"process's {single_acc}")
+    _require(len(set(ranks["digests"])) == 1,
+             f"phase 29b: the ranks built different trees: "
+             f"{ranks['digests']}")
+    _require(_gbdt_digest(model.get_booster()) == ranks["digests"][0],
+             "phase 29b: the model's booster is not rank 0's trees")
+    calls = ranks["calls"]
+    per_level = [c for c in calls if c[0] > 8 * 1024]  # the histograms
+    report = {
+        "phase": "29b", "rows": n, "rounds": GBDT_GANG_ROUNDS, "np": 2,
+        "single_fit_s": single_s, "single_accuracy": single_acc,
+        "estimator_fit_s": est_s, "estimator_accuracy": est_acc,
+        "points_apart": abs(est_acc - single_acc) * 100,
+        "transform_rows": len(out), "minispark_transform_s": transform_s,
+        "rank0_fit_s": ranks["fit_s"], "rank0_rows": ranks["rows"],
+        "rank0_device": ranks["device"],
+        "identical_trees": True, "digest": ranks["digests"][0],
+        "allreduce_calls": len(calls),
+        "hist_allreduce_levels": len(per_level),
+        "hist_allreduce_bytes": sum(c[0] for c in per_level),
+        "hist_allreduce_bytes_max": max(c[0] for c in per_level),
+        "hist_allreduce_s": sum(c[1] for c in per_level),
+        "hist_allreduce_ms_median": 1e3 * statistics.median(
+            c[1] for c in per_level),
+        "hist_allreduce_share_of_fit": sum(c[1] for c in per_level)
+        / ranks["fit_s"], "card": card}
+    _log("gbdt_gang " + json.dumps(report))
+    return report
+
+
+def gbdt_trial(torch, card):
+    """Phase 29c: one ``perf.trial gbdt`` subprocess at gbdt_bench.py's
+    full shape; its ledger line read back."""
+    from sparkdl_tpu_torch.observe import perf as operf
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-29c-")
+    history = os.path.join(root, "history.jsonl")
+    cmd = [sys.executable, "-m", "sparkdl_tpu_torch.perf.trial", "gbdt",
+           "--history", history, "--settings", "{}"]
+    if DEVICE != "cuda":
+        cmd += ["--device=cpu", "--config=tiny"]
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH")) if p)
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall_s = time.perf_counter() - t
+    _require(proc.returncode == 0, f"phase 29c: the trial exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    (rec,) = operf.read_history(history)
+    fit = rec["metrics"]["gbdt_fit_rows_per_sec"]
+    pred = rec["metrics"]["gbdt_predict_rows_per_sec"]
+    want_kind = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
+    _require(rec["bench"] == "gbdt_bench" and rec["device_kind"] == want_kind
+             and len(fit["samples"]) == len(pred["samples"]) == 4,
+             f"phase 29c: ledger line {rec}")
+    report = {"phase": "29c", "rows": rec["rows"],
+              "features": rec["features"], "trees": rec["trees"],
+              "max_depth": rec["max_depth"], "max_bins": rec["max_bins"],
+              "fit_rows_trees_per_s": fit["value"],
+              "fit_samples": fit["samples"],
+              "predict_rows_per_s": pred["value"],
+              "predict_samples": pred["samples"],
+              "warm_fit_s": rec["warm_fit_sec"],
+              "train_accuracy": rec["train_accuracy"],
+              "device_kind": rec["device_kind"], "wall_s": wall_s,
+              "card": card}
+    _log("gbdt_trial " + json.dumps(report))
+    return report
+
+
+def gbdt(torch, card):
+    """Phase 29 (29a, 29b, 29c): none of B1-B6 may launch in it."""
+    _zero_launches()
+    _zero_flash()
+    t = time.perf_counter()
+    single, X, y = gbdt_single(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gang = gbdt_gang(torch, card, X, y)
+    del X, y
+    gc.collect()
+    trial = gbdt_trial(torch, card)
+    launches = {**_read_launches(), **_flash_launches()}
+    _require(not any(launches.values()),
+             f"phase 29 launched a kernel of B1-B6: {launches}")
+    report = {"single": single, "gang": gang, "trial": trial,
+              "launches_b1_b6": launches, "wall_s": time.perf_counter() - t}
+    _log(f"gbdt: phase 29 launched none of B1-B6 ({launches}); "
+         f"{report['wall_s']:.1f} s")
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -7996,6 +8526,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    use_bytecode_cache()
     from sparkdl_tpu_torch.models.llama import LlamaConfig
     from sparkdl_tpu_torch.ops import _build
     from sparkdl_tpu_torch.ops import flash_attention as fa
@@ -8010,7 +8541,7 @@ def main(argv=None):
 
     t = time.perf_counter()
     ptxas = start_ptxas_report()
-    _build.build(_build.sources())
+    _timed("1", _build.build, _build.sources())
     _log(f"build: {time.perf_counter() - t:.1f} s for {_build.sources()}")
     resources = finish_ptxas_report(ptxas)
     flash_kernels = PTXAS_KERNELS["flash_attention"]
@@ -8024,154 +8555,161 @@ def main(argv=None):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     timer = Timer(torch)
-    qmm_rows, qmm_tp_rows, qmm_moe_rows = check_quantized_matmul(
-        torch, timer, gen)
-    paged_row = check_paged_attention(torch, timer, gen)
-    q4_rows = check_quantized_matmul_int4(torch, timer, gen)
+    qmm_rows, qmm_tp_rows, qmm_moe_rows = _timed(
+        "2", check_quantized_matmul, torch, timer, gen)
+    paged_row = _timed("2_paged", check_paged_attention, torch, timer, gen)
+    q4_rows = _timed("2c", check_quantized_matmul_int4, torch, timer, gen)
     del timer
 
     cfg = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int8")
     t = time.perf_counter()
     # a generator of its own: phase 13's ranks draw the same weights
-    model = random_quant_llama(torch, cfg, _seeded(torch, SEED))
+    model = _timed("3_weights", random_quant_llama, torch, cfg,
+                   _seeded(torch, SEED))
     _log(f"weights: {time.perf_counter() - t:.1f} s")
-    serving, phase3_tokens = serve(torch, model)
-    model_rows = kernel_vs_plain_model(torch, model)
+    serving, phase3_tokens = _timed("3", serve, torch, model)
+    model_rows = _timed("4", kernel_vs_plain_model, torch, model)
     gc.collect()
     torch.cuda.empty_cache()
-    dense = serve_dense(torch, model, phase3_tokens)
+    dense = _timed("10", serve_dense, torch, model, phase3_tokens)
     gc.collect()
     torch.cuda.empty_cache()
-    fleet = serve_fleet(torch, model, serving)
+    fleet = _timed("14", serve_fleet, torch, model, serving)
     gc.collect()
     torch.cuda.empty_cache()
     # slice 17, on phase 3's int8 model: ServingTelemetry behind HTTP
-    telemetry_serving = serve_telemetry(torch, model)
+    telemetry_serving = _timed("24c", serve_telemetry, torch, model)
     gc.collect()
     torch.cuda.empty_cache()
     # slice 18, on phase 3's int8 model: a fleet on /statusz
-    fleet_live = fleet_statusz(torch, model)
+    fleet_live = _timed("25b", fleet_statusz, torch, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     # the ranks need the card's memory: this process holds no model.
     # slice 20: phase 13's ranks are the first gang of 27b's replica
-    tp, fleet_tp = serve_tp_fleet(torch, serving, phase3_tokens)
+    tp, fleet_tp = _timed("13_27b", serve_tp_fleet, torch, serving,
+                          phase3_tokens)
     torch.cuda.reset_peak_memory_stats()
 
     cfg4 = LlamaConfig.llama3_8b(max_cache_len=2048, quant="int4",
                                  quant_group=Q4_GROUP)
     t = time.perf_counter()
-    model = random_quant_llama(torch, cfg4, gen)
+    model = _timed("7_weights", random_quant_llama, torch, cfg4, gen)
     _log(f"int4 weights: {time.perf_counter() - t:.1f} s")
-    http = serve_http(torch, model)
+    http = _timed("7", serve_http, torch, model)
     gc.collect()
     torch.cuda.empty_cache()
-    prefix = prefix_sharing(torch, model)
+    prefix = _timed("7b", prefix_sharing, torch, model)
     gc.collect()
     torch.cuda.empty_cache()
-    prefix["logits"] = prefix_logits(torch, model)
-    q4_model_rows = kernel_vs_plain_model(torch, model, name="model_int4")
+    prefix["logits"] = _timed("7b_logits", prefix_logits, torch, model)
+    q4_model_rows = _timed("8", kernel_vs_plain_model, torch, model,
+                           name="model_int4")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     timer = Timer(torch)
-    flash_rows = check_flash(torch, timer, gen)
+    flash_rows = _timed("2b", check_flash, torch, timer, gen)
     del timer
     gc.collect()
     torch.cuda.empty_cache()
-    training, trained = train(torch, gen)
+    training, trained = _timed("5", train, torch, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    multi = serve_multi_lora(torch, trained, gen, serving)
+    multi = _timed("11", serve_multi_lora, torch, trained, gen, serving)
     gc.collect()
     torch.cuda.empty_cache()
-    spec = serve_speculative(torch, trained)
+    spec = _timed("12", serve_speculative, torch, trained)
     del trained
     gc.collect()
     torch.cuda.empty_cache()
-    train_rows = kernel_vs_plain_train(torch, gen)
+    train_rows = _timed("6", kernel_vs_plain_train, torch, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    remat_rows = remat_memory(torch, gen)
+    remat_rows = _timed("6b", remat_memory, torch, gen)
     # the gang's workers need the card's memory: the driver holds no model
     gc.collect()
     torch.cuda.empty_cache()
-    gang = gang_train(torch, training)
-    gang_shared = gang_shared_card(torch)
+    gang = _timed("9a", gang_train, torch, training)
+    gang_shared = _timed("9b", gang_shared_card, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    gang_resumed = gang_resume(torch, gang)
+    gang_resumed = _timed("9c", gang_resume, torch, gang)
     gc.collect()
     torch.cuda.empty_cache()
-    seq = seq_parallel(torch)
+    seq = _timed("15", seq_parallel, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    pipe = pipeline(torch)
+    pipe = _timed("16", pipeline, torch)
     # slice 12: this process holds no model from here on
     gc.collect()
     torch.cuda.empty_cache()
-    moe_serving = serve_moe(torch)
+    moe_serving = _timed("17", serve_moe, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_training = train_moe(torch, gen)
+    moe_training = _timed("18", train_moe, torch, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_ep = expert_parallel(torch)
+    moe_ep = _timed("19", expert_parallel, torch)
     # slice 13: tensor-parallel training; this process holds no model
     gc.collect()
     torch.cuda.empty_cache()
-    tp_training = tp_train(torch)
+    tp_training = _timed("20", tp_train, torch)
     # slice 14: ZeRO-3 training and serving; this process holds no model
     gc.collect()
     torch.cuda.empty_cache()
-    fsdp_training = fsdp_train(torch)
+    fsdp_training = _timed("21a", fsdp_train, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    fsdp_serving = fsdp_serve(torch)
+    fsdp_serving = _timed("21b", fsdp_serve, torch)
     # slice 15: HorovodRunner on Spark, the slot registry, a remote rank
     gc.collect()
     torch.cuda.empty_cache()
-    spark = spark_gang(torch, gang)
-    slots = slot_wait(torch)
-    remote = remote_rank(torch)
+    spark = _timed("22a", spark_gang, torch, gang)
+    slots = _timed("22c", slot_wait, torch)
+    remote = _timed("22d", remote_rank, torch)
     # slice 16: the model zoo through HorovodRunner, the HF conversion
     gc.collect()
     torch.cuda.empty_cache()
     zoo_runs = {}
     for phase, family in (("23a", "mnist"), ("23b", "resnet50"),
                           ("23c", "bert")):
-        zoo_runs[phase] = zoo(torch, phase, family)
+        zoo_runs[phase] = _timed(phase, zoo, torch, phase, family)
         gc.collect()
         torch.cuda.empty_cache()
-    hf = hf_convert(torch)
+    hf = _timed("23d", hf_convert, torch)
     # slice 21: the autotuner's serve trials (28a), their profile applied
     # to 24a's rank and the sanitizer on its driver and rank (28b, 28c)
     gc.collect()
     torch.cuda.empty_cache()
-    tuned = autotune_serve(torch, card)
+    tuned = _timed("28a", autotune_serve, torch, card)
     # slice 17: 9a's fine-tune with the telemetry on, then a hang
     gc.collect()
     torch.cuda.empty_cache()
-    telemetry = telemetry_gang(torch, gang, tuned)
-    refusal = preflight_refusal(torch, card)
+    telemetry = _timed("24a", telemetry_gang, torch, gang, tuned)
+    refusal = _timed("28d", preflight_refusal, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    hang = hang_gang(torch)
+    hang = _timed("24b", hang_gang, torch)
     # slice 18: 9a's fine-tune slowed down, caught, profiled and diffed
     gc.collect()
     torch.cuda.empty_cache()
-    alerted = alert_gang(torch)
+    alerted = _timed("25a", alert_gang, torch)
     # slice 19: an elastic round trip of 9b's fine-tune
     gc.collect()
     torch.cuda.empty_cache()
-    elastic_run = elastic_gang(torch)
+    elastic_run = _timed("26", elastic_gang, torch)
     # slice 20: 23c's BERT-base tensor-parallel and ZeRO-3 on two ranks
     gc.collect()
     torch.cuda.empty_cache()
-    bert_run = bert_mesh(torch, zoo_runs["23c"])
+    bert_run = _timed("27a", bert_mesh, torch, zoo_runs["23c"])
+    # slice 22: the GBDT estimators; this process holds no model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gbdt_run = _timed("29", gbdt, torch, card)
     # 28c's cost: 24a's steps under the sanitizer beside 25a's healthy
     # steps (the same fine-tune with the telemetry on, no sanitizer)
     sanitizer_cost = {
@@ -8354,7 +8892,8 @@ def main(argv=None):
                        "elastic_gang": elastic_run,
                        "fleet_tp": fleet_tp, "bert_mesh": bert_run,
                        "autotune": tuned, "preflight": refusal,
-                       "sanitizer_cost": sanitizer_cost,
+                       "sanitizer_cost": sanitizer_cost, "gbdt": gbdt_run,
+                       "phase_s": PHASE_S,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -19,8 +19,10 @@ Not ported: the graph passes over registered jitted steps, their comms
 budget and the fix engine (:func:`register` raises), and the 64-bit
 payload rule: JAX canonicalizes a float64 leaf to float32 inside ``jit``
 without a word, torch keeps a float64 tensor as it is, so a 64-bit
-payload is no silent bug here. ``per_rank_kwargs`` is refused until the
-launcher takes rank-private payloads.
+payload is no silent bug here. The payload's values (``kwargs`` and,
+for a gang of rank-private payloads, each rank's ``per_rank_kwargs``
+entry) take the capture rule in its place: a device tensor or a live
+Spark handle shipped as a value pickles as badly as one captured.
 """
 
 import sys
@@ -129,19 +131,29 @@ def _closure_findings(main):
     return findings
 
 
+def _payload_findings(kwargs, where):
+    findings = []
+    for name, value in sorted((kwargs or {}).items()):
+        f = _classify(name, value, where)
+        if f:
+            findings.append(f)
+    return findings
+
+
 def preflight_lint(main, kwargs, per_rank_kwargs=None):
     """Run the pre-flight lint; returns the findings (possibly empty)
     or raises :class:`PreflightLintError` on any ERROR. No-op (returns
-    None) unless :data:`ENABLED`. ``kwargs`` is taken for the JAX
-    signature: its 64-bit payload rule has no counterpart here (module
-    docstring)."""
-    if per_rank_kwargs is not None:
-        raise NotImplementedError(
-            "preflight_lint(per_rank_kwargs=) is not ported: the launcher "
-            "takes no rank-private payloads yet (ROADMAP A7b)")
+    None) unless :data:`ENABLED`. ``kwargs`` and each entry of
+    ``per_rank_kwargs`` (the launcher's rank-private payloads) get the
+    same payload check, as in the JAX package; here that check is the
+    capture rule on their values (module docstring)."""
     if not ENABLED:
         return None
-    findings = _closure_findings(main)  # every capture is an ERROR
+    # every capture is an ERROR
+    findings = _payload_findings(kwargs, "run() kwargs")
+    for r, own in enumerate(per_rank_kwargs or ()):
+        findings.extend(_payload_findings(own, f"per_rank_kwargs[{r}]"))
+    findings.extend(_closure_findings(main))
     if findings:
         raise PreflightLintError(findings)
     return findings

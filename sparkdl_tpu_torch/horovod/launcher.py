@@ -113,9 +113,21 @@ kind the gang runs on and ships its settings to every rank with the
 rank settings, under the operator's: a relaunched attempt gets them
 again.
 
-Per-rank kwargs of the JAX launcher are not ported; nor are its comms
-and fixit pre-flight reports, the producers of ``comms_report.json`` and
-``fixit_report.json``.
+**Per-rank kwargs.** ``launch_gang(per_rank_kwargs=[...])`` gives each
+rank ``kwargs`` updated with its own entry, cloudpickled into its own
+payload and boot stream, so that rank-private data (a dataset shard) is
+shipped only to its worker; without it the one payload is written once,
+as before. The list's length must be the gang's: checked before anything
+is spawned (``np > 0``) and again once each attempt's world is resolved,
+an elastic relaunch to another size included (a ValueError, never
+retried). Such a gang opts out of the Spark barrier job, which would
+drop the rank-private payloads (the partition-resident estimator path,
+:func:`~sparkdl_tpu_torch.horovod.spark_backend.
+maybe_launch_estimator_on_spark`, ships data a partition instead). The
+payload-size warning applies to each rank's payload.
+
+Not ported: the JAX launcher's comms and fixit pre-flight reports, the
+producers of ``comms_report.json`` and ``fixit_report.json``.
 """
 
 import json
@@ -437,14 +449,21 @@ def _tail(path, n=40):
         return ""
 
 
-def launch_gang(np, main, kwargs, driver_log_verbosity, *, policy=None,
-                attach=None, cancel=None):
+def _check_per_rank(per_rank_kwargs, num_workers):
+    if per_rank_kwargs is not None and len(per_rank_kwargs) != num_workers:
+        raise ValueError(f"per_rank_kwargs has {len(per_rank_kwargs)} "
+                         f"entries for a gang of {num_workers}")
+
+
+def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
+                *, policy=None, attach=None, cancel=None):
     """Run ``main(**kwargs)`` on a gang of workers (``np`` as
     :class:`~sparkdl_tpu_torch.horovod.runner_base.HorovodRunner` takes
     it, ``np != -1``) and return rank 0's return value, relaunching a
     gang that fails transiently as the supervisor's policy allows
     (``policy``; None: :data:`~sparkdl_tpu_torch.horovod.supervisor.
-    policy`).
+    policy`). ``per_rank_kwargs``: a list of dicts, one a rank, each
+    merged into ``kwargs`` for its rank alone (module docstring).
 
     ``attach(server)`` is called with each local or remote attempt's
     control plane (:class:`~sparkdl_tpu_torch.horovod.control_plane.
@@ -471,13 +490,23 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, *, policy=None,
     # that cannot cross the pickle refuses the launch before the
     # supervisor loop, the slot claims, the payload and any spawn — a
     # retry would only spend its budget on the same failure
-    preflight_lint(main, kwargs)
-    payload = cloudpickle.dumps((main, kwargs))
-    if len(payload) > LARGE_PAYLOAD_BYTES:
+    if np > 0:
+        _check_per_rank(per_rank_kwargs, np)
+    preflight_lint(main, kwargs, per_rank_kwargs=per_rank_kwargs)
+    if per_rank_kwargs is None:
+        payload = cloudpickle.dumps((main, kwargs))
+        largest = len(payload)
+    else:
+        # one payload a rank: its shard reaches its worker alone
+        payload = [cloudpickle.dumps((main, {**kwargs, **own}))
+                   for own in per_rank_kwargs]
+        largest = max(len(p) for p in payload)
+    if largest > LARGE_PAYLOAD_BYTES:
         logger.warning(
-            "Pickled main + kwargs is %.1f MB; large closures make "
+            "Pickled main + kwargs is %.1f MB%s; large closures make "
             "HorovodRunner jobs slow to start. Move data loading inside "
-            "main().", len(payload) / 2**20)
+            "main().", largest / 2**20,
+            "" if per_rank_kwargs is None else " for one rank")
     from sparkdl_tpu_torch import observe
 
     telemetry = alert_engine = forensics = None
@@ -534,7 +563,8 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
                       telemetry=None, alerts=None, forensics=None,
                       world=None, controller=None, attach=None,
                       cancel=None):
-    """One launch attempt of the cloudpickled ``(main, kwargs)``, its
+    """One launch attempt of the cloudpickled ``(main, kwargs)`` (a
+    list of them, one a rank, for per-rank kwargs), its
     workers told ``restart`` (a RestartContext), their telemetry into
     ``telemetry`` (a GangTelemetry, or None), polled by ``alerts`` (an
     AlertEngine, or None), captures through ``forensics`` (a
@@ -552,7 +582,9 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
     if np == 0:
         logger.warning("HorovodRunner(np=0) is deprecated (reference "
                        "README.md:57-61); using every task slot.")
-    if np >= 0:
+    per_rank = isinstance(payload, list)
+    # per-rank payloads opt out of the barrier job, which would drop them
+    if np >= 0 and not per_rank:
         try:
             from sparkdl_tpu_torch.horovod.spark_backend import (
                 maybe_launch_on_spark,
@@ -583,6 +615,8 @@ def _launch_gang_once(np, payload, driver_log_verbosity, restart,
                 else _resolve_num_workers(int(world), spec))
         logger.info("elastic relaunch: gang world resized to np=%d (%s "
                     "mode)", num_workers, mode)
+    if per_rank:
+        _check_per_rank(payload, num_workers)
     placement = (spec.first(num_workers) if spec is not None
                  and mode == "cluster" else Placement.single_host(num_workers))
     remote = sorted({h for h, _ in placement.hosts if not is_local_host(h)})
@@ -635,7 +669,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
     )
 
     job_dir = tempfile.mkdtemp(prefix="sparkdl-torch-job-")
-    boot_path = os.path.join(job_dir, "boot.bin")
+    payloads = payload if isinstance(payload, list) else [payload]
+    boot_paths = [os.path.join(job_dir, f"boot-{i}.bin")
+                  for i in range(len(payloads))]
     store = server = detector = statusz = None
     procs, boot_logs = [], []
     record_attempt_world(num_workers)
@@ -699,11 +735,12 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
         if settings:
             args += ["--rank-settings", json.dumps(settings)]
         python = REMOTE_PYTHON or sys.executable
-        # the workers' boot stream: the secret's line, then the payload;
-        # each worker's stdin opens it anew, and it is unlinked once they
-        # are spawned
-        with open(boot_path, "wb") as f:
-            f.write(server.secret.encode() + b"\n" + payload)
+        # the workers' boot stream: the secret's line, then the payload
+        # (one for all, or one a rank); each worker's stdin opens it anew,
+        # and it is unlinked once they are spawned
+        for path, body in zip(boot_paths, payloads):
+            with open(path, "wb") as f:
+                f.write(server.secret.encode() + b"\n" + body)
         for r in range(num_workers):
             env = _worker_env(
                 os.environ, rank=r, size=num_workers, placement=placement,
@@ -720,11 +757,12 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
             boot_log = open(os.path.join(job_dir, f"rank-{r}.log"), "ab",
                             buffering=0)
             boot_logs.append(boot_log)
-            with open(boot_path, "rb") as boot_in:
+            with open(boot_paths[r % len(boot_paths)], "rb") as boot_in:
                 procs.append(subprocess.Popen(
                     cmd, env=env, stdin=boot_in, stdout=boot_log,
                     stderr=subprocess.STDOUT))
-        os.unlink(boot_path)
+        for path in boot_paths:
+            os.unlink(path)
         observe.instant("gang.spawn", cat="launch", num_workers=num_workers,
                         mode=mode, job_dir=job_dir)
 
@@ -822,8 +860,9 @@ def _run_gang(num_workers, mode, placement, remote, shell, master_addr,
             p.wait()
         for f in boot_logs:
             f.close()
-        if os.path.exists(boot_path):
-            os.unlink(boot_path)  # the secret outlives no launch
+        for path in boot_paths:
+            if os.path.exists(path):
+                os.unlink(path)  # the secret outlives no launch
         if server is not None:
             server.close()
         del store  # closes the rendezvous store's server

@@ -1,7 +1,7 @@
-"""Spark barrier-mode backend of ``HorovodRunner(np >= 0)``.
+"""Spark barrier-mode backend of ``HorovodRunner(np >= 0)`` and of the
+estimators.
 
-Counterpart of ``sparkdl_tpu/horovod/spark_backend.py`` up to
-``maybe_launch_on_spark``. It runs the reference's documented behavior
+Counterpart of ``sparkdl_tpu/horovod/spark_backend.py``. It runs the reference's documented behavior
 (``runner_base.py:54-61``): the gang is "the 2nd spark job started by
 HorovodRunner", launched with barrier scheduling so that all ``np``
 tasks start together, one task a slot, failing fast when ``np`` exceeds
@@ -32,11 +32,22 @@ gang binds ``cuda:LOCAL_RANK`` and raises without it
 (``launcher.WORKER_DEVICE = "cpu"`` runs the tasks on the CPU): Spark's
 GPU resource addresses are not read.
 
+The estimators ride the same barrier job
+(:func:`maybe_launch_estimator_on_spark`): the DataFrame is
+repartitioned to one partition a worker when it needs to be, and each
+task hands its own partition's rows, as a pandas frame built on the
+executor, to ``main`` as its first argument, so the driver never holds
+the dataset. Their inference is :func:`maybe_transform_on_spark`:
+``mapInPandas`` over the model's pandas closure, broadcast cloudpickled
+by its caller, with no gang at all. Each task's device is the driver's
+decision, shipped in the closure, as for a HorovodRunner gang.
+
 This module imports pyspark at module scope on purpose: the launcher
 imports it under ``try/except ImportError`` and launches from the
 driver's host when there is no pyspark.
 """
 
+import functools
 import os
 
 from pyspark import BarrierTaskContext
@@ -50,12 +61,15 @@ class SparkGangResult:
 
 def _barrier_main(payload, control_addr, control_secret, master_addr,
                   master_port, device, restart, telemetry=None,
-                  settings=None):
+                  settings=None, pass_partition=False):
     """The function each barrier task runs on its partition (executor
     side); it returns ``[rank 0's cloudpickled result]`` on rank 0 and
-    nothing elsewhere."""
+    nothing elsewhere. ``pass_partition``: the task's rows, as a pandas
+    frame built here on the executor (None for an empty partition), are
+    ``main``'s first argument (the partition-resident estimator data
+    path, reference ``xgboost.py:58-80``)."""
 
-    def run_partition(_rows):
+    def run_partition(rows):
         import tempfile
 
         import cloudpickle
@@ -70,6 +84,18 @@ def _barrier_main(payload, control_addr, control_secret, master_addr,
             placement_from_task_hosts,
         )
 
+        def load_payload():
+            main, kwargs = cloudpickle.loads(payload)
+            if pass_partition:
+                main = functools.partial(main, partition_pdf)
+            return main, kwargs
+
+        partition_pdf = None
+        if pass_partition:
+            import pandas as pd
+
+            rows = [r.asDict() for r in rows]
+            partition_pdf = pd.DataFrame(rows) if rows else None
         ctx = BarrierTaskContext.get()
         rank = ctx.partitionId()
         infos = ctx.getTaskInfos()
@@ -95,7 +121,7 @@ def _barrier_main(payload, control_addr, control_secret, master_addr,
             pickled = run_rank(
                 ControlPlaneClient(control_addr, rank, control_secret),
                 log_path=log_path, device=device, restart=restart,
-                load_payload=lambda: cloudpickle.loads(payload),
+                load_payload=load_payload,
                 send_result=False, parent_death=False, telemetry=telemetry,
                 settings=settings)
         finally:
@@ -124,9 +150,13 @@ def _check_slots(sc, num_workers):
 
 
 def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
-                     restart, device, telemetry=None):
+                     restart, device, telemetry=None, rdd=None,
+                     pass_partition=False):
     """The barrier job: control plane and store on the driver, the
-    payload in the closure, rank-tagged failures, rank 0's result."""
+    payload in the closure, rank-tagged failures, rank 0's result. ``rdd``
+    (a barrier RDD of ``num_workers`` partitions; None: one of
+    ``range(num_workers)``) and ``pass_partition`` as
+    :func:`_barrier_main` takes it."""
     import tempfile
 
     import cloudpickle
@@ -148,12 +178,14 @@ def _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
         master_addr = server.address.rsplit(":", 1)[0]
         store = dist.TCPStore(master_addr, 0, is_master=True,
                               wait_for_workers=False)
-        rdd = sc.parallelize(range(num_workers), num_workers).barrier()
+        if rdd is None:
+            rdd = sc.parallelize(range(num_workers), num_workers).barrier()
         try:
             pickled = rdd.mapPartitions(_barrier_main(
                 payload, server.address, server.secret, master_addr,
                 store.port, device, restart,
-                observe.worker_settings(), rank_settings())).collect()
+                observe.worker_settings(), rank_settings(),
+                pass_partition=pass_partition)).collect()
         except Exception as e:
             # the ranks' own tracebacks, not Spark's opaque task failure
             # (reference runner_base.py:62-72)
@@ -194,3 +226,90 @@ def maybe_launch_on_spark(num_workers, payload, driver_log_verbosity,
     _check_slots(sc, num_workers)
     return _run_barrier_job(sc, num_workers, payload, driver_log_verbosity,
                             restart, device, telemetry=telemetry)
+
+
+def maybe_launch_estimator_on_spark(dataset, num_workers, main, kwargs,
+                                    driver_log_verbosity,
+                                    force_repartition=False):
+    """Partition-resident estimator training (reference
+    ``xgboost.py:58-80``): ``main(partition_pdf, **kwargs)`` on a barrier
+    job of ``num_workers`` tasks over ``dataset``'s partitions, each task
+    handed its own partition's rows; the DataFrame is repartitioned to
+    ``num_workers`` partitions when its count differs or
+    ``force_repartition`` asks (the reshuffle of reference
+    ``xgboost.py:72-80``). The slots are checked first (fail fast). The
+    tasks' device is the driver's decision (``launcher.rank_device``).
+    Returns a :class:`SparkGangResult`, or None when no SparkSession is
+    active."""
+    import cloudpickle
+
+    from sparkdl_tpu_torch.horovod import RestartContext
+    from sparkdl_tpu_torch.horovod.launcher import rank_device
+
+    spark = SparkSession.getActiveSession()
+    if spark is None:
+        return None
+    sc = spark.sparkContext
+    _check_slots(sc, num_workers)
+    if force_repartition or dataset.rdd.getNumPartitions() != num_workers:
+        dataset = dataset.repartition(num_workers)
+    return _run_barrier_job(
+        sc, num_workers, cloudpickle.dumps((main, kwargs)),
+        driver_log_verbosity, RestartContext(0, None),
+        rank_device("cluster"), rdd=dataset.rdd.barrier(),
+        pass_partition=True)
+
+
+def _has_udt(dt):
+    """A user-defined type (a pyspark.ml Vector among them) at any depth
+    of ``dt``: Arrow, ``mapInPandas``' transport, cannot convert one."""
+    if type(dt).__name__.endswith("UDT"):
+        return True
+    if hasattr(dt, "elementType"):
+        return _has_udt(dt.elementType)
+    if hasattr(dt, "fields"):
+        return any(_has_udt(f.dataType) for f in dt.fields)
+    return False
+
+
+def maybe_transform_on_spark(dataset, get_broadcast, extra_cols):
+    """Executor-side inference through ``mapInPandas``: the partitions'
+    pandas batches go through the model's pandas -> pandas closure, with
+    the output schema given explicitly (no schema-inference job), and the
+    driver never holds the dataset. ``get_broadcast(spark)`` returns a
+    Broadcast of the cloudpickled closure (bytes: Spark's broadcast
+    serializer is plain pickle), owned and cached by the caller, so that
+    repeated transforms reuse one executor-resident copy. ``extra_cols``:
+    ``[(name, "double" | "array<double>"), ...]`` that the closure
+    appends; an input column of the same name is replaced. Returns None
+    when no SparkSession is active, or when a column holds a
+    user-defined type (the caller's driver-side path reads those)."""
+    from pyspark.sql.types import (
+        ArrayType,
+        DoubleType,
+        StructField,
+        StructType,
+    )
+
+    spark = SparkSession.getActiveSession()
+    if spark is None:
+        return None
+    if any(_has_udt(f.dataType) for f in dataset.schema.fields):
+        return None
+    extra_names = {name for name, _ in extra_cols}
+    schema = StructType(
+        [f for f in dataset.schema.fields if f.name not in extra_names]
+        + [StructField(name, ArrayType(DoubleType())
+                       if typ == "array<double>" else DoubleType(), True)
+           for name, typ in extra_cols])
+    names = [f.name for f in schema.fields]
+    bc = get_broadcast(spark)
+
+    def run(batches):
+        import cloudpickle
+
+        fn = cloudpickle.loads(bc.value)  # once a partition task
+        for pdf in batches:
+            yield fn(pdf)[names]
+
+    return dataset.mapInPandas(run, schema)

@@ -41,8 +41,9 @@ CLI::
     python -m sparkdl_tpu_torch.perf.autotune --bench train --dry-run
 
 ``--bench`` is ``serve`` (the paged int8 engine behind a
-``FleetFrontend``) or ``train`` (the LoRA step); ``gbdt`` and
-``attention`` are refused by name. A trial runs on the card unless
+``FleetFrontend``), ``train`` (the LoRA step) or ``gbdt`` (the
+estimators' fit and transform, ``gbdt_bench``'s harness); ``attention``
+is refused by name. A trial runs on the card unless
 ``--bench-arg=--device=cpu``.
 """
 
@@ -230,12 +231,21 @@ class TrainRunner(SubprocessTrialRunner):
         }
 
 
-RUNNERS = {"serve": ServeRunner, "train": TrainRunner}
+class GbdtRunner(SubprocessTrialRunner):
+    """The JAX ``gbdt_bench.py`` harness on the port's
+    ``XgboostClassifier`` (:func:`~sparkdl_tpu_torch.perf.trial.gbdt`);
+    rows x trees a second of a fit is the primary metric, and the
+    predict throughput rides the whole-record verification."""
+
+    bench = "gbdt"
+    ledger_bench = "gbdt_bench"
+    primary_metric = "gbdt_fit_rows_per_sec"
+
+
+RUNNERS = {"serve": ServeRunner, "train": TrainRunner, "gbdt": GbdtRunner}
 
 # benches of the JAX autotuner this port refuses, and why
 REFUSED_BENCHES = {
-    "gbdt": "the gbdt trial needs the GBDT booster, which is not ported "
-            "yet (ROADMAP A7b)",
     "attention": "the attention trial tunes the TPU flash tiles "
                  "SPARKDL_TPU_FLASH_BLOCK_Q and _KV; the Hopper flash "
                  "kernels' tiles are fixed, so there is nothing to tune",

@@ -235,7 +235,7 @@ def profile_settings_delta(doc, current=None):
     delta = {}
     for name, value in sorted(doc.get("knobs", {}).items()):
         kb = knob_reg.get(name)
-        if kb is None or not kb.tunable or kb.unported:
+        if kb is None or not kb.tunable:
             logger.warning(
                 "perf profile names %r, which is not a registered "
                 "tunable setting — skipped (a profile is not a path to "

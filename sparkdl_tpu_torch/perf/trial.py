@@ -3,7 +3,7 @@ metrics appended as one ledger line to the history the caller names.
 
 Run as::
 
-    python -m sparkdl_tpu_torch.perf.trial serve|train \\
+    python -m sparkdl_tpu_torch.perf.trial serve|train|gbdt \\
         --settings '{"sparkdl_tpu_torch.perf.trial.SERVE_DECODE_CHUNK": 8}' \\
         --history PATH [--device cuda|cpu] [--layers N] [--config NAME]
 
@@ -12,11 +12,13 @@ Run as::
 process's life: they are how the autotuner's overrides reach a trial
 (not the environment). The run writes nothing but its line in
 ``--history`` (through ``observe.perf.append_history``, tagged
-``bench="trial:<bench>"``) and one JSON line on stdout. It is the
+``bench="trial:<bench>"``, ``gbdt_bench`` for gbdt) and one JSON line
+on stdout. It is the
 autotuner's harness, not a benchmark. A trial runs on the card unless
 ``--device cpu``; ``--config`` is ``llama3_8b`` (Meta's published
-widths, the default) or ``tiny``; ``--layers`` cuts the depth (the
-widths stay).
+widths, the default) or ``tiny`` (for gbdt: the JAX bench's smoke
+shape); ``--layers`` cuts the depth (the widths stay; serve and train
+only).
 
 - ``serve``: the JAX package's serve traffic
   (``benchmarks/serve_bench.py``: 4 streams x 4 requests, closed loop,
@@ -40,6 +42,15 @@ widths stay).
   bf16 base, AdamW on the adapters, batch 2 x 2048) with the fused
   chunked loss of :data:`LOSS_CHUNK` tokens a chunk, one warm-up step
   and 5 timed ones. Metric: ``train_step_ms`` (a sample a step).
+- ``gbdt``: the JAX package's ``benchmarks/gbdt_bench.py`` on the port's
+  ``XgboostClassifier`` (``sparkdl_tpu_torch.xgboost.DEVICE`` set to the
+  trial's device): 100,000 x 32 float32 rows from a seed (4 informative
+  features), a pandas frame, 20 trees of depth 5 with
+  :data:`GBDT_MAX_BINS` bins; one warm fit, then 4 timed fits, each
+  followed by a timed ``transform`` of the same frame (the ``tiny``
+  config: 2,000 x 8, 3 trees of depth 3). Metrics:
+  ``gbdt_fit_rows_per_sec`` (rows x trees over a fit's seconds, the
+  primary) and ``gbdt_predict_rows_per_sec``, a sample a rep each.
 """
 
 import argparse
@@ -60,6 +71,7 @@ SERVE_DECODE_CHUNK = 16    # SPARKDL_TPU_SERVE_DECODE_CHUNK
 SERVE_REPLICAS = 1         # SPARKDL_TPU_SERVE_REPLICAS
 SERVE_MAX_QUEUE = None     # SPARKDL_TPU_SERVE_MAX_QUEUE (None: 4x slots)
 SERVE_QUANT = "int8"       # SPARKDL_TPU_SERVE_QUANT ("" is bf16)
+GBDT_MAX_BINS = 256        # SPARKDL_TPU_GBDT_MAX_BINS (the bench's only)
 
 # the JAX serve traffic's full shape (serve_bench.py main())
 STREAMS = 4
@@ -72,6 +84,10 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 5
 SEED = 0
 REQUEST_TIMEOUT_S = 600.0
+# gbdt_bench.py's shapes, (rows, features, trees, depth): full and tiny
+GBDT_SHAPE = (100_000, 32, 20, 5)
+GBDT_TINY_SHAPE = (2_000, 8, 3, 3)
+GBDT_REPS = 4
 
 def apply_settings(settings):
     """Set ``{"dotted.name": value}`` on their modules for the process's
@@ -82,8 +98,6 @@ def apply_settings(settings):
         kb = knobs.get(name)
         if kb is None:
             raise SystemExit(f"trial: {name!r} is not a registered setting")
-        if kb.unported:
-            raise NotImplementedError(f"{name}: {kb.unported}")
         module, attr = name.rsplit(".", 1)
         setattr(knobs.owner(module), attr, value)
 
@@ -359,7 +373,61 @@ def train(device, config="llama3_8b", layers=None):
     return metrics, extra
 
 
-HARNESSES = {"serve": serve, "train": train}
+def gbdt(device, config="llama3_8b", layers=None):
+    """The gbdt trial (module docstring); returns the ledger metrics and
+    the record's extra fields."""
+    import pandas as pd
+
+    import sparkdl_tpu_torch.xgboost as xgb
+    from sparkdl_tpu_torch.observe import perf
+
+    if layers is not None:
+        raise NotImplementedError("the gbdt trial takes no --layers")
+    tiny = config == "tiny"
+    n, f, trees, depth = GBDT_TINY_SHAPE if tiny else GBDT_SHAPE
+    rng = np.random.RandomState(SEED)
+    X = rng.randn(n, f).astype(np.float32)
+    y = (X[:, :4].sum(axis=1) + 0.1 * rng.randn(n) > 0).astype(np.float32)
+    df = pd.DataFrame({"features": list(X), "label": y})
+    xgb.DEVICE = device.type
+
+    def one_fit():
+        clf = xgb.XgboostClassifier(n_estimators=trees, max_depth=depth,
+                                    max_bin=GBDT_MAX_BINS)
+        t = time.perf_counter()
+        model = clf.fit(df)
+        return model, time.perf_counter() - t
+
+    # the warm fit: first-call costs are not training throughput
+    model, warm_fit_s = one_fit()
+    fit_s, pred_s = [], []
+    for _ in range(GBDT_REPS):
+        model, dt = one_fit()
+        fit_s.append(dt)
+        t = time.perf_counter()
+        out = model.transform(df)
+        pred_s.append(time.perf_counter() - t)
+    acc = float((out["prediction"] == df["label"]).mean())
+    if acc < 0.6:
+        raise RuntimeError(f"gbdt trial: train accuracy collapsed ({acc})")
+    metrics = {
+        "gbdt_fit_rows_per_sec": perf.sample_metric(
+            [n * trees / s for s in fit_s], unit="rows*trees/sec",
+            higher_is_better=True, digits=1),
+        "gbdt_predict_rows_per_sec": perf.sample_metric(
+            [n / s for s in pred_s], unit="rows/sec",
+            higher_is_better=True, digits=1)}
+    extra = {"rows": n, "features": f, "trees": trees, "max_depth": depth,
+             "max_bins": GBDT_MAX_BINS, "tiny": tiny,
+             "warm_fit_sec": warm_fit_s, "fit_sec": fit_s,
+             "predict_sec": pred_s, "train_accuracy": acc}
+    return metrics, extra
+
+
+HARNESSES = {"serve": serve, "train": train, "gbdt": gbdt}
+# the ledger tag of each harness's line (gbdt keeps the JAX bench's)
+LEDGER_BENCH = {"serve": "trial:serve", "train": "trial:train",
+                "gbdt": "gbdt_bench"}
 
 
 def main(argv=None):
@@ -380,7 +448,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card")
     ap.add_argument("--config", default="llama3_8b",
-                    choices=("llama3_8b", "tiny"))
+                    choices=("llama3_8b", "tiny"),
+                    help="tiny: the small shapes (gbdt: the JAX bench's "
+                         "smoke shape)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model's depth (the widths stay)")
     args = ap.parse_args(argv)
@@ -390,7 +460,7 @@ def main(argv=None):
     metrics, extra = HARNESSES[args.bench](device, args.config, args.layers)
     extra["settings"] = args.settings or {}
     rec = perf.history_record(metrics, device_kind=_device_kind(device),
-                              bench=f"trial:{args.bench}", extra=extra)
+                              bench=LEDGER_BENCH[args.bench], extra=extra)
     if perf.append_history(rec, args.history) is None:
         raise SystemExit(f"trial: could not append to {args.history}")
     print(json.dumps({"bench": args.bench, "extra": extra,

@@ -65,18 +65,17 @@ class Knob:
     benches: tuple = ()  # trial harnesses that honor it: serve|train|gbdt
     component: str = None  # attribution component gating its relevance
     env: str = None      # the JAX knob it stands for
-    unported: str = None  # set: the setting does not exist yet, and why
 
 
 def _build():
     def k(name, type_, default=None, subsystem="misc", help_="", *,
           env=None, tunable=False, trial_values=(), benches=(),
-          component=None, unported=None):
+          component=None):
         return Knob(name=f"{_PKG}.{name}", type=type_, default=default,
                     subsystem=subsystem, help=help_, tunable=tunable,
                     trial_values=tuple(trial_values),
                     benches=tuple(benches), component=component,
-                    env=env and f"SPARKDL_TPU_{env}", unported=unported)
+                    env=env and f"SPARKDL_TPU_{env}")
 
     knobs = [
         # -- tunable performance settings (the autotune search space) --
@@ -110,10 +109,10 @@ def _build():
           "serve trial's weights: '' (bf16) | int8 | int4 weight-only",
           env="SERVE_QUANT", tunable=True, trial_values=("", "int8"),
           benches=("serve",)),
-        k("xgboost.MAX_BINS", "int", 256, "gbdt",
-          "GBDT histogram bin count", env="GBDT_MAX_BINS", tunable=True,
-          trial_values=(64, 128, 256), benches=("gbdt",),
-          unported="the GBDT booster is not ported yet (ROADMAP A7b)"),
+        k("perf.trial.GBDT_MAX_BINS", "int", 256, "gbdt",
+          "gbdt trial's histogram bin count (max_bin of its estimator)",
+          env="GBDT_MAX_BINS", tunable=True, trial_values=(64, 128, 256),
+          benches=("gbdt",)),
 
         # -- perf platform --------------------------------------------
         k("perf.profile.PROFILE", "path", None, "perf",
@@ -123,6 +122,18 @@ def _build():
         k("observe.perf.HISTORY_PATH", "path", None, "perf",
           "the regression ledger (history.jsonl; None: none)",
           env="PERF_HISTORY"),
+
+        # -- the GBDT estimators --------------------------------------
+        k("xgboost.DEVICE", "str", None, "gbdt",
+          "the estimators' device: None (the card, or a gang rank's "
+          "bound device) or 'cpu'"),
+        k("xgboost.xgboost.STRICT_SLOTS", "bool", False, "gbdt",
+          "num_workers beyond the task slots fails instead of an "
+          "oversubscribed local gang", env="XGB_STRICT_SLOTS"),
+        k("xgboost.xgboost.VAL_GATHER_WARN_BYTES", "int", 256 << 20,
+          "gbdt", "partition-resident fit: warn when gathering the "
+          "validation rows to every worker passes this many bytes",
+          env="VAL_GATHER_WARN_BYTES"),
 
         # -- gang wiring (launcher) ------------------------------------
         k("horovod.launcher.HOSTS", "str", None, "gang",
@@ -403,9 +414,6 @@ UNMAPPED = {f"SPARKDL_TPU_{name}": reason for name, reason in {
     "JOB_DIR": "the job dir is a worker's --job-dir argument",
     "FORCE_PLATFORM": "the device reaches a worker as its --device "
                       "argument",
-    "VAL_GATHER_WARN_BYTES": "the estimators' validation gather is not "
-                             "ported (ROADMAP A7b)",
-    "XGB_STRICT_SLOTS": "the estimators are not ported (ROADMAP A7b)",
     "MAX_RESTARTS": "legacy alias of GANG_MAX_RETRIES: "
                     "RetryPolicy.max_retries",
     "RESTART_ATTEMPT": "the restart context is a worker's --attempt",
@@ -496,8 +504,6 @@ def read(name):
     if kb is None:
         raise KeyError(f"unregistered setting {name!r}; add it to "
                        "sparkdl_tpu_torch.utils.knobs.KNOBS")
-    if kb.unported:
-        raise NotImplementedError(f"{name}: {kb.unported}")
     module, attr = name.rsplit(".", 1)
     return getattr(owner(module), attr)
 

@@ -7,8 +7,9 @@ knob with no port setting is a stub knob with the same fields on both
 sides): the same plan (the runner's calls), trials, adopted overrides,
 pruned list and profile status. Then the port's own: the ledger
 read-back by bench tag, the trial timeout as a failed trial, the refused
-benches, the CLI's dry run, and one real search over the ``serve``
-harness on the CPU at the tiny config (subprocess trials)."""
+bench, the gbdt search over the stub and one real gbdt trial, the CLI's
+dry run, and one real search over the ``serve`` harness on the CPU at
+the tiny config (subprocess trials)."""
 
 import json
 import os
@@ -439,9 +440,12 @@ def test_trial_timeout_is_a_failed_trial_not_a_crash(tmp_path):
 
 
 def test_runners_and_refused_benches():
-    assert sorted(at.RUNNERS) == ["serve", "train"]
-    with pytest.raises(NotImplementedError, match="A7b"):
-        at.make_runner("gbdt")
+    assert sorted(at.RUNNERS) == ["gbdt", "serve", "train"]
+    gbdt = at.make_runner("gbdt", history_path=os.devnull)
+    assert (gbdt.ledger_bench, gbdt.primary_metric) == (
+        "gbdt_bench", "gbdt_fit_rows_per_sec")
+    assert gbdt.command({})[3] == "gbdt"
+    assert "gbdt" not in at.REFUSED_BENCHES
     with pytest.raises(NotImplementedError, match="FLASH_BLOCK_Q"):
         at.make_runner("attention")
     # the train trial declares a compute-bound single process: the
@@ -450,6 +454,49 @@ def test_runners_and_refused_benches():
     overlap = knobs.get("sparkdl_tpu_torch.parallel.ring_attention.OVERLAP")
     kept, pruned = at.prune_space([(overlap, [False])], rep)
     assert not kept and pruned
+
+
+def test_gbdt_search_through_both_autotuners():
+    """The gbdt bench's one tunable setting (the trial's bin count,
+    ``SPARKDL_TPU_GBDT_MAX_BINS``) searched over the stub on both sides:
+    the same plan, trials, winner and profile."""
+    def run(side):
+        runner = StubRunner(
+            side, [({"SPARKDL_TPU_GBDT_MAX_BINS": "64"},
+                    [1300, 1301, 1302, 1303])],
+            default=[1000, 1001, 1002, 1003])
+        runner.bench = "gbdt"
+        space = side.at.derive_space("gbdt")
+        result = side.at.autotune(runner, space, log=_quiet)
+        doc = side.at.verify_and_emit(runner, result, log=_quiet)
+        return _summary(side, runner, result, doc)
+
+    got = _both(run)
+    assert [c for c in got["calls"][:3]] == [
+        {}, {"SPARKDL_TPU_GBDT_MAX_BINS": "64"},
+        {"SPARKDL_TPU_GBDT_MAX_BINS": "128"}]
+    assert got["best"] == {"SPARKDL_TPU_GBDT_MAX_BINS": "64"}
+    assert got["status"] == "verified"
+
+
+def test_gbdt_trial_on_the_cpu(tmp_path):
+    """One real gbdt trial subprocess at the JAX bench's tiny shape: its
+    ledger line, read back by the runner, under the gbdt_bench tag."""
+    from sparkdl_tpu_torch.observe import perf as operf
+
+    history = str(tmp_path / "history.jsonl")
+    bins = "sparkdl_tpu_torch.perf.trial.GBDT_MAX_BINS"
+    runner = at.GbdtRunner(history_path=history, timeout=300,
+                           extra_args=["--device=cpu", "--config=tiny"])
+    metrics = runner.run({bins: 64})
+    for name in ("gbdt_fit_rows_per_sec", "gbdt_predict_rows_per_sec"):
+        assert len(metrics[name]["samples"]) == 4 and \
+            metrics[name]["value"] > 0, name
+    (line,) = operf.read_history(history)
+    assert line["bench"] == "gbdt_bench" and runner.device_kind == "cpu"
+    assert (line["rows"], line["features"], line["trees"],
+            line["max_depth"], line["max_bins"]) == (2000, 8, 3, 3, 64)
+    assert line["settings"] == {bins: 64} and line["train_accuracy"] > 0.6
 
 
 def test_cli_dry_run_prints_the_plan(capsys):

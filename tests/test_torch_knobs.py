@@ -40,10 +40,8 @@ def test_every_jax_knob_is_mapped_or_listed_with_a_reason():
 def test_registered_setting_exists_with_its_default(name):
     kb = knobs.get(name)
     assert name.startswith("sparkdl_tpu_torch.")
-    if kb.unported:
-        with pytest.raises(NotImplementedError, match="A7b"):
-            knobs.read(name)
-        return
+    # every registered setting has its module (the GBDT bin count, the
+    # last placeholder, is the gbdt trial's since the estimators' port)
     assert knobs.read(name) == kb.default
 
 

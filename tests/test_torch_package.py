@@ -105,6 +105,12 @@ GANG_COUNTERPARTS = {
     "sparkdl_tpu_torch/observe/compare.py": "sparkdl_tpu/observe/compare.py",
     "sparkdl_tpu_torch/observe/trend.py": "sparkdl_tpu/observe/trend.py",
     "sparkdl_tpu_torch/observe/top.py": "sparkdl_tpu/observe/top.py",
+    # the GBDT estimators and the pyspark.ml stand-ins
+    **{f"sparkdl_tpu_torch/ml/{m}.py": f"sparkdl_tpu/ml/{m}.py" for m in (
+        "__init__", "param", "base", "shared", "util", "dataframe",
+        "evaluation", "pipeline", "classification")},
+    **{f"sparkdl_tpu_torch/xgboost/{m}.py": f"sparkdl_tpu/xgboost/{m}.py"
+       for m in ("__init__", "booster", "xgboost")},
 }
 
 
@@ -248,6 +254,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     for np_arg in (1, 2):
         with pytest.raises(RuntimeError, match="one worker a CUDA card"):
             HorovodRunner(np=np_arg).run(lambda: None)
+
+
+def test_the_gbdt_entry_points_default_to_cuda(no_cuda, monkeypatch):
+    """``booster.train``, ``Booster.predict_margin`` and the estimators
+    (``xgboost.DEVICE`` None) run on the card and raise without one."""
+    import pandas as pd
+
+    import sparkdl_tpu_torch.xgboost as xgb
+    from sparkdl_tpu_torch.xgboost import booster
+
+    X = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        booster.train({"n_estimators": 1}, X, y)
+    bst = booster.train({"n_estimators": 1, "max_depth": 2}, X, y,
+                        device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bst.predict_margin(X)
+    df = pd.DataFrame({"features": list(X), "label": y})
+    assert xgb.DEVICE is None
+    for est in (xgb.XgboostClassifier, xgb.XgboostRegressor):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            est(n_estimators=1).fit(df)
+    monkeypatch.setattr(xgb, "DEVICE", "cpu")
+    model = xgb.XgboostClassifier(n_estimators=1).fit(df)
+    assert len(model.transform(df)) == 40
 
 
 def test_training_entry_points_default_to_cuda(no_cuda):

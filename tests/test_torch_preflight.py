@@ -4,8 +4,9 @@ tensor stands in for a CUDA one here) or a live Spark handle is refused
 — with the JAX pre-flight's rule and severity for the same captures —
 before the launcher reaches ``subprocess.Popen`` (a tripwire, as
 ``tests/analysis/test_preflight.py`` uses), and local mode is linted
-too. The 64-bit payload rule, the graph passes and ``per_rank_kwargs``
-have no counterpart and are refused or absent by name."""
+too. The 64-bit payload rule and the graph passes have no counterpart
+and are refused or absent by name; ``kwargs`` and ``per_rank_kwargs``
+take the capture rule."""
 
 import numpy as np
 import pytest
@@ -118,8 +119,17 @@ def test_what_has_no_counterpart(lint_on):
         _noop_main, {"x": np.zeros(4, np.float64)}) == []
     with pytest.raises(JaxPreflightError):
         jax_lint(_noop_main, {"x": np.zeros(4, np.float64)}, environ=JAX_ON)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        preflight.preflight_lint(_noop_main, {}, per_rank_kwargs=[{}])
+    # per_rank_kwargs are linted as kwargs are (the JAX rule over both):
+    # here that is the capture rule, with no 64-bit half
+    assert preflight.preflight_lint(
+        _noop_main, {}, per_rank_kwargs=[{"x": np.zeros(4, np.float64)}]
+    ) == []
+    with pytest.raises(JaxPreflightError):
+        jax_lint(_noop_main, {}, per_rank_kwargs=[
+            {"x": np.zeros(4, np.float64)}], environ=JAX_ON)
+    with pytest.raises(PreflightLintError, match=r"per_rank_kwargs\[0\]"):
+        preflight.preflight_lint(_noop_main, {}, per_rank_kwargs=[
+            {"x": torch.zeros(2, device="meta")}])
     with pytest.raises(NotImplementedError, match="graph passes"):
         register_preflight(object())
     with pytest.raises(NotImplementedError, match="graph passes"):
