@@ -22,8 +22,9 @@ int8 serving path; serve and fine-tune with the telemetry on and
 diagnose a hung gang; serve through a fleet whose replica is a
 tensor-parallel gang, and train BERT-base tensor-parallel and ZeRO-3;
 tune the serving path's decode chunk with the autotuner and apply its
-profile to a gang under the lock-order sanitizer; and show every run
-went through its kernels.
+profile to a gang under the lock-order sanitizer; fit the GBDT
+estimators; prefetch host batches onto the card and bind the tf.keras
+and Keras 3 shims; and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -515,6 +516,32 @@ and on any failed check. Phases:
    ``python -m sparkdl_tpu_torch.perf.trial gbdt`` subprocess at
    ``gbdt_bench.py``'s full shape; its ledger line's rows x trees a
    second and predict rows a second.
+30. the frameworks, last, in this process (it starts no process; no
+   kernel of B1-B6 runs in it: their counts are zeroed before and must
+   stay 0). 30a: ``prefetch_to_device(device="cuda")`` over 16 batches
+   at 23b's ResNet-50 input (128 x 224 x 224 x 3 fp32, 77 MB), cycled
+   from 3 host batches made once, the producer sleeping PF_PRODUCE_S a
+   batch, each batch fed to a card step of bf16 matmuls of about that
+   time which compares it with its host batch on the card and reads a
+   scalar; beside it the serial loop (a pageable copy a batch). Gates:
+   every batch bit for bit; every copy, watched as it is issued
+   (``Tensor.to``), from pinned memory and on a stream other than the
+   step's; the prefetched loop under 2x the serial one. It prints host-to-card GB/s
+   pinned and pageable, both loops' seconds, the mean ``data.wait``
+   span a step, and its own time by part. 30b and 30c, under
+   ``HorovodRunner(np=-1)``: ``from_numpy_like`` with a CUDA bf16
+   template gives CUDA bf16, ``hvd.allreduce`` and
+   ``hvd.grouped_allreduce`` of card tensors stay on the card with their
+   dtypes; the ``frameworks`` line (tensorflow's and keras's versions,
+   or null); ``horovod.tensorflow`` and ``horovod.keras`` through
+   ``importlib`` raise an ImportError that names tensorflow or keras
+   where it is absent; where keras imports, BASELINE config 1's MNIST
+   CNN (``examples/tf_keras_mnist.py``'s layers, synthetic data, 2
+   epochs) is fit on Keras's torch backend through
+   ``horovod.keras.DistributedOptimizer``,
+   ``BroadcastGlobalVariablesCallback`` and the Keras-3 ``LogCallback``:
+   its variables on the card, its losses finite and falling, both
+   epoch lines in the log, its ms a step printed.
 
 Before it imports torch the script keeps Python's compiled bytecode in
 ``bytecode-cache/`` beside itself, for itself and every process it
@@ -795,6 +822,16 @@ GBDT_ORDER_TOL = {"same_class": 0.995, "metric_rel": 1e-3}
 GBDT_GANG_ROWS = 1_000_000
 GBDT_GANG_ROUNDS = 10
 GBDT_GANG_POINTS = 0.5
+# phase 30: the frameworks. 30a: prefetch_to_device over 16 batches at
+# ResNet-50's input (23b's 128 x 224 x 224 x 3 fp32, 77 MB), cycled from
+# a pool of 3 host batches made once, a host producer that takes
+# PF_PRODUCE_S a batch and a card step of about as long; 30c: BASELINE
+# config 1's MNIST CNN (examples/tf_keras_mnist.py: synthetic 28 x 28 x 1
+# images, batch 64, 2 epochs) on Keras's torch backend, where keras imports
+PF_BATCHES, PF_POOL = 16, 3
+PF_SHAPE = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+PF_PRODUCE_S = 0.02
+KERAS_ROWS, KERAS_BATCH, KERAS_EPOCHS = 2048, 64, 2
 HF_LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096,
                     num_hidden_layers=32, num_attention_heads=32,
                     num_key_value_heads=8, intermediate_size=14336,
@@ -8515,6 +8552,314 @@ def gbdt(torch, card):
     return report
 
 
+def _copy_gbps(torch, host, dev, reps=3):
+    """Host-to-card GB/s of ``host`` (pinned or pageable) into ``dev``,
+    the median of ``reps`` timed copies."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dev.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return host.numel() * host.element_size() / statistics.median(
+        times[1:]) / 1e9
+
+
+class _CopyWatch:
+    """While on, records each ``Tensor.to(..., non_blocking=True)`` from
+    the host onto a card: the stream it was issued on (the stream the
+    copy runs on) and whether its source was pinned."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seen = []
+
+    def __enter__(self):
+        torch, seen = self.torch, self.seen
+        self._to = orig = torch.Tensor.to
+
+        def to(t, *args, **kwargs):
+            out = orig(t, *args, **kwargs)
+            if kwargs.get("non_blocking") and out.is_cuda and not t.is_cuda:
+                seen.append((torch.cuda.current_stream(out.device).stream_id,
+                             t.is_pinned()))
+            return out
+
+        torch.Tensor.to = to
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.Tensor.to = self._to
+        return False
+
+
+def prefetch_card(torch, card):
+    """Phase 30a: ``prefetch_to_device(device="cuda")`` feeding a card
+    step, against the serial loop; every batch bit for bit its host
+    batch, the copies pinned and on a stream other than the step's."""
+    from sparkdl_tpu_torch import observe
+    from sparkdl_tpu_torch.utils import data
+
+    dev = torch.device(DEVICE)
+    marks = [time.perf_counter()]
+    rng = np.random.default_rng(SEED)
+    pool = []
+    for i in range(PF_POOL):  # a constant and a random patch: cheap
+        a = np.full(PF_SHAPE, i + 0.5, np.float32)
+        a[i] = rng.standard_normal(PF_SHAPE[1:], dtype=np.float32)
+        pool.append(a)
+    refs = [torch.from_numpy(a).to(dev) for a in pool]
+    nbytes = pool[0].nbytes
+    staging = torch.empty(PF_SHAPE, dtype=torch.float32, device=dev)
+    pinned = torch.from_numpy(pool[0]).pin_memory()
+    gbps = {"pinned": _copy_gbps(torch, pinned, staging),
+            "pageable": _copy_gbps(torch, torch.from_numpy(pool[0]),
+                                   staging)}
+    del pinned, staging
+
+    # the card step: bf16 matmuls of about the producer's time, then the
+    # batch compared with its host batch on the card, and a scalar read
+    # (as a training step reads its loss)
+    w = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16) / 90.5
+    for _ in range(3):
+        w @ w
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        w @ w
+    torch.cuda.synchronize()
+    reps = max(1, round(PF_PRODUCE_S / ((time.perf_counter() - t) / 10)))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(batch):
+        x = batch["x"]
+        y = w
+        for _ in range(reps):
+            y = y @ w
+        bad.add_((x != refs[batch["k"] % PF_POOL]).sum())
+        return float(y[0, 0].float() + x[0, 0, 0, 0])
+
+    def produce(n):
+        for k in range(n):
+            time.sleep(PF_PRODUCE_S)  # the producer's fixed work
+            yield {"x": pool[k % PF_POOL], "k": k}
+
+    step({"x": refs[0], "k": 0})
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    t = time.perf_counter()
+    for batch in produce(PF_BATCHES):
+        step({"x": torch.from_numpy(batch["x"]).to(dev), "k": batch["k"]})
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t
+
+    observe.TELEMETRY_DIR = tempfile.mkdtemp(prefix="phase30-")
+    observe.timeline().drain()
+    consumer = torch.cuda.current_stream().stream_id
+    try:
+        t = time.perf_counter()
+        seen = 0
+        with _CopyWatch(torch) as copies:
+            for batch in data.prefetch_to_device(produce(PF_BATCHES),
+                                                 device="cuda"):
+                step(batch)
+                seen += 1
+        torch.cuda.synchronize()
+        prefetched_s = time.perf_counter() - t
+        waits = [e["dur"] / 1e3 for e in observe.timeline().drain()
+                 if e["name"] == "data.wait"
+                 and e["args"].get("phase") != "prime"]
+    finally:
+        observe.TELEMETRY_DIR = None
+        observe.timeline().drain()
+    _require(seen == PF_BATCHES, f"phase 30a: {seen} of {PF_BATCHES} "
+             "batches came out of prefetch_to_device")
+    _require(int(bad) == 0, f"phase 30a: {int(bad)} elements of the "
+             "prefetched batches differ from their host batches")
+    marks.append(time.perf_counter())
+
+    copy_streams = sorted({st for st, _ in copies.seen})
+    _require(len(copies.seen) == PF_BATCHES and consumer not in copy_streams,
+             f"phase 30a: {len(copies.seen)} copies on streams {copy_streams}, "
+             f"the step on stream {consumer}")
+    _require(all(pinned for _, pinned in copies.seen),
+             "phase 30a: a prefetch copy was not from pinned memory")
+    _require(prefetched_s < 2.0 * serial_s,
+             f"phase 30a: the prefetched loop took {prefetched_s:.3f} s, "
+             f"the serial one {serial_s:.3f} s")
+    report = {"phase": "30a", "batches": PF_BATCHES, "batch_bytes": nbytes,
+              "producer_s_a_batch": PF_PRODUCE_S, "step_matmuls": reps,
+              "h2d_gbps": gbps, "serial_s": serial_s,
+              "prefetched_s": prefetched_s,
+              "prefetched_over_serial": prefetched_s / serial_s,
+              "data_wait_ms_mean": statistics.mean(waits) if waits else None,
+              "data_wait_spans": len(waits),
+              "copy_streams": copy_streams, "consumer_stream": consumer,
+              "copies_watched": len(copies.seen),
+              # the pool, the copy rates and the step's calibration; then
+              # the two loops
+              "setup_s": marks[1] - marks[0], "loops_s": marks[2] - marks[1],
+              "card": card}
+    _log("prefetch " + json.dumps(report))
+    del refs, w
+    return report
+
+
+def _versions():
+    import importlib.metadata
+
+    found = {}
+    for pkg in ("tensorflow", "keras"):
+        try:
+            found[pkg] = importlib.metadata.version(pkg)
+        except importlib.metadata.PackageNotFoundError:
+            found[pkg] = None
+    return found
+
+
+def frameworks_main(device):
+    """Phase 30b and 30c inside ``HorovodRunner(np=-1)``: the port's
+    interop and hvd on card tensors, then the framework shims through
+    ``importlib`` (the names a main imports)."""
+    import importlib
+
+    import torch
+
+    from sparkdl_tpu_torch import hvd
+    from sparkdl_tpu_torch.utils import interop
+
+    hvd.init()
+    out = {"frameworks": _versions()}
+    host = np.linspace(-2, 2, 12, dtype=np.float32).reshape(3, 4)
+    tmpl = torch.zeros(1, dtype=torch.bfloat16, device=device)
+    back = interop.from_numpy_like(host, tmpl)
+    f32 = torch.arange(6, dtype=torch.float32, device=device)
+    bf = torch.full((5,), 1.5, dtype=torch.bfloat16, device=device)
+    red = hvd.allreduce(f32)
+    grouped = hvd.grouped_allreduce([f32, bf, f32[:2]])
+    out["interop"] = {
+        "from_numpy_like": [str(back.device), str(back.dtype)],
+        "exact": bool(torch.equal(back.cpu(), torch.from_numpy(host).to(
+            torch.bfloat16))),
+        "allreduce": [str(red.device), str(red.dtype),
+                      bool(torch.equal(red, f32))],
+        "grouped": [[str(g.device), str(g.dtype), bool(torch.equal(g, x))]
+                    for g, x in zip(grouped, [f32, bf, f32[:2]])]}
+
+    refused = {}
+    for name, pkg in (("horovod.tensorflow", "tensorflow"),
+                      ("horovod.keras", "keras")):
+        if out["frameworks"][pkg] is not None:
+            refused[name] = None
+            continue
+        try:
+            importlib.import_module(name)
+            refused[name] = "imported"
+        except ImportError as e:
+            refused[name] = str(e)
+    out["refused"] = refused
+    if out["frameworks"]["keras"] is not None:
+        out["keras"] = keras_mnist(device)
+    return out
+
+
+def keras_mnist(device):
+    """BASELINE config 1's MNIST CNN (examples/tf_keras_mnist.py's
+    layers) on Keras's torch backend through ``horovod.keras``."""
+    import importlib
+
+    os.environ["KERAS_BACKEND"] = "torch"
+    hvd = importlib.import_module("horovod.keras")
+    import keras
+
+    rng = np.random.RandomState(hvd.rank())
+    x = rng.rand(KERAS_ROWS, 28, 28, 1).astype("float32")
+    y = rng.randint(0, 10, KERAS_ROWS)
+    keras.utils.set_random_seed(SEED)
+    model = keras.Sequential([
+        keras.Input((28, 28, 1)),
+        keras.layers.Conv2D(32, 3, activation="relu"),
+        keras.layers.Conv2D(64, 3, activation="relu"),
+        keras.layers.MaxPooling2D(2),
+        keras.layers.Flatten(),
+        keras.layers.Dense(128, activation="relu"),
+        keras.layers.Dense(10),
+    ])
+    model.compile(
+        optimizer=hvd.DistributedOptimizer(
+            keras.optimizers.SGD(0.05 * hvd.size())),
+        loss=keras.losses.SparseCategoricalCrossentropy(from_logits=True))
+    with _StdoutCopy() as log:
+        t = time.perf_counter()
+        hist = model.fit(x, y, batch_size=KERAS_BATCH, epochs=KERAS_EPOCHS,
+                         verbose=0, shuffle=False, callbacks=[
+                             hvd.callbacks.BroadcastGlobalVariablesCallback(0),
+                             hvd.LogCallback()])
+        wall = time.perf_counter() - t
+    steps = KERAS_EPOCHS * (KERAS_ROWS // KERAS_BATCH)
+    return {"backend": keras.backend.backend(),
+            "devices": sorted({str(v.value.device) for v in model.weights}),
+            "losses": [float(v) for v in hist.history["loss"]],
+            "lines": [ln for ln in log.seen().splitlines()
+                      if ln.startswith("Epoch ")],
+            "ms_a_step": 1e3 * wall / steps, "steps": steps}
+
+
+def frameworks(torch, card):
+    """Phase 30 (30a, 30b, 30c) in this process: none of B1-B6 may
+    launch in it."""
+    from sparkdl_tpu_torch import HorovodRunner
+
+    _zero_launches()
+    _zero_flash()
+    t = time.perf_counter()
+    pf = prefetch_card(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_bc = time.perf_counter()
+    got = HorovodRunner(np=-1).run(frameworks_main, device=DEVICE)
+    got["run_s"] = time.perf_counter() - t_bc
+    _log("frameworks " + json.dumps(got["frameworks"]))
+    ip = got["interop"]
+    _require(ip["from_numpy_like"][0].startswith(DEVICE)
+             and ip["from_numpy_like"][1] == "torch.bfloat16" and ip["exact"],
+             f"phase 30b: from_numpy_like gave {ip}")
+    _require(ip["allreduce"][0].startswith(DEVICE) and ip["allreduce"][2]
+             and all(g[0].startswith(DEVICE) and g[2]
+                     for g in ip["grouped"])
+             and [g[1] for g in ip["grouped"]] == [
+                 "torch.float32", "torch.bfloat16", "torch.float32"],
+             f"phase 30b: hvd on card tensors left the card: {ip}")
+    for name, pkg in (("horovod.tensorflow", "tensorflow"),
+                      ("horovod.keras", "keras")):
+        msg = got["refused"][name]
+        _require(msg is None or f"{name} needs the {pkg} package" in msg,
+                 f"phase 30c: {name} without {pkg}: {msg}")
+    keras_run = got.get("keras")
+    if keras_run is not None:
+        losses = keras_run["losses"]
+        _require(keras_run["backend"] == "torch"
+                 and all(d.startswith(DEVICE) for d in keras_run["devices"]),
+                 f"phase 30c: Keras on {keras_run['backend']}, variables on "
+                 f"{keras_run['devices']}")
+        _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                 f"phase 30c: the MNIST CNN's losses {losses}")
+        _require(any(ln.startswith("Epoch 0 begin")
+                     for ln in keras_run["lines"])
+                 and any(ln.startswith(f"Epoch {KERAS_EPOCHS - 1} end")
+                         for ln in keras_run["lines"]),
+                 f"phase 30c: the LogCallback's lines {keras_run['lines']}")
+    launches = {**_read_launches(), **_flash_launches()}
+    _require(not any(launches.values()),
+             f"phase 30 launched a kernel of B1-B6: {launches}")
+    report = {"prefetch": pf, **got, "launches_b1_b6": launches,
+              "wall_s": time.perf_counter() - t, "card": card}
+    _log("frameworks_30bc " + json.dumps(
+        {k: v for k, v in report.items() if k != "prefetch"}))
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -8710,6 +9055,10 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     gbdt_run = _timed("29", gbdt, torch, card)
+    # slice 23: the frameworks, in this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    frameworks_run = _timed("30", frameworks, torch, card)
     # 28c's cost: 24a's steps under the sanitizer beside 25a's healthy
     # steps (the same fine-tune with the telemetry on, no sanitizer)
     sanitizer_cost = {
@@ -8893,6 +9242,7 @@ def main(argv=None):
                        "fleet_tp": fleet_tp, "bert_mesh": bert_run,
                        "autotune": tuned, "preflight": refusal,
                        "sanitizer_cost": sanitizer_cost, "gbdt": gbdt_run,
+                       "frameworks": frameworks_run,
                        "phase_s": PHASE_S,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)

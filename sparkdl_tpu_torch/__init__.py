@@ -32,7 +32,11 @@ the CUDA device unless the caller passes ``device="cpu"``;
 job under an active SparkSession or from this host, waiting while other
 gangs hold its cards and starting the ranks of other hosts of a hosts
 spec through a remote shell; a gang's ``import horovod.torch as hvd``
-is the port's (``compat.horovod_torch``).
+is the port's, and so are ``horovod.tensorflow``,
+``horovod.tensorflow.keras``, ``horovod.keras`` (Keras 3 on its torch
+backend first) and ``sparkdl.horovod.tensorflow.keras.LogCallback``
+(``compat.horovod_torch``); ``utils.data.prefetch_to_device`` stages a
+main's host batches onto its card.
 
 Public surface as ``sparkdl_tpu/__init__.py``: ``HorovodRunner`` at the
 package root.

@@ -1,6 +1,7 @@
 """``horovod.torch`` inside a gang of the port: an unmodified PyTorch
 Horovod main (``import horovod.torch as hvd``) runs on
-:mod:`sparkdl_tpu_torch.hvd`.
+:mod:`sparkdl_tpu_torch.hvd`; and the binding of every Horovod name a
+main may import.
 
 Counterpart of ``horovod/torch/__init__.py`` and of the package above it,
 ``horovod/__init__.py``: this module carries ``horovod.torch``'s names
@@ -9,13 +10,26 @@ Counterpart of ``horovod/torch/__init__.py`` and of the package above it,
 the package's names. The port's worker installs it before it unpickles
 and runs the payload; ``HorovodRunner(np=-1)`` binds the names only for
 the length of ``run`` (:func:`bound`) and then restores what
-``sys.modules`` held. ``horovod.tensorflow`` and ``horovod.keras`` are
-not bound: importing them while the names are bound raises an
-ImportError that says so.
+``sys.modules`` held.
+
+The framework shims are bound at their first import (:data:`LAZY`):
+``horovod.tensorflow``, ``horovod.tensorflow.keras`` (with
+``.callbacks``), ``horovod.keras`` and ``horovod.keras.callbacks``, to
+the port's modules under :mod:`sparkdl_tpu_torch.compat`; and
+``sparkdl.horovod.tensorflow.keras`` (``LogCallback``) to
+:mod:`sparkdl_tpu_torch.horovod.tensorflow.keras`. A shim whose
+framework is not installed raises an ImportError that names the package
+it needs. ``sparkdl`` and ``sparkdl.horovod`` (``log_to_driver``) are
+stand-ins of the port for as long as ``horovod`` is bound, so that the
+reference README's tf.keras main runs unmodified; any other ``sparkdl``
+name raises an ImportError that names the port's module. A torch main
+imports neither tensorflow nor keras.
 """
 
 import contextlib
+import importlib
 import importlib.abc
+import importlib.util
 import sys
 import types
 
@@ -81,26 +95,116 @@ PACKAGE_NAMES = (
     "rocm_built", "shutdown", "size", "__version__",
 )
 
-# frameworks whose horovod modules a gang of the port does not bind
-REFUSED = ("horovod.tensorflow", "horovod.keras")
+# the names bound at their first import: the port's module, and the
+# package it needs
+LAZY = {
+    "horovod.tensorflow": ("sparkdl_tpu_torch.compat.horovod_tensorflow",
+                           "tensorflow"),
+    "horovod.tensorflow.keras": (
+        "sparkdl_tpu_torch.compat.horovod_tensorflow_keras", "tensorflow"),
+    "horovod.tensorflow.keras.callbacks": (
+        "sparkdl_tpu_torch.compat.horovod_tensorflow_keras_callbacks",
+        "tensorflow"),
+    "horovod.keras": ("sparkdl_tpu_torch.compat.horovod_keras", "keras"),
+    "horovod.keras.callbacks": (
+        "sparkdl_tpu_torch.compat.horovod_keras_callbacks", "keras"),
+    "sparkdl.horovod.tensorflow.keras": (
+        "sparkdl_tpu_torch.horovod.tensorflow.keras", "tensorflow"),
+}
+# the import-name roots whose modules the binding owns while it holds
+ROOTS = ("horovod", "sparkdl")
 
 
-class _RefuseFrameworks(importlib.abc.MetaPathFinder):
-    """Turns an import of an unbound framework module into an
-    ImportError that names the reason."""
+def _needs(package, name):
+    """Raise the ImportError of shim ``name`` when ``package`` cannot be
+    imported here."""
+    try:
+        found = (package in sys.modules
+                 or importlib.util.find_spec(package) is not None)
+    except (ImportError, ValueError):
+        found = False
+    if not found:
+        raise ImportError(
+            f"{name} needs the {package} package, which is not installed "
+            f"here: install {package} to run this main in a "
+            "sparkdl_tpu_torch gang, or write it against horovod.torch",
+            name=name)
+
+
+def _port_name(name):
+    """The port's module for a ``sparkdl`` name without a stand-in."""
+    return "sparkdl_tpu_torch" + name[len("sparkdl"):]
+
+
+def _not_bound(name):
+    return ImportError(
+        f"{name} is not bound in a sparkdl_tpu_torch gang: use "
+        f"{_port_name(name)}", name=name)
+
+
+class _Binder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Binds a :data:`LAZY` name to the port's module at its first
+    import (a package, so that its submodules resolve here too), and
+    turns any other ``sparkdl.*`` name into an ImportError that names
+    the port's module."""
+
+    def __init__(self):
+        self._specs = {}  # a bound module's own __spec__, while it loads
 
     def find_spec(self, name, path=None, target=None):
-        for refused in REFUSED:
-            if name == refused or name.startswith(refused + "."):
-                raise ImportError(
-                    f"{name} is not available in a sparkdl_tpu_torch gang: "
-                    "only horovod.torch is bound (PyTorch mains); "
-                    "TensorFlow and Keras mains are not ported",
-                    name=name)
+        if name in LAZY:
+            return importlib.util.spec_from_loader(name, self,
+                                                   is_package=True)
+        if name.startswith("sparkdl."):
+            raise _not_bound(name)
         return None
 
+    def create_module(self, spec):
+        module_name, package = LAZY[spec.name]
+        _needs(package, spec.name)
+        module = importlib.import_module(module_name)
+        self._specs[spec.name] = module.__spec__
+        return module
 
-_FINDER = _RefuseFrameworks()
+    def exec_module(self, module):
+        # the import system set __spec__ (and __path__ = [] where there
+        # was none): the module keeps its own spec
+        module.__spec__ = self._specs.pop(module.__spec__.name)
+
+
+_FINDER = _Binder()
+
+
+def _stand_in(name, doc, names=(), port=None):
+    """A package for ``sys.modules[name]`` that carries ``names`` (from
+    the module ``port``). A package: ``from <name> import <other>``
+    looks for the submodule ``<name>.<other>``, which the finder refuses
+    with the port's module named."""
+    mod = types.ModuleType(name, doc)
+    for attr in names:
+        setattr(mod, attr, getattr(port, attr))
+    mod.__path__ = []  # its bound submodules come from sys.modules
+    return mod
+
+
+def _sparkdl():
+    """``sparkdl``, ``sparkdl.horovod`` and ``sparkdl.horovod.tensorflow``
+    as stand-ins of the port, each its parent's attribute."""
+    from sparkdl_tpu_torch import horovod as port_horovod
+    from sparkdl_tpu_torch import version
+
+    root = _stand_in("sparkdl", "sparkdl, bound to sparkdl_tpu_torch "
+                     "(sparkdl_tpu_torch.compat.horovod_torch)",
+                     ("__version__",), version)
+    hv = _stand_in("sparkdl.horovod", "sparkdl.horovod: log_to_driver of "
+                   "sparkdl_tpu_torch.horovod",
+                   ("log_to_driver", "MAX_LOG_MESSAGE_LENGTH"), port_horovod)
+    tf = _stand_in("sparkdl.horovod.tensorflow", "sparkdl.horovod."
+                   "tensorflow: its keras submodule is "
+                   "sparkdl_tpu_torch.horovod.tensorflow.keras")
+    root.horovod, hv.tensorflow = hv, tf
+    return {"sparkdl": root, "sparkdl.horovod": hv,
+            "sparkdl.horovod.tensorflow": tf}
 
 
 def _package():
@@ -115,19 +219,22 @@ def _package():
     return pkg
 
 
-def _horovod_keys():
+def _bound_keys():
     return [k for k in sys.modules
-            if k == "horovod" or k.startswith("horovod.")]
+            if k in ROOTS or k.startswith(tuple(r + "." for r in ROOTS))]
 
 
 def install():
-    """Bind ``horovod`` and ``horovod.torch`` to the port for the rest of
-    the process (a gang worker): whatever ``horovod`` modules were
-    imported before are dropped from ``sys.modules``."""
-    for key in _horovod_keys():
+    """Bind ``horovod`` and ``horovod.torch`` to the port, the framework
+    shims at their first import, and the ``sparkdl`` stand-ins, for the
+    rest of the process (a gang worker): whatever ``horovod`` and
+    ``sparkdl`` modules were imported before are dropped from
+    ``sys.modules``."""
+    for key in _bound_keys():
         del sys.modules[key]
     sys.modules["horovod"] = _package()
     sys.modules["horovod.torch"] = sys.modules[__name__]
+    sys.modules.update(_sparkdl())
     if _FINDER not in sys.meta_path:
         sys.meta_path.insert(0, _FINDER)
 
@@ -135,14 +242,14 @@ def install():
 @contextlib.contextmanager
 def bound():
     """:func:`install` for the length of the block; afterwards
-    ``sys.modules`` holds exactly the ``horovod`` modules it held
-    before."""
-    saved = {k: sys.modules.pop(k) for k in _horovod_keys()}
+    ``sys.modules`` holds exactly the ``horovod`` and ``sparkdl``
+    modules it held before."""
+    saved = {k: sys.modules.pop(k) for k in _bound_keys()}
     try:
         install()
         yield sys.modules[__name__]
     finally:
-        for key in _horovod_keys():
+        for key in _bound_keys():
             del sys.modules[key]
         sys.modules.update(saved)
         if _FINDER in sys.meta_path:

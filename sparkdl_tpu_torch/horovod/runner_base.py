@@ -20,9 +20,14 @@ constructor is keyword-only ``(*, np, driver_log_verbosity=
 - ``np == 0``: deprecated, every slot.
 
 In every mode ``main`` may ``import horovod.torch as hvd`` (the
-reference's headline use): inside the run that name is
-:mod:`sparkdl_tpu_torch.compat.horovod_torch`, bound for the length of
-the call where ``main`` runs in this process.
+reference's headline use), ``horovod.tensorflow``,
+``horovod.tensorflow.keras`` or ``horovod.keras`` (Keras 3, torch
+backend first) and ``from sparkdl.horovod.tensorflow.keras import
+LogCallback``: inside the run those names are the port's
+(:mod:`sparkdl_tpu_torch.compat.horovod_torch` binds them), for the
+length of the call where ``main`` runs in this process. A framework
+shim needs its framework installed; without it, its import raises an
+ImportError that names the package.
 
 A gang (``np != -1``) runs under the supervisor
 (:mod:`sparkdl_tpu_torch.horovod.supervisor`): with its ``policy`` at the

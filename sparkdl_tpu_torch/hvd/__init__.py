@@ -8,9 +8,9 @@ collectives). ``init()`` joins the gang's process group; the
 collectives run on it (:mod:`sparkdl_tpu_torch.hvd._collectives` states
 their semantics, which are the JAX engine's).
 
-Tensors in and out are torch tensors or numpy arrays (anything else is
-taken through ``np.asarray``); a result has the caller's type, dtype and
-device.
+Tensors in and out are torch tensors, numpy arrays or tf tensors
+(anything else is taken through ``np.asarray``); a result has the
+caller's type, dtype and device (:mod:`sparkdl_tpu_torch.utils.interop`).
 """
 
 import hashlib
@@ -30,6 +30,7 @@ from sparkdl_tpu_torch.hvd._collectives import (
     AsyncCollective,
     resolve_op as _resolve_op,
 )
+from sparkdl_tpu_torch.utils.interop import from_numpy_like, to_numpy
 
 # Horovod-style op constants
 Average = AVERAGE
@@ -89,11 +90,14 @@ def cross_size():
 
 def _to_torch(x):
     """(torch tensor, back) where ``back(out)`` returns ``out`` in the
-    caller's type: a tensor as it is, anything else as a numpy array."""
+    caller's type: a tensor as it is, anything else through
+    :func:`~sparkdl_tpu_torch.utils.interop.from_numpy_like` (a tf
+    tensor gives a tf tensor, a Python scalar a Python scalar, the rest
+    a numpy array)."""
     if isinstance(x, torch.Tensor):
         return x, lambda out: out
-    return (torch.from_numpy(np.array(x, copy=True, order="C")),
-            lambda out: out.numpy())
+    return (torch.from_numpy(np.array(to_numpy(x), copy=True, order="C")),
+            lambda out: from_numpy_like(out.numpy(), x))
 
 
 def allreduce(tensor, average=None, name=None, op=None):
@@ -382,11 +386,15 @@ class Compression:
             return tensor
 
     class fp16:  # noqa: N801
+        # a tensor keeps its type; anything else travels as numpy, as
+        # in the JAX package (a tf tensor would be cast back up)
         @staticmethod
         def compress(tensor):
             x, back = _to_torch(tensor)
             if x.is_floating_point() and x.element_size() > 2:
-                return back(x.half()), x.dtype
+                half = x.half()
+                return (back(half) if isinstance(tensor, torch.Tensor)
+                        else half.numpy()), x.dtype
             return tensor, None
 
         @staticmethod
@@ -394,7 +402,9 @@ class Compression:
             if ctx is None:
                 return tensor
             x, back = _to_torch(tensor)
-            return back(x.to(ctx))
+            out = x.to(ctx)
+            return back(out) if isinstance(tensor, torch.Tensor) else \
+                out.numpy()
 
 
 from sparkdl_tpu_torch.hvd.optim import (  # noqa: E402  (needs the above)

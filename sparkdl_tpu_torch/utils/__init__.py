@@ -1,1 +1,2 @@
-"""Utilities of the port (``checkpoint``: train-state checkpoints)."""
+"""Utilities of the port (``checkpoint``: train-state checkpoints;
+``data``: a gang main's input; ``interop``: framework tensors)."""

@@ -231,6 +231,15 @@ def _build():
           "quiet period before training reclaims yielded cards",
           env="ELASTIC_ARBITER_CLEAR_S"),
 
+        # -- the input pipeline ----------------------------------------
+        # not tunable: no trial harness of the port reads its batches
+        # through prefetch_to_device (the JAX knob's is the cpu-proxy
+        # bench's input pipeline)
+        k("utils.data.PREFETCH_DEPTH", "int", None, "data",
+          "host-side producer queue bound of prefetch_to_device (None: "
+          "its size; deeper read-ahead for spiky producers)",
+          env="PREFETCH_DEPTH", component="data_wait"),
+
         # -- the runtime's own lints -----------------------------------
         k("analysis.preflight.ENABLED", "bool", False, "analysis",
           "launcher pre-flight: lint main's captures, refuse the launch "
@@ -377,8 +386,6 @@ _COMPILE = ("the XLA executable cache (parallel/compile.py) has no "
 
 # Every JAX knob with no port setting, and why.
 UNMAPPED = {f"SPARKDL_TPU_{name}": reason for name, reason in {
-    "PREFETCH_DEPTH": "utils/data.prefetch_to_device is not ported "
-                      "(ROADMAP A8c): phase 5 shows no input stall",
     "BENCH_NO_DONATE": "selects bench.py's undonated control step; torch "
                        "has no buffer donation and the port no bench.py",
     "PEAK_FLOPS": "the port's peaks are observe.perf.PEAK_TABLE's rows "
@@ -443,7 +450,8 @@ UNMAPPED = {f"SPARKDL_TPU_{name}": reason for name, reason in {
                              "splits over pages by its own plan",
     "KERNEL_QUANT_MATMUL": "the port launches its CUDA kernel on every "
                            "CUDA tensor: there is no fallback to select",
-    "TORCH_DLPACK": "utils/interop.py is not ported (ROADMAP A7b)",
+    "TORCH_DLPACK": "the port's torch tensors need no jax bridge; "
+                    "utils/interop.py is ported",
 }.items()}
 
 

@@ -144,11 +144,13 @@ def _battery_main(inputs):
     flat = np.concatenate(
         [p.detach().numpy().ravel() for p in model.parameters()])
     gathered = hvd_torch.allgather(flat[None, :])
-    try:
-        import horovod.keras  # noqa: F401
-        keras = "imported"
-    except ImportError as e:
-        keras = str(e)
+    # the framework shims are bound too, and a torch main pulls in no
+    # framework it does not import itself
+    import horovod.keras
+
+    keras = {"module": horovod.keras.__name__,
+             "frameworks": sorted({"tensorflow", "keras"}
+                                  & set(sys.modules))}
     out["torch_main"] = {
         "size": hvd_torch.size(), "params": flat.tolist(),
         "sync_diff": float(np.abs(gathered[0] - gathered[1]).max()),
@@ -225,7 +227,9 @@ def test_gang_collectives_logs_result_and_torch_main(capfd):
         tm = res["torch_main"]
         assert tm["size"] == 2 and tm["is_sgd"]
         assert tm["module"] == "sparkdl_tpu_torch.compat.horovod_torch"
-        assert "only horovod.torch is bound" in tm["keras"]
+        assert tm["keras"] == {
+            "module": "sparkdl_tpu_torch.compat.horovod_keras",
+            "frameworks": []}
         assert not tm["jax_loaded"]
         assert tm["sync_diff"] < 1e-6
         np.testing.assert_allclose(tm["params"], _torch_reference_step(),

@@ -7,6 +7,8 @@ hvd`` main runs on the port through ``HorovodRunner(np=-1)`` and leaves
 and the data helpers of a gang main against the JAX ones."""
 
 import ast
+import importlib
+import importlib.abc
 import json
 import pathlib
 import socket
@@ -227,20 +229,62 @@ def test_np_minus_one_runs_an_import_horovod_torch_main():
                                rtol=1e-6)
 
 
-def test_bound_names_refuse_other_frameworks_and_restore_on_error():
+class _HideFramework(importlib.abc.MetaPathFinder):
+    """A meta-path stub for which ``package`` is not installed."""
+
+    def __init__(self, package):
+        self.package = package
+
+    def find_spec(self, name, path=None, target=None):
+        if name == self.package or name.startswith(self.package + "."):
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+        return None
+
+
+def test_bound_names_refuse_other_frameworks_and_restore_on_error(
+        monkeypatch):
+    """The framework shims resolve to the port's modules; a shim whose
+    framework is missing raises an ImportError that names it; and
+    ``sys.modules`` is restored after the block, an error or not."""
+    before = {k: v for k, v in sys.modules.items()
+              if k.split(".")[0] in ("horovod", "sparkdl")}
     with pytest.raises(RuntimeError, match="boom"):
         with horovod_torch.bound():
             import horovod
             import horovod.torch as hvd
 
             assert hvd is horovod_torch and horovod.torch is horovod_torch
-            for name in ("horovod.tensorflow", "horovod.keras",
-                         "horovod.tensorflow.keras"):
-                with pytest.raises(ImportError,
-                                   match="only horovod.torch is bound"):
-                    __import__(name)
+            for name, port in horovod_torch.LAZY.items():
+                if port[1] == "keras":  # bound without importing keras
+                    assert importlib.import_module(name).__name__ == port[0]
+            # tensorflow hidden: the shims that need it say so by name
+            for key in [k for k in sys.modules
+                        if k.split(".")[0] == "tensorflow"]:
+                monkeypatch.delitem(sys.modules, key)
+            monkeypatch.setattr(sys, "meta_path",
+                                [_HideFramework("tensorflow"), *sys.meta_path])
+            # (a submodule's parent is imported first, and names itself)
+            for name, shim in (
+                    ("horovod.tensorflow", "horovod.tensorflow"),
+                    ("horovod.tensorflow.keras", "horovod.tensorflow"),
+                    ("sparkdl.horovod.tensorflow.keras",
+                     "sparkdl.horovod.tensorflow.keras")):
+                with pytest.raises(ImportError) as err:
+                    importlib.import_module(name)
+                assert str(err.value).startswith(
+                    f"{shim} needs the tensorflow package, which is not "
+                    "installed here"), str(err.value)
+            with pytest.raises(ImportError,
+                               match="use sparkdl_tpu_torch.HorovodRunner"):
+                from sparkdl import HorovodRunner  # noqa: F401
+            monkeypatch.undo()
             raise RuntimeError("boom")
+    after = {k: v for k, v in sys.modules.items()
+             if k.split(".")[0] in ("horovod", "sparkdl")}
+    assert after.keys() == before.keys()
+    assert all(after[k] is before[k] for k in before)
     assert sys.modules.get("horovod.torch") is not horovod_torch
+    assert horovod_torch._FINDER not in sys.meta_path
 
 
 def _names(path, what):

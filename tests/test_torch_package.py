@@ -61,6 +61,21 @@ GANG_COUNTERPARTS = {
         "sparkdl_tpu/utils/checkpoint.py",
     "sparkdl_tpu_torch/utils/data.py": "sparkdl_tpu/utils/data.py",
     "sparkdl_tpu_torch/compat/horovod_torch.py": "horovod/torch/__init__.py",
+    # the frameworks: the tf and Keras shims, the LogCallback, interop
+    "sparkdl_tpu_torch/compat/horovod_tensorflow.py":
+        "horovod/tensorflow/__init__.py",
+    "sparkdl_tpu_torch/compat/horovod_tensorflow_keras.py":
+        "horovod/tensorflow/keras/__init__.py",
+    "sparkdl_tpu_torch/compat/horovod_tensorflow_keras_callbacks.py":
+        "horovod/tensorflow/keras/callbacks.py",
+    "sparkdl_tpu_torch/compat/horovod_keras.py": "horovod/keras/__init__.py",
+    "sparkdl_tpu_torch/compat/horovod_keras_callbacks.py":
+        "horovod/keras/callbacks.py",
+    "sparkdl_tpu_torch/horovod/tensorflow/__init__.py":
+        "sparkdl_tpu/horovod/tensorflow/__init__.py",
+    "sparkdl_tpu_torch/horovod/tensorflow/keras.py":
+        "sparkdl_tpu/horovod/tensorflow/keras.py",
+    "sparkdl_tpu_torch/utils/interop.py": "sparkdl_tpu/utils/interop.py",
     # tensor-parallel serving and the fleet
     "sparkdl_tpu_torch/parallel/mesh.py": "sparkdl_tpu/parallel/mesh.py",
     "sparkdl_tpu_torch/parallel/sharding.py":
@@ -220,6 +235,37 @@ def test_a_port_gangs_horovod_torch_is_the_port():
             "sparkdl_tpu_torch.")
     assert not _imported_roots(REPO / "sparkdl_tpu_torch" / "compat"
                                / "horovod_torch.py") & FORBIDDEN
+
+
+_TORCH_MAIN = """
+import sys
+import sparkdl_tpu_torch
+from sparkdl_tpu_torch import HorovodRunner
+from sparkdl_tpu_torch.utils import data, interop
+
+def main():
+    import torch
+    import horovod.torch as hvd
+    hvd.init()
+    return float(hvd.allreduce(torch.ones(2), op=hvd.Sum).sum())
+
+after_import = sorted({"tensorflow", "keras"} & set(sys.modules))
+total = HorovodRunner(np=-1).run(main)
+print(after_import, sorted({"tensorflow", "keras"} & set(sys.modules)), total)
+"""
+
+
+def test_a_torch_main_imports_neither_tensorflow_nor_keras():
+    """``import sparkdl_tpu_torch`` and a torch main under the binding
+    (``HorovodRunner(np=-1)``) leave tensorflow and keras unimported: a
+    fresh process, since this one may hold them already."""
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", _TORCH_MAIN], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[] [] 2.0"
 
 
 @pytest.fixture
