@@ -24,7 +24,8 @@ tensor-parallel gang, and train BERT-base tensor-parallel and ZeRO-3;
 tune the serving path's decode chunk with the autotuner and apply its
 profile to a gang under the lock-order sanitizer; fit the GBDT
 estimators; prefetch host batches onto the card and bind the tf.keras
-and Keras 3 shims; and show every run went through its kernels.
+and Keras 3 shims; serve Llama-3.1-8B past its 8192-token original
+window; and show every run went through its kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -50,7 +51,10 @@ and on any failed check. Phases:
    dump page, and every row at 2048; then both are checked (not
    timed) at the shapes a TP=2 rank of phase 13 gives them (the int8
    matmul's local slices and its vocab-split fp32 head, the paged
-   decode on 16 q heads over 4 kv heads);
+   decode on 16 q heads over 4 kv heads); and the paged decode, checked
+   and timed beside its bound and its plain version, at phase 31a's
+   step: a 16,000-token row and three short ones in tables of 256
+   pages;
 2c. the int4 matmul against its plain version at the same decode-step
    shapes and a prefill chunk (M = 256), group 64, timed beside its
    bound, ``torch._weight_int4pack_mm`` (checked against the plain
@@ -181,9 +185,11 @@ and on any failed check. Phases:
    adapter gradients reduced over NCCL at every step): one warm-up step
    and 3 timed ones; the loss must fall, each flash counter, zeroed
    after the warm-up, read 32 x 3, the worker's ``log_to_driver`` line
-   reach the driver's stdout and its result the driver, and a battery of
+   reach the driver's stdout and its result the driver, a battery of
    collectives on CUDA tensors (over NCCL at world size 1) return their
-   inputs' values; ms a step
+   inputs' values, and ``observe.mem.device_peak_bytes()`` in the rank
+   equal ``torch.cuda.max_memory_allocated`` of the card ``hvd.init()``
+   bound; ms a step
    beside phase 5's, the gang's start seconds and the adapter
    reduction's ms;
 9b. ``HorovodRunner(np=-2)``: two ranks on the one card (so gloo), depth
@@ -542,6 +548,22 @@ and on any failed check. Phases:
    ``BroadcastGlobalVariablesCallback`` and the Keras-3 ``LogCallback``:
    its variables on the card, its losses finite and falling, both
    epoch lines in the log, its ms a step printed.
+31. Llama-3.1-8B past its 8192-token original window, right after 25b,
+   in this process (it starts no process). 31a:
+   ``LlamaConfig.llama31_8b(max_cache_len=16384, quant="int8")`` at
+   full width, its engine's model on phase 3's int8 tensors (no copy):
+   a paged engine (4 slots, pages of 64, chunk 16, ``prefill_chunk``
+   512) serves a 16,000-token prompt (1.95x the window) for 64 new
+   tokens beside phase 3's first 3 requests; every request on its
+   budget, the launches, zeroed just before the run, as the engine's
+   counts predict, and ``observe.mem.device_peak_bytes()`` equal to
+   ``torch.cuda.max_memory_allocated()`` at the run's end. It prints
+   the long prompt's prefill seconds, ms a decode step with the long
+   request in the batch, decode tokens/s and the peak. 31b: the same
+   tensors at depth 2, the long prompt in 512-token segments and 4
+   decode steps through one 256-page table, through the kernels and
+   through the plain versions (each its own cache), every call's logits
+   at phase 4's tolerance.
 
 Before it imports torch the script keeps Python's compiled bytecode in
 ``bytecode-cache/`` beside itself, for itself and every process it
@@ -607,6 +629,15 @@ QMM_TP_SHAPES = [(8, 4096, 2048, "bf16"), (8, 4096, 512, "bf16"),
 QMM_MOE_SHAPES = [(8, 4096, 32000, "fp32"), (512, 4096, 32000, "fp32")]
 # the paged decode's heads (q, kv) on phase 3's path and on a TP=2 rank
 PAGED_HEADS = [(32, 8), (16, 4)]
+# phase 31: Llama-3.1-8B past its 8192-token original window, a prompt
+# of LONG_PROMPT tokens (1.95x the window) with LONG_NEW new ones beside
+# phase 3's first LONG_COMPANIONS requests, in a cache of LONG_CACHE_LEN
+# positions (tables of 256 pages of 64), prefilled LONG_PREFILL_CHUNK
+# tokens a segment, LONG_SLOTS slots; phase 2 holds the paged decode at
+# that step's lengths
+LONG_PROMPT, LONG_NEW, LONG_COMPANIONS = 16000, 64, 3
+LONG_CACHE_LEN, LONG_PREFILL_CHUNK, LONG_SLOTS = 16384, 512, 4
+PAGED_LONG_LENS = (LONG_PROMPT, 777, 300, 64)
 
 # int4 (B6) shapes: the decode step's projections and head as above, at
 # group 64, then one prefill segment (prefill_chunk = 256 tokens)
@@ -1301,17 +1332,14 @@ def check_paged_attention(torch, timer, gen):
                         pages_per_split=plan[1]) for c in cases]
     # tables and lens depend on the lengths alone: the same for both
     h, hkv = PAGED_HEADS[0]
-    visible = int(lens_h.sum())
-    nbytes = (visible * hkv * d * 2 * 2 + 2 * q.numel() * 2
-              + tables.numel() * 4 + lens.numel() * 4)
-    flops = visible * h * d * 2 * 2
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"])
+    bound_ms, bound_by = _paged_bound(lens_h, q, k_pool, tables)
+    long = _paged_long(torch, timer, pa)
     row = {
         "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "page": page,
                   "lens": lens_h.tolist()},
         "splits": splits, "pages_per_split": per,
         "calls_per_decode_step": 1, "per_layer": True,
-        "max_abs_err": max([timed["max_abs_err"]]
+        "max_abs_err": max([timed["max_abs_err"], long["max_abs_err"]]
                            + [c["max_abs_err"] for c in checks]),
         "worst_err_over_tol": timed["worst_err_over_tol"],
         "boundary_checks": checks,
@@ -1323,11 +1351,60 @@ def check_paged_attention(torch, timer, gen):
         "host_us": timer.host_us(lambda: pa.paged_attention_decode(
             q, k_pool, v_pool, tables, lens)),
         "old_host_us": PAGED_OLD_HOST_US,
-        "bound_ms": bound * 1e3,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / PEAK_FLOPS["bf16"] else "operations"),
+        "bound_ms": bound_ms, "bound_by": bound_by, "long": long,
     }
     _log("paged " + json.dumps(row))
+    return row
+
+
+def _paged_bound(lens_h, q, k_pool, tables):
+    """(ms, "bytes" or "operations") the card needs at least for one
+    paged decode call: each visible K and V row, q, the output, the
+    tables and lens moved once, or QK and PV at the bf16 peak."""
+    _, h, d = q.shape
+    hkv = k_pool.shape[2]
+    visible = int(np.sum(lens_h))
+    nbytes = (visible * hkv * d * 2 * 2 + 2 * q.numel() * 2
+              + tables.numel() * 4 + len(lens_h) * 4)
+    flops = visible * h * d * 2 * 2
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _paged_long(torch, timer, pa):
+    """Phase 2's long shape: phase 31a's decode step (the 16,000-token
+    request beside three short ones, tables of 256 pages of 64, bf16
+    pools, phase 3's heads), the kernel against its plain version, timed
+    beside its bound."""
+    h, hkv = PAGED_HEADS[0]
+    lens_h = np.array(PAGED_LONG_LENS, np.int32)
+    b, d, page = len(lens_h), 128, 64
+    max_pages = LONG_CACHE_LEN // page
+    n_pages = b * max_pages + 1
+    perm = np.random.default_rng(SEED + 31).permutation(np.arange(1, n_pages))
+    gen = _seeded(torch, SEED + 31)
+    q, k_pool, v_pool = [
+        torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+        for shape in ((b, h, d), (n_pages, page, hkv, d),
+                      (n_pages, page, hkv, d))]
+    tables, lens, check = _paged_case(torch, pa, q, k_pool, v_pool, lens_h,
+                                      set(), page, max_pages, perm)
+    splits, per = pa._split_plan(q, k_pool, tables)
+    bound_ms, bound_by = _paged_bound(lens_h, q, k_pool, tables)
+    row = {
+        "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "page": page,
+                  "max_pages": max_pages, "lens": lens_h.tolist()},
+        "splits": splits, "pages_per_split": per,
+        "max_abs_err": check["max_abs_err"],
+        "worst_err_over_tol": check["worst_err_over_tol"],
+        "ms": timer.ms(lambda: pa.paged_attention_decode(
+            q, k_pool, v_pool, tables, lens)),
+        "plain_ms": timer.ms(lambda: pa.paged_attention_decode_reference(
+            q, k_pool, v_pool, tables, lens)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    row["ms_over_bound"] = row["ms"] / bound_ms
     return row
 
 
@@ -3041,6 +3118,7 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
 
     from sparkdl_tpu_torch import hvd
     from sparkdl_tpu_torch.horovod import log_to_driver
+    from sparkdl_tpu_torch.observe import health, mem
 
     tr = _gang_trainer(cfg, batch, seed, device)
     ready_s = tr.ready_at - started
@@ -3059,6 +3137,9 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
         times.append(time.perf_counter() - t)
     launches = _flash_launches()
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    # the same peak as a benchmark reads it: of the card hvd.init() bound
+    reported = mem.device_peak_bytes() if on_card else None
+    bound = health.bound_card()
 
     # what the wrapped optimizer adds a step: the fused reduction of the
     # adapter gradients (cat, allreduce in place, copy back), then the
@@ -3077,7 +3158,10 @@ def gang_main(cfg, batch, steps, warmup, seed, device, adapters, started):
         "losses": losses, "step_ms": [1e3 * x for x in times],
         "step_ms_median": 1e3 * statistics.median(times),
         "rows": int(mine["inputs"].shape[0]),
-        "peak_mem_gb": peak / 1e9, "launches": launches,
+        "peak_mem_gb": peak / 1e9, "peak_bytes": peak,
+        "device_peak_bytes": reported,
+        "bound_card": None if bound is None else str(bound),
+        "launches": launches,
         "adapter_values": numel, "adapter_mb": 4 * numel / 1e6,
         "sync_ms": sync_ms, "allreduce_ms": allreduce_ms,
         "synchronized": synchronized,
@@ -3153,6 +3237,11 @@ def gang_train(torch, phase5):
     if GANG_NP["9a"] >= 1:
         _require(r0["backend"] == "cpu:gloo,cuda:nccl",
                  f"phase 9a: backend {r0['backend']}, want NCCL for CUDA")
+        _require(r0["bound_card"] == r0["device"]
+                 and r0["device_peak_bytes"] == r0["peak_bytes"],
+                 f"phase 9a: device_peak_bytes() {r0['device_peak_bytes']} "
+                 f"of the bound card {r0['bound_card']}, "
+                 f"max_memory_allocated({r0['device']}) {r0['peak_bytes']}")
     report = {k: v for k, v in r0.items() if k not in ("battery",
                                                        "adapters")}
     report.update({
@@ -8706,6 +8795,166 @@ def prefetch_card(torch, card):
     return report
 
 
+def _long_prompt(cfg):
+    """Phase 31's long prompt: LONG_PROMPT tokens drawn from its seed."""
+    rng = np.random.default_rng(SEED + 31)
+    return rng.integers(0, cfg.vocab_size, (LONG_PROMPT,)).astype(np.int32)
+
+
+def serve_long(torch, model):
+    """Phase 31a: Llama-3.1-8B (``LlamaConfig.llama31_8b``, the llama3
+    RoPE rescale over its 8192-token original window) at full width on
+    phase 3's int8 tensors (the engine's model takes them: no second
+    quantization, no copy), a paged engine of LONG_SLOTS slots whose
+    tables span LONG_CACHE_LEN positions: the LONG_PROMPT-token request
+    and phase 3's first LONG_COMPANIONS requests, counters zeroed just
+    before the run."""
+    from sparkdl_tpu_torch.models.llama import Llama, LlamaConfig
+    from sparkdl_tpu_torch.models.serving import ContinuousBatchingEngine
+    from sparkdl_tpu_torch.observe import mem
+
+    cfg = LlamaConfig.llama31_8b(max_cache_len=LONG_CACHE_LEN, quant="int8")
+    params = model.state_dict()
+    # the config on no memory: the engine's model is phase 3's tensors
+    engine = ContinuousBatchingEngine(
+        Llama(cfg, device="meta"), params, n_slots=LONG_SLOTS, chunk=16,
+        page_size=64, prefill_chunk=LONG_PREFILL_CHUNK, device=DEVICE)
+    served = engine._model.state_dict()
+    _require(all(served[k].data_ptr() == v.data_ptr()
+                 for k, v in params.items()),
+             "phase 31a: the engine copied phase 3's weights")
+    prompts, budgets = _requests(model.cfg, LONG_COMPANIONS)
+    prompts, budgets = [_long_prompt(cfg)] + prompts, [LONG_NEW] + budgets
+    rids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    long_rid = rids[0]
+
+    # host clocks around the engine's own calls (each ends in a host
+    # copy or a synchronize): the long request's prefill segments, and
+    # each decode chunk with whether the long request is in its batch
+    spent = {"long_prefill": [], "prefill": [], "decode": []}
+    prefill_fn, decode_fn = engine._prefill_segment, engine._decode_chunk
+
+    def timed_prefill(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill_fn(*a, **k)
+        torch.cuda.synchronize()
+        key = "long_prefill" if k.get("rid") == long_rid else "prefill"
+        spent[key].append(time.perf_counter() - t)
+
+    def timed_decode(active, tables, n, *a):
+        long_in = any(s.active and s.req_id == long_rid
+                      for s in engine._slots)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode_fn(active, tables, n, *a)
+        spent["decode"].append((time.perf_counter() - t, n, long_in))
+        return out
+
+    engine._prefill_segment, engine._decode_chunk = timed_prefill, timed_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    torch.cuda.synchronize()
+    peak, reported = torch.cuda.max_memory_allocated(), mem.device_peak_bytes()
+    stats = dict(engine.stats)
+    _check_budgets(engine, results, rids, budgets, cfg.vocab_size, "31a")
+    _require(launches.pop("quantized_matmul_int4") == 0,
+             "phase 31a: the int8 run launched the int4 matmul")
+    want = {"paged_attention_decode": cfg.n_layers * stats["steps"],
+            "quantized_matmul": (7 * cfg.n_layers + 1)
+            * (stats["steps"] + stats["prefill_segments"])}
+    for name, n in launches.items():
+        _require(n > 0 and n == want[name],
+                 f"phase 31a: {name} {n} launches, the engine's counts "
+                 f"predict {want[name]}")
+    long_segments = -(-LONG_PROMPT // LONG_PREFILL_CHUNK)
+    _require(len(spent["long_prefill"]) == long_segments,
+             f"phase 31a: the long prompt took {len(spent['long_prefill'])}"
+             f" prefill segments, want {long_segments}")
+    _require(reported == peak,
+             f"phase 31a: observe.mem.device_peak_bytes() {reported}, "
+             f"torch.cuda.max_memory_allocated() {peak}")
+    with_long = [(t, n) for t, n, long_in in spent["decode"] if long_in]
+    decode_s = sum(t for t, _, _ in spent["decode"])
+    decoded = sum(len(results[r]) for r in rids) - len(rids)
+    report = {
+        "config": "llama31_8b", "rope_scaling": list(cfg.rope_scaling),
+        "max_cache_len": cfg.max_cache_len, "n_layers": cfg.n_layers,
+        "n_slots": LONG_SLOTS, "page_size": 64, "chunk": 16,
+        "prefill_chunk": LONG_PREFILL_CHUNK, "max_pages": engine._max_pages,
+        "n_pages": engine.cfg.n_pages,
+        "prompt_tokens": [len(p) for p in prompts], "budgets": budgets,
+        "wall_s": wall,
+        "long_prefill_s": sum(spent["long_prefill"]),
+        "long_prefill_segments": len(spent["long_prefill"]),
+        "long_prefill_ms_max": 1e3 * max(spent["long_prefill"]),
+        "other_prefill_s": sum(spent["prefill"]),
+        "decode_s": decode_s,
+        "decode_ms_per_step": 1e3 * decode_s / stats["steps"],
+        "decode_ms_per_step_with_long": (
+            1e3 * sum(t for t, _ in with_long) / sum(n for _, n in with_long)),
+        "steps_with_long": sum(n for _, n in with_long),
+        "decode_tokens_per_s": decoded / decode_s,
+        "peak_mem_gb": peak / 1e9, "device_peak_bytes": reported,
+        "stats": stats, "launches": launches,
+    }
+    del engine, served
+    _log("long_serving " + json.dumps(report))
+    return report
+
+
+def long_vs_plain(torch, model):
+    """Phase 31b: the same tensors at depth 2 under 31a's config, the
+    long prompt in LONG_PREFILL_CHUNK-token segments and then 4 decode
+    steps through one table of all its pages, through the kernels and
+    through the plain versions, each on its own cache, call by call;
+    every call's logits held to phase 4's tolerance."""
+    from sparkdl_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama31_8b(max_cache_len=LONG_CACHE_LEN)
+    max_pages = LONG_CACHE_LEN // 64
+    small = _depth2(model, decode=True, page_size=64, n_pages=max_pages + 1,
+                    max_cache_len=LONG_CACHE_LEN,
+                    rope_scaling=cfg.rope_scaling)
+    pages = np.random.default_rng(SEED + 31).permutation(
+        np.arange(1, max_pages + 1))
+    tables = torch.as_tensor(pages[None], dtype=torch.int32, device=DEVICE)
+    prompt = torch.as_tensor(_long_prompt(cfg)[None], device=DEVICE)
+    steps = torch.as_tensor(np.random.default_rng(SEED + 32).integers(
+        0, cfg.vocab_size, (4, 1, 1)), device=DEVICE)
+    calls = [(prompt[:, i:i + LONG_PREFILL_CHUNK],
+              torch.arange(i, min(i + LONG_PREFILL_CHUNK, LONG_PROMPT),
+                           device=DEVICE)[None], f"prefill at {i}")
+             for i in range(0, LONG_PROMPT, LONG_PREFILL_CHUNK)]
+    calls += [(steps[i], torch.full((1, 1), LONG_PROMPT + i, device=DEVICE),
+               f"decode {i + 1}") for i in range(4)]
+    kernel_cache, plain_cache = small.init_cache(), small.init_cache()
+    rows = []
+    with torch.no_grad():
+        for tokens, positions, what in calls:
+            got = small(tokens, positions, tables, kernel_cache).float()
+            with plain_ops():
+                ref = small(tokens, positions, tables, plain_cache).float()
+            rows.append(_logits_row(torch, got, ref, f"long {what}"))
+            del got, ref
+    del small, kernel_cache, plain_cache
+    prefill = rows[:-4]
+    report = {
+        "n_layers": 2, "segments": len(prefill),
+        "worst_prefill": max(prefill, key=lambda r: r["max_abs_err"]
+                             / r["logit_scale"]),
+        "prefill_argmax_agree_min": min(r["argmax_agree"] for r in prefill),
+        "decode": rows[-4:],
+    }
+    _log("long_vs_plain " + json.dumps(report))
+    return report
+
+
 def _versions():
     import importlib.metadata
 
@@ -8928,6 +9177,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # slice 18, on phase 3's int8 model: a fleet on /statusz
     fleet_live = _timed("25b", fleet_statusz, torch, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # slice 24, on phase 3's int8 tensors: Llama-3.1-8B past its window
+    long_serving = _timed("31a", serve_long, torch, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_logits = _timed("31b", long_vs_plain, torch, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -9140,6 +9396,7 @@ def main(argv=None):
                     "24c": telemetry_serving["launches"][
                         "quantized_matmul"],
                     "25b": fleet_live["launches"]["quantized_matmul"],
+                    "31a": long_serving["launches"]["quantized_matmul"],
                     # every trial of the autotuner's search, each its
                     # own process, counted there over its traffic
                     "28a": tuned["launches"]["quantized_matmul"]}
@@ -9165,6 +9422,8 @@ def main(argv=None):
                       "24c": telemetry_serving["launches"][
                           "paged_attention_decode"],
                       "25b": fleet_live["launches"][
+                          "paged_attention_decode"],
+                      "31a": long_serving["launches"][
                           "paged_attention_decode"],
                       "28a": tuned["launches"]["paged_attention_decode"]}
     kernels = [
@@ -9192,7 +9451,11 @@ def main(argv=None):
          "ms": per_step([paged_row], "ms"),
          "plain_ms": per_step([paged_row], "plain_ms"),
          "bound_ms": per_step([paged_row], "bound_ms"),
-         "bound_by": paged_row["bound_by"], "library_ms": None},
+         "bound_by": paged_row["bound_by"], "library_ms": None,
+         # phase 31a's decode step: the 16,000-token row in 256 pages
+         "long_shape": {k: paged_row["long"][k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+             "max_abs_err")}},
         {"name": "quantized_matmul_int4", "route": "cuda",
          "source": "sparkdl_tpu_torch/ops/csrc/quantized_matmul_int4.cu",
          "replaces": "sparkdl_tpu/ops/pallas/quantized_matmul.py:291",
@@ -9243,6 +9506,8 @@ def main(argv=None):
                        "autotune": tuned, "preflight": refusal,
                        "sanitizer_cost": sanitizer_cost, "gbdt": gbdt_run,
                        "frameworks": frameworks_run,
+                       "long_serving": long_serving,
+                       "long_vs_plain": long_logits,
                        "phase_s": PHASE_S,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)

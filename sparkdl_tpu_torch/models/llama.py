@@ -200,6 +200,14 @@ class LlamaConfig:
         return cls(**defaults)
 
     @classmethod
+    def llama31_8b(cls, **kw):
+        """Llama-3.1-8B: the 3.0 widths with Meta's llama3 RoPE rescale
+        (factor 8 over the 8192-token original window), which serves
+        positions past that window; ``kw`` overrides any field."""
+        kw.setdefault("rope_scaling", ("llama3", 8.0, 1.0, 4.0, 8192))
+        return cls.llama3_8b(**kw)
+
+    @classmethod
     def tiny(cls, **kw):
         """CI-size config (full architecture, small dims)."""
         defaults = dict(vocab_size=256, d_model=64, n_layers=2,

@@ -29,6 +29,8 @@ sampler thread makes no CUDA call. :func:`largest_buffers` cannot group
 live arrays by (shape, dtype) as the JAX module does, since torch keeps
 no list of live tensors: it reports the largest allocated blocks of
 ``torch.cuda.memory_snapshot()``, grouped by block size.
+:func:`device_peak_bytes` (a benchmark's peak) reads the bound card,
+else, in a process that has a CUDA context, the current device.
 
 Everything is behind the telemetry switch: without it no thread starts,
 nothing is registered and no report is written. :data:`SAMPLE_S` is a
@@ -113,6 +115,25 @@ def host_rss_high_water_bytes():
     return high or None
 
 
+def device_peak_bytes():
+    """The card's peak allocated bytes (``torch.cuda.max_memory_allocated``,
+    the allocator's ``allocated_bytes.all.peak``): of the card that
+    ``hvd.init()`` bound, else of the current CUDA device once this
+    process has a CUDA context (a benchmark's own process); None before
+    that and on the CPU. It never creates a CUDA context. There is no
+    live-bytes fallback: torch keeps no list of live tensors."""
+    import torch
+
+    from sparkdl_tpu_torch.observe import health
+
+    dev = health.bound_card()
+    if dev is None:
+        if not torch.cuda.is_initialized():
+            return None
+        dev = torch.cuda.current_device()
+    return int(torch.cuda.max_memory_allocated(dev))
+
+
 # -- categorized accounting ----------------------------------------------------
 
 
@@ -170,6 +191,12 @@ def register_tree(category, tree):
     with _lock:
         _trees[str(category)] = sized
     return sized() if callable(sized) else sized
+
+
+def set_category_bytes(category, nbytes):
+    """Point update of a category whose size its owner tracks itself (the
+    serving KV pool). Nothing with telemetry off."""
+    register_tree(category, int(nbytes))
 
 
 def clear_category(category):
@@ -469,3 +496,16 @@ def _reset_for_tests():
         _latest = None
         _host_rss_high = 0
     _samples = None
+
+
+# the JAX module's, less its static budget (note_budget,
+# static_budget_bytes), which needs an XLA lowering
+__all__ = [
+    "CATEGORIES", "OOM_REPORT_SCHEMA", "tree_nbytes",
+    "register_tree", "set_category_bytes", "clear_category",
+    "category_bytes", "largest_buffers",
+    "host_rss_bytes", "host_rss_high_water_bytes", "device_peak_bytes",
+    "sample_now", "beacon_sample", "sample_tail",
+    "maybe_start_sampler", "stop_sampler",
+    "is_oom", "oom_guard", "write_oom_report", "oom_report_path",
+]

@@ -580,3 +580,16 @@ def param_count(params):
     tensors = (params.parameters() if isinstance(params, torch.nn.Module)
                else params.values())
     return sum(int(t.numel()) for t in tensors)
+
+
+def tree_cast(tree, dtype):
+    """``tree`` (a tensor, or a nest of dicts, lists and tuples of them)
+    with every floating-point tensor cast to ``dtype``; any other leaf as
+    it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_cast(v, dtype)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_cast(v, dtype) for v in tree)
+    return tree

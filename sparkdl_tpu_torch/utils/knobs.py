@@ -45,6 +45,7 @@ __all__ = [
     "owner",
     "parse_value",
     "read",
+    "registered_names",
     "tunable_knobs",
 ]
 
@@ -471,6 +472,11 @@ def by_env(env):
         if knob.env == env:
             return knob
     return None
+
+
+def registered_names():
+    """The registered settings' dotted names."""
+    return frozenset(KNOBS)
 
 
 def is_registered(name):
