@@ -25,7 +25,9 @@ tune the serving path's decode chunk with the autotuner and apply its
 profile to a gang under the lock-order sanitizer; fit the GBDT
 estimators; prefetch host batches onto the card and bind the tf.keras
 and Keras 3 shims; serve Llama-3.1-8B past its 8192-token original
-window; and show every run went through its kernels.
+window; trace the fine-tune's step for the graph lints and refuse a
+launch whose ranks diverge; and show every run went through its
+kernels.
 
     python3 chip_smoke.py [--report PATH]
 
@@ -564,6 +566,26 @@ and on any failed check. Phases:
    decode steps through one 256-page table, through the kernels and
    through the plain versions (each its own cache), every call's logits
    at phase 4's tolerance.
+32. the graph lints, right after phase 12, in this process (it starts
+   no process), on phase 5's fine-tuned model. 32a:
+   ``parallel.train.lower_train_step`` traces phase 5's LoRA step (a
+   fresh AdamW over the adapters, batch 2 x 2048) on ``meta`` tensors,
+   ``analysis.lint_lowered`` lints the trace, then one real step runs
+   with the flash counts zeroed and the card's peak reset just before
+   it. Gates: the trace's B1, B2 and B3 events equal the real step's
+   launches (32 each); its FLOPs within 5 % of ``_lora_step_flops``; its
+   static budget (inputs + outputs + peak temporaries) within 20 % of
+   the real step's peak (``max_memory_allocated`` less what the process
+   held before the step beyond the step's inputs); the trace adds under
+   1 MiB of card memory (its own ``max_memory_allocated`` above what was
+   held); the model's state is unchanged by the trace; no ERROR finding.
+   It prints the trace's seconds, ops, kernel events, FLOPs, budget, the
+   card memory it added and the findings. 32b: with
+   ``preflight.ENABLED``, a 2-rank step in which rank 1 issues one extra
+   ``hvd.allreduce`` registered with ``analysis.register_preflight``
+   (``mesh={"data": 2}``): ``HorovodRunner(np=2).run`` raises
+   ``PreflightLintError`` with ``collective-consistency``, and
+   ``subprocess.Popen``, a tripwire, is never reached.
 
 Before it imports torch the script keeps Python's compiled bytecode in
 ``bytecode-cache/`` beside itself, for itself and every process it
@@ -2065,20 +2087,15 @@ def prefix_logits(torch, model):
     return row
 
 
-def _flash_flops(kind, b, s, h, d, causal):
-    """Operations of one flash call: 4 (forward), 6 (dq) or 8 (dk/dv)
-    * D flops a visible (query, key) pair."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    return {"fwd": 4, "dq": 6, "dkv": 8}[kind] * pairs * d
-
-
 def _flash_bound(kind, b, s, h, d, causal):
     """(bound ms, bound_by) of one flash call: bf16 tensors (B, S, H, D)
     read or written once, fp32 (B, H, S) vectors, and the operations of
-    :func:`_flash_flops`."""
+    ``ops.flash_attention.flash_flops``."""
+    from sparkdl_tpu_torch.ops.flash_attention import flash_flops
+
     tensors, vectors = {"fwd": (4, 1), "dq": (5, 2), "dkv": (6, 2)}[kind]
     nbytes = tensors * b * s * h * d * 2 + vectors * b * h * s * 4
-    flops = _flash_flops(kind, b, s, h, d, causal)
+    flops = flash_flops(kind, b, s, h, d, causal)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -2188,7 +2205,8 @@ def check_flash(torch, timer, gen):
                                             else None),
                              "host_us": timer.host_us(kernel),
                              "bound_ms": bound, "bound_by": bound_by}
-                row[kind]["tflops"] = (_flash_flops(kind, b, s, h, d, causal)
+                row[kind]["tflops"] = (fa.flash_flops(kind, b, s, h, d,
+                                                      causal)
                                        / row[kind]["ms"] / 1e9)
                 if kind in FLASH_OLD_MS:
                     row[kind]["old_ms"] = FLASH_OLD_MS[kind]
@@ -9109,6 +9127,156 @@ def frameworks(torch, card):
     return report
 
 
+def _state_marks(model):
+    """Each parameter and buffer of ``model``: the tensor, its storage
+    and its version counter (which every in-place write moves)."""
+    return {name: (id(t), t.data_ptr(), t._version)
+            for name, t in model.state_dict(keep_vars=True).items()}
+
+
+def graph_lint_step(torch, model, card):
+    """Phase 32a: phase 5's LoRA step on ``model`` traced by
+    ``lower_train_step`` and linted, then one real step measured
+    (module docstring)."""
+    from sparkdl_tpu_torch.analysis import lint_lowered
+    from sparkdl_tpu_torch.analysis.core import Severity
+    from sparkdl_tpu_torch.models.lora import lora_mask
+    from sparkdl_tpu_torch.parallel.train import (
+        global_batch,
+        lower_train_step,
+        make_lm_loss_fn,
+        make_train_step,
+    )
+
+    cfg = model.cfg
+    mask = lora_mask(model)
+    named = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    for p in model.parameters():
+        p.grad = None
+    opt = torch.optim.AdamW([p for _, p in named], lr=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(make_lm_loss_fn(model), opt, param_mask=mask,
+                           device=DEVICE)
+    batch = global_batch(np.random.default_rng(SEED), cfg.vocab_size,
+                         TRAIN_BATCH, TRAIN_SEQ)
+    gc.collect()
+    torch.cuda.synchronize()
+    marks = _state_marks(model)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trace = lower_train_step(step, batch, cost_name=None)
+    trace_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    trace_added = torch.cuda.max_memory_allocated() - held
+    t = time.perf_counter()
+    findings = lint_lowered(trace)
+    lint_s = time.perf_counter() - t
+    _require(_state_marks(model) == marks and not opt.state,
+             "phase 32a: the trace changed the model or its optimizer")
+
+    # one real step: the peak above what the process held besides the
+    # step's inputs (the model's parameters and buffers)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    other = held - trace.argument_bytes
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash()
+    t = time.perf_counter()
+    loss = step(batch)["loss"].item()
+    step_s = time.perf_counter() - t
+    launches = _flash_launches()
+    measured = torch.cuda.max_memory_allocated() - other
+    analytic = _lora_step_flops(model, named, cfg, TRAIN_BATCH * TRAIN_SEQ,
+                                TRAIN_SEQ)
+    events = trace.kernel_counts()
+    budget = trace.static_budget_bytes()
+    report = {
+        "phase": "32a", "trace_s": trace_s, "lint_s": lint_s,
+        "ops": len(trace.ops), "kernel_events": events,
+        "real_step_launches": launches, "complete": trace.complete,
+        "traced_flops": trace.flops, "lora_step_flops": analytic,
+        "flops_ratio": trace.flops / analytic,
+        "bytes_accessed": trace.bytes_accessed,
+        "memory": trace.memory_stats(), "static_budget_bytes": budget,
+        "measured_peak_bytes": measured, "budget_ratio": budget / measured,
+        "trace_added_card_bytes": trace_added, "real_step_s": step_s,
+        "loss": loss, "findings": [str(f)[:240] for f in findings],
+        "card": card}
+    _log("graph_lint " + json.dumps(report))
+    _require(trace.complete, f"phase 32a: the trace ended at {trace.stopped}")
+    for kernel, name in (("B1", "flash_fwd"), ("B2", "flash_bwd_dq"),
+                         ("B3", "flash_bwd_dkv")):
+        _require(events.get(kernel) == launches[name] == cfg.n_layers,
+                 f"phase 32a: {kernel} {events.get(kernel)} trace events, "
+                 f"{launches[name]} launches in one step")
+    _require(abs(trace.flops / analytic - 1) <= 0.05,
+             f"phase 32a: traced {trace.flops:.4g} FLOPs against "
+             f"{analytic:.4g}")
+    _require(abs(budget / measured - 1) <= 0.20,
+             f"phase 32a: static budget {budget} B against the step's "
+             f"peak {measured} B")
+    _require(trace_added < 1 << 20,
+             f"phase 32a: the trace added {trace_added} B of card memory")
+    _require(not any(f.severity >= Severity.ERROR for f in findings),
+             f"phase 32a: ERROR findings on the stock step: {findings}")
+    return report
+
+
+def _diverging_step(x):
+    """A 2-rank step whose rank 1 issues one more allreduce than rank 0."""
+    from sparkdl_tpu_torch import hvd
+
+    y = hvd.allreduce(x)
+    if hvd.rank() == 1:
+        y = hvd.allreduce(y)
+    return y
+
+
+def lint_refusal(torch, card):
+    """Phase 32b: a launch refused for diverging collectives before any
+    worker starts (module docstring)."""
+    from sparkdl_tpu_torch import HorovodRunner
+    from sparkdl_tpu_torch.analysis import preflight, register_preflight
+    from sparkdl_tpu_torch.horovod import launcher
+
+    spawned = []
+
+    def tripwire(*a, **k):
+        spawned.append(a[0] if a else None)
+        raise CheckFailed("phase 32b: the launcher spawned a worker")
+
+    refused = None
+    with _attrs(preflight, ENABLED=True), \
+            _attrs(launcher.subprocess, Popen=tripwire), \
+            _launcher_settings():
+        preflight.clear()
+        register_preflight(_diverging_step,
+                           torch.ones(1024, device=DEVICE),
+                           mesh={"data": 2})
+        t = time.perf_counter()
+        try:
+            HorovodRunner(np=2).run(_noop_main)
+        except preflight.PreflightLintError as e:
+            refused = e
+        finally:
+            preflight.clear()
+        refused_ms = 1e3 * (time.perf_counter() - t)
+    rules = sorted({f.rule_id for f in refused.findings}) if refused else []
+    report = {"phase": "32b", "refused": type(refused).__name__,
+              "rules": rules, "spawned": len(spawned),
+              "refused_launch_ms": refused_ms,
+              "finding": str(refused.findings[0])[:240] if refused else None,
+              "card": card}
+    _log("lint_refusal " + json.dumps(report))
+    _require(refused is not None and "collective-consistency" in rules
+             and not spawned,
+             f"phase 32b: refused {refused!r}, rules {rules}, "
+             f"{len(spawned)} spawn(s)")
+    return report
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", default="",
@@ -9224,6 +9392,11 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     spec = _timed("12", serve_speculative, torch, trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # slice 25: the graph lints over phase 5's step, in this process
+    lint_step = _timed("32a", graph_lint_step, torch, trained, card)
+    lint_refused = _timed("32b", lint_refusal, torch, card)
     del trained
     gc.collect()
     torch.cuda.empty_cache()
@@ -9337,6 +9510,7 @@ def main(argv=None):
     n_train_layers = training["n_layers"]
 
     def flash_line(name, kind, body_line):
+        kernel_id = {"fwd": "B1", "dq": "B2", "dkv": "B3"}[kind]
         t = main_flash[kind]
         by_phase = {"5": training["launches"][name],
                     "9a": gang["launches"][name],
@@ -9361,6 +9535,8 @@ def main(argv=None):
                             f"{body_line}",
                 "launches": sum(by_phase.values()),
                 "launches_by_phase": by_phase,
+                # kernel events of 32a's trace: no launch, none counted
+                "traced_32a": lint_step["kernel_events"][kernel_id],
                 "max_abs_err": max(
                     e for r in flash_rows
                     for n, e in r["max_abs_err"].items()
@@ -9508,6 +9684,7 @@ def main(argv=None):
                        "frameworks": frameworks_run,
                        "long_serving": long_serving,
                        "long_vs_plain": long_logits,
+                       "graph_lint": lint_step, "lint_refusal": lint_refused,
                        "phase_s": PHASE_S,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)

@@ -1,10 +1,13 @@
 """CLI: ``python -m sparkdl_tpu_torch.analysis``.
 
-Counterpart of ``sparkdl_tpu/analysis/__main__.py``, its AST modes only
-(the jaxpr and HLO modes, ``--graft``, ``--comms`` and ``--fix``, read
-XLA programs and are not ported). Modes compose in one invocation; the
-exit status is 1 when any finding is an error (with ``--concur``, a
-warning not waived too), so a gate can key off it.
+Counterpart of ``sparkdl_tpu/analysis/__main__.py``. Modes compose in
+one invocation; the exit status is 1 when any finding is an error (with
+``--concur``, a warning not waived too), so a gate can key off it. The
+graph passes lint a PyTorch step from Python (``analysis.lint_fn``,
+``analysis.register_preflight``); ``--graft``, ``--comms`` and ``--fix``
+lint the JAX package's ``__graft_entry__.py`` program or run its fix
+engine, and exit with a message saying so: the port has no multi-rank
+program of its own for them yet.
 
 - positional paths: the pickling-contract lint
   (:mod:`~sparkdl_tpu_torch.analysis.selflint`) over ``.py`` files and
@@ -17,7 +20,8 @@ warning not waived too), so a gate can key off it.
   (``--baseline PATH``, ``none`` for no waivers; default the committed
   ``concur_baseline.json``); ``--out PATH`` writes every finding,
   waived ones flagged, as JSON.
-- ``--list-rules``: the rule catalog.
+- ``--list-rules``: the rule catalog (the graph passes' rules and every
+  other rule); ``--list-passes``: the graph passes alone.
 """
 
 import argparse
@@ -30,8 +34,9 @@ from sparkdl_tpu_torch.analysis.core import Finding, Severity
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m sparkdl_tpu_torch.analysis",
-        description="AST lints of the port's runtime: the pickling "
-                    "contract and the concurrency rules.")
+        description="Lints of the port: the pickling contract and the "
+                    "concurrency rules over its source; the rule and "
+                    "graph-pass catalogs.")
     parser.add_argument(
         "paths", nargs="*",
         help=".py files or directories (the pickling-contract lint, or "
@@ -50,12 +55,27 @@ def main(argv=None):
                              "flagged) as JSON to PATH")
     parser.add_argument("--list-rules", action="store_true",
                         help="print the rule catalog and exit")
+    parser.add_argument("--list-passes", action="store_true",
+                        help="print the graph passes and exit")
+    for flag in ("--graft", "--comms", "--fix"):
+        parser.add_argument(flag, nargs="?", const=True, default=None,
+                            help="not in the port (see the module doc)")
     args = parser.parse_args(argv)
 
-    if args.list_rules:
-        from sparkdl_tpu_torch.analysis.core import rule_catalog
+    for flag in ("graft", "comms", "fix"):
+        if getattr(args, flag) is not None:
+            print(f"--{flag}: not in the port yet: it lints the JAX "
+                  "package's __graft_entry__.py program (or runs its fix "
+                  "engine), and the port has no multi-rank program of its "
+                  "own for it; lint a PyTorch step with analysis.lint_fn "
+                  "or analysis.register_preflight", file=sys.stderr)
+            return 2
+    if args.list_rules or args.list_passes:
+        from sparkdl_tpu_torch.analysis.core import all_passes, rule_catalog
 
-        for rule_id, (severities, doc) in rule_catalog().items():
+        table = (rule_catalog() if args.list_rules else
+                 {r: (p.severities, p.doc) for r, p in all_passes().items()})
+        for rule_id, (severities, doc) in table.items():
             print(f"{rule_id:32s} {'/'.join(severities) or '-':16s} {doc}")
         return 0
 

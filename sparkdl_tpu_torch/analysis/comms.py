@@ -1,22 +1,50 @@
-"""Resharding feasibility: can a recorded sharding tree be re-laid onto
-a target mesh, and what does that cost a device.
+"""Static communication and resharding cost model.
 
-Counterpart of the reshard half of ``sparkdl_tpu/analysis/comms.py``
-(:class:`ReshardPreflightError`, :class:`ReshardPlan`,
-:func:`reshard_plan`, :func:`param_info_from_sidecar`,
-:func:`shrink_mesh`, and the gang-sharding registry that the
-supervisor's pre-flight of an elastic relaunch reads:
-:func:`register_gang_sharding`, :func:`registered_gang_sharding`,
-:func:`clear_gang_sharding`, :func:`check_relaunch_np`), with the same
-byte arithmetic and the same finding messages. The collective pricing over HLO and ``comms_report`` have no
-PyTorch counterpart and are not ported. The per-device memory budget
-defaults to the CUDA device's total memory, and to none (no check) on
-the CPU.
+Counterpart of ``sparkdl_tpu/analysis/comms.py``:
+
+- :func:`comms_report` — price every collective of a traced step
+  (:class:`~sparkdl_tpu_torch.analysis.trace.Trace`; the JAX package
+  reads them from the compiled HLO) in bytes on the wire a device under
+  the ring assumption, then in seconds against the card's interconnect
+  row of :data:`sparkdl_tpu_torch.observe.perf.PEAK_TABLE` (the H100's
+  NVLink unless the caller names another kind). The report keeps the
+  JAX package's schema, ``sparkdl_tpu.analysis.comms_report/1``, key for
+  key and in its dtype spelling (``"f32"``), so either package's readers
+  (``observe.doctor``'s predicted-vs-measured section) take it; the
+  launcher's pre-flight writes it to the run directory as
+  ``comms_report.json``.
+- :func:`reshard_plan` and what rides it (:class:`ReshardPreflightError`,
+  :class:`ReshardPlan`, :func:`param_info_from_sidecar`,
+  :func:`shrink_mesh`, and the gang-sharding registry that the
+  supervisor's pre-flight of an elastic relaunch reads:
+  :func:`register_gang_sharding`, :func:`registered_gang_sharding`,
+  :func:`clear_gang_sharding`, :func:`check_relaunch_np`), with the same
+  byte arithmetic and the same finding messages. The per-device memory
+  budget defaults to the CUDA device's total memory, and to none (no
+  check) on the CPU.
+
+Ring assumption, as the JAX module states it: every collective is priced
+as its bandwidth-optimal ring variant, each device sending and receiving
+``(n-1)/n`` of the data a pass, all-reduce paying two passes.
 """
 
+import json
 from dataclasses import dataclass, field
 
-from sparkdl_tpu_torch.analysis.core import Finding, ParamInfo, Severity
+from sparkdl_tpu_torch.analysis.core import (
+    Finding,
+    ParamInfo,
+    Severity,
+    register_rule_info,
+)
+
+COMMS_SCHEMA = "sparkdl_tpu.analysis.comms_report/1"
+
+register_rule_info(
+    "reshard-infeasible", ("ERROR",),
+    "Elastic-relaunch pre-flight: the sharding tree cannot be re-laid onto "
+    "the target mesh (indivisible dim, fractional-host placement, or "
+    "restore high-water over the memory budget).")
 
 # numpy-style dtype name -> bytes, for ParamInfo trees
 DTYPE_BYTES = {
@@ -31,6 +59,119 @@ DTYPE_BYTES = {
 def param_nbytes(info):
     """Full (unsharded) bytes of one :class:`ParamInfo` leaf."""
     return info.elements * DTYPE_BYTES.get(info.dtype, 4)
+
+
+def collective_wire_bytes(kind, result_bytes, group_size):
+    """Per-device bytes on the wire for one collective, given its RESULT
+    size in bytes and its group size, under the ring assumption (the JAX
+    package's function):
+
+    - ``all-reduce``: ``2 * (n-1)/n * payload``;
+    - ``all-gather``: the result is the gathered whole, each device
+      receives the other ``n-1`` shards: ``(n-1)/n * whole``;
+    - ``reduce-scatter``: the result is one shard, each device ships
+      ``n-1`` of them: ``(n-1) * shard``;
+    - ``all-to-all``: ``(n-1)/n * payload``;
+    - ``collective-permute`` / ``collective-broadcast``: one payload
+      copy, whatever the group size.
+
+    ``group_size <= 1`` (or unknown, ``None``) proves no traffic: 0,
+    except for permute and broadcast."""
+    n = group_size or 0
+    if kind in ("collective-permute", "collective-broadcast"):
+        return float(result_bytes) if n != 1 else 0.0
+    if n <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / n * result_bytes
+    if kind == "all-gather":
+        return (n - 1) / n * result_bytes
+    if kind == "reduce-scatter":
+        return float((n - 1) * result_bytes)
+    if kind == "all-to-all":
+        return (n - 1) / n * result_bytes
+    return float(result_bytes)
+
+
+def group_size_of(col, n_devices=None):
+    """Participant count of one traced collective
+    (:class:`~sparkdl_tpu_torch.analysis.trace.CollectiveEvent`): the
+    size of its group, or ``n_devices`` when it has none."""
+    return col.group_size or n_devices
+
+
+def comms_report(trace, *, n_devices=None, device_kind=None,
+                 ici_bytes_per_sec=None, name=None):
+    """Price every collective of a traced step. Returns the comms report
+    (schema ``sparkdl_tpu.analysis.comms_report/1``)::
+
+        {"schema": ..., "name": ..., "device_kind": ...,
+         "ici_bytes_per_sec": float,
+         "assumptions": {"algorithm": "ring", "serialized": True,
+                         "n_devices": ...},
+         "collectives": [{"index", "kind", "dtype", "shape",
+                          "group_size", "async_start",
+                          "result_bytes", "wire_bytes_per_device",
+                          "predicted_s"}, ...],
+         "totals": {"count", "wire_bytes_per_device", "predicted_s",
+                    "by_kind": {kind: {"count", "wire_bytes_per_device",
+                                       "predicted_s"}}}}
+
+    ``predicted_s`` divides a device's wire bytes by the interconnect
+    row of ``device_kind`` (default ``"h100"``: the card the port runs
+    on, whatever device prices it) in
+    :data:`sparkdl_tpu_torch.observe.perf.PEAK_TABLE`, or by
+    ``ici_bytes_per_sec``; the total assumes the collectives run one
+    after another. ``n_devices`` defaults to the traced world."""
+    from sparkdl_tpu_torch.observe import perf
+
+    if n_devices is None:
+        n_devices = trace.world
+    kind = device_kind or "h100"
+    ici = (float(ici_bytes_per_sec) if ici_bytes_per_sec
+           else perf.peak_interconnect_bytes_per_sec(kind))
+    entries, by_kind = [], {}
+    for col in trace.collectives:
+        n = group_size_of(col, n_devices=n_devices)
+        wire = collective_wire_bytes(col.kind, col.result_bytes, n)
+        secs = wire / ici if ici else None
+        entries.append({
+            "index": col.index, "kind": col.kind, "dtype": col.dtype,
+            "shape": list(col.shape), "group_size": n,
+            "async_start": col.async_op, "result_bytes": col.result_bytes,
+            "wire_bytes_per_device": wire, "predicted_s": secs})
+        agg = by_kind.setdefault(col.kind, {
+            "count": 0, "wire_bytes_per_device": 0.0, "predicted_s": 0.0})
+        agg["count"] += 1
+        agg["wire_bytes_per_device"] += wire
+        agg["predicted_s"] += secs or 0.0
+    return {
+        "schema": COMMS_SCHEMA,
+        "name": name or trace.fn_name,
+        "device_kind": kind,
+        "ici_bytes_per_sec": ici,
+        "assumptions": {"algorithm": "ring", "serialized": True,
+                        "n_devices": n_devices},
+        "collectives": entries,
+        "totals": {
+            "count": len(entries),
+            "wire_bytes_per_device": sum(
+                e["wire_bytes_per_device"] for e in entries),
+            "predicted_s": sum(e["predicted_s"] or 0.0 for e in entries),
+            "by_kind": by_kind,
+        },
+    }
+
+
+def write_report(report, path):
+    """Write one comms report, or a list of them, as JSON under
+    ``{"reports": [...]}`` (the run directory's ``comms_report.json``
+    shape)."""
+    doc = report if isinstance(report, dict) and "reports" in report \
+        else {"reports": report if isinstance(report, list) else [report]}
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=2)
+    return path
 
 
 def device_memory_bytes():

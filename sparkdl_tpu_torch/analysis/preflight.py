@@ -1,5 +1,5 @@
-"""Launcher pre-flight lint: catch ERROR-class pickling bugs on the
-driver before ``HorovodRunner`` spawns a single worker.
+"""Launcher pre-flight lint: catch ERROR-class bugs on the driver before
+``HorovodRunner`` spawns a single worker.
 
 Counterpart of ``sparkdl_tpu/analysis/preflight.py``. Off by default
 (:data:`ENABLED`, the JAX package's ``SPARKDL_TPU_PREFLIGHT_LINT``, read
@@ -7,24 +7,41 @@ at call time), so the ``run`` signature and the launch latency are
 untouched. When it is on, the launcher calls :func:`preflight_lint` with
 the exact ``(main, kwargs)`` it is about to cloudpickle, before the
 supervisor loop, the slot claims and any spawn; ``HorovodRunner(np=-1)``
-calls it before running ``main`` in-process. It lints ``main`` for the
-captures the AST rule (:mod:`sparkdl_tpu_torch.analysis.selflint`) can
-only guess at: a live ``SparkContext``/``SparkSession`` (unpicklable, the
-gang dies at deserialization) or a ``torch.Tensor`` on a device other
-than the CPU (its buffers ride the pickle to every rank and pin the
-driver's card), in its closure or its globals, those of the functions
-nested in it included; a finding raises :class:`PreflightLintError`.
+calls it before running ``main`` in-process. It
 
-Not ported: the graph passes over registered jitted steps, their comms
-budget and the fix engine (:func:`register` raises), and the 64-bit
-payload rule: JAX canonicalizes a float64 leaf to float32 inside ``jit``
-without a word, torch keeps a float64 tensor as it is, so a 64-bit
-payload is no silent bug here. The payload's values (``kwargs`` and,
-for a gang of rank-private payloads, each rank's ``per_rank_kwargs``
-entry) take the capture rule in its place: a device tensor or a live
-Spark handle shipped as a value pickles as badly as one captured.
+1. lints ``main`` for the captures the AST rule
+   (:mod:`sparkdl_tpu_torch.analysis.selflint`) can only guess at: a live
+   ``SparkContext``/``SparkSession`` (unpicklable, the gang dies at
+   deserialization) or a ``torch.Tensor`` on a device other than the CPU
+   (its buffers ride the pickle to every rank and pin the driver's
+   card), in its closure or its globals, those of the functions nested
+   in it included; the payload's values (``kwargs`` and each rank's
+   ``per_rank_kwargs`` entry) take the same rule;
+2. runs the graph passes over every step registered with
+   :func:`register` (a callable and example arguments, traced here on
+   ``meta`` tensors, every rank of its ``mesh=`` when given, or a
+   :class:`~sparkdl_tpu_torch.analysis.trace.Trace`), and prices each
+   one's collectives (:func:`~sparkdl_tpu_torch.analysis.comms.
+   comms_report`); the launcher hands the reports
+   (:func:`take_comms_reports`) to the gang's telemetry, which writes
+   them to the run directory as ``comms_report.json``::
+
+       analysis.register_preflight(step, batch, mesh={"data": 2})
+       HorovodRunner(np=2).run(main)
+
+Any ERROR raises :class:`PreflightLintError` before anything is spawned;
+WARNING and INFO findings are logged. A step the lint cannot trace is
+logged and the launch goes on, as in the JAX package.
+
+The JAX pre-flight's 64-bit payload rule stays out: JAX canonicalizes a
+float64 leaf to float32 inside ``jit`` without a word, torch keeps a
+float64 tensor as it is, so a 64-bit payload is no silent bug here (a
+64-bit *step input* is the ``silent-canonicalization`` pass's, on a
+registered step). Its fix engine (``fix_enabled``,
+``take_fixit_reports``) is not ported.
 """
 
+import logging
 import sys
 import types
 
@@ -35,6 +52,16 @@ from sparkdl_tpu_torch.analysis.core import Finding, Severity
 ENABLED = False
 
 RULE_ID = "pickle-closure-capture"
+
+logger = logging.getLogger("HorovodRunner")
+
+# (step or trace, example args, lint options) registered for the next
+# launches, driver-side and never pickled
+_REGISTERED = []
+
+# the comms reports of the newest preflight_lint run, drained by the
+# launcher into the gang's run directory
+_COMMS_REPORTS = []
 
 
 class PreflightLintError(RuntimeError):
@@ -52,14 +79,32 @@ class PreflightLintError(RuntimeError):
 
 
 def register(obj, *args, **opts):
-    """The JAX package's registration of a jitted step for the graph
-    passes; those passes (and their comms budget and fix engine) lint
-    XLA programs and have no PyTorch counterpart."""
-    raise NotImplementedError(
-        "analysis.register (register_preflight) is not ported: the "
-        "pre-flight's graph passes, comms budget and fix engine read "
-        "jaxprs and compiled XLA programs, which a PyTorch step does "
-        "not have")
+    """Register a driver-side step for the pre-flight's graph lint: a
+    callable plus example arguments (traced at pre-flight time, nothing
+    run on the card), or a :class:`~sparkdl_tpu_torch.analysis.trace.
+    Trace` (:func:`~sparkdl_tpu_torch.parallel.train.lower_train_step`'s).
+    ``opts`` go to the lint (``mesh=``, ``params=``, ``shardings=``,
+    ``device=``, ``passes=``, ``options=``...). Returns ``obj``."""
+    from sparkdl_tpu_torch.analysis.trace import Trace
+
+    if not (isinstance(obj, Trace) or callable(obj)):
+        raise TypeError(f"register_preflight takes a step (a callable and "
+                        f"its example arguments) or a Trace, not "
+                        f"{type(obj).__name__}")
+    _REGISTERED.append((obj, args, opts))
+    return obj
+
+
+def clear():
+    """Drop every registered step."""
+    _REGISTERED.clear()
+
+
+def take_comms_reports():
+    """Drain the comms reports the last pre-flight produced."""
+    out = list(_COMMS_REPORTS)
+    _COMMS_REPORTS.clear()
+    return out
 
 
 register_preflight = register
@@ -140,6 +185,43 @@ def _payload_findings(kwargs, where):
     return findings
 
 
+def _lint_registered():
+    """The graph passes' findings over every registered step; their comms
+    reports go to :data:`_COMMS_REPORTS`."""
+    from sparkdl_tpu_torch.analysis import (
+        _context_for,
+        _lowered_context,
+        run_passes,
+    )
+    from sparkdl_tpu_torch.analysis.comms import comms_report
+    from sparkdl_tpu_torch.analysis.trace import Trace
+
+    findings = []
+    for obj, args, opts in list(_REGISTERED):
+        opts = dict(opts)
+        passes = opts.pop("passes", None)
+        try:
+            if isinstance(obj, Trace):
+                ctx = _lowered_context(obj, **opts)
+            else:
+                ctx = _context_for(obj, args, **opts)
+        except Exception as e:  # noqa: BLE001 - a user step's own fault
+            logger.warning("pre-flight lint could not trace %r (%s: %s); "
+                           "launching anyway", obj, type(e).__name__, e)
+            continue
+        findings.extend(run_passes(ctx, passes=passes))
+        report = comms_report(ctx.trace, name=ctx.fn_name)
+        _COMMS_REPORTS.append(report)
+        t = report["totals"]
+        logger.info(
+            "pre-flight comms budget [%s]: %d collective(s), %.2f MiB a "
+            "device on the wire, ~%.3f ms a step predicted (%s, ring "
+            "assumption)", ctx.fn_name, t["count"],
+            t["wire_bytes_per_device"] / 2**20, t["predicted_s"] * 1e3,
+            report["device_kind"])
+    return findings
+
+
 def preflight_lint(main, kwargs, per_rank_kwargs=None):
     """Run the pre-flight lint; returns the findings (possibly empty)
     or raises :class:`PreflightLintError` on any ERROR. No-op (returns
@@ -147,13 +229,21 @@ def preflight_lint(main, kwargs, per_rank_kwargs=None):
     ``per_rank_kwargs`` (the launcher's rank-private payloads) get the
     same payload check, as in the JAX package; here that check is the
     capture rule on their values (module docstring)."""
+    # cleared on every call: a refused or lint-off launch must never hand
+    # an earlier launch's reports to its run directory
+    _COMMS_REPORTS.clear()
     if not ENABLED:
         return None
-    # every capture is an ERROR
     findings = _payload_findings(kwargs, "run() kwargs")
     for r, own in enumerate(per_rank_kwargs or ()):
         findings.extend(_payload_findings(own, f"per_rank_kwargs[{r}]"))
     findings.extend(_closure_findings(main))
-    if findings:
+    findings.extend(_lint_registered())
+    findings.sort(key=lambda f: -int(f.severity))
+    for f in findings:
+        if f.severity < Severity.ERROR:
+            logger.warning("pre-flight lint: %s", f)
+    if any(f.severity >= Severity.ERROR for f in findings):
+        _COMMS_REPORTS.clear()   # no gang, no run directory
         raise PreflightLintError(findings)
     return findings

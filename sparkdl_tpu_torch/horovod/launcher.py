@@ -106,8 +106,10 @@ the lock-order sanitizer's settings to every rank (``--rank-settings``),
 whether its telemetry is on or not.
 
 **Pre-flight.** With :data:`sparkdl_tpu_torch.analysis.preflight.
-ENABLED`, :func:`launch_gang` lints ``main``'s captures before anything
-else and refuses the launch on an ERROR. Each attempt resolves the perf
+ENABLED`, :func:`launch_gang` lints ``main``'s captures and every step
+given to ``analysis.register_preflight`` before anything else, refuses
+the launch on an ERROR, and hands the steps' comms reports to the gang's
+telemetry (``comms_report.json`` in the run directory). Each attempt resolves the perf
 profile (:data:`sparkdl_tpu_torch.perf.profile.PROFILE`) for the card
 kind the gang runs on and ships its settings to every rank with the
 rank settings, under the operator's: a relaunched attempt gets them
@@ -126,8 +128,8 @@ drop the rank-private payloads (the partition-resident estimator path,
 maybe_launch_estimator_on_spark`, ships data a partition instead). The
 payload-size warning applies to each rank's payload.
 
-Not ported: the JAX launcher's comms and fixit pre-flight reports, the
-producers of ``comms_report.json`` and ``fixit_report.json``.
+Not ported: the JAX launcher's fixit pre-flight report, the producer of
+``fixit_report.json``.
 """
 
 import json
@@ -483,7 +485,10 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
     spawned."""
     import cloudpickle
 
-    from sparkdl_tpu_torch.analysis.preflight import preflight_lint
+    from sparkdl_tpu_torch.analysis.preflight import (
+        preflight_lint,
+        take_comms_reports,
+    )
     from sparkdl_tpu_torch.horovod import elastic, supervisor
 
     # the opt-in pre-flight lint (analysis.preflight.ENABLED): a capture
@@ -493,6 +498,9 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
     if np > 0:
         _check_per_rank(per_rank_kwargs, np)
     preflight_lint(main, kwargs, per_rank_kwargs=per_rank_kwargs)
+    # the registered steps' collectives, priced: comms_report.json in the
+    # run directory, beside the measured collective bytes
+    comms_reports = take_comms_reports()
     if per_rank_kwargs is None:
         payload = cloudpickle.dumps((main, kwargs))
         largest = len(payload)
@@ -516,6 +524,8 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
         from sparkdl_tpu_torch.observe.forensics import maybe_make_forensics
 
         telemetry = GangTelemetry()
+        if comms_reports:
+            telemetry.add_comms_reports(comms_reports)
         # one engine and one forensics manager span the attempts
         alert_engine = maybe_make_engine(telemetry)
         forensics = maybe_make_forensics(telemetry, alert_engine=alert_engine)

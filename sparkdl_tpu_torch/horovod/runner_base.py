@@ -107,9 +107,13 @@ class HorovodRunner:
         if np_arg == -1:
             # the gang path's opt-in pre-flight: local mode is where users
             # iterate before paying for cards
-            from sparkdl_tpu_torch.analysis.preflight import preflight_lint
+            from sparkdl_tpu_torch.analysis.preflight import (
+                preflight_lint,
+                take_comms_reports,
+            )
 
             preflight_lint(main, kwargs)
+            take_comms_reports()  # no gang, no run directory to carry them
             logging.getLogger("HorovodRunner").warning(
                 "HorovodRunner is running in local mode (np=-1): main() is "
                 "invoked in the current process with a single worker. Use "

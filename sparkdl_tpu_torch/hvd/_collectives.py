@@ -115,9 +115,11 @@ def resolve_op(average, op):
 
 
 def _wire_device(x):
-    """Where ``x`` travels: the card over NCCL, else host memory."""
+    """Where ``x`` travels: the card over NCCL, else host memory. A
+    ``meta`` tensor (a traced step's, :mod:`sparkdl_tpu_torch.analysis.
+    trace`) stands for a card tensor and stays where it is."""
     st = _state.state()
-    if x.device.type == "cuda" and st.nccl:
+    if x.device.type in ("cuda", "meta") and st.nccl:
         return x.device
     return torch.device("cpu")
 
@@ -204,7 +206,8 @@ def _reduce_start(x, op, convert=None, op_name=None):
         return AsyncCollective(None, lambda: convert(out), op_name,
                                _nbytes(x))
     w = _on_wire(x)
-    work = dist.all_reduce(w, op=_REDUCE_OPS[op], async_op=True)
+    work = dist.all_reduce(w, op=_REDUCE_OPS[op], group=st.group,
+                           async_op=True)
     return AsyncCollective(work, lambda: convert(
         _off_wire(_finish_reduce(w, op, st.size), x)), op_name, _nbytes(x))
 
@@ -234,7 +237,7 @@ def reduce_(buf, op):
         return buf
     if (buf.is_floating_point() and buf.is_contiguous()
             and _wire_device(buf) == buf.device):
-        dist.all_reduce(buf, op=_REDUCE_OPS[op])
+        dist.all_reduce(buf, op=_REDUCE_OPS[op], group=st.group)
         if op == AVERAGE:
             buf.div_(st.size)
         return buf
@@ -252,14 +255,15 @@ def allgather(x):
     if x.ndim == 0:
         x = x[None]
     sizes = torch.empty(st.size, dtype=torch.int64)
-    dist.all_gather_into_tensor(sizes, torch.tensor([x.shape[0]]))
+    dist.all_gather_into_tensor(sizes, torch.tensor([x.shape[0]]),
+                                group=st.group)
     sizes = sizes.tolist()
     w = _on_wire(x)
     pad = max(sizes) - x.shape[0]
     if pad:
         w = torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))])
     out = w.new_empty((st.size * max(sizes),) + tuple(w.shape[1:]))
-    dist.all_gather_into_tensor(out, w)
+    dist.all_gather_into_tensor(out, w, group=st.group)
     rows = out.view((st.size, max(sizes)) + tuple(w.shape[1:]))
     parts = [rows[r, :sizes[r]] for r in range(st.size)]
     return _off_wire(torch.cat(parts), x)
@@ -280,7 +284,7 @@ def alltoall(x, splits):
     w = _on_wire(x)
     out = w.new_empty((sum(received),) + tuple(w.shape[1:]))
     dist.all_to_all_single(out, w, output_split_sizes=received,
-                           input_split_sizes=list(splits))
+                           input_split_sizes=list(splits), group=st.group)
     return _off_wire(out, x)
 
 
@@ -303,17 +307,18 @@ def scatter_reduce(x, op):
             st.rank * chunk:(st.rank + 1) * chunk]
     w = _on_wire(x)
     out = w.new_empty((chunk,) + tuple(w.shape[1:]))
-    dist.reduce_scatter_tensor(out, w, op=dist.ReduceOp.SUM)
+    dist.reduce_scatter_tensor(out, w, op=dist.ReduceOp.SUM, group=st.group)
     return _off_wire(_finish_reduce(out, op, n), x)
 
 
 @_observed("broadcast")
 def broadcast(x, root_rank):
     """Rank ``root_rank``'s ``x`` on every rank; returns a new tensor."""
-    if _state.state().group is None:
+    group = _state.state().group
+    if group is None:
         return x.detach().clone()
     w = _on_wire(x)
-    dist.broadcast(w, src=int(root_rank))
+    dist.broadcast(w, src=int(root_rank), group=group)
     return _off_wire(w, x)
 
 
@@ -321,12 +326,13 @@ def broadcast(x, root_rank):
 def broadcast_(x, root_rank):
     """Broadcast into ``x`` in place: on the card over NCCL where it
     lies, else through :func:`broadcast` and a copy back."""
-    if _state.state().group is None:
+    group = _state.state().group
+    if group is None:
         return x
     with torch.no_grad():
         if (x.is_contiguous() and x.dtype not in _WIDENED
                 and _wire_device(x) == x.device):
-            dist.broadcast(x, src=int(root_rank))
+            dist.broadcast(x, src=int(root_rank), group=group)
             return x
         return x.copy_(broadcast.__wrapped__(x, root_rank))
 

@@ -644,7 +644,12 @@ class Llama(nn.Module):
     def _rope_tables(self, device, length):
         """cos/sin tables of ``length`` positions, kept per device for the
         longest length asked so far (a prefix of a longer table is the
-        shorter one)."""
+        shorter one). A traced step's (``meta``) are made anew, never
+        kept."""
+        if device.type == "meta":
+            cfg = self.cfg
+            return rope_freqs(cfg.d_model // cfg.n_heads, length,
+                              cfg.rope_theta, cfg.rope_scaling, device=device)
         tables = self._rope.get(device)
         if tables is None or tables[0].shape[0] < length:
             cfg = self.cfg

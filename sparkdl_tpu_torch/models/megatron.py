@@ -243,11 +243,13 @@ class Zero3:
         with bound(weights):
             if not (hooks and torch.is_grad_enabled()):
                 return fn(*args)
-            ptrs = {w.untyped_storage().data_ptr(): k
+            # by storage, not data_ptr: every meta storage (a traced
+            # step's) has data_ptr 0
+            ptrs = {w.untyped_storage()._cdata: k
                     for k, w in weights.items() if w.numel()}
 
             def pack(t):
-                key = ptrs.get(t.untyped_storage().data_ptr())
+                key = ptrs.get(t.untyped_storage()._cdata)
                 return t if key is None else Regather(unit, key, t)
 
             def unpack(saved):

@@ -36,8 +36,10 @@ hang verdicts) and writes the JAX package's artifacts:
   from the job dirs;
 - ``comms_report.json`` and ``fixit_report.json``: only when reports
   are handed to :meth:`GangTelemetry.add_comms_reports` /
-  :meth:`GangTelemetry.add_fixit_reports` (the JAX launcher's pre-flight
-  over HLO and jaxpr, their producer, has no counterpart in the port).
+  :meth:`GangTelemetry.add_fixit_reports` (the launcher hands it the
+  pre-flight's comms reports of the registered steps; the JAX launcher's
+  fix engine, the producer of the fixit report, has no counterpart in
+  the port).
 
 ``ingest`` runs on control-plane connection threads while ``write`` runs
 on the driver's main thread: one lock covers both.

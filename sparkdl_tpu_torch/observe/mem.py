@@ -19,7 +19,10 @@ Counterpart of ``sparkdl_tpu/observe/mem.py``:
 - **OOM forensics**: :func:`oom_guard` wraps a step or an admission; an
   allocation failure (``torch.cuda.OutOfMemoryError``, ``MemoryError``,
   the paged pool's dead end) writes ``oom_report.json`` with the JAX
-  package's keys before the exception goes on.
+  package's keys before the exception goes on, its
+  ``static_budget_bytes`` the sum of the budgets noted with
+  :func:`note_budget` (``parallel.train.lower_train_step`` notes a
+  traced step's: its inputs, outputs and peak temporaries).
 
 The card's numbers come from ``torch.cuda.memory_stats`` of the card
 that ``hvd.init()`` bound (allocated, reserved, peak;
@@ -71,6 +74,7 @@ _host_rss_high = 0     # high-water of sampled VmRSS
 _sampler = None
 _sampler_stop = None
 _job_dir = None        # a gang rank's job dir (the worker bootstrap's)
+_budgets = {}          # step name -> memory_stats dict (static budget)
 
 
 def set_job_dir(job_dir):
@@ -218,6 +222,35 @@ def category_bytes():
         else:
             table[cat] = int(sized)
     return table
+
+
+def note_budget(name, budget):
+    """Record a step's static budget (a dict in the keys of the JAX
+    package's ``memory_analysis``: ``argument_size_in_bytes``,
+    ``output_size_in_bytes``, ``temp_size_in_bytes``,
+    ``alias_size_in_bytes``; a trace's
+    :meth:`~sparkdl_tpu_torch.analysis.trace.Trace.memory_stats`) as the
+    budget the OOM report sets the measured peak against."""
+    if not budget:
+        return
+    with _lock:
+        _budgets[str(name)] = dict(budget)
+
+
+def static_budget_bytes():
+    """The sum of the noted budgets' static peaks (arguments + outputs +
+    temporaries - aliased); None when none was noted."""
+    with _lock:
+        budgets = list(_budgets.values())
+    if not budgets:
+        return None
+    total = 0
+    for b in budgets:
+        for key in ("argument_size_in_bytes", "output_size_in_bytes",
+                    "temp_size_in_bytes"):
+            total += int(b.get(key) or 0)
+        total -= int(b.get("alias_size_in_bytes") or 0)
+    return max(0, total)
 
 
 def largest_buffers(top_n=None):
@@ -448,8 +481,7 @@ def write_oom_report(phase, error, run_dir=None, extra=None):
         "categories": sample.get("categories") or category_bytes(),
         "unattributed": sample.get("unattributed"),
         "largest_buffers": largest_buffers(),
-        # no lowering gives the port a static budget
-        "static_budget_bytes": None,
+        "static_budget_bytes": static_budget_bytes(),
         "sample_tail": sample_tail(),
         "hints": _hints(phase, sample),
     }
@@ -489,21 +521,21 @@ def oom_guard(phase="step", run_dir=None, extra=None):
 
 
 def _reset_for_tests():
-    global _trees, _samples, _latest, _host_rss_high
+    global _trees, _samples, _latest, _host_rss_high, _budgets
     stop_sampler()
     with _lock:
         _trees = {}
         _latest = None
         _host_rss_high = 0
+        _budgets = {}
     _samples = None
 
 
-# the JAX module's, less its static budget (note_budget,
-# static_budget_bytes), which needs an XLA lowering
 __all__ = [
     "CATEGORIES", "OOM_REPORT_SCHEMA", "tree_nbytes",
     "register_tree", "set_category_bytes", "clear_category",
-    "category_bytes", "largest_buffers",
+    "category_bytes", "note_budget", "static_budget_bytes",
+    "largest_buffers",
     "host_rss_bytes", "host_rss_high_water_bytes", "device_peak_bytes",
     "sample_now", "beacon_sample", "sample_tail",
     "maybe_start_sampler", "stop_sampler",

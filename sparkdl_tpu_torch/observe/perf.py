@@ -30,8 +30,11 @@ port):
   :func:`device_kind` is the name of the card that ``hvd.init()`` bound
   (the process's current card otherwise), and :func:`hbm_capacity_bytes`
   that card's total memory.
-- There is no lowering to read a cost from: :func:`register_step_cost`
-  takes the caller's analytic count (``flops=``, ``bytes_accessed=``).
+- There is no compiled cost model to read a cost from:
+  :func:`register_step_cost` takes a count (``flops=``,
+  ``bytes_accessed=``), the caller's or a traced step's
+  (:func:`sparkdl_tpu_torch.parallel.train.lower_train_step` registers
+  its trace's FLOPs and bytes).
 - No environment variable overrides a peak.
 
 3. **Differential attribution** (:func:`diff_attribution`,
@@ -84,8 +87,10 @@ def normalize_device_kind(kind):
     """Map a device name (``"NVIDIA H100 80GB HBM3"``, ``"cpu"``) onto
     a :data:`PEAK_TABLE` key, or None for a kind the table lacks. The
     ``h100`` row is the SXM card's (HBM3): an H100 PCIe or NVL has other
-    peaks and gets None."""
+    peaks and gets None. A key of the table names its own row."""
     k = (kind or "").lower()
+    if k in PEAK_TABLE:
+        return k
     if "h100" in k:
         sxm = ("hbm3" in k or "sxm" in k) and not (
             "pcie" in k or "nvl" in k)

@@ -6,13 +6,17 @@ its backend (``use_pallas``) and quietly takes the XLA lowering off the
 TPU; the port never chooses a device on its own. Entry points run on
 the card unless the caller names the CPU, and each kernel wrapper picks
 its path from the device of the tensors it is handed: the plain PyTorch
-version for CPU tensors, the CUDA kernel (or an error) for CUDA ones.
+version for CPU tensors, the CUDA kernel (or an error) for CUDA ones,
+and for ``meta`` tensors (a traced step,
+:mod:`sparkdl_tpu_torch.analysis.trace`) the kernel's empty outputs and
+one kernel event (:func:`traced_launch`).
 """
 
 import threading
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 
 def resolve_device(device=None):
@@ -80,3 +84,18 @@ def count_launch(wrapper):
     the engine threads of a serving fleet launch kernels at once."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+
+
+def traced_launch(wrapper, kernel, inputs, outputs, flops):
+    """The launch a kernel wrapper would make, on ``meta`` tensors: one
+    kernel event (``kernel``: the kernel's id in ``PERF.md``'s table,
+    ``"B1"``; its FLOPs; its bytes, each input read and each output
+    written once) handed to the trace recording on this thread, if one
+    is, and ``outputs`` (the CUDA path's, empty) returned. Nothing is
+    launched and no count moves."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    for mode in _get_current_dispatch_mode_stack():
+        note = getattr(mode, "kernel_event", None)
+        if note is not None:
+            note(wrapper.__name__, kernel, inputs, outputs, flops, nbytes)
+    return outputs

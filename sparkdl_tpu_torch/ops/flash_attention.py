@@ -6,7 +6,9 @@ keep the models' layout, (B, S, H, D), with k and v carrying as many
 heads as q (GQA repeated by the caller); ``lse`` and ``delta`` are
 (B, H, S) fp32. Each wrapper takes its path from the device of its
 inputs: CPU tensors run the plain version beside it, CUDA tensors launch
-the hand-written kernel in ``csrc/flash_attention.cu`` or raise. Any S
+the hand-written kernel in ``csrc/flash_attention.cu`` or raise, and
+``meta`` tensors (a traced step) take the kernel's checks and return its
+empty outputs with one kernel event (``_dispatch.traced_launch``). Any S
 is taken as it is: the kernels mask keys >= S themselves, so nothing is
 padded.
 """
@@ -16,9 +18,15 @@ import ctypes
 import torch
 
 from sparkdl_tpu_torch.ops import _build
-from sparkdl_tpu_torch.ops._dispatch import count_launch
+from sparkdl_tpu_torch.ops._dispatch import count_launch, traced_launch
 
 NEG_INF = -1e30
+
+def flash_flops(kind, b, s, h, d, causal):
+    """Operations of one flash call: 4 (forward), 6 (dq) or 8 (dk/dv)
+    * D flops a visible (query, key) pair."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return {"fwd": 4, "dq": 6, "dkv": 8}[kind] * pairs * d
 
 
 def _scale(q, scale):
@@ -113,10 +121,10 @@ def _check(q, k, v, *rest):
 
 def _on_cuda(name, tensors, vectors=()):
     """Raise unless the inputs are what the kernel takes: one CUDA
-    device, bf16 (B, S, H, D) tensors and fp32 (B, H, S) vectors, all
-    contiguous."""
+    device (or ``meta``, which stands for one), bf16 (B, S, H, D)
+    tensors and fp32 (B, H, S) vectors, all contiguous."""
     device = tensors[0].device
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {device}")
     if any(t.device != device for t in (*tensors, *vectors)):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
@@ -156,6 +164,9 @@ def flash_fwd(q, k, v, causal=True, scale=None):
     b, s, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return traced_launch(flash_fwd, "B1", (q, k, v), (o, lse),
+                             flash_flops("fwd", b, s, h, d, causal))
     if o.numel() == 0:
         return o, lse
     _launch("flash_fwd", q, k, v, o, lse, b, s, h, d, int(causal),
@@ -174,6 +185,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None):
     _on_cuda("flash_bwd_dq", (q, k, v, do), (lse, delta))
     b, s, h, d = q.shape
     dq = torch.empty_like(q)
+    if q.is_meta:
+        return traced_launch(flash_bwd_dq, "B2", (q, k, v, do, lse, delta),
+                             (dq,), flash_flops("dq", b, s, h, d, causal))[0]
     if dq.numel() == 0:
         return dq
     _launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, b, s, h, d,
@@ -192,6 +206,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
     _on_cuda("flash_bwd_dkv", (q, k, v, do), (lse, delta))
     b, s, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        return traced_launch(flash_bwd_dkv, "B3",
+                             (q, k, v, do, lse, delta), (dk, dv),
+                             flash_flops("dkv", b, s, h, d, causal))
     if dk.numel() == 0:
         return dk, dv
     _launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv, b, s, h, d,

@@ -10,7 +10,8 @@ page, Hkv, D), page 0 the dump page for padding junk.
 ``paged_attention_decode`` takes its path from the device of its
 inputs: CPU tensors run :func:`paged_attention_decode_reference`, CUDA
 tensors launch the hand-written kernel in ``csrc/paged_attention.cu``
-or raise.
+or raise, and ``meta`` tensors (a traced step) take the kernel's checks
+and return its empty output with one kernel event.
 """
 
 import ctypes
@@ -18,7 +19,12 @@ import ctypes
 import torch
 
 from sparkdl_tpu_torch.ops import _build
-from sparkdl_tpu_torch.ops._dispatch import count_launch, launch_on, sm_count
+from sparkdl_tpu_torch.ops._dispatch import (
+    count_launch,
+    launch_on,
+    sm_count,
+    traced_launch,
+)
 
 NEG_INF = -1e30
 
@@ -99,7 +105,7 @@ def paged_attention_decode(q, k_pool, v_pool, tables, lens, scale=None):
     if q.device.type == "cpu":
         return paged_attention_decode_reference(q, k_pool, v_pool, tables,
                                                 lens, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     tensors = (q, k_pool, v_pool, tables, lens)
     if any(t.device != q.device for t in tensors):
@@ -116,6 +122,11 @@ def paged_attention_decode(q, k_pool, v_pool, tables, lens, scale=None):
     b, h, d = q.shape
     _, page, hkv, _ = k_pool.shape
     out = torch.empty_like(q)
+    if q.is_meta:
+        # lens is data: the work counted is what the tables can hold
+        visible = b * tables.shape[1] * page
+        return traced_launch(paged_attention_decode, "B4", tensors, (out,),
+                             visible * h * d * 2 * 2)[0]
     if b == 0:
         return out
     scale = scale if scale is not None else d ** -0.5

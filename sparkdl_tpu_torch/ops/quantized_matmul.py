@@ -9,8 +9,10 @@ Each wrapper takes its path from the device of its inputs: CPU tensors
 run the plain version (:func:`quantized_matmul_reference`,
 :func:`quantized_matmul_int4_reference`), CUDA tensors launch the
 hand-written kernel (``csrc/quantized_matmul.cu``,
-``csrc/quantized_matmul_int4.cu``) or raise. There is no fallback from
-a kernel to its plain version.
+``csrc/quantized_matmul_int4.cu``) or raise, and ``meta`` tensors (a
+traced step) take the kernel's checks and return its empty output with
+one kernel event. There is no fallback from a kernel to its plain
+version.
 """
 
 import ctypes
@@ -24,6 +26,7 @@ from sparkdl_tpu_torch.ops._dispatch import (
     launch_on,
     resolve_device,
     sm_count,
+    traced_launch,
 )
 
 # Dense layers quantized by default: every 2-D projection of the
@@ -200,7 +203,7 @@ def quantized_matmul(x, w_q, scales):
     _check(x, w_q, scales)
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, w_q, scales)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     if not (w_q.device == x.device and scales.device == x.device):
         raise ValueError("x, w_q and scales must be on one CUDA device")
@@ -216,6 +219,9 @@ def quantized_matmul(x, w_q, scales):
     m, k = x.shape
     n = w_q.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        return traced_launch(quantized_matmul, "B5", (x, w_q, scales),
+                             (out,), 2 * m * k * n)[0]
     if m == 0 or n == 0:
         return out
     lib = _library()
@@ -312,7 +318,7 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
     group = _int4_group(x, packed, scales, group)
     if x.device.type == "cpu":
         return quantized_matmul_int4_reference(x, packed, scales, group)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     if not (packed.device == x.device and scales.device == x.device):
         raise ValueError("x, packed and scales must be on one CUDA device")
@@ -328,6 +334,9 @@ def quantized_matmul_int4(x, packed, scales, group=INT4_GROUP):
     m, k = x.shape
     n = packed.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        return traced_launch(quantized_matmul_int4, "B6",
+                             (x, packed, scales), (out,), 2 * m * k * n)[0]
     if m == 0 or n == 0:
         return out
     lib = _library_int4()

@@ -2,8 +2,8 @@
 data-parallel pieces of a HorovodRunner gang.
 
 Counterpart of ``sparkdl_tpu/parallel/train.py`` (``make_train_step``,
-the two cross entropies, ``make_lm_loss_fn``, ``global_batch``,
-``param_count``, ``shard_batch``, ``replicate``). The JAX step is a pure
+``lower_train_step``, the two cross entropies, ``make_lm_loss_fn``,
+``global_batch``, ``param_count``, ``shard_batch``, ``replicate``). The JAX step is a pure
 function of (params, opt_state, batch); here the model and the optimizer
 hold the state and ``step(batch)`` updates them in place. Data
 parallelism is a gang's: :func:`shard_batch` gives each rank its rows of
@@ -22,10 +22,11 @@ and the loss over its data-like axes (``data``, ``fsdp``, ``seq``) and
 never over ``model``, whose ranks hold different shards, and
 :func:`fused_cross_entropy` takes the head's vocabulary shard (the
 vocabulary-parallel loss). :func:`instrument_step` wraps a step in the
-gang telemetry of :mod:`sparkdl_tpu_torch.observe`; ``lower_train_step``
-(an XLA lowering) has no counterpart here: the step's cost for the MFU
-gauge is the caller's count, given to
-:func:`~sparkdl_tpu_torch.observe.perf.register_step_cost`.
+gang telemetry of :mod:`sparkdl_tpu_torch.observe`;
+:func:`lower_train_step` traces one call of a step on ``meta`` tensors
+(:mod:`sparkdl_tpu_torch.analysis.trace`): the program the graph lints
+read, and, with telemetry on, the step's cost for the MFU gauge and its
+static memory budget.
 
 Usage (LoRA fine-tune)::
 
@@ -217,6 +218,46 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
         return {"loss": total}
 
     return step
+
+
+def lower_train_step(step, *example_args, mesh=None, cost_name="train_step",
+                     donate_argnums=None):
+    """The :class:`~sparkdl_tpu_torch.analysis.trace.Trace` of
+    ``step(*example_args)``: one call run on ``meta`` tensors that stand
+    for the card's (:func:`~sparkdl_tpu_torch.analysis.trace.trace_step`;
+    the model and optimizer the step holds are swapped for meta copies
+    and put back, nothing runs on the card and its state does not
+    change). ``mesh``: a Mesh or an axis-size dict, for a step of a gang.
+
+    The JAX function returns the step's ``Lowered``; the trace is what
+    the graph passes lint (``analysis.lint_lowered``,
+    ``analysis.register_preflight``). With telemetry on, its FLOPs and
+    bytes are registered under ``cost_name``
+    (:func:`~sparkdl_tpu_torch.observe.perf.register_step_cost`, which
+    :func:`instrument_step`'s MFU gauge reads) and its static budget
+    noted (:func:`~sparkdl_tpu_torch.observe.mem.note_budget`);
+    ``cost_name=None`` skips both. ``donate_argnums`` (the JAX package's
+    re-jit with donated arguments) raises NotImplementedError: a PyTorch
+    step updates its state in place and has nothing to donate."""
+    if donate_argnums is not None:
+        raise NotImplementedError(
+            "lower_train_step(donate_argnums=...) re-jits a JAX step with "
+            "donated buffers; a PyTorch step updates its parameters and "
+            "optimizer state in place (make_train_step), so there is "
+            "nothing to donate")
+    from sparkdl_tpu_torch.analysis.trace import trace_step
+
+    trace = trace_step(step, *example_args, mesh=mesh)
+    if cost_name is not None:
+        from sparkdl_tpu_torch import observe
+
+        if observe.enabled():
+            from sparkdl_tpu_torch.observe import mem, perf
+
+            perf.register_step_cost(cost_name, flops=trace.flops,
+                                    bytes_accessed=trace.bytes_accessed)
+            mem.note_budget(cost_name, trace.memory_stats())
+    return trace
 
 
 def _wait_for_device(out):

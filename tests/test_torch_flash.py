@@ -170,5 +170,11 @@ def test_wrappers_check_shapes_and_count_only_kernel_launches():
         pt_flash.flash_fwd(q, k[:, :10], v)
     with pytest.raises(ValueError, match="lse and delta"):
         pt_flash.flash_bwd_dq(q, k, v, o, lse[:, :1], delta)
-    with pytest.raises(ValueError, match="unsupported device"):
+    # meta tensors (a traced step) take the kernel's own checks and give
+    # its empty outputs, launching and counting nothing
+    with pytest.raises(TypeError, match="bf16"):
         pt_flash.flash_fwd(*(t.to("meta") for t in (q, k, v)))
+    mo, mlse = pt_flash.flash_fwd(*(t.to("meta", torch.bfloat16)
+                                    for t in (q, k, v)))
+    assert (mo.is_meta, mo.shape, mlse.shape) == (True, q.shape, lse.shape)
+    assert pt_flash.flash_fwd.launches == before[0]

@@ -91,6 +91,13 @@ GANG_COUNTERPARTS = {
     # the reshard plan of the resharded restore
     "sparkdl_tpu_torch/analysis/core.py": "sparkdl_tpu/analysis/core.py",
     "sparkdl_tpu_torch/analysis/comms.py": "sparkdl_tpu/analysis/comms.py",
+    # the graph lints over a traced step
+    **{f"sparkdl_tpu_torch/analysis/{m}.py": f"sparkdl_tpu/analysis/{m}.py"
+       for m in ("__init__", "__main__", "preflight", "passes_collectives",
+                 "passes_comms", "passes_donation", "passes_dtype",
+                 "passes_host")},
+    "sparkdl_tpu_torch/analysis/trace.py":
+        "sparkdl_tpu/analysis/jaxpr_walk.py",
     # the model zoo and the HF Llama conversion
     "sparkdl_tpu_torch/models/mnist_cnn.py":
         "sparkdl_tpu/models/mnist_cnn.py",

@@ -4,9 +4,10 @@ tensor stands in for a CUDA one here) or a live Spark handle is refused
 — with the JAX pre-flight's rule and severity for the same captures —
 before the launcher reaches ``subprocess.Popen`` (a tripwire, as
 ``tests/analysis/test_preflight.py`` uses), and local mode is linted
-too. The 64-bit payload rule and the graph passes have no counterpart
-and are refused or absent by name; ``kwargs`` and ``per_rank_kwargs``
-take the capture rule."""
+too. The 64-bit payload rule has no counterpart (torch keeps a float64
+leaf as it is); ``kwargs`` and ``per_rank_kwargs`` take the capture
+rule. The graph passes over registered steps are
+``tests/test_torch_graph_lint.py``'s."""
 
 import numpy as np
 import pytest
@@ -130,10 +131,10 @@ def test_what_has_no_counterpart(lint_on):
     with pytest.raises(PreflightLintError, match=r"per_rank_kwargs\[0\]"):
         preflight.preflight_lint(_noop_main, {}, per_rank_kwargs=[
             {"x": torch.zeros(2, device="meta")}])
-    with pytest.raises(NotImplementedError, match="graph passes"):
+    # register takes a step or a trace (the graph lints); anything else
+    # is refused by name
+    with pytest.raises(TypeError, match="register_preflight takes a step"):
         register_preflight(object())
-    with pytest.raises(NotImplementedError, match="graph passes"):
-        preflight.register(lambda: 1)
 
 
 class _WorkerSpawned(Exception):

@@ -49,36 +49,29 @@ MODULES = {
         "sparkdl_tpu_torch/compat/horovod_keras_callbacks.py",
 }
 
-_PASSES = ("graph passes over jaxpr and HLO: no PyTorch counterpart "
-           "(ROADMAP, Not in this queue)")
+_TRACE = ("reads a jaxpr or compiled HLO text; the port's counterpart is "
+          "its trace of a step, analysis/trace.py (C3, the graph lints)")
+_FIX = ("the fix engine over a jitted step (ROADMAP A10b: the fix engine, "
+        "after the graph lints)")
 
 # JAX modules with no port module, each with its reason
 NO_MODULE = {
-    "sparkdl_tpu/analysis/fixes.py": "the fixit pre-flight over HLO "
-    "(ROADMAP, Not in this queue)",
-    "sparkdl_tpu/analysis/hlo.py": _PASSES,
-    "sparkdl_tpu/analysis/jaxpr_walk.py": _PASSES,
-    "sparkdl_tpu/analysis/passes_collectives.py": _PASSES,
-    "sparkdl_tpu/analysis/passes_comms.py": _PASSES,
-    "sparkdl_tpu/analysis/passes_donation.py": _PASSES,
-    "sparkdl_tpu/analysis/passes_dtype.py": _PASSES,
-    "sparkdl_tpu/analysis/passes_host.py": _PASSES,
+    "sparkdl_tpu/analysis/fixes.py": _FIX,
+    "sparkdl_tpu/analysis/hlo.py": _TRACE,
+    "sparkdl_tpu/analysis/jaxpr_walk.py": _TRACE,
     "sparkdl_tpu/native/__init__.py": "the C++ control-plane ring; the "
     "port's Python LogRing stands for it (C3, Not in this queue)",
     "sparkdl_tpu/ops/pallas/__init__.py": "the Pallas package marker; "
     "the kernels are CUDA C++ under ops/csrc, their wrappers in ops/ "
     "(MODULES)",
-    "sparkdl_tpu/parallel/compile.py": "the XLA executable cache "
-    "(ROADMAP, Not in this queue)",
-    "sparkdl_tpu/utils/jax_compat.py": "shims over jax versions "
-    "(ROADMAP, Not in this queue)",
+    "sparkdl_tpu/parallel/compile.py": "the XLA executable cache: an eager "
+    "PyTorch step has no executable to cache (ROADMAP, Not in this queue)",
+    "sparkdl_tpu/utils/jax_compat.py": "shims over jax versions, of which "
+    "the port imports none (ROADMAP, Not in this queue)",
 }
 
-_LINT = ("a lint over a jaxpr, a lowering or an executable "
-         "(ROADMAP, Not in this queue)")
-_HLO_COMMS = ("the comms pre-flight's HLO half (ROADMAP, Not in this "
-              "queue)")
-_CORE = "core.py's GraphPass machinery (ROADMAP, Not in this queue)"
+_HLO_TEXT = ("parses XLA's HLO or StableHLO text; the port's passes read "
+             "its trace (C3, the graph lints)")
 _ENV = ("reads the environment; the port's settings are module settings "
         "read at call time (C3)")
 _TRAIN_RUNNER = ("the cpu-proxy trial is the port's TrainRunner, phase "
@@ -89,27 +82,27 @@ _ATTENTION_RUNNER = ("the attention autotune runner searches the Pallas "
 # public names of a JAX module with no counterpart, each with its reason
 EXCUSED = {
     "sparkdl_tpu/analysis/__init__.py": {
-        "lint_fn": _LINT, "lint_lowered": _LINT, "lint_compiled": _LINT,
-        "lint_gang": _LINT,
-        "param_info_from": "takes XLA shardings; the port's is "
-        "parallel.sharding.tp_param_info over its rules' layout (C3)",
+        "lint_compiled": "lints an XLA executable; an eager PyTorch step "
+        "has no compiled executable (C3, the graph lints)",
     },
-    "sparkdl_tpu/analysis/comms.py": {
-        "collective_wire_bytes": _HLO_COMMS, "comms_report": _HLO_COMMS,
-        "group_size_of": _HLO_COMMS, "write_report": _HLO_COMMS,
+    "sparkdl_tpu/analysis/passes_collectives.py": {
+        "hlo_role_divergence": "the device roles of one partitioned HLO "
+        "module; the port traces a gang's ranks one by one and compares "
+        "them (check_gang_consistency; C3, the graph lints)",
     },
-    "sparkdl_tpu/analysis/core.py": {
-        "GraphContext": _CORE, "GraphPass": _CORE, "all_passes": _CORE,
-        "max_severity": _CORE, "register_pass": _CORE, "run_passes": _CORE,
+    "sparkdl_tpu/analysis/passes_comms.py": {
+        "implicit_reshard": "an eager PyTorch step fed a mislaid tensor "
+        "fails with a shape error and never reshards in silence (C3, the "
+        "graph lints)",
+        "entry_arg_shardings": _HLO_TEXT,
+        "parse_hlo_sharding": _HLO_TEXT,
+    },
+    "sparkdl_tpu/analysis/passes_donation.py": {
+        "main_args": _HLO_TEXT,
+        "main_results": _HLO_TEXT,
     },
     "sparkdl_tpu/analysis/preflight.py": {
-        "clear": "clears the registered graph passes, which the port's "
-        "register refuses (C3, tuning and lints)",
-        "enabled": _ENV, "fix_enabled": "the fixit pre-flight (ROADMAP, "
-        "Not in this queue)",
-        "take_comms_reports": _HLO_COMMS,
-        "take_fixit_reports": "the fixit pre-flight (ROADMAP, Not in this "
-        "queue)",
+        "enabled": _ENV, "fix_enabled": _FIX, "take_fixit_reports": _FIX,
     },
     "sparkdl_tpu/horovod/control_plane.py": {
         "ControlPlaneServer.wait_ready": "the port's launcher waits on "
@@ -151,12 +144,6 @@ EXCUSED = {
         "default_events": "the ring's length is the module setting "
         "flightrec.EVENTS (C3, telemetry)",
     },
-    "sparkdl_tpu/observe/mem.py": {
-        "note_budget": "the static budget of an XLA lowering (ROADMAP, Not "
-        "in this queue)",
-        "static_budget_bytes": "the static budget of an XLA lowering "
-        "(ROADMAP, Not in this queue)",
-    },
     "sparkdl_tpu/observe/trend.py": {
         "default_baseline_paths": "trend renders only the baselines the "
         "caller names; the JAX default is the repo's TPU figures (C3, the "
@@ -177,10 +164,6 @@ EXCUSED = {
         "launches the CUDA kernel for CUDA tensors (B5, C3)",
         "quantized_matmul_int4_pallas": "the Pallas entry; "
         "quantized_matmul_int4 launches the CUDA kernel (B6, C3)",
-    },
-    "sparkdl_tpu/parallel/train.py": {
-        "lower_train_step": "an XLA lowering and its cost analysis "
-        "(ROADMAP, Not in this queue)",
     },
     "sparkdl_tpu/perf/autotune.py": {
         "AttentionRunner": _ATTENTION_RUNNER,
