@@ -80,7 +80,7 @@ and on any failed check. Phases:
 14. the fleet: int8 paged engines at phase 3's settings behind one
    ``FleetFrontend`` (max_queue 12), sharing phase 3's weights on the
    card: 16 concurrent urllib clients (odd ones streamed, budgets of
-   32-64), some refused with 503 and ``Retry-After``, first at one
+   16-32), some refused with 503 and ``Retry-After``, first at one
    replica and then at 2
    (tokens/s, time to first token and each engine's decode ms a step
    beside the one replica's); then 4 while replica 0's engine raises
@@ -479,7 +479,11 @@ and on any failed check. Phases:
    ``AUTOTUNE_DEPTH`` layers, int8 weights, pages of 64, 8 slots, behind
    a one-replica ``FleetFrontend``, 4 streamed clients x 4 requests of
    64 prompt and 128 new tokens; the profile emitted under a temporary
-   directory's ``h100`` key. Gates: one trial of the value, every trial's
+   directory's ``h100`` key. When the search keeps the defaults (the
+   value ties at this depth), its proof-or-degrade step
+   (``autotune.verify_and_emit``) runs on the value all the same, so
+   every run takes the 2 verification trials. Gates: one trial of the
+   value, 4 ledger lines, every trial's
    ledger line with 4 rounds of tokens/s, its B4 and B5 launches over
    the traffic (counted in the trial's process, zeroed before it) what
    its engines' decode steps and forwards predict, none of another
@@ -504,7 +508,7 @@ and on any failed check. Phases:
    through ``booster.train`` on the card, then ``Booster.predict_proba``
    on every row. Gates: the train logloss falls every round, the
    accuracy clears the floor the signal's Bayes accuracy gives, a fit of
-   the first 200,000 rows on the card agrees with the port's CPU fit of
+   the first 100,000 rows on the card agrees with the port's CPU fit of
    them as the CPU tests hold two packages' forests (the same trees up
    to a split that is a near-tie, then the row-order tolerance), and the
    card's margins equal a host descent of the same trees bit for bit. It
@@ -513,7 +517,7 @@ and on any failed check. Phases:
    and predict milliseconds (CUDA events around the stages that
    ``booster._build_tree`` calls) and the histogram's bytes and time
    beside HBM's rate. 29b: ``XgboostClassifier(num_workers=2,
-   force_repartition=True)`` on a pandas frame of the first 1,000,000
+   force_repartition=True)`` on a pandas frame of the first 500,000
    rows, 10 rounds: the estimator's ``launch_gang(per_rank_kwargs=)``
    gang of two ranks sharing the card over gloo, each rank's main
    wrapped by this script's own (its ``booster.train`` and
@@ -586,6 +590,30 @@ and on any failed check. Phases:
    (``mesh={"data": 2}``): ``HorovodRunner(np=2).run`` raises
    ``PreflightLintError`` with ``collective-consistency``, and
    ``subprocess.Popen``, a tripwire, is never reached.
+33. the fix engine and the port's own multichip program, right after
+   phase 32, in this process. 33a: a functional step of SGD with
+   momentum over every parameter of ``LlamaConfig.llama3_8b(n_layers=2,
+   attention="flash")`` (random weights from the seed, bf16, 1 x 2048
+   tokens; ``return p - lr * m2, m2, loss`` with ``lr`` a Python float)
+   through ``analysis.fix_program`` (equivalence runs over the whole
+   arguments): ``hoist-weak-scalar`` and ``donate-step-buffers``, each
+   with its four proofs; then one original and one fixed step, each with
+   the card's peak reset first. Gates: both fixes verified and applied,
+   the measured peak drop within 10 % of the report's
+   ``peak_hbm_bytes_saved``, the losses within phase 6's 2^-10, 12
+   launches of each of B1-B3 (2 layers x 6 steps: 2 proof runs a fix,
+   then the two). It prints the proofs, the predicted and measured
+   drops, the traced budgets, the losses and the step times. 33b:
+   ``analysis.__main__.main(["--graft", "8", "--comms", "--fix",
+   "--dry-run", ...])``: ``graft_entry.build_multichip_step(8)`` (dp x
+   tp x sp x pp x ep on a 2 x 2 x 2 mesh, tiny) traced as its 8 ranks on
+   ``meta``. Gates: exit 0, the ranks' collective sequences equal, the
+   ring's and the pipeline's hops and the data-parallel all-reduce
+   there, no ERROR, a fixit report. It prints the findings by rule, the
+   collectives by kind and axis, the fixit summary and the seconds.
+   33c: ``graft_entry.dryrun_multichip(1)``: the graft program's step in
+   local mode on the card (bf16, its ring of one through B1-B3): a
+   finite loss, 2 launches of each.
 
 Before it imports torch the script keeps Python's compiled bytecode in
 ``bytecode-cache/`` beside itself, for itself and every process it
@@ -683,12 +711,13 @@ SPEC_K, N_SPEC_REQUESTS = 4, 4
 # respawn (24, 32 and 8 until phase 27 pushed the script toward 1100 s)
 N_TP_REQUESTS, N_TP_FAULT_REQUESTS, TP_AFTER_BUDGET = 8, 4, 16
 # phases 13 and 27b: the TP engine's depth (32 until phase 27 pushed the
-# script past 1100 s, 16 until phase 29 did: two ranks share the card
-# over gloo); phase 14's burst budgets (32-128 until phase 29 pushed the
-# script past 1100 s: two replicas in one process share its host)
-TP_SERVE_DEPTH = 8
+# script past 1100 s, 16 until phase 29 did, 8 until phase 33 did: two
+# ranks share the card over gloo); phase 14's burst budgets (32-128 until
+# phase 29 pushed the script past 1100 s, 32-64 until phase 33 did: two
+# replicas in one process share its host)
+TP_SERVE_DEPTH = 4
 FLEET_REPLICAS, FLEET_MAX_QUEUE, N_FLEET_REQUESTS = 2, 12, 16
-FLEET_BUDGETS = (32, 64)
+FLEET_BUDGETS = (16, 32)
 N_FAULT_REQUESTS, FAULT_AFTER_CHUNKS = 4, 3
 
 # flash shapes (B, S, H, D, causal): the training step's (one layer's
@@ -845,9 +874,9 @@ ELASTIC_SETTINGS = {"PROBE": "file", "CHECK_S": 0.2, "DEBOUNCE_S": 1.0,
 # Meta's Llama-3-8B config.json values under HF's attribute names (no
 # transformers on the card machine: a plain object carries them)
 # phase 28a: the autotuner's serve trials (perf/trial.py's traffic) at
-# Llama-3-8B width, depth cut to 8, over one setting and one value other
-# than its default
-AUTOTUNE_DEPTH = 8
+# Llama-3-8B width, depth cut to 4 (8 until phase 33 pushed the script
+# toward 1200 s), over one setting and one value other than its default
+AUTOTUNE_DEPTH = 4
 AUTOTUNE_KNOB = "sparkdl_tpu_torch.perf.trial.SERVE_DECODE_CHUNK"
 AUTOTUNE_VALUE = 8
 AUTOTUNE_MAX_TRIALS = 4
@@ -863,16 +892,19 @@ GBDT_PARAMS = dict(objective="binary:logistic", n_estimators=20,
                    max_depth=8, max_bin=256, learning_rate=0.1)
 # the floor: 90 % of the way from chance to the signal's Bayes accuracy
 GBDT_FLOOR_FRACTION = 0.9
-GBDT_CPU_ROWS = 200_000
+# 29a's fit on the card and the CPU (200,000 rows until phase 33 pushed
+# the script toward 1200 s: the CPU fit's 18 s)
+GBDT_CPU_ROWS = 100_000
 # tests/test_torch_booster.py's tolerances (_forest_agreement): the
 # card's forest has the CPU's structure up to a near-tie, and after it
 # (ORDER_TOL: another order of the float sums, as the card's atomic adds
 # give) the class of 99.5 % of the rows and the train logloss within 1e-3
 # relative
 GBDT_ORDER_TOL = {"same_class": 0.995, "metric_rel": 1e-3}
-# 29b: the first 1M rows (a gang start, each level's histogram staged
-# through the host by gloo), 10 rounds, within 0.5 accuracy points
-GBDT_GANG_ROWS = 1_000_000
+# 29b: the first 500,000 rows (a gang start, each level's histogram
+# staged through the host by gloo; 1M until phase 33 pushed the script
+# toward 1200 s), 10 rounds, within 0.5 accuracy points
+GBDT_GANG_ROWS = 500_000
 GBDT_GANG_ROUNDS = 10
 GBDT_GANG_POINTS = 0.5
 # phase 30: the frameworks. 30a: prefetch_to_device over 16 batches at
@@ -6980,11 +7012,30 @@ def autotune_serve(torch, card):
     _require([tr["overrides"] for tr in ev["trials"]]
              == [{AUTOTUNE_KNOB: AUTOTUNE_VALUE}],
              f"phase 28a: trials {ev['trials']}")
-    verified = isinstance(ev["verification"], dict)
+    searched = isinstance(ev["verification"], dict)
+    forced = None
+    if not searched:
+        # the search kept the defaults (the value ties at this depth):
+        # the proof-or-degrade step runs on the candidate all the same,
+        # so every run drives the verification trials
+        runner = autotune.make_runner(
+            "serve", history_path=history, extra_args=bench_args,
+            timeout=AUTOTUNE_TRIAL_TIMEOUT_S)
+        forced = autotune.verify_and_emit(runner, autotune.SearchResult(
+            bench="serve", primary_metric=runner.primary_metric,
+            baseline=ev["baseline"], trials=[],
+            best_overrides={AUTOTUNE_KNOB: AUTOTUNE_VALUE},
+            best_metrics=None, pruned=[], space_size=ev["space_size"],
+            device_kind=doc["device_kind"]), log=lambda msg: None)
+        _require(forced["status"] in (profile.STATUS_VERIFIED,
+                                      profile.STATUS_DEGRADED)
+                 and isinstance(forced["evidence"]["verification"], dict),
+                 f"phase 28a: forced verification {forced['status']}")
+    verification = (ev if searched else forced["evidence"])["verification"]
     lines = operf.read_history(history)
-    _require(len(lines) == (4 if verified else 2),
-             f"phase 28a: {len(lines)} ledger lines, verification "
-             f"{'ran' if verified else 'skipped'}")
+    _require(len(lines) == 4,
+             f"phase 28a: {len(lines)} ledger lines, want the search's 2 "
+             "and the verification's 2")
     cfg_layers = AUTOTUNE_DEPTH
     trials = []
     for rec in lines:
@@ -7022,8 +7073,9 @@ def autotune_serve(torch, card):
         "decision": ev["trials"][0]["decision"],
         "delta": ev["trials"][0]["delta"],
         "threshold": ev["trials"][0]["threshold"],
-        "verification": (ev["verification"]["primary"] if verified
-                         else ev["verification"]),
+        "verification": verification["primary"],
+        "verification_forced": not searched,
+        "verified_status": (forced or doc)["status"],
         "status": doc["status"], "knobs": doc["knobs"],
         "candidate_knobs": doc.get("candidate_knobs", {}),
         "launches": {k: sum(tr["launches"][k] for tr in trials)
@@ -9192,6 +9244,7 @@ def graph_lint_step(torch, model, card):
                                 TRAIN_SEQ)
     events = trace.kernel_counts()
     budget = trace.static_budget_bytes()
+    donation_mode = _donation_mode_cost(torch, step, batch, len(trace.ops))
     report = {
         "phase": "32a", "trace_s": trace_s, "lint_s": lint_s,
         "ops": len(trace.ops), "kernel_events": events,
@@ -9202,6 +9255,7 @@ def graph_lint_step(torch, model, card):
         "memory": trace.memory_stats(), "static_budget_bytes": budget,
         "measured_peak_bytes": measured, "budget_ratio": budget / measured,
         "trace_added_card_bytes": trace_added, "real_step_s": step_s,
+        "donation_mode": donation_mode,
         "loss": loss, "findings": [str(f)[:240] for f in findings],
         "card": card}
     _log("graph_lint " + json.dumps(report))
@@ -9222,6 +9276,46 @@ def graph_lint_step(torch, model, card):
     _require(not any(f.severity >= Severity.ERROR for f in findings),
              f"phase 32a: ERROR findings on the stock step: {findings}")
     return report
+
+
+def _donation_mode_cost(torch, step, batch, n_ops):
+    """The host cost of a donated step's dispatch mode
+    (``analysis.fixes``) on ``step``: the step plainly, under the mode
+    with a plan whose one write point no op matches (it counts every op
+    to the end, as a donated step does before its last write), under the
+    mode with its plan done (it only checks each op's inputs against the
+    donated ones, as after the last write), and plainly again. Each
+    run's seconds to return (the host's dispatch) and to its loss on the
+    host; the mode's cost an op is its dispatch seconds over the plain
+    runs' faster, over ``n_ops`` (the trace's ops)."""
+    import weakref
+
+    from sparkdl_tpu_torch.analysis import fixes
+
+    card_batch = {k: torch.as_tensor(v, device=DEVICE)
+                  for k, v in batch.items()}
+    inputs = list(card_batch.values())
+    never = fixes._Write(0, "probe", ("never", ()), 0, 0, 0, 0)
+    runs = {}
+    for name in ("plain", "counting", "checking", "plain_again"):
+        mode = contextlib.nullcontext()
+        if name == "counting":
+            mode = fixes._Donating([never], inputs, cpu_run=False)
+        elif name == "checking":
+            mode = fixes._Donating([], inputs, cpu_run=False)
+            mode.stale[id(never)] = weakref.ref(inputs[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mode:
+            out = step(card_batch)
+            host = time.perf_counter() - t
+            loss = out["loss"].item()
+        runs[name] = {"host_s": host, "s": time.perf_counter() - t,
+                      "loss": loss}
+    plain = min(runs["plain"]["host_s"], runs["plain_again"]["host_s"])
+    return {"ops": n_ops, "runs": runs, **{
+        f"{name}_us_per_op": 1e6 * (runs[name]["host_s"] - plain) / n_ops
+        for name in ("counting", "checking")}}
 
 
 def _diverging_step(x):
@@ -9274,6 +9368,209 @@ def lint_refusal(torch, card):
              and not spawned,
              f"phase 32b: refused {refused!r}, rules {rules}, "
              f"{len(spawned)} spawn(s)")
+    return report
+
+
+# slice 26: the fix engine on a functional full-parameter step (33a)
+FIX_DEPTH, FIX_SEQ, FIX_LR, FIX_MOMENTUM = 2, 2048, 1e-3, 0.9
+
+
+def _functional_sgd_step(torch, model):
+    """``step(params, moms, batch, lr) -> (params', moms', loss)``: SGD
+    with momentum over every parameter of ``model``, written as a pure
+    function (``return p - lr * m2, m2, loss``), so it returns new
+    tensors of the state's shapes, and ``lr`` a Python float."""
+    from sparkdl_tpu_torch.parallel.train import cross_entropy_loss
+
+    def sgd_step(params, moms, batch, lr):
+        live = {n: p.detach().requires_grad_() for n, p in params.items()}
+        with torch.enable_grad():
+            logits = torch.func.functional_call(model, live,
+                                                (batch["inputs"],))
+            loss = cross_entropy_loss(logits, batch["targets"])
+            grads = torch.autograd.grad(loss, list(live.values()))
+        m2 = {n: FIX_MOMENTUM * moms[n] + g for n, g in zip(live, grads)}
+        new = {n: params[n] - lr * m2[n] for n in params}
+        return new, m2, loss.detach()
+
+    return sgd_step
+
+
+def fix_functional_step(torch, card):
+    """Phase 33a: the fix engine over a functional SGD-with-momentum step
+    at Llama-3-8B width, depth :data:`FIX_DEPTH`, bf16, 1 x
+    :data:`FIX_SEQ` tokens (flash attention: B1-B3), ``lr`` a Python
+    float (module docstring)."""
+    from sparkdl_tpu_torch.analysis.fixes import fix_program, peak_bytes
+    from sparkdl_tpu_torch.models.llama import Llama, LlamaConfig, init_weights
+    from sparkdl_tpu_torch.parallel.train import global_batch
+
+    cfg = LlamaConfig.llama3_8b(n_layers=FIX_DEPTH, attention="flash")
+    model = init_weights(Llama(cfg, device=DEVICE),
+                         _seeded(torch, SEED + 33))
+    params = dict(model.named_parameters())
+    moms = {n: torch.zeros_like(p) for n, p in params.items()}
+    host = global_batch(np.random.default_rng(SEED + 33), cfg.vocab_size, 1,
+                        FIX_SEQ)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in host.items()}
+    step = _functional_sgd_step(torch, model)
+    n_elements = sum(p.numel() for p in params.values()) * 2 + FIX_SEQ * 2
+    _zero_flash()
+    t = time.perf_counter()
+    res = fix_program(step, (params, moms, batch, FIX_LR), params=params,
+                      name="sgd_step",
+                      options={"fix_equiv_max_elements": n_elements})
+    fix_s = time.perf_counter() - t
+    by_action = {a.action: a for a in res.attempts}
+    _require(set(by_action) == {"hoist-weak-scalar", "donate-step-buffers"}
+             and all(a.verified and a.applied for a in res.attempts),
+             "phase 33a: fixes " + json.dumps(
+                 [(a.action, a.verified, a.degrade_reason)
+                  for a in res.attempts]))
+    donation = by_action["donate-step-buffers"]
+    predicted = donation.fix.predicted_effect["peak_hbm_bytes_saved"]
+    fixed, fixed_args = res.fn, res.example_args
+
+    # one original step, then one fixed step (it updates the state in
+    # place: both start from the same parameters), each peak reset first
+    runs = {}
+    for name, fn, args in (("original", step,
+                            (params, moms, batch, FIX_LR)),
+                           ("fixed", fixed, fixed_args)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = fn(*args)
+        host = time.perf_counter() - t
+        loss = float(out[2])
+        runs[name] = {"s": time.perf_counter() - t, "host_s": host,
+                      "loss": loss,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "held_bytes": held}
+        del out
+    launches = _flash_launches()
+    drop = runs["original"]["peak_bytes"] - runs["fixed"]["peak_bytes"]
+    budget = donation.proofs["budget_delta"]["memory"]
+    hoist = by_action["hoist-weak-scalar"]
+    report = {
+        "phase": "33a", "n_layers": cfg.n_layers, "tokens": FIX_SEQ,
+        "params": sum(p.numel() for p in params.values()),
+        "fix_s": fix_s, "summary": res.report["summary"],
+        "hoist": hoist.fix.description, "donation": donation.fix.description,
+        "proofs": {a.action: {k: {kk: vv for kk, vv in v.items()
+                                  if kk != "comms"}
+                              for k, v in a.proofs.items()}
+                   for a in res.attempts},
+        "predicted_peak_drop_bytes": predicted,
+        "traced_peak_bytes": [budget["peak_bytes_before"],
+                              budget["peak_bytes_after"]],
+        "traced_budget_bytes": peak_bytes(res.ctx.memory_stats),
+        "measured_peak_drop_bytes": drop,
+        "drop_over_predicted": drop / predicted if predicted else None,
+        "runs": runs, "ops": len(res.ctx.trace.ops),
+        "donated_us_per_op": 1e6 * (runs["fixed"]["host_s"]
+                                    - runs["original"]["host_s"])
+        / len(res.ctx.trace.ops),
+        "launches": launches, "card": card}
+    _log("fixit_step " + json.dumps(report))
+    rel = abs(runs["fixed"]["loss"] - runs["original"]["loss"])
+    _require(np.isfinite(runs["original"]["loss"])
+             and rel <= 2.0 ** -10 * abs(runs["original"]["loss"]),
+             f"phase 33a: losses {runs}")
+    _require(predicted > 0 and abs(drop - predicted) <= 0.10 * predicted,
+             f"phase 33a: the peak fell {drop} B, the report predicted "
+             f"{predicted} B")
+    if DEVICE == "cuda":
+        # the trace launches nothing: 2 proof runs a fix, then 2 steps
+        want = cfg.n_layers * 6
+        _require(all(n == want for n in launches.values()),
+                 f"phase 33a: flash launches {launches}, want {want} each")
+    del res, fixed, fixed_args, step, model, params, moms
+    return report
+
+
+def graft_lint(torch, card):
+    """Phase 33b: ``python -m sparkdl_tpu_torch.analysis --graft 8
+    --comms --fix --dry-run --fixit-out ...`` in this process: the
+    port's dp+tp+sp+pp+ep step traced as the 8 ranks of its mesh on
+    ``meta`` (module docstring)."""
+    import collections
+    import io
+
+    from sparkdl_tpu_torch.analysis import __main__ as cli
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-33b-")
+    fixit_out = os.path.join(root, "fixit.json")
+    comms_out = os.path.join(root, "comms.json")
+    seen = {}
+    real = cli._graft_context
+
+    def keep(n):
+        seen["ctx"], graft = real(n)
+        return seen["ctx"], graft
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with _attrs(cli, _graft_context=keep), contextlib.redirect_stdout(out):
+        rc = cli.main(["--graft", "8", "--comms", "--comms-out", comms_out,
+                       "--fix", "--dry-run", "--fixit-out", fixit_out,
+                       "--format", "json"])
+    seconds = time.perf_counter() - t
+    doc = json.loads(out.getvalue())
+    ctx = seen["ctx"]
+    with open(fixit_out) as f:
+        (fixit,) = json.load(f)["reports"]
+    by_rule = collections.Counter(
+        f"{f['rule_id']}/{f['severity']}" for f in doc["findings"])
+    by_kind_axis = collections.Counter(
+        f"{c.kind}/{c.axis}" for c in ctx.trace.collectives)
+    report = {"phase": "33b", "rc": rc, "seconds": seconds,
+              "ranks": len(ctx.traces), "ops": len(ctx.trace.ops),
+              "findings_by_rule": dict(by_rule),
+              "collectives_by_kind_axis": dict(by_kind_axis),
+              "kernel_events": ctx.trace.kernel_counts(),
+              "fixit_summary": fixit["summary"],
+              "comms_totals": {k: v for k, v in
+                               doc["comms_reports"][0]["totals"].items()
+                               if k != "by_kind"}, "card": card}
+    _log("graft_lint " + json.dumps(report))
+    _require(rc == 0 and len(ctx.traces) == 8
+             and all(t.complete for t in ctx.traces.values())
+             and len({t.signature() for t in ctx.traces.values()}) == 1,
+             f"phase 33b: rc {rc}, {len(ctx.traces)} ranks traced")
+    _require(by_kind_axis["collective-permute/seq"] >= 1
+             and by_kind_axis["collective-permute/model"] >= 1
+             and by_kind_axis["all-reduce/data"] >= 1,
+             f"phase 33b: collectives {dict(by_kind_axis)}")
+    _require(not any(f["severity"] == "ERROR" for f in doc["findings"])
+             and fixit["schema"] == "sparkdl_tpu.analysis.fixit_report/1",
+             f"phase 33b: findings {dict(by_rule)}")
+    return report
+
+
+def graft_dryrun(torch, card):
+    """Phase 33c: ``graft_entry.dryrun_multichip(1)``: the graft
+    program's step once, in this process (local mode), on the card, its
+    ring of one through the flash kernels."""
+    from sparkdl_tpu_torch.graft_entry import dryrun_multichip
+
+    _zero_flash()
+    t = time.perf_counter()
+    (rank,) = dryrun_multichip(1, device=None if DEVICE == "cuda"
+                               else DEVICE)
+    seconds = time.perf_counter() - t
+    launches = _flash_launches()
+    report = {"phase": "33c", "seconds": seconds, "loss": rank["loss"],
+              "device": rank["device"], "launches": launches, "card": card}
+    _log("graft_dryrun " + json.dumps(report))
+    _require(np.isfinite(rank["loss"]) and rank["shapes_kept"]
+             and rank["device"].startswith(DEVICE),
+             f"phase 33c: {rank}")
+    if DEVICE == "cuda":
+        _require(all(n == 2 for n in launches.values()),
+                 f"phase 33c: flash launches {launches}, want 2 each")
     return report
 
 
@@ -9398,6 +9695,14 @@ def main(argv=None):
     lint_step = _timed("32a", graph_lint_step, torch, trained, card)
     lint_refused = _timed("32b", lint_refusal, torch, card)
     del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    # slice 26: the fix engine and the port's own multichip program
+    fix_step = _timed("33a", fix_functional_step, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    graft = _timed("33b", graft_lint, torch, card)
+    graft_run = _timed("33c", graft_dryrun, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     train_rows = _timed("6", kernel_vs_plain_train, torch, gen)
@@ -9528,7 +9833,9 @@ def main(argv=None):
                     "24a": telemetry["launches"][name],
                     "24b": hang["launches"][name],
                     "25a": alerted["launches"][name],
-                    "26": elastic_run["launches"][name]}
+                    "26": elastic_run["launches"][name],
+                    "33a": fix_step["launches"][name],
+                    "33c": graft_run["launches"][name]}
         return {"name": name, "route": "cuda",
                 "source": "sparkdl_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"sparkdl_tpu/ops/pallas/flash_attention.py:"
@@ -9685,6 +9992,8 @@ def main(argv=None):
                        "long_serving": long_serving,
                        "long_vs_plain": long_logits,
                        "graph_lint": lint_step, "lint_refusal": lint_refused,
+                       "fixit_step": fix_step, "graft_lint": graft,
+                       "graft_dryrun": graft_run,
                        "phase_s": PHASE_S,
                        "total_s": time.perf_counter() - t_start}, f,
                       indent=1)

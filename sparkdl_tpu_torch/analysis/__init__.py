@@ -22,11 +22,18 @@ Entry points:
   :func:`sparkdl_tpu_torch.parallel.train.lower_train_step`);
   :func:`lint_gang` — cross-rank collective consistency over one step
   per rank (the ``per_rank_kwargs`` case);
+- :func:`fix_program` — the verified fix engine
+  (:mod:`~sparkdl_tpu_torch.analysis.fixes`): a fixable finding gets a
+  :class:`Fix` (:data:`FIX_ACTIONS`: donate the carried state, hoist a
+  Python scalar, narrow a 64-bit argument), applied only with its four
+  proofs, reported under :data:`FIXIT_SCHEMA`;
 - the launcher's pre-flight
   (:mod:`~sparkdl_tpu_torch.analysis.preflight`): with ``ENABLED``, the
   steps given to :func:`register_preflight` are linted before any
   spawn, an ERROR refuses the launch, and their comms reports land in
-  the gang's run directory as ``comms_report.json``;
+  the gang's run directory as ``comms_report.json``; with ``FIX`` too,
+  each registered callable goes through :func:`fix_program` first and
+  its report lands there as ``fixit_report.json``;
 - the reshard half (``ParamInfo``, ``reshard_plan`` and the
   gang-sharding registry of :mod:`~sparkdl_tpu_torch.analysis.comms`)
   that the checkpoint's resharded restore and the supervisor's elastic
@@ -52,6 +59,12 @@ from sparkdl_tpu_torch.analysis.core import (
     max_severity,
     register_pass,
     run_passes,
+)
+from sparkdl_tpu_torch.analysis.fixes import (
+    FIX_ACTIONS,
+    FIXIT_SCHEMA,
+    Fix,
+    fix_program,
 )
 from sparkdl_tpu_torch.analysis.preflight import (
     PreflightLintError,
@@ -246,5 +259,6 @@ __all__ = [
     "Finding", "GraphContext", "ParamInfo", "Severity", "all_passes",
     "max_severity", "register_pass", "run_passes", "lint_fn",
     "lint_lowered", "lint_gang", "param_info_from", "PreflightLintError",
-    "register_preflight", "register_gang_sharding",
+    "register_preflight", "register_gang_sharding", "Fix", "FIX_ACTIONS",
+    "FIXIT_SCHEMA", "fix_program",
 ]

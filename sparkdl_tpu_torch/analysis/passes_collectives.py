@@ -19,8 +19,19 @@ collective sequences directly, and a rank's branch shows as the
 divergence it causes.
 """
 
+import re
+
 from sparkdl_tpu_torch.analysis.core import Finding, Severity, register_pass
-from sparkdl_tpu_torch.analysis.trace import hlo_dtype_of_name
+from sparkdl_tpu_torch.analysis.trace import (
+    CollectiveEvent,
+    OpEvent,
+    hlo_dtype_of_name,
+)
+
+# ops that move a tensor's data into another storage and compute nothing
+_MOVES = {"aten.clone.default", "aten._unsafe_view.default",
+          "aten._to_copy.default", "aten.contiguous.default",
+          "aten.cat.default", "aten.stack.default", "aten.copy_.default"}
 
 
 def _names(params):
@@ -109,16 +120,48 @@ def collective_consistency(ctx):
     return findings
 
 
+def _leaf_path(path):
+    """A traced input's path as a parameter's name: ``args[0]['w']`` ->
+    ``w``, ``args[0]['llama']['w']`` -> ``llama.w``; a module's
+    parameter keeps its name."""
+    path = re.sub(r"^args\[\d+\]", "", path)
+    path = re.sub(r"\[(?:'([^']*)'|(\d+))\]", lambda m: "." + (
+        m.group(1) if m.group(1) is not None else m.group(2)), path)
+    return path.lstrip(".")
+
+
+def _param_storages(trace, paths):
+    """The storages of ``trace`` that hold the data of the inputs named
+    ``paths``: the inputs' own, and every storage a view, copy, cast,
+    concatenation or collective makes from one (a key is dropped where
+    a fresh allocation takes it again)."""
+    held = {i.storage for i in trace.inputs
+            if i.path in paths or _leaf_path(i.path) in paths}
+    for e in trace.events:
+        if isinstance(e, OpEvent):
+            held.difference_update(e.allocs)
+            if (e.view or e.name in _MOVES) and held.intersection(e.reads):
+                held.update(e.out_storages)
+        elif isinstance(e, CollectiveEvent) and e.out_storage is not None:
+            held.discard(e.out_storage)
+            if held.intersection(e.reads):
+                held.add(e.out_storage)
+    return held
+
+
 @register_pass("full-param-allgather", requires=("trace", "param_info"),
                severities=("ERROR", "WARNING"))
 def full_param_allgather(ctx):
     """Flag all-gathers that make a whole copy of a sharded parameter.
 
-    An all-gather's result is matched in every form the step carries it
-    on in (the views, reshapes and copies of it: the port's gathers
-    concatenate along dim 0 and lay the result out after), against each
-    parameter that its layout splits over a mesh axis of size > 1
-    (tensor parallelism's ``model``, ZeRO-3's ``fsdp``):
+    An all-gather that sends a parameter's data (its local shard, or a
+    view, copy, cast or concatenation of it: ZeRO-3's flat buffer) has
+    its result matched in every form the step carries it on in (the
+    views, reshapes and copies of it: the port's gathers concatenate
+    along dim 0 and lay the result out after), against each parameter
+    that its layout splits over a mesh axis of size > 1 (tensor
+    parallelism's ``model``, ZeRO-3's ``fsdp``). A gather of an
+    activation is not matched, whatever shape it takes on:
 
     - ERROR — a form is *exactly* the parameter's whole (dtype, shape);
     - WARNING — the same dims in another order (a transposed whole);
@@ -136,12 +179,14 @@ def full_param_allgather(ctx):
         by_sorted.setdefault((dt, tuple(sorted(p.shape))), []).append(p)
     dtypes = {hlo_dtype_of_name(p.dtype) for p in sharded}
     bound = ctx.options.get("allgather_max_elements")
+    weights = _param_storages(ctx.trace, {p.path for p in sharded})
     findings = []
     for col in ctx.trace.collectives:
         if col.kind != "all-gather":
             continue
         exact = relaid = None
-        for dtype, shape in col.forms:
+        for dtype, shape in col.forms if weights.intersection(col.reads) \
+                else ():
             exact = exact or by_shape.get((dtype, shape))
             relaid = relaid or by_sorted.get((dtype, tuple(sorted(shape))))
         dtype, shape = col.dtype, col.shape

@@ -29,6 +29,22 @@ calls it before running ``main`` in-process. It
        analysis.register_preflight(step, batch, mesh={"data": 2})
        HorovodRunner(np=2).run(main)
 
+With :data:`FIX` on as well (the JAX package's
+``SPARKDL_TPU_PREFLIGHT_FIX``, read at call time), each registered
+*callable* goes through the verified fix engine
+(:func:`~sparkdl_tpu_torch.analysis.fixes.fix_program`, ``apply=True``)
+first: a verified fix REPLACES the registered entry (step and example
+arguments), so a later lint sees the repaired step, and the step's
+findings are those left after the fixes; a fix that cannot be verified
+degrades to its finding. The reports (:func:`take_fixit_reports`) land
+in the run directory as ``fixit_report.json`` beside the comms reports.
+A registered :class:`~sparkdl_tpu_torch.analysis.trace.Trace` cannot be
+fixed (there is no step to rewrite) and is linted as it is, with a
+warning. The repair covers the step registered in this process: a worker
+``main`` that builds its own step applies the reported fix itself
+(``lower_train_step(donate_argnums=...)``, a 0-d tensor for the scalar,
+the cast).
+
 Any ERROR raises :class:`PreflightLintError` before anything is spawned;
 WARNING and INFO findings are logged. A step the lint cannot trace is
 logged and the launch goes on, as in the JAX package.
@@ -37,8 +53,7 @@ The JAX pre-flight's 64-bit payload rule stays out: JAX canonicalizes a
 float64 leaf to float32 inside ``jit`` without a word, torch keeps a
 float64 tensor as it is, so a 64-bit payload is no silent bug here (a
 64-bit *step input* is the ``silent-canonicalization`` pass's, on a
-registered step). Its fix engine (``fix_enabled``,
-``take_fixit_reports``) is not ported.
+registered step).
 """
 
 import logging
@@ -51,6 +66,10 @@ from sparkdl_tpu_torch.analysis.core import Finding, Severity
 # call time
 ENABLED = False
 
+# the fix engine over the registered steps, with ENABLED (the JAX
+# package's SPARKDL_TPU_PREFLIGHT_FIX), read at call time
+FIX = False
+
 RULE_ID = "pickle-closure-capture"
 
 logger = logging.getLogger("HorovodRunner")
@@ -62,6 +81,10 @@ _REGISTERED = []
 # the comms reports of the newest preflight_lint run, drained by the
 # launcher into the gang's run directory
 _COMMS_REPORTS = []
+
+# the fixit reports of the newest preflight_lint run (one a fixed
+# registered step), drained the same way into fixit_report.json
+_FIXIT_REPORTS = []
 
 
 class PreflightLintError(RuntimeError):
@@ -105,6 +128,18 @@ def take_comms_reports():
     out = list(_COMMS_REPORTS)
     _COMMS_REPORTS.clear()
     return out
+
+
+def take_fixit_reports():
+    """Drain the fixit reports the last pre-flight produced."""
+    out = list(_FIXIT_REPORTS)
+    _FIXIT_REPORTS.clear()
+    return out
+
+
+def fix_enabled():
+    """Whether the pre-flight runs the fix engine (:data:`FIX`)."""
+    return bool(FIX)
 
 
 register_preflight = register
@@ -186,8 +221,9 @@ def _payload_findings(kwargs, where):
 
 
 def _lint_registered():
-    """The graph passes' findings over every registered step; their comms
-    reports go to :data:`_COMMS_REPORTS`."""
+    """The graph passes' findings over every registered step (after the
+    fix engine's, with :data:`FIX`); their comms reports go to
+    :data:`_COMMS_REPORTS`, the fixit reports to :data:`_FIXIT_REPORTS`."""
     from sparkdl_tpu_torch.analysis import (
         _context_for,
         _lowered_context,
@@ -196,20 +232,31 @@ def _lint_registered():
     from sparkdl_tpu_torch.analysis.comms import comms_report
     from sparkdl_tpu_torch.analysis.trace import Trace
 
+    do_fix = fix_enabled()
     findings = []
-    for obj, args, opts in list(_REGISTERED):
+    for index, (obj, args, opts) in enumerate(list(_REGISTERED)):
         opts = dict(opts)
         passes = opts.pop("passes", None)
         try:
             if isinstance(obj, Trace):
+                if do_fix:
+                    logger.warning(
+                        "pre-flight fix: registered trace %r has no step "
+                        "to rewrite; register the callable and its example "
+                        "arguments to enable the fixes; linting it unfixed",
+                        obj.fn_name)
                 ctx = _lowered_context(obj, **opts)
+                step_findings = run_passes(ctx, passes=passes)
+            elif do_fix and passes is None:
+                ctx, step_findings = _fix_registered(index, obj, args, opts)
             else:
                 ctx = _context_for(obj, args, **opts)
+                step_findings = run_passes(ctx, passes=passes)
         except Exception as e:  # noqa: BLE001 - a user step's own fault
             logger.warning("pre-flight lint could not trace %r (%s: %s); "
                            "launching anyway", obj, type(e).__name__, e)
             continue
-        findings.extend(run_passes(ctx, passes=passes))
+        findings.extend(step_findings)
         report = comms_report(ctx.trace, name=ctx.fn_name)
         _COMMS_REPORTS.append(report)
         t = report["totals"]
@@ -222,6 +269,27 @@ def _lint_registered():
     return findings
 
 
+def _fix_registered(index, obj, args, opts):
+    """The fix engine over registered step ``index``; a verified fix
+    replaces the entry. Returns ``(context, findings after the fixes)``."""
+    from sparkdl_tpu_torch.analysis.fixes import fix_program
+
+    # a name= in the register() options wins over the step's own
+    name = opts.pop("name", None) or getattr(obj, "__name__",
+                                             f"registered[{index}]")
+    result = fix_program(obj, args, apply=True, name=name, **opts)
+    _FIXIT_REPORTS.append(result.report)
+    if result.fn is not obj:
+        _REGISTERED[index] = (result.fn, result.example_args,
+                              dict(opts, name=name))
+        logger.warning(
+            "pre-flight fix repaired registered step %s; a worker main "
+            "that builds this step itself must apply the reported fix "
+            "(lower_train_step(donate_argnums=...) and the like, from "
+            "fixit_report.json) for the gang to benefit", name)
+    return result.ctx, result.findings_after
+
+
 def preflight_lint(main, kwargs, per_rank_kwargs=None):
     """Run the pre-flight lint; returns the findings (possibly empty)
     or raises :class:`PreflightLintError` on any ERROR. No-op (returns
@@ -232,6 +300,7 @@ def preflight_lint(main, kwargs, per_rank_kwargs=None):
     # cleared on every call: a refused or lint-off launch must never hand
     # an earlier launch's reports to its run directory
     _COMMS_REPORTS.clear()
+    _FIXIT_REPORTS.clear()
     if not ENABLED:
         return None
     findings = _payload_findings(kwargs, "run() kwargs")
@@ -245,5 +314,6 @@ def preflight_lint(main, kwargs, per_rank_kwargs=None):
             logger.warning("pre-flight lint: %s", f)
     if any(f.severity >= Severity.ERROR for f in findings):
         _COMMS_REPORTS.clear()   # no gang, no run directory
+        _FIXIT_REPORTS.clear()
         raise PreflightLintError(findings)
     return findings

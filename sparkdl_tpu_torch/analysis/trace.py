@@ -152,6 +152,14 @@ class OpEvent:
     flops: int
     location: str
     compute: bool = False    # work a collective could hide under
+    # the storages it reads (its tensor inputs), those of its tensor
+    # outputs, those it allocated, and the live bytes after it: what
+    # the fix engine's donation plan reads (a storage's key is only
+    # unique while it lives: an input's, or an output alive at the end)
+    reads: tuple = ()
+    out_storages: tuple = ()
+    allocs: tuple = ()
+    live: int = 0
 
 
 @dataclasses.dataclass
@@ -172,6 +180,8 @@ class CollectiveEvent:
     # (dtype, shape) of the result and of every view, reshape or copy
     # the step carries an all-gather's result on in
     forms: list = dataclasses.field(default_factory=list)
+    reads: tuple = ()        # the storages it sends from
+    out_storage: int = None  # the result's storage
 
     @property
     def group_size(self):
@@ -189,6 +199,8 @@ class KernelEvent:
     nbytes: int
     location: str
     compute: bool = True
+    reads: tuple = ()
+    live: int = 0
 
 
 @dataclasses.dataclass
@@ -241,6 +253,12 @@ class Trace:
     stopped: HostSync = None
     seconds: float = 0.0
     f64_ops: list = dataclasses.field(default_factory=list)
+    # (path, storage) of each tensor leaf of the step's arguments, in
+    # leaf order: ``args[0]['w']`` and its meta copy's storage
+    arg_storages: list = dataclasses.field(default_factory=list)
+    # the callable traced, as lower_train_step hands it on (its donated
+    # wrapper with donate_argnums); None from trace_step
+    step: object = None
 
     @property
     def complete(self):
@@ -363,16 +381,18 @@ class _Recorder(TorchDispatchMode):
             self.trace.peak_bytes = max(self.trace.peak_bytes, self.live)
 
     def _track(self, t):
+        """Count ``t``'s storage as allocated, once; True when it is new."""
         if not (isinstance(t, torch.Tensor) and t.is_meta):
-            return
+            return False
         st = t.untyped_storage()
         key = st._cdata
         if key in self.inputs or key in self.tracked:
-            return
+            return False
         n = st.nbytes()
         self.tracked[key] = n
         self.live += n
         weakref.finalize(st, self._freed, key)
+        return True
 
     def _freed(self, key):
         if self.active:
@@ -460,8 +480,7 @@ class _Recorder(TorchDispatchMode):
         trace = self.trace
         outs = [t for t in pytree.tree_leaves(out)
                 if isinstance(t, torch.Tensor)]
-        for t in outs:
-            self._track(t)
+        allocs = tuple(_storage(t) for t in outs if self._track(t))
         trace.peak_bytes = max(trace.peak_bytes, self.live)
         ins = [t for t in pytree.tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
@@ -494,7 +513,10 @@ class _Recorder(TorchDispatchMode):
                         tuple(_spec(t) for t in ins),
                         tuple(_spec(t) for t in outs), writes, view, flops,
                         _location(), compute=not view and (
-                            flops > 0 or func not in _NOT_COMPUTE))
+                            flops > 0 or func not in _NOT_COMPUTE),
+                        reads=tuple(_storage(t) for t in ins),
+                        out_storages=tuple(_storage(t) for t in outs),
+                        allocs=allocs, live=self.live)
         trace.events.append(event)
         if event.compute:
             self._computed(ins)
@@ -519,13 +541,20 @@ class _Recorder(TorchDispatchMode):
         self.trace.events.append(KernelEvent(
             self._next(), kernel, name, tuple(_spec(t) for t in inputs),
             tuple(_spec(t) for t in outputs), int(flops), int(nbytes),
-            _location()))
+            _location(), reads=tuple(_storage(t) for t in inputs),
+            live=self.live))
 
-    def collective(self, kind, group, result, async_op):
+    def collective(self, kind, group, result, async_op, sends=None):
+        """Record a collective producing ``result`` from ``sends`` (the
+        tensors it reads; ``result`` itself when None)."""
+        sends = (result,) if sends is None else sends
         event = CollectiveEvent(
             self._next(), kind, group.axis, tuple(group.ranks),
             tuple(int(d) for d in result.shape), hlo_dtype(result.dtype),
-            _nbytes(result), bool(async_op), _location())
+            _nbytes(result), bool(async_op), _location(),
+            reads=tuple(_storage(t) for t in sends
+                        if isinstance(t, torch.Tensor) and t.is_meta),
+            out_storage=_storage(result))
         self.trace.events.append(event)
         if kind == "all-gather":
             self._note_gather(result, event)
@@ -605,12 +634,13 @@ def _distributed_stand_ins(recorder, world_group, rank):
             fill_real(output_tensor, input_tensor.repeat(
                 (group.size(),) + (1,) * (input_tensor.ndim - 1)))
         return recorder.collective("all-gather", group, output_tensor,
-                                   async_op)
+                                   async_op, sends=(input_tensor,))
 
     def reduce_scatter_tensor(output, input, op=None, group=None,
                               async_op=False):
         group = group_of("reduce_scatter_tensor", group)
-        return recorder.collective("reduce-scatter", group, output, async_op)
+        return recorder.collective("reduce-scatter", group, output, async_op,
+                                   sends=(input,))
 
     def broadcast(tensor, src=None, group=None, async_op=False,
                   group_src=None):
@@ -623,7 +653,8 @@ def _distributed_stand_ins(recorder, world_group, rank):
                           async_op=False):
         group = group_of("all_to_all_single", group)
         fill_real(output, input)
-        return recorder.collective("all-to-all", group, output, async_op)
+        return recorder.collective("all-to-all", group, output, async_op,
+                                   sends=(input,))
 
     def batch_isend_irecv(p2p_op_list):
         works = []
@@ -823,7 +854,10 @@ class _Swap:
     def args(self, args):
         def conv(path, x):
             if isinstance(x, torch.Tensor):
-                return self.meta(f"args{pytree.keystr(path)}", x)
+                key = f"args{pytree.keystr(path)}"
+                copy = self.meta(key, x)
+                self.recorder.trace.arg_storages.append((key, _storage(copy)))
+                return copy
             return x
 
         return pytree.tree_map_with_path(conv, args)

@@ -109,7 +109,9 @@ whether its telemetry is on or not.
 ENABLED`, :func:`launch_gang` lints ``main``'s captures and every step
 given to ``analysis.register_preflight`` before anything else, refuses
 the launch on an ERROR, and hands the steps' comms reports to the gang's
-telemetry (``comms_report.json`` in the run directory). Each attempt resolves the perf
+telemetry (``comms_report.json`` in the run directory); with
+``preflight.FIX`` too, the fix engine's reports over those steps
+(``fixit_report.json`` beside it). Each attempt resolves the perf
 profile (:data:`sparkdl_tpu_torch.perf.profile.PROFILE`) for the card
 kind the gang runs on and ships its settings to every rank with the
 rank settings, under the operator's: a relaunched attempt gets them
@@ -127,9 +129,6 @@ drop the rank-private payloads (the partition-resident estimator path,
 :func:`~sparkdl_tpu_torch.horovod.spark_backend.
 maybe_launch_estimator_on_spark`, ships data a partition instead). The
 payload-size warning applies to each rank's payload.
-
-Not ported: the JAX launcher's fixit pre-flight report, the producer of
-``fixit_report.json``.
 """
 
 import json
@@ -488,6 +487,7 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
     from sparkdl_tpu_torch.analysis.preflight import (
         preflight_lint,
         take_comms_reports,
+        take_fixit_reports,
     )
     from sparkdl_tpu_torch.horovod import elastic, supervisor
 
@@ -501,6 +501,10 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
     # the registered steps' collectives, priced: comms_report.json in the
     # run directory, beside the measured collective bytes
     comms_reports = take_comms_reports()
+    # with preflight.FIX the fix engine's reports over the same steps:
+    # fixit_report.json beside comms_report.json, which observe.doctor
+    # renders
+    fixit_reports = take_fixit_reports()
     if per_rank_kwargs is None:
         payload = cloudpickle.dumps((main, kwargs))
         largest = len(payload)
@@ -526,6 +530,8 @@ def launch_gang(np, main, kwargs, driver_log_verbosity, per_rank_kwargs=None,
         telemetry = GangTelemetry()
         if comms_reports:
             telemetry.add_comms_reports(comms_reports)
+        if fixit_reports:
+            telemetry.add_fixit_reports(fixit_reports)
         # one engine and one forensics manager span the attempts
         alert_engine = maybe_make_engine(telemetry)
         forensics = maybe_make_forensics(telemetry, alert_engine=alert_engine)

@@ -110,10 +110,13 @@ class HorovodRunner:
             from sparkdl_tpu_torch.analysis.preflight import (
                 preflight_lint,
                 take_comms_reports,
+                take_fixit_reports,
             )
 
             preflight_lint(main, kwargs)
-            take_comms_reports()  # no gang, no run directory to carry them
+            # no gang, no run directory to carry them
+            take_comms_reports()
+            take_fixit_reports()
             logging.getLogger("HorovodRunner").warning(
                 "HorovodRunner is running in local mode (np=-1): main() is "
                 "invoked in the current process with a single worker. Use "

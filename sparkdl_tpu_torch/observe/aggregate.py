@@ -37,9 +37,8 @@ hang verdicts) and writes the JAX package's artifacts:
 - ``comms_report.json`` and ``fixit_report.json``: only when reports
   are handed to :meth:`GangTelemetry.add_comms_reports` /
   :meth:`GangTelemetry.add_fixit_reports` (the launcher hands it the
-  pre-flight's comms reports of the registered steps; the JAX launcher's
-  fix engine, the producer of the fixit report, has no counterpart in
-  the port).
+  pre-flight's comms reports of the registered steps and, with
+  ``analysis.preflight.FIX``, the fix engine's reports over them).
 
 ``ingest`` runs on control-plane connection threads while ``write`` runs
 on the driver's main thread: one lock covers both.

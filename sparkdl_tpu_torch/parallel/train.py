@@ -136,7 +136,12 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
     ``model``, whose ranks hold different shards. A leaf split over
     ``fsdp`` arrives summed over ``fsdp`` already (its gather's backward
     reduce-scatters), so it is all-reduced over ``data`` and ``seq``
-    only; every gradient is then divided by ``data x fsdp x seq``. The
+    only; every gradient is then divided by ``data x fsdp x seq``. A
+    model may name parameters whose shards differ along a data-like axis
+    (``model.grad_split_axes``, ``{id(param): axes}``: an
+    expert-parallel layer's experts over ``seq``, its ``model.mesh``
+    the whole mesh): their gradients are averaged over the other axes
+    only, each the exact gradient of its shard. The
     returned loss is likewise the mean over those axes: the global
     batch's loss on every rank. That is the global batch's mean when
     each rank's loss is the mean over equally many tokens
@@ -212,7 +217,8 @@ def make_train_step(loss_fn, optimizer, *, grad_accum=1, remat=False,
                 total = total + loss.detach()
             total = total / grad_accum
         if mesh is not None:
-            _average_grads(optimizer, mesh, _fsdp_split(model))
+            _average_grads(optimizer, mesh, _fsdp_split(model),
+                           getattr(model, "grad_split_axes", None))
             total = _data_mean(total, mesh)
         optimizer.step()
         return {"loss": total}
@@ -236,18 +242,26 @@ def lower_train_step(step, *example_args, mesh=None, cost_name="train_step",
     (:func:`~sparkdl_tpu_torch.observe.perf.register_step_cost`, which
     :func:`instrument_step`'s MFU gauge reads) and its static budget
     noted (:func:`~sparkdl_tpu_torch.observe.mem.note_budget`);
-    ``cost_name=None`` skips both. ``donate_argnums`` (the JAX package's
-    re-jit with donated arguments) raises NotImplementedError: a PyTorch
-    step updates its state in place and has nothing to donate."""
-    if donate_argnums is not None:
-        raise NotImplementedError(
-            "lower_train_step(donate_argnums=...) re-jits a JAX step with "
-            "donated buffers; a PyTorch step updates its parameters and "
-            "optimizer state in place (make_train_step), so there is "
-            "nothing to donate")
+    ``cost_name=None`` skips both.
+
+    ``donate_argnums`` donates those arguments before tracing, the
+    manual seam for a ``donate-step-buffers`` fix's argnums
+    (:mod:`sparkdl_tpu_torch.analysis.fixes`): the step is wrapped
+    (:func:`~sparkdl_tpu_torch.analysis.fixes.donate`) so that each
+    replacement of a donated argument's tensors is written into that
+    tensor's storage at the op that makes it, and the returned trace
+    shows them written in place. The wrapped step is the trace's
+    ``step`` attribute; call it in the step's place (the donated tensors
+    hold the replacements after the call). ValueError when an argument
+    cannot be donated whole."""
     from sparkdl_tpu_torch.analysis.trace import trace_step
 
+    if donate_argnums is not None:
+        from sparkdl_tpu_torch.analysis.fixes import donate
+
+        step = donate(step, example_args, donate_argnums, mesh=mesh)
     trace = trace_step(step, *example_args, mesh=mesh)
+    trace.step = step
     if cost_name is not None:
         from sparkdl_tpu_torch import observe
 
@@ -347,30 +361,37 @@ def _fsdp_split(model):
                      for owner, leaf, _ in entries)
 
 
-def _average_grads(optimizer, mesh, fsdp_split=frozenset()):
+def _average_grads(optimizer, mesh, fsdp_split=frozenset(),
+                   split_axes=None):
     """Average the optimizer's gradients in place over the data-like
     axes of ``mesh`` of size > 1: one flat buffer per (dtype, device,
-    split over ``fsdp`` or not), all-reduced over each axis in turn
-    (a parameter of ``fsdp_split``, whose gradient the reduce-scatter
-    summed over ``fsdp``, skips that axis), then divided by their
-    product. Every rank holds the same parameters with gradients, in
-    the same order."""
+    axes skipped), all-reduced over each axis in turn, then divided by
+    the product of the axes. A parameter of ``fsdp_split``, whose
+    gradient the reduce-scatter summed over ``fsdp``, skips that axis; a
+    parameter of ``split_axes`` (``{id: axes}``: an expert-parallel
+    layer's experts over ``seq``, each rank holding other shards) skips
+    those axes and is divided by the product of the others, the exact
+    gradient of its shard as GSPMD gives it. Every rank holds the same
+    parameters with gradients, in the same order."""
     axes, n = _data_axes(mesh)
     if not axes:
         return
+    split_axes = split_axes or {}
     by_kind = {}
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is not None:
+                own = frozenset(a for a in split_axes.get(id(p), ())
+                                if a in axes)
                 by_kind.setdefault((p.grad.dtype, p.grad.device,
-                                    id(p) in fsdp_split), []).append(p)
+                                    id(p) in fsdp_split, own), []).append(p)
     with torch.no_grad():
-        for (_, _, split), params in by_kind.items():
+        for (_, _, split, own), params in by_kind.items():
             flat = torch.cat([p.grad.reshape(-1) for p in params])
             for axis in axes:
-                if not (split and axis == "fsdp"):
+                if not (split and axis == "fsdp") and axis not in own:
                     flat = mesh.all_reduce(flat, axis)
-            flat /= n
+            flat /= n // int(np.prod([mesh.axis_size(a) for a in own]))
             offset = 0
             for p in params:
                 size = p.grad.numel()

@@ -245,6 +245,10 @@ def _build():
         k("analysis.preflight.ENABLED", "bool", False, "analysis",
           "launcher pre-flight: lint main's captures, refuse the launch "
           "on ERROR", env="PREFLIGHT_LINT"),
+        k("analysis.preflight.FIX", "bool", False, "analysis",
+          "launcher pre-flight (with ENABLED): run the verified fix engine "
+          "over every registered step and replace it with the fixed one",
+          env="PREFLIGHT_FIX"),
         k("utils.locksan.ENABLED", "bool", False, "analysis",
           "instrument threading.Lock/RLock at boot (the lock-order "
           "sanitizer)", env="CONCUR_SAN"),
@@ -432,8 +436,6 @@ UNMAPPED = {f"SPARKDL_TPU_{name}": reason for name, reason in {
                            "--target-axes",
     "RESHARD_GROUPED": "a resharded restore places leaf by leaf "
                        "(utils/checkpoint.py)",
-    "PREFLIGHT_FIX": "the fix engine rewrites XLA programs, which a "
-                     "PyTorch step does not have",
     "TRACE_DIR": "legacy alias; utils.profiler.PROFILE_DIR",
     "NATIVE_LOGS": "native/ is not ported: the Python LogRing stands "
                    "for the native control-plane ring",

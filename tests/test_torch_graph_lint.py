@@ -327,6 +327,29 @@ def test_sharded_matmul_clean(mesh_2x4):
     assert not [f for f in jf + pf if f.severity >= Severity.WARNING]
 
 
+def test_activation_gather_shaped_like_a_whole_weight_is_clean():
+    """The rule matches what a gather sends, not only its result's
+    shape: the (16, 64) gather of a column-parallel product is an
+    activation that happens to take the (16, 64) weight's whole shape,
+    and is not flagged (ROADMAP C11); the same gather of the weight's
+    own shard, cast first, is."""
+    pp, specs, m = _port_tp()
+    xb = torch.ones(16, 16)
+
+    def activation(p, xb):
+        return m.all_gather(xb @ p["w"], "model").sum()
+
+    def weight(p, xb):
+        return (xb @ m.all_gather(p["w"].double().float(), "model")).sum()
+
+    clean, bad = (by_rule(analysis.lint_fn(f, pp, xb, mesh=m, rank=0,
+                                           params=pp, shardings=specs),
+                          "full-param-allgather")
+                  for f in (activation, weight))
+    assert clean == []
+    assert [f.severity for f in bad] == [Severity.ERROR]
+
+
 def test_transposed_whole_is_a_warning():
     """The same dims in another order: hvd's allgather stacks the four
     (16, 16) blocks of a (16, 64) weight along dim 0, a (64, 16) whole
@@ -985,10 +1008,20 @@ def test_cli_lists_passes_and_refuses_the_jax_programs_by_name(capsys):
     listed = capsys.readouterr().out
     assert "collective-consistency" in listed and "lock-order" not in listed
     assert main(["--list-rules"]) == 0
-    assert "lock-order-cycle" in capsys.readouterr().out
-    for flag in (["--graft", "8"], ["--comms"], ["--fix"]):
-        assert main(flag) == 2
-        assert "__graft_entry__" in capsys.readouterr().err
+    rules = capsys.readouterr().out
+    assert "lock-order-cycle" in rules
+    assert "[fixable: donate-step-buffers]" in rules
+    # --graft lints the port's own program now (tests/test_torch_graft.py);
+    # the modes that need it refuse to run without it, as JAX's CLI does
+    for flags, prerequisite in ((["--comms"], "--graft"),
+                                (["--comms-out", "x.json"], "--graft"),
+                                (["--fix"], "--graft"),
+                                (["--fixit-out", "x.json"], "--graft"),
+                                (["--dry-run", "--graft", "2"], "--fix")):
+        with pytest.raises(SystemExit) as e:
+            main(flags)
+        assert e.value.code == 2
+        assert prerequisite in capsys.readouterr().err
 
 
 # -- the port's own mesh steps -------------------------------------------------

@@ -51,12 +51,9 @@ MODULES = {
 
 _TRACE = ("reads a jaxpr or compiled HLO text; the port's counterpart is "
           "its trace of a step, analysis/trace.py (C3, the graph lints)")
-_FIX = ("the fix engine over a jitted step (ROADMAP A10b: the fix engine, "
-        "after the graph lints)")
 
 # JAX modules with no port module, each with its reason
 NO_MODULE = {
-    "sparkdl_tpu/analysis/fixes.py": _FIX,
     "sparkdl_tpu/analysis/hlo.py": _TRACE,
     "sparkdl_tpu/analysis/jaxpr_walk.py": _TRACE,
     "sparkdl_tpu/native/__init__.py": "the C++ control-plane ring; the "
@@ -77,7 +74,8 @@ _ENV = ("reads the environment; the port's settings are module settings "
 _TRAIN_RUNNER = ("the cpu-proxy trial is the port's TrainRunner, phase "
                  "5's LoRA step (C3, tuning)")
 _ATTENTION_RUNNER = ("the attention autotune runner searches the Pallas "
-                     "flash tiles, TPU settings (ROADMAP, queue A)")
+                     "flash tiles, TPU settings (ROADMAP, Not in this "
+                     "queue)")
 
 # public names of a JAX module with no counterpart, each with its reason
 EXCUSED = {
@@ -102,7 +100,7 @@ EXCUSED = {
         "main_results": _HLO_TEXT,
     },
     "sparkdl_tpu/analysis/preflight.py": {
-        "enabled": _ENV, "fix_enabled": _FIX, "take_fixit_reports": _FIX,
+        "enabled": _ENV,
     },
     "sparkdl_tpu/horovod/control_plane.py": {
         "ControlPlaneServer.wait_ready": "the port's launcher waits on "

@@ -252,7 +252,10 @@ def test_lower_train_step_registers_cost_and_budget(tmp_path, monkeypatch):
 
 
 def test_lower_train_step_refuses_donation_by_name():
-    with pytest.raises(NotImplementedError, match="donate_argnums"):
+    # donate_argnums is the fix engine's manual seam now: an identity step
+    # makes no replacement of its input to write into it, so the donation
+    # is refused, the argument named
+    with pytest.raises(ValueError, match=r"donate argument\(s\) \(0,\)"):
         lower_train_step(lambda x: x, torch.ones(2), donate_argnums=(0,))
 
 
